@@ -1,0 +1,561 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout.  It needs a CUDA device and ``nvcc``;
+without a card it exits non-zero before printing any result.  Phases,
+each of which fails the run (non-zero exit, no result line) if it fails:
+
+  1. environment: card name and power limit, torch and nvcc versions,
+     the kernel build from ``src/repro_torch/kernels/knn_stats/csrc``
+     (its seconds and ``ptxas`` register/spill report);
+  2. every kernel against its plain PyTorch version on the card, on the
+     same inputs, required bit-equal (tolerance 0): radii, class counts
+     and ball/tie counts, at main-path width (B=4096 samples × P=256) in
+     both modes, plus k=1/8/K_MAX, widened class budgets, tie-heavy
+     values, ragged masks, few-neighbour rows, a P=512 batch and a
+     kb=128 batch;
+  3. the main path: a C=65536-candidate TUPSK (n=256) corpus through
+     ``SketchIndex.add``, then ``query_many`` with Q=16 continuous- and
+     Q=16 discrete-target queries at ``min_join=24``, ``top_k=40``, cold
+     then warm, with every kernel's launch count set to 0 just before and
+     read just after; the planted strongest candidates must rank first;
+  4. a C=1024 sub-corpus scored on the card and by the port's CPU path:
+     rankings and join sizes identical, MI within rtol 1e-5 / atol 1e-5;
+  5. every kernel launch of one warm pass per target dtype, captured
+     with its inputs and outputs: each output held bit-equal to the
+     plain version on the same inputs, then timed there (CUDA events)
+     beside its plain version's time and its bound;
+  6. times: the warm ``query_many`` wall time (host clock around a
+     synchronize, median of 10 per target dtype) and one profiled warm
+     pass (device time by kernel).
+
+Near the end it prints the run's full record as one JSON line
+(``{"record": ...}``), then the kernels' JSON line, the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# Published H100 SXM peaks (NVIDIA data sheet): the HBM rate, and the
+# float32 rate outside the tensor cores, 67 TFLOP/s, which counts a fused
+# multiply-add as two.  A plain float operation (subtract, abs, max,
+# compare) is one instruction on one FP32 lane: half that rate.  An SM
+# has half as many INT32 lanes as FP32 lanes, and issues one instruction
+# per lane of the wider pipe per clock in all.
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 67e12 / 2
+INT32_INSTR_PER_S = FP32_INSTR_PER_S / 2
+
+# Operations radius_counts needs, as (float, int) per valid (i, j != i)
+# pair and per same-class pair: one distance evaluation, the compare
+# against the running order statistic, the count compares and the adds.
+#   joint/all: 2 subtractions, 2 abs, max, select compare, 4 count
+#              compares (|dx|<r, |dy|<r, dx==0, dy==0); 5 adds, 1 and;
+#   joint/y:   2 subtractions, 2 abs, max, select compare, |dy|<r; 1 add;
+#   class/all: the class test (dx==0), 2 subtractions, 2 abs, |dx|<r,
+#              |dy|<r, dy==0; 5 adds, 1 and; per same-class pair the
+#              select compare and the class-count add;
+#   class/y:   the class test, 1 subtraction, 1 abs, |dy|<r; 1 add; per
+#              same-class pair the select compare and the class-count add.
+RC_OPS = {
+    ("joint", "all"): ((10, 6), (0, 0)),
+    ("joint", "y"): ((7, 1), (0, 0)),
+    ("class", "all"): ((8, 6), (1, 1)),
+    ("class", "y"): ((4, 1), (1, 1)),
+}
+# Bytes per sample row: x, y f32 + mask u8 in; r f32 + cnt i32 + 5 i32 out.
+RC_BYTES_PER_ROW = 9 + 28
+
+C_MAIN, N_ROWS, N_SKETCH, Q = 65536, 384, 256, 16
+MIN_JOIN, TOP_K = 24, 40
+C_CHECK = 1024
+N_PLANTED = 8
+WARM_REPS = 10
+SEED = 0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def rc_inputs(B: int, P: int, mode: str, gen: torch.Generator):
+    """Tie-heavy values, ragged masks and a share of samples with only a
+    few valid rows (fewer than k neighbours)."""
+    x = torch.randn(B, P, generator=gen)
+    x[:, : P // 4] = torch.round(x[:, : P // 4])
+    if mode == "class":
+        x = torch.randint(0, 6, (B, P), generator=gen).float()
+        x[:, :3] = 100.0 + torch.arange(3).float()  # singleton classes
+    y = torch.round(torch.randn(B, P, generator=gen) * 10) / 10
+    keep = torch.randint(0, P + 1, (B, 1), generator=gen)
+    mask = (torch.arange(P)[None, :] < keep) & (torch.rand(B, P, generator=gen) > 0.1)
+    few = torch.rand(B, generator=gen) < 0.05
+    mask[few] = torch.arange(P)[None, :] < 3
+    return x, y, mask
+
+
+RC_CASES = [
+    # name, B, P, mode, which, k, kb, kk
+    ("joint_k3", 4096, 256, "joint", "all", 3, 3, 3),
+    ("class_k3_y", 4096, 256, "class", "y", 3, 3, 3),
+    ("joint_k1", 4096, 256, "joint", "all", 1, 1, 1),
+    ("joint_k8_y", 4096, 256, "joint", "y", 8, 8, 8),
+    ("class_k8_all", 4096, 256, "class", "all", 8, 8, 8),
+    ("class_kk6_kb8", 4096, 256, "class", "y", 3, 8, 6),
+    ("joint_kmax", 512, 256, "joint", "all", 128, 128, 128),
+    ("joint_p512", 1024, 512, "joint", "all", 3, 3, 3),
+    ("class_p512", 1024, 512, "class", "y", 3, 3, 3),
+    ("class_kb128", 1024, 256, "class", "y", 3, 128, 128),
+]
+
+
+def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    same = (a == b) | (a.isnan() & b.isnan())
+    if bool(same.all()):
+        return 0.0
+    return float((a.double() - b.double()).abs()[~same].max())
+
+
+def check_radius_counts(dev) -> float:
+    from repro_torch.kernels.knn_stats import kernel, ref
+
+    gen = torch.Generator().manual_seed(SEED)
+    worst = 0.0
+    for name, B, P, mode, which, k, kb, kk in RC_CASES:
+        x, y, m = (t.to(dev) for t in rc_inputs(B, P, mode, gen))
+        args = dict(k=k, kb=kb, kk=kk, mode=mode, which=which)
+        got = kernel.radius_counts(x, y, m, **args)
+        want = ref.radius_counts(x, y, m, **args)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(g, w) for g, w in zip(got, want))
+        log(f"[compare] radius_counts {name}: B={B} P={P} max_abs_err={err}")
+        if err != 0.0:
+            raise AssertionError(f"radius_counts {name} differs from ref: {err}")
+        worst = max(worst, err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the main path
+# ---------------------------------------------------------------------------
+
+def make_corpus(C: int, seed: int = SEED):
+    """A lake of C candidate columns, each a 384-row table.
+
+    One joinable candidate in 16 shares the train key universe, with a
+    graded dependence on the target; the rest have disjoint keys.  A
+    quarter of all columns are discrete.  The first joinable slots hold
+    the planted strongest candidates: exact copies of the target
+    (continuous) and exact codes of its discretisation (discrete).
+    Returns (rows, train key hashes, target y, its 8-bin edges, planted
+    continuous names, planted discrete names); each row is the arguments
+    of one ``SketchIndex.add`` call.
+    """
+    from repro_torch.core import hashing
+
+    rng = np.random.default_rng(seed)
+    keys = hashing.murmur3_32_np(np.arange(N_ROWS, dtype=np.uint32),
+                                 seed=np.uint32(3))
+    y = rng.normal(size=N_ROWS).astype(np.float32)
+    edges = np.quantile(y, np.linspace(0, 1, 9)[1:-1])
+    rows, planted_c, planted_d = [], [], []
+    j = 0
+    for c in range(C):
+        name = f"t{c:05d}"
+        if c % 16 == 1:
+            disc = j % 4 == 0
+            if j < 2 * N_PLANTED:
+                v = np.digitize(y, edges).astype(np.int64) if disc else y.copy()
+                (planted_d if disc else planted_c).append(name)
+            else:
+                a = rng.uniform(0.0, 0.9)
+                v = (a * y + (1 - a) * rng.normal(size=N_ROWS)).astype(np.float32)
+                if disc:
+                    v = np.digitize(v, edges).astype(np.int64)
+            rows.append((name, "k", "v", keys, v, disc))
+            j += 1
+            continue
+        disc = c % 4 == 0
+        kk = hashing.murmur3_32_np(
+            np.arange((c + 1) * N_ROWS, (c + 2) * N_ROWS, dtype=np.uint32),
+            seed=np.uint32(3))
+        v = (rng.integers(0, 8, size=N_ROWS).astype(np.int64) if disc
+             else rng.normal(size=N_ROWS).astype(np.float32))
+        rows.append((name, "k", "v", kk, v, disc))
+    return rows, keys, y, edges, planted_c, planted_d
+
+
+def make_queries(keys, y, edges, q: int, seed: int = SEED + 1):
+    """Q continuous-target and Q discrete-target train sketches: the
+    target plus a little noise, and its 8-bin discretisation."""
+    from repro_torch.core.sketch import build_sketch
+
+    rng = np.random.default_rng(seed)
+    cont, disc = [], []
+    for _ in range(q):
+        yq = (y + 0.05 * rng.normal(size=N_ROWS)).astype(np.float32)
+        cont.append(build_sketch(keys, yq, n=N_SKETCH, side="train",
+                                 value_is_discrete=False))
+        disc.append(build_sketch(keys, np.digitize(yq, edges).astype(np.int64),
+                                 n=N_SKETCH, side="train",
+                                 value_is_discrete=True))
+    return cont, disc
+
+
+def build_index(rows, device):
+    from repro_torch.core.discovery import SketchIndex
+
+    index = SketchIndex(n=N_SKETCH, method="tupsk", device=device)
+    for r in rows:
+        index.add(*r)
+    return index
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_pass(index, batches, device) -> tuple[float, list]:
+    """One ``query_many`` per target dtype; wall seconds and results."""
+    t0 = time.perf_counter()
+    out = [index.query_many(b, top_k=TOP_K, min_join=MIN_JOIN) for b in batches]
+    sync(device)
+    return time.perf_counter() - t0, out
+
+
+def check_planted(results, planted_c, planted_d) -> None:
+    cont_res, disc_res = results
+    for res in cont_res:
+        top = {m.table for m, _, _ in res[:len(planted_c)]}
+        if top != set(planted_c):
+            raise AssertionError(
+                f"continuous target: top {len(planted_c)} {sorted(top)} are "
+                f"not the planted copies {planted_c}")
+    for res in disc_res:
+        if res[0][0].table not in set(planted_c) | set(planted_d):
+            raise AssertionError(
+                f"discrete target: top result {res[0][0].table} is not planted")
+
+
+def same_rankings(a, b, tol: float = 1e-5) -> None:
+    """Equal join sizes and rankings, MI within rtol/atol ``tol``; two
+    entries may swap only where their scores lie within tolerance."""
+    for ra, rb in zip(a, b):
+        if len(ra) != len(rb):
+            raise AssertionError(f"result lengths differ: {len(ra)} vs {len(rb)}")
+        score_b = {m.table: (mi, js) for m, mi, js in rb}
+        for (ma, mia, jsa), (mb, mib, jsb) in zip(ra, rb):
+            if not np.isclose(mia, mib, rtol=tol, atol=tol):
+                raise AssertionError(f"MI differs at {ma.table}/{mb.table}: {mia} vs {mib}")
+            if ma.table != mb.table:
+                if ma.table not in score_b or not np.isclose(
+                        score_b[ma.table][0], mia, rtol=tol, atol=tol):
+                    raise AssertionError(f"ranking differs: {ma.table} vs {mb.table}")
+                continue
+            if jsa != jsb:
+                raise AssertionError(f"join size differs at {ma.table}: {jsa} vs {jsb}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the main path's own kernel launches
+# ---------------------------------------------------------------------------
+
+def capture_launches(index, batches) -> list:
+    """One warm ``query_many`` per batch with the kernel's wrapper
+    wrapped to keep a copy of each launch's inputs, arguments and
+    outputs, exactly as the main path made it.  The wrap replaces the
+    module ``ops`` dispatches through, so the wrapper itself (and its
+    launch counter) stays untouched."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.knn_stats import kernel, ops
+
+    seen = []
+
+    def spy(x, y, mask, **args):
+        out = kernel.radius_counts(x, y, mask, **args)
+        seen.append((x.clone(), y.clone(), mask.clone(), args,
+                     tuple(o.clone() for o in out)))
+        return out
+
+    ops.kernel = SimpleNamespace(radius_counts=spy)
+    try:
+        for b in batches:
+            index.query_many(b, top_k=TOP_K, min_join=MIN_JOIN)
+    finally:
+        ops.kernel = kernel
+    torch.cuda.synchronize()
+    return seen
+
+
+def rc_bound(mask: torch.Tensor, args: dict, cnt: torch.Tensor) -> dict:
+    """Least time for one launch on these inputs: the operations its
+    data needs at the issue rates, or its bytes over the HBM rate."""
+    n = mask.sum(-1, dtype=torch.float64)
+    pairs = float((n * (n - 1)).sum())
+    same = float(cnt[mask].sum(dtype=torch.float64)) \
+        if args["mode"] == "class" else 0.0
+    (pf, pi), (sf, si) = RC_OPS[(args["mode"], args["which"])]
+    f_ops, i_ops = pairs * pf + same * sf, pairs * pi + same * si
+    t_ops = 1e3 * max((f_ops + i_ops) / FP32_INSTR_PER_S,
+                      i_ops / INT32_INSTR_PER_S)
+    nbytes = mask.numel() * RC_BYTES_PER_ROW
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "ops_ms": t_ops, "bytes_ms": t_bytes, "valid_pairs": pairs, "same_class_pairs": same,
+        "float_ops": f_ops, "int_ops": i_ops, "bytes": nbytes,
+    }
+
+
+def time_cuda(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_main_launches(seen: list, card: str) -> list[dict]:
+    """Each captured launch against the plain version on its own inputs
+    (bit-equal required), then both timed there beside the bound."""
+    from repro_torch.kernels.knn_stats import kernel, ref
+
+    rows = []
+    for x, y, m, args, got in seen:
+        want = ref.radius_counts(x, y, m, **args)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(g, w) for g, w in zip(got, want))
+        B, P = x.shape
+        name = f"{args['mode']}/{args['which']} k={args['k']} B={B} P={P}"
+        log(f"[compare] radius_counts main-path launch {name}: "
+            f"max_abs_err={err}")
+        if err != 0.0:
+            raise AssertionError(
+                f"radius_counts main-path launch {name} differs from ref: {err}")
+        ms = time_cuda(lambda: kernel.radius_counts(x, y, m, **args), 20)
+        plain_ms = time_cuda(lambda: ref.radius_counts(x, y, m, **args), 2)
+        row = {"mode": args["mode"], "which": args["which"], "k": args["k"],
+               "B": B, "P": P, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, **rc_bound(m, args, want[1])}
+        log(f"[time] radius_counts {name}: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); card {card}")
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: end-to-end timing
+# ---------------------------------------------------------------------------
+
+def profile_pass(index, batch) -> dict:
+    """Device time by kernel name over one warm ``query_many`` under
+    ``torch.profiler``, and the device's busy share of that window.  The
+    profiler's own overhead lengthens the window, so the busy share is a
+    lower bound; the unprofiled wall time is measured separately."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        index.query_many(batch, top_k=TOP_K, min_join=MIN_JOIN)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Kernel rows only: an operator's row repeats its kernels' time.
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "busy_share": device_ms / wall_ms if device_ms else None,
+        "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:12]],
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs an NVIDIA card", file=sys.stderr)
+        return 2
+    from repro_torch.convert import index_from_numpy
+    from repro_torch.kernels.knn_stats import kernel
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    nvcc = subprocess.run([kernel.find_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-1]
+    log(f"[env] card: {card}")
+    log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc}")
+    built = kernel.load_library()
+    log(f"[build] radius_counts: {built.seconds:.2f} s -> {built.path.name}")
+    for line in built.ptxas.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] {line.strip()}")
+
+    # Phase 2: kernel vs plain, bit-equal, on synthetic edge cases.
+    max_err = check_radius_counts(dev)
+
+    # Phase 3: main path at lake scale.
+    t0 = time.perf_counter()
+    rows, keys, y, edges, planted_c, planted_d = make_corpus(C_MAIN)
+    cont, disc = make_queries(keys, y, edges, Q)
+    index = build_index(rows, dev)
+    t_ingest = time.perf_counter() - t0
+    log(f"[main] corpus C={len(index)} built and added in {t_ingest:.2f} s")
+
+    # The first plan per target dtype flushes the host sketches into the
+    # device stores; timed apart from the queries.
+    t0 = time.perf_counter()
+    index.plan(False)
+    index.plan(True)
+    sync(dev)
+    t_flush = time.perf_counter() - t0
+    log(f"[main] device flush of {len(index)} candidates x 2 dtypes: "
+        f"{t_flush:.2f} s")
+
+    kernel.radius_counts.launches = 0
+    t_cold, cold = run_pass(index, [cont, disc], dev)
+    launches_cold = kernel.radius_counts.launches
+    t_warm, warm = run_pass(index, [cont, disc], dev)
+    launches = kernel.radius_counts.launches
+    log(f"[main] query_many cold {t_cold:.4f} s ({launches_cold} launches), "
+        f"warm {t_warm:.4f} s ({launches - launches_cold} launches); "
+        f"ingest {index.ingest_stats}")
+    if launches == 0:
+        raise AssertionError("the main path never launched radius_counts")
+    check_planted(cold, planted_c, planted_d)
+    check_planted(warm, planted_c, planted_d)
+    if not 0 < launches - launches_cold <= 3:
+        raise AssertionError(
+            f"warm pass made {launches - launches_cold} launches; expected one "
+            "per KSG-family group (MixedKSG + DC-KSG, then DC-KSG)")
+    for a, b in zip(cold, warm):
+        same_rankings(a, b)
+    top = warm[0][0][:3]
+    log(f"[main] continuous q0 top-3: "
+        f"{[(m.table, round(mi, 4), js) for m, mi, js in top]}")
+
+    # Phase 4: sub-corpus on the card against the port's CPU path.
+    sub = {
+        "n": N_SKETCH, "method": "tupsk", "agg": "first",
+        "keys": np.stack(index._keys[:C_CHECK]),
+        "vals_f": np.stack(index._vals_f[:C_CHECK]),
+        "vals_u": np.stack(index._vals_u[:C_CHECK]),
+        "masks": np.stack(index._masks[:C_CHECK]),
+        "meta": [(mt.table, mt.key_column, mt.value_column, mt.value_is_discrete)
+                 for mt in index.meta[:C_CHECK]],
+    }
+    gpu_sub = index_from_numpy(sub, device="cuda")
+    cpu_sub = index_from_numpy(sub, device="cpu")
+    for batch in (cont[:4], disc[:4]):
+        same_rankings(
+            gpu_sub.query_many(batch, top_k=TOP_K, min_join=MIN_JOIN),
+            cpu_sub.query_many(batch, top_k=TOP_K, min_join=MIN_JOIN),
+        )
+    log(f"[check] C={C_CHECK} sub-corpus: card == CPU path (rankings, join "
+        f"sizes; MI within 1e-5)")
+
+    # Phase 5: the warm pass's own launches, against the plain version and
+    # timed on their inputs.
+    seen = capture_launches(index, [cont, disc])
+    if len(seen) != launches - launches_cold:
+        raise AssertionError(
+            f"captured {len(seen)} launches; the warm pass made "
+            f"{launches - launches_cold}")
+    rc = check_main_launches(seen, card)
+    del seen
+    max_err = max([max_err] + [r["max_abs_err"] for r in rc])
+    rc_ms = sum(r["ms"] for r in rc)
+    rc_plain = sum(r["plain_ms"] for r in rc)
+    rc_bound_ms = sum(r["bound_ms"] for r in rc)
+    rc_by = ("operations" if sum(r["ops_ms"] for r in rc)
+             >= sum(r["bytes_ms"] for r in rc) else "bytes")
+    log(f"[time] radius_counts, the {len(rc)} launches of one warm pass: "
+        f"{rc_ms:.4f} ms, plain {rc_plain:.4f} ms, bound {rc_bound_ms:.4f} ms "
+        f"({rc_by}); card {card}")
+
+    # Phase 6: warm-pass wall time per dtype, host clock around a
+    # synchronize, and one profiled warm pass.
+    warm_c = [run_pass(index, [cont], dev)[0] for _ in range(WARM_REPS)]
+    warm_d = [run_pass(index, [disc], dev)[0] for _ in range(WARM_REPS)]
+    t_warm_c, t_warm_d = float(np.median(warm_c)), float(np.median(warm_d))
+    log(f"[main] warm query_many, median of {WARM_REPS}: continuous "
+        f"{t_warm_c:.4f} s (min {min(warm_c):.4f}, max {max(warm_c):.4f}), "
+        f"discrete {t_warm_d:.4f} s (min {min(warm_d):.4f}, max "
+        f"{max(warm_d):.4f}); Q={Q} queries each")
+    prof_c = profile_pass(index, cont)
+    log(f"[main] profiled warm continuous query_many: wall "
+        f"{prof_c['wall_ms']:.2f} ms, device {prof_c['device_ms']:.2f} ms")
+    for row in prof_c["top"][:8]:
+        log(f"[main]   {row['ms']:9.3f} ms x{row['count']:<4d} {row['name']}")
+
+    record = {
+        "card": card, "torch": torch.__version__, "nvcc": nvcc,
+        "build_s": built.seconds, "C": len(index), "Q": Q,
+        "min_join": MIN_JOIN, "top_k": TOP_K, "ingest_s": t_ingest, "flush_s": t_flush,
+        "query_many_cold_s": t_cold, "query_many_warm_s": t_warm,
+        "query_many_warm_continuous_s": warm_c,
+        "query_many_warm_discrete_s": warm_d,
+        "launches_cold": launches_cold, "launches_warm": launches - launches_cold,
+        "profile_warm_continuous": prof_c,
+        "radius_counts": rc, "total_s": time.perf_counter() - t_start,
+    }
+    print(json.dumps({"record": record}))
+    print(json.dumps({"kernels": [{
+        "name": "radius_counts",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/knn_stats/csrc/radius_counts.cu",
+        "replaces": "src/repro/kernels/knn_stats/kernel.py:481",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": rc_ms,
+        "plain_ms": rc_plain,
+        "bound_ms": rc_bound_ms,
+        "bound_by": rc_by,
+        "library_ms": None,
+    }]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

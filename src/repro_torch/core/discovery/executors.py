@@ -1,0 +1,403 @@
+"""Execution backends for planned discovery queries (PyTorch port).
+
+  * :class:`PartitionedLocalExecutor` — per query, one homogeneous
+    scoring pass per estimator group.
+  * :class:`BatchedExecutor` — the multi-query path: every group scores
+    all Q queries at once.  Its ``fused_dispatch`` runs the two-phase
+    pipeline — join-size prefilter, shortlist compaction, gather, score
+    — on the device with no host sync until ``collect``.
+
+Where the reference vmaps a per-sample body over (Q, candidates), the
+port writes the batch dimension out: one join over all (Q × rows)
+pairs, then one estimator call over all joined samples, so every
+KSG-family group makes **one** ``radius_counts`` kernel launch per
+batch.  PyTorch enqueues device work asynchronously, so ``dispatch``
+returns pending handles whose ``collect`` is the first host sync, as
+in the reference.
+
+The estimator-id -> estimator mapping lives in :func:`_estimate` only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import estimators
+from repro_torch.core.discovery.planner import (
+    EST_DC_XD,
+    EST_MIXED,
+    EST_MLE,
+    QueryPlan,
+    ShortlistOverflow,
+)
+from repro_torch.core.join import presorted_join_size, sketch_join_presorted
+
+__all__ = [
+    "stack_trains_host",
+    "Executor",
+    "PartitionedLocalExecutor",
+    "BatchedExecutor",
+]
+
+_TRAIN_FIELDS = ("keys", "vals_f", "vals_u", "mask")
+
+# Bound on (query, candidate, slot) probes per join-size chunk: keeps the
+# phase-1 int64 temporaries near 256 MiB however large a group grows.
+_JOIN_PROBES = 1 << 25
+
+
+def _estimate(est_id: int, xf, xu, y_f, y_u, mask, k: int):
+    """One estimator over a batch of joined samples (B, P)."""
+    if est_id == EST_MLE:
+        return estimators.mle_mi(xu, y_u, mask)
+    if est_id == EST_MIXED:
+        return estimators.mixed_ksg_mi(xf, y_f, mask, k=k)
+    if est_id == EST_DC_XD:  # discrete X (candidate feature), continuous Y
+        return estimators.dc_ksg_mi(
+            estimators.dense_rank(xu, mask), y_f, mask, k=k
+        )
+    # continuous X, discrete Y
+    return estimators.dc_ksg_mi(
+        estimators.dense_rank(y_u, mask), xf, mask, k=k
+    )
+
+
+def _score_pairs(trains: dict, ck, cf, cu, cm, *, est_id: int, k: int):
+    """Join and score (Q, S) candidate lanes against their queries.
+
+    ``trains`` fields are (Q, n); ``ck``/``cf``/``cu``/``cm`` are the
+    gathered candidate rows, (Q, S, cap), keys in effective form.
+    Returns (mi (Q, S) float32, js (Q, S) int32).
+    """
+    Q, S = ck.shape[:2]
+    t = {f: trains[f][:, None, :] for f in _TRAIN_FIELDS}
+    (xf, xu), (y_f, y_u), mask = sketch_join_presorted(
+        t["keys"], t["mask"], ck, cm, (cf, cu), (t["vals_f"], t["vals_u"]),
+        keys_effective=True,
+    )
+    n = mask.shape[-1]
+    flat = [a.reshape(Q * S, n) for a in (xf, xu, y_f, y_u, mask)]
+    mi = _estimate(est_id, *flat, k)
+    return mi.reshape(Q, S), mask.sum(-1, dtype=torch.int32)
+
+
+def _score_group(trains: dict, arrays: dict, *, est_id: int, k: int):
+    """Dense homogeneous scoring: every query against every group row.
+    Returns (mi (Q, bucket), js (Q, bucket))."""
+    Q = trains["keys"].shape[0]
+    cand = [arrays[f][None].expand(Q, -1, -1) for f in _TRAIN_FIELDS]
+    return _score_pairs(trains, *cand, est_id=est_id, k=k)
+
+
+def _gather_score_group(trains: dict, arrays: dict, rows: torch.Tensor,
+                        *, est_id: int, k: int):
+    """Phase-2 gather-and-score: each query scores only its own
+    shortlist rows (``rows`` (Q, S) group-row indices)."""
+    rows = rows.long()
+    cand = [arrays[f][rows] for f in _TRAIN_FIELDS]
+    return _score_pairs(trains, *cand, est_id=est_id, k=k)
+
+
+def _join_sizes(train_keys, train_mask, cand_keys, cand_mask) -> torch.Tensor:
+    """(Q, rows) int32 join sizes: every query against every candidate
+    row — the phase-1 prefilter, chunked over candidate rows so the
+    (chunk, Q, n) probe temporaries stay bounded."""
+    Q, n = train_keys.shape
+    G = cand_keys.shape[0]
+    step = max(1, _JOIN_PROBES // max(Q * n, 1))
+    out = [
+        presorted_join_size(
+            train_keys[None], train_mask[None],
+            cand_keys[g0:g0 + step, None], cand_mask[g0:g0 + step, None],
+        )
+        for g0 in range(0, G, step)
+    ]
+    if not out:
+        return torch.zeros((Q, 0), dtype=torch.int32, device=train_keys.device)
+    return torch.cat(out).T.contiguous()
+
+
+def _compact_shortlist(js, live, min_join, sentinel: int, index,
+                       s_bucket: int):
+    """Device shortlist compaction — the fused replacement for the host
+    :func:`~repro_torch.core.discovery.planner.build_shortlists` boundary.
+
+    The prefix count of passing rows is monotone, so the l-th passing
+    row is the first position where it reaches l + 1: a batched
+    ``searchsorted`` reads every lane off it.  Dead lanes take row 0,
+    the sentinel global id and join size 0, and are still scored.
+    ``counts`` is returned unclamped so the collect-side fence sees
+    ``counts > s_bucket``.  Returns (rows, gidx, jsz, counts).
+    """
+    Q = js.shape[0]
+    passing = (js >= min_join) & live[None, :]
+    cum = torch.cumsum(passing, dim=1, dtype=torch.int32)
+    counts = cum[:, -1]
+    lanes = torch.arange(1, s_bucket + 1, dtype=torch.int32, device=js.device)
+    rows_raw = torch.searchsorted(cum, lanes.expand(Q, s_bucket).contiguous())
+    lane_live = (
+        torch.arange(s_bucket, device=js.device)[None, :] < counts[:, None]
+    )
+    rows = torch.where(lane_live, rows_raw, 0)
+    gidx = torch.where(lane_live, index[rows], sentinel)
+    jsz = torch.where(lane_live, js.gather(1, rows), 0)
+    return rows, gidx, jsz, counts
+
+
+def _fused_score_group(trains: dict, gp, min_join, sentinel: int,
+                       *, est_id: int, k: int, s_bucket: int):
+    """Fused prefilter -> compact -> gather -> score for one group, all
+    enqueued on the device.  Returns (mi (Q, s_bucket), gidx, jsz,
+    js (Q, bucket), counts (Q,))."""
+    js = _join_sizes(trains["keys"], trains["mask"],
+                     gp.arrays["keys"], gp.arrays["mask"])
+    rows, gidx, jsz, counts = _compact_shortlist(
+        js, gp.live, min_join, sentinel, gp.index_dev, s_bucket
+    )
+    mi, _ = _gather_score_group(trains, gp.arrays, rows, est_id=est_id, k=k)
+    return mi, gidx, jsz, js, counts
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def _empty_triple():
+    return (np.zeros(0, np.float32), np.zeros(0, np.int32),
+            np.zeros(0, np.int32))
+
+
+class _PendingScores:
+    """Dispatched dense batch: ``collect`` returns (mi (Q, C), js (Q, C))
+    in original candidate order, padded query lanes sliced off."""
+
+    def __init__(self, plan: QueryPlan, blocks: list, q_live: int):
+        self._plan = plan
+        self._blocks = blocks
+        self._q_live = q_live
+
+    def collect(self):
+        q = self._q_live
+        mi_out = np.zeros((q, self._plan.n_candidates), np.float32)
+        js_out = np.zeros((q, self._plan.n_candidates), np.int32)
+        for gp, mi, js in self._blocks:
+            g = gp.size
+            mi_out[:, gp.index[:g]] = _host(mi[:q, :g])
+            js_out[:, gp.index[:g]] = _host(js[:q, :g])
+        return mi_out, js_out
+
+
+class _PendingJoinSizes:
+    """Dispatched phase-1 prefilter: ``collect`` returns [(group,
+    js (q_live, bucket) int32), ...] for ``build_shortlists``."""
+
+    def __init__(self, blocks: list, q_live: int):
+        self._blocks = blocks
+        self._q_live = q_live
+
+    def collect(self):
+        return [(gp, _host(js[:self._q_live])) for gp, js in self._blocks]
+
+
+def _triples(host: list, q: int) -> list:
+    """Per-query (values, global ids, join sizes), groups concatenated."""
+    if not host:
+        return [_empty_triple() for _ in range(q)]
+    return [
+        (np.concatenate([mi[qi] for mi, _, _ in host]),
+         np.concatenate([gi[qi] for _, gi, _ in host]),
+         np.concatenate([jz[qi] for _, _, jz in host]))
+        for qi in range(q)
+    ]
+
+
+class _PendingShortlist:
+    """Dispatched phase-2 gather-and-score over host shortlists."""
+
+    def __init__(self, blocks: list, q_live: int):
+        self._blocks = blocks  # [(Shortlist, mi (Qb, S))]
+        self._q_live = q_live
+
+    def collect(self):
+        q = self._q_live
+        host = [(_host(mi[:q]), sl.gidx[:q], sl.js[:q])
+                for sl, mi in self._blocks]
+        return _triples(host, q)
+
+
+class _PendingFused:
+    """Dispatched fused two-phase batch.
+
+    ``collect`` moves the survivor counts and the score blocks to the
+    host, then checks the compaction fence: a group whose survivor count
+    exceeds its ``s_bucket`` raises :class:`ShortlistOverflow` (the
+    caller then runs the host boundary on ``js_blocks()``).
+    ``observed`` (per-est_id max survivor count) feeds the hints.
+    """
+
+    def __init__(self, blocks: list, q_live: int):
+        # blocks: [(group, s_bucket, mi, gidx, jsz, js, counts)]
+        self._blocks = blocks
+        self._q_live = q_live
+        self.observed: dict[int, int] = {}
+        self.shortlisted = 0
+
+    def js_blocks(self):
+        """Phase-1 join sizes on the host — the overflow fallback's
+        ``build_shortlists`` operand, reused rather than recomputed."""
+        q = self._q_live
+        return [(gp, _host(js[:q])) for gp, _s, _mi, _gi, _jz, js, _c
+                in self._blocks]
+
+    def collect(self):
+        q = self._q_live
+        overflow = False
+        shortlisted = 0
+        for gp, s_bucket, *_rest, counts in self._blocks:
+            c = _host(counts[:q])
+            m = int(c.max(initial=0))
+            self.observed[gp.est_id] = max(self.observed.get(gp.est_id, 0), m)
+            shortlisted += int(c.sum())
+            overflow |= m > s_bucket
+        self.shortlisted = shortlisted
+        if overflow:
+            raise ShortlistOverflow(
+                "fused shortlist compaction overflowed its staged bucket"
+            )
+        host = [(_host(mi[:q]), _host(gidx[:q]), _host(jsz[:q]))
+                for _gp, _s, mi, gidx, jsz, _js, _c in self._blocks]
+        return _triples(host, q)
+
+
+def stack_trains_host(sketches: list, device) -> dict:
+    """Stack Q train ``Sketch`` objects into one leading-Q dict on
+    ``device``, one host-to-device copy per field.  Keys and the uint32
+    value view travel as zero-extended int64."""
+    if not sketches:
+        raise ValueError("no train sketches")
+    y_disc = {bool(sk.value_is_discrete) for sk in sketches}
+    if len(y_disc) != 1:
+        raise ValueError(
+            "a train batch must share one target dtype "
+            "(got both discrete and continuous); split the batch"
+        )
+    views = [sk.value_views() for sk in sketches]
+    host = {
+        "keys": np.stack([sk.key_hashes for sk in sketches]).astype(np.int64),
+        "vals_f": np.stack([vf for vf, _ in views]),
+        "vals_u": np.stack([vu for _, vu in views]).astype(np.int64),
+        "mask": np.stack([sk.mask for sk in sketches]),
+    }
+    out = {f: torch.from_numpy(a).to(device) for f, a in host.items()}
+    out["y_discrete"] = y_disc.pop()
+    return out
+
+
+def _as_stacked_trains(trains: dict) -> dict:
+    if trains["keys"].dim() == 1:  # single query -> Q == 1
+        return {
+            **{f: trains[f][None] for f in _TRAIN_FIELDS},
+            "y_discrete": bool(trains.get("y_discrete", False)),
+        }
+    return trains
+
+
+class Executor:
+    """Backend interface: dense scoring of a plan."""
+
+    def execute(self, plan: QueryPlan, trains: dict):
+        """Score every (query, candidate) pair; returns (mi (Q, C),
+        js (Q, C)) numpy arrays in the original candidate order."""
+        raise NotImplementedError
+
+
+class PartitionedLocalExecutor(Executor):
+    """Per-query estimator-partitioned scoring (the single-query path):
+    every (query, group) pass is enqueued before the first host copy."""
+
+    def __init__(self, k: int = 3):
+        self.k = k
+
+    def execute(self, plan, trains):
+        trains = _as_stacked_trains(trains)
+        Q = int(trains["keys"].shape[0])
+        blocks = []
+        for gp in plan.groups:
+            per_q = [
+                _score_group({f: trains[f][q:q + 1] for f in _TRAIN_FIELDS},
+                             gp.arrays, est_id=gp.est_id, k=self.k)
+                for q in range(Q)
+            ]
+            blocks.append((gp, torch.cat([mi for mi, _ in per_q]),
+                           torch.cat([js for _, js in per_q])))
+        return _PendingScores(plan, blocks, Q).collect()
+
+
+class BatchedExecutor(Executor):
+    """Multi-query batched scoring: one pass per group over all Q
+    queries.  (The reference pads Q up a pow-2 ladder to bound its
+    compiled programs; eager PyTorch compiles nothing, so Q is scored as
+    given.)"""
+
+    def __init__(self, k: int = 3):
+        self.k = k
+
+    @staticmethod
+    def _prepare(trains):
+        trains = _as_stacked_trains(trains)
+        return trains, int(trains["keys"].shape[0])
+
+    def dispatch(self, plan, trains):
+        """Enqueue every group's dense scoring; the handle's ``collect``
+        is the first host sync."""
+        trains, Q = self._prepare(trains)
+        blocks = [
+            (gp, *_score_group(trains, gp.arrays, est_id=gp.est_id, k=self.k))
+            for gp in plan.groups
+        ]
+        return _PendingScores(plan, blocks, Q)
+
+    def execute(self, plan, trains):
+        return self.dispatch(plan, trains).collect()
+
+    # -- two-phase retrieval ------------------------------------------------
+
+    def prefilter_dispatch(self, plan, trains):
+        """Phase 1: enqueue the join-size prefilter for every group."""
+        trains, Q = self._prepare(trains)
+        blocks = [
+            (gp, _join_sizes(trains["keys"], trains["mask"],
+                             gp.arrays["keys"], gp.arrays["mask"]))
+            for gp in plan.groups
+        ]
+        return _PendingJoinSizes(blocks, Q)
+
+    def shortlist_dispatch(self, plan, trains, shortlists):
+        """Phase 2: gather and score every non-empty host shortlist."""
+        trains, Q = self._prepare(trains)
+        blocks = []
+        for sl in shortlists:
+            if sl is None:
+                continue
+            rows = torch.from_numpy(sl.rows).to(plan.device)
+            mi, _ = _gather_score_group(
+                trains, sl.group.arrays, rows, est_id=sl.group.est_id, k=self.k
+            )
+            blocks.append((sl, mi))
+        return _PendingShortlist(blocks, Q)
+
+    def fused_dispatch(self, plan, trains, spec, min_join: int):
+        """Fused two-phase: per group, prefilter, compaction, gather and
+        score are enqueued without a host sync.  The handle raises
+        ``ShortlistOverflow`` at collect when a width in ``spec`` was
+        too small."""
+        trains, Q = self._prepare(trains)
+        blocks = []
+        for gp, s_bucket in zip(plan.groups, spec.s_buckets):
+            mi, gidx, jsz, js, counts = _fused_score_group(
+                trains, gp, int(min_join), plan.n_candidates,
+                est_id=gp.est_id, k=self.k, s_bucket=int(s_bucket),
+            )
+            blocks.append((gp, int(s_bucket), mi, gidx, jsz, js, counts))
+        return _PendingFused(blocks, Q)

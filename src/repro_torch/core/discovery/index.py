@@ -1,0 +1,452 @@
+"""Device-resident candidate index (PyTorch port).
+
+:class:`SketchIndex` holds candidate sketches in preallocated tensors on
+its device, one group-major store per (target dtype, estimator group).
+``add`` is a host-side append (build and validate the sketch); the next
+``plan()`` flushes only the pending rows into the stores, doubling row
+capacity along a power-of-two ladder when full.  Keys are stored in
+*effective* form (masked slots fenced to 0xFFFFFFFF) as zero-extended
+int64, so the hot join is one ``searchsorted`` per (query, candidate).
+
+``query`` / ``query_many`` run two-phase retrieval by default: a
+join-size prefilter shortlists the candidates that can pass
+``min_join`` and only those are gathered and scored — fused on the
+device, with the host shortlist boundary as the overflow fallback.
+``prefilter=False`` scores the whole corpus (the dense path) and
+``fused=False`` forces the host boundary (the staged path); all three
+give the same rankings.
+
+Not in this slice: the mesh executors (``mesh=``), the phase-0
+containment gate (``min_containment > 0``) and its signature tier, the
+fault-injection sites and the plan leases (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core.discovery import executors as _ex
+from repro_torch.core.discovery.planner import (
+    MIN_BUCKET,
+    GroupPlan,
+    QueryPlan,
+    ShortlistHints,
+    ShortlistOverflow,
+    build_shortlists,
+    estimator_id,
+    fused_shortlist_spec,
+)
+from repro_torch.core.join import KEY_MAX
+from repro_torch.core.sketch import Sketch, build_sketch
+from repro_torch.device import resolve_device
+
+__all__ = ["CandidateMeta", "SketchIndex"]
+
+# Gather indices, group row ids and the dead-candidate sentinel are int32
+# end to end; ingest refuses to grow past the int32 index space.
+_MAX_ROWS_I32 = 2**31 - 1
+
+_DTYPES = {
+    "keys": torch.int64,
+    "vals_f": torch.float32,
+    "vals_u": torch.int64,
+    "mask": torch.bool,
+}
+_FILL = {"keys": KEY_MAX, "vals_f": 0, "vals_u": 0, "mask": False}
+
+# Device bytes per (row, capacity-column) slot: keys i64 + vals_f f32 +
+# vals_u i64 + mask bool.
+_BYTES_PER_SLOT = 21
+
+_MESH_SLICE = (
+    "mesh= needs the multi-GPU executors, a later slice of the port "
+    "(ROADMAP.md: multi-GPU)"
+)
+_GATE_SLICE = (
+    "min_containment > 0 needs the phase-0 containment gate, a later "
+    "slice of the port (ROADMAP.md: phase-0 gate)"
+)
+
+
+@dataclass
+class CandidateMeta:
+    table: str
+    key_column: str
+    value_column: str
+    value_is_discrete: bool
+
+
+class _DeviceStore:
+    """Preallocated device tensors with power-of-two row-capacity doubling.
+
+    Rows [0, rows) are live; rows beyond carry an all-False mask and
+    KEY_MAX keys, so they join empty wherever they leak into a batch.
+    """
+
+    def __init__(self, cap_cols: int, device: torch.device):
+        self.cap_cols = cap_cols
+        self.device = device
+        self.cap_rows = 0
+        self.rows = 0
+        self.arrays: dict[str, torch.Tensor] = {}
+        self.grows = 0
+        self.h2d_rows = 0
+
+    @property
+    def device_bytes(self) -> int:
+        return self.cap_rows * self.cap_cols * _BYTES_PER_SLOT
+
+    def ensure_rows(self, need: int) -> None:
+        if need <= self.cap_rows:
+            return
+        if need > _MAX_ROWS_I32:
+            raise OverflowError(
+                f"device store cannot grow to {need} rows: candidate "
+                f"indices are int32 end-to-end (max {_MAX_ROWS_I32})"
+            )
+        new_cap = max(self.cap_rows, MIN_BUCKET)
+        while new_cap < need:
+            new_cap *= 2
+        new = {
+            name: torch.full((new_cap, self.cap_cols), _FILL[name], dtype=dt,
+                             device=self.device)
+            for name, dt in _DTYPES.items()
+        }
+        if self.cap_rows:
+            for name, a in self.arrays.items():
+                new[name][:self.rows].copy_(a[:self.rows])
+            self.grows += 1
+        self.arrays = new
+        self.cap_rows = new_cap
+
+    def append_block(self, block: dict[str, np.ndarray]) -> None:
+        """Write ``block`` rows after the live rows.
+
+        The append is in place: ``copy_`` into a slice of the
+        preallocated tensors, where the reference donates the store
+        buffer to a ``dynamic_update_slice``.  Only the new rows cross
+        the bus.  A plan built before the append still sees its own rows
+        unchanged; the new rows land in rows it holds as dead.
+        """
+        n_new = block["keys"].shape[0]
+        if n_new == 0:
+            return
+        self.ensure_rows(self.rows + n_new)
+        r0 = self.rows
+        for name, a in self.arrays.items():
+            a[r0:r0 + n_new].copy_(torch.from_numpy(block[name]))
+        self.rows += n_new
+        self.h2d_rows += n_new
+
+
+class _GroupState:
+    """Incrementally maintained group-major layout for one target dtype."""
+
+    def __init__(self):
+        self.stores: dict[int, _DeviceStore] = {}
+        self.index: dict[int, list[int]] = {}
+        self.flushed = 0
+
+
+class SketchIndex:
+    """Repository-side index: candidate sketches, device-resident, with
+    incremental ingest and version-checked group-major query plans.
+
+    ``device`` defaults to ``"cuda"`` and raises when no card is present.
+    """
+
+    def __init__(self, n: int = 256, method: str = "tupsk",
+                 agg: str = "first", device: str | torch.device | None = None):
+        self.n = n
+        self.method = method
+        self.agg = agg
+        self.device = resolve_device(device)
+        self.meta: list[CandidateMeta] = []
+        self._keys: list[np.ndarray] = []
+        self._vals_f: list[np.ndarray] = []
+        self._vals_u: list[np.ndarray] = []
+        self._masks: list[np.ndarray] = []
+        self._discrete: list[bool] = []
+        self._cap_cols: int | None = None
+        self._version = 0
+        self._groups: dict[bool, _GroupState] = {}
+        self._plan_cache: dict[bool, tuple[int, QueryPlan]] = {}
+        # Adaptive compaction-width rungs of the fused two-phase path.
+        self.shortlist_hints = ShortlistHints()
+
+    def __len__(self) -> int:
+        return len(self.meta)
+
+    # ------------------------------------------------------------------
+    # Ingest (host-side append; the device flush is deferred)
+    # ------------------------------------------------------------------
+
+    def _build_validated(self, key_hashes, values, value_is_discrete,
+                         agg, cap_cols) -> Sketch:
+        """Build one candidate sketch and check every ingest invariant
+        without touching index state."""
+        sk = build_sketch(
+            key_hashes, values, n=self.n, method=self.method, side="cand",
+            agg=agg or self.agg, value_is_discrete=value_is_discrete,
+        )
+        size = sk.size
+        if not np.all(np.diff(sk.key_hashes[:size].astype(np.int64)) > 0):
+            raise ValueError(
+                "candidate sketch violates the sorted-at-ingest key invariant"
+            )
+        if cap_cols is not None and sk.capacity != cap_cols:
+            raise ValueError(
+                f"sketch capacity {sk.capacity} != index capacity "
+                f"{cap_cols} (one n/method per index)"
+            )
+        return sk
+
+    def _commit_arrays(self, meta: CandidateMeta, keys, vals_f, vals_u,
+                       mask) -> None:
+        """Append one validated candidate's host arrays."""
+        if len(self.meta) >= _MAX_ROWS_I32:
+            raise OverflowError(
+                "index is full: candidate ids (and the dead-row "
+                f"sentinel) are int32 end-to-end (max {_MAX_ROWS_I32})"
+            )
+        if self._cap_cols is None:
+            self._cap_cols = len(keys)
+        self.meta.append(meta)
+        self._keys.append(keys)
+        self._vals_f.append(vals_f)
+        self._vals_u.append(vals_u)
+        self._masks.append(mask)
+        self._discrete.append(bool(meta.value_is_discrete))
+        self._version += 1
+
+    def _commit(self, table, key_column, value_column, sk: Sketch) -> None:
+        vf, vu = sk.value_views()
+        self._commit_arrays(
+            CandidateMeta(table, key_column, value_column, sk.value_is_discrete),
+            sk.key_hashes, vf, vu, sk.mask,
+        )
+
+    def add(self, table: str, key_column: str, value_column: str,
+            key_hashes: np.ndarray, values: np.ndarray,
+            value_is_discrete: bool | None = None, agg: str | None = None) -> None:
+        sk = self._build_validated(
+            key_hashes, values, value_is_discrete, agg, self._cap_cols
+        )
+        self._commit(table, key_column, value_column, sk)
+
+    def add_table(self, table, key_column: str) -> None:
+        """Index every (key, value) column pair of a Table, atomically:
+        all columns are built and validated before any is committed."""
+        key_codes = table[key_column].key_codes()
+        staged: list[tuple[str, Sketch]] = []
+        cap = self._cap_cols
+        for _, val_col in table.pairs(key_column):
+            col = table[val_col]
+            sk = self._build_validated(
+                key_codes, col.value_array(), col.is_discrete, None, cap
+            )
+            if cap is None:
+                cap = sk.capacity
+            staged.append((val_col, sk))
+        if len(self.meta) + len(staged) > _MAX_ROWS_I32:
+            raise OverflowError(
+                f"index is full: table {table.name!r} would pass the int32 "
+                f"candidate-id space (max {_MAX_ROWS_I32})"
+            )
+        for val_col, sk in staged:
+            self._commit(table.name, key_column, val_col, sk)
+
+    @property
+    def ingest_stats(self) -> dict:
+        """Host->device transfer accounting: rows ever uploaded into the
+        group stores (equal to the candidates per cached dtype when
+        ingest is incremental), capacity doublings, rows not yet on the
+        device, and allocated device bytes."""
+        stores = [st for state in self._groups.values()
+                  for st in state.stores.values()]
+        flushed = max([0] + [s.flushed for s in self._groups.values()])
+        return {
+            "group_h2d_rows": sum(st.h2d_rows for st in stores),
+            "group_store_grows": sum(st.grows for st in stores),
+            "pending_rows": len(self.meta) - flushed,
+            "sketch_bytes": sum(st.device_bytes for st in stores),
+        }
+
+    # ------------------------------------------------------------------
+    # Device flush and plans
+    # ------------------------------------------------------------------
+
+    def _host_block(self, idx: list[int]) -> dict[str, np.ndarray]:
+        masks = np.stack([self._masks[i] for i in idx]).astype(bool)
+        keys = np.stack([self._keys[i] for i in idx]).astype(np.int64)
+        return {
+            "keys": np.where(masks, keys, np.int64(KEY_MAX)),
+            "vals_f": np.stack([self._vals_f[i] for i in idx]).astype(np.float32),
+            "vals_u": np.stack([self._vals_u[i] for i in idx]).astype(np.int64),
+            "mask": masks,
+        }
+
+    def _flush_groups(self, y_discrete: bool) -> _GroupState:
+        state = self._groups.setdefault(bool(y_discrete), _GroupState())
+        C = len(self.meta)
+        if state.flushed < C:
+            by_eid: dict[int, list[int]] = {}
+            for i in range(state.flushed, C):
+                eid = estimator_id(self._discrete[i], y_discrete)
+                by_eid.setdefault(eid, []).append(i)
+            for eid, idx in by_eid.items():
+                store = state.stores.setdefault(
+                    eid, _DeviceStore(self._cap_cols, self.device)
+                )
+                store.append_block(self._host_block(idx))
+                state.index.setdefault(eid, []).extend(idx)
+            state.flushed = C
+        return state
+
+    def plan(self, y_is_discrete: bool) -> QueryPlan:
+        """The executor-ready plan for this corpus and target dtype,
+        cached until the next ``add`` (version-checked)."""
+        C = len(self.meta)
+        if C == 0:
+            raise ValueError("empty index")
+        y_is_discrete = bool(y_is_discrete)
+        hit = self._plan_cache.get(y_is_discrete)
+        if hit is not None and hit[0] == self._version:
+            return hit[1]
+        state = self._flush_groups(y_is_discrete)
+        groups = []
+        for eid in sorted(state.stores):
+            store = state.stores[eid]
+            g = store.rows
+            index = np.concatenate([
+                np.asarray(state.index[eid], np.int32),
+                np.full(store.cap_rows - g, C, np.int32),
+            ])
+            live = torch.from_numpy(np.arange(store.cap_rows) < g).to(self.device)
+            groups.append(GroupPlan(
+                eid, dict(store.arrays), index, live, g,
+                torch.from_numpy(index).to(self.device),
+            ))
+        plan = QueryPlan(y_is_discrete, C, groups, self.device)
+        self._plan_cache[y_is_discrete] = (self._version, plan)
+        return plan
+
+    def train_arrays(self, sk: Sketch) -> dict:
+        """Train-side sketch formatted for the scorers, on the device."""
+        return _ex.stack_trains_host([sk], self.device)
+
+    # ------------------------------------------------------------------
+    # Queries
+    # ------------------------------------------------------------------
+
+    def _rank(self, v, gi, js, top_k: int, min_join: int,
+              C: int | None = None) -> list:
+        """Score descending, global candidate index ascending on ties —
+        the rule that makes shortlist rankings equal dense rankings."""
+        C = len(self.meta) if C is None else int(C)
+        order = np.lexsort((gi, -np.where(js >= min_join, v, -np.inf)))
+        out = []
+        for idx in order:
+            if gi[idx] >= C or js[idx] < min_join:
+                continue
+            out.append((self.meta[gi[idx]], float(v[idx]), int(js[idx])))
+            if len(out) >= top_k:
+                break
+        return out
+
+    @staticmethod
+    def _use_prefilter(prefilter: bool | None, min_join: int) -> bool:
+        return (min_join > 0) if prefilter is None else bool(prefilter)
+
+    def _fused_triples(self, plan: QueryPlan, trains, min_join: int,
+                       ex) -> list:
+        """The fused device pipeline, with the host boundary as the
+        overflow fallback; observed survivor counts update the hints."""
+        hints = self.shortlist_hints
+        spec = fused_shortlist_spec(plan, hints, min_join)
+        handle = ex.fused_dispatch(plan, trains, spec, min_join)
+        try:
+            triples = handle.collect()
+            overflowed = False
+        except ShortlistOverflow:
+            triples = None
+            overflowed = True
+        for eid, m in handle.observed.items():
+            hints.observe(
+                (plan.y_discrete, eid, int(min_join), False), m,
+                overflowed=overflowed,
+            )
+        if overflowed:
+            shortlists = build_shortlists(plan, handle.js_blocks(), min_join)
+            triples = ex.shortlist_dispatch(plan, trains, shortlists).collect()
+        return triples
+
+    def _two_phase(self, plan: QueryPlan, trains, top_k: int,
+                   min_join: int, k: int, fused: bool | None) -> list:
+        """Join-size prefilter (phase 1), then gather-and-score of the
+        survivors (phase 2); one ranked list per query."""
+        ex = _ex.BatchedExecutor(k=k)
+        if fused is None or fused:
+            triples = self._fused_triples(plan, trains, min_join, ex)
+        else:
+            shortlists = build_shortlists(
+                plan, ex.prefilter_dispatch(plan, trains).collect(), min_join,
+            )
+            triples = ex.shortlist_dispatch(plan, trains, shortlists).collect()
+        return [
+            self._rank(v, gi, js, top_k, min_join) for v, gi, js in triples
+        ]
+
+    @staticmethod
+    def _check_slice(mesh, min_containment) -> None:
+        if mesh is not None:
+            raise NotImplementedError(_MESH_SLICE)
+        if float(min_containment) > 0.0:
+            raise NotImplementedError(_GATE_SLICE)
+
+    def query(self, train_sketch: Sketch, top_k: int = 10, mesh=None,
+              min_join: int = 8, k: int = 3, prefilter: bool | None = None,
+              fused: bool | None = None, min_containment: float = 0.0):
+        """Rank candidates by estimated MI with the train target.
+
+        Returns a list of (CandidateMeta, mi, join_size), best first.
+        ``prefilter`` (default: on when ``min_join`` > 0) runs two-phase
+        retrieval, fused unless ``fused=False``.
+        """
+        self._check_slice(mesh, min_containment)
+        train = self.train_arrays(train_sketch)
+        C = len(self.meta)
+        plan = self.plan(train_sketch.value_is_discrete)
+        if self._use_prefilter(prefilter, min_join):
+            return self._two_phase(plan, train, top_k, min_join, k, fused)[0]
+        mi, jsz = _ex.PartitionedLocalExecutor(k=k).execute(plan, train)
+        return self._rank(mi[0], np.arange(C), jsz[0], top_k, min_join)
+
+    def query_many(self, train_sketches: list[Sketch], top_k: int = 10,
+                   min_join: int = 8, mesh=None, k: int = 3,
+                   prefilter: bool | None = None, fused: bool | None = None,
+                   min_containment: float = 0.0):
+        """Answer Q concurrent discovery queries of one target dtype in
+        one executor pass; one result list per train sketch."""
+        self._check_slice(mesh, min_containment)
+        if not train_sketches:
+            return []
+        y_disc = {bool(sk.value_is_discrete) for sk in train_sketches}
+        if len(y_disc) != 1:
+            raise ValueError(
+                "query_many requires one target dtype per batch; split "
+                "discrete and continuous targets"
+            )
+        trains = _ex.stack_trains_host(train_sketches, self.device)
+        plan = self.plan(y_disc.pop())
+        C = len(self.meta)
+        if self._use_prefilter(prefilter, min_join):
+            return self._two_phase(plan, trains, top_k, min_join, k, fused)
+        mi, js = _ex.BatchedExecutor(k=k).execute(plan, trains)
+        return [
+            self._rank(mi[q], np.arange(C), js[q], top_k, min_join)
+            for q in range(mi.shape[0])
+        ]

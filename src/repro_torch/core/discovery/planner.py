@@ -1,0 +1,232 @@
+"""Query planner (PyTorch port): estimator partitioning, group-major
+layout, the power-of-two bucket ladders and the shortlist machinery of
+two-phase retrieval.
+
+The subset of ``repro.core.discovery.planner`` the discovery path
+reads.  A :class:`QueryPlan` fixes, once per corpus version and target
+dtype, which estimator scores each candidate and the padded group-major
+device layout every executor runs on.  Two-phase retrieval pads its
+shortlist axis up its own pow-2 ladder; :func:`build_shortlists` is the
+host-side phase boundary, and :class:`ShortlistHints` /
+:func:`fused_shortlist_spec` choose the on-device compaction widths of
+the fused path before phase 1 runs, with :class:`ShortlistOverflow` as
+the fallback signal when a width guess was too small.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+__all__ = [
+    "EST_MLE",
+    "EST_MIXED",
+    "EST_DC_XD",
+    "EST_DC_YD",
+    "estimator_id",
+    "partition_by_estimator",
+    "bucket_rows",
+    "bucket_shortlist",
+    "MIN_BUCKET",
+    "MIN_SHORTLIST",
+    "GroupPlan",
+    "QueryPlan",
+    "Shortlist",
+    "ShortlistOverflow",
+    "ShortlistHints",
+    "FusedSpec",
+    "fused_shortlist_spec",
+    "build_shortlists",
+]
+
+# Estimator ids (stable across the repo and equal to the reference's).
+EST_MLE, EST_MIXED, EST_DC_XD, EST_DC_YD = 0, 1, 2, 3
+
+# Smallest bucket on the shared group-size ladder.
+MIN_BUCKET = 8
+
+# Smallest bucket on the shortlist-size ladder.
+MIN_SHORTLIST = 8
+
+
+def estimator_id(x_discrete: bool, y_discrete: bool) -> int:
+    """Estimator for a (candidate dtype, target dtype) pair."""
+    if x_discrete and y_discrete:
+        return EST_MLE
+    if not x_discrete and not y_discrete:
+        return EST_MIXED
+    return EST_DC_XD if x_discrete else EST_DC_YD
+
+
+def partition_by_estimator(est_id: np.ndarray) -> list[tuple[int, np.ndarray]]:
+    """Stable partition of the candidate axis by estimator id."""
+    est_id = np.asarray(est_id)
+    return [
+        (int(eid), np.flatnonzero(est_id == eid))
+        for eid in np.unique(est_id)
+    ]
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def bucket_rows(n: int) -> int:
+    """Next power of two >= max(n, MIN_BUCKET)."""
+    return _next_pow2(max(n, MIN_BUCKET))
+
+
+def bucket_shortlist(n: int) -> int:
+    """Shortlist-ladder bucket for ``n`` prefilter survivors: next power
+    of two >= max(n, MIN_SHORTLIST)."""
+    return _next_pow2(max(n, MIN_SHORTLIST))
+
+
+@dataclass(frozen=True)
+class GroupPlan:
+    """One homogeneous estimator group in group-major device layout.
+
+    ``arrays`` rows [0, size) hold live candidates (keys in effective
+    int64 form); rows [size, bucket) are dead (mask all-False, join
+    empty, score 0.0).  ``index`` maps group row -> global candidate
+    index; dead rows map to the sentinel ``n_candidates``.
+    ``index_dev`` / ``live`` are the device copies the fused path reads.
+    """
+
+    est_id: int
+    arrays: dict  # keys int64 / vals_f float32 / vals_u int64 / mask bool
+    index: np.ndarray  # (bucket,) int32, dead rows -> n_candidates
+    live: torch.Tensor  # (bucket,) bool, on the device
+    size: int  # live rows
+    index_dev: torch.Tensor = field(default=None, compare=False, repr=False)
+
+    @property
+    def bucket(self) -> int:
+        return int(self.live.shape[0])
+
+
+@dataclass(frozen=True)
+class QueryPlan:
+    """Everything an executor needs to score one corpus layout."""
+
+    y_discrete: bool
+    n_candidates: int
+    groups: list[GroupPlan] = field(default_factory=list)
+    device: torch.device = field(default=torch.device("cpu"), compare=False)
+
+
+@dataclass(frozen=True)
+class Shortlist:
+    """Phase-2 layout for one estimator group: the group rows that
+    survived the join-size prefilter, per query.  ``rows`` (Q, s_bucket)
+    ascending per query, padded with row 0; padded slots carry ``gidx``
+    = ``n_candidates`` and ``js`` = 0 and are scored but never ranked."""
+
+    group: GroupPlan
+    rows: np.ndarray  # (Q, s_bucket) int32 group-row indices, pad -> 0
+    gidx: np.ndarray  # (Q, s_bucket) int32 global ids, pad -> sentinel
+    js: np.ndarray  # (Q, s_bucket) int32 join sizes, pad -> 0
+    s_bucket: int
+    shortlisted: int  # live (query, candidate) entries across all Q
+
+
+def build_shortlists(
+    plan: QueryPlan,
+    js_blocks: list,
+    min_join: int,
+) -> list:
+    """Turn phase-1 join sizes into per-group phase-2 shortlists.
+
+    ``js_blocks`` pairs each :class:`GroupPlan` with its host (Q,
+    bucket) join-size matrix.  Rows passing ``min_join`` (live rows only)
+    become the shortlist, ascending, padded up the pow-2 shortlist
+    ladder shared across the batch's queries; a group with no survivor
+    for any query yields ``None``.
+    """
+    out = []
+    for gp, js in js_blocks:
+        js = np.asarray(js)
+        Q = js.shape[0]
+        live = np.asarray(gp.index) < plan.n_candidates
+        passing = (js >= min_join) & live[None, :]
+        counts = passing.sum(axis=1)
+        s_max = int(counts.max(initial=0))
+        if s_max == 0:
+            out.append(None)
+            continue
+        s_bucket = min(bucket_shortlist(s_max), bucket_rows(gp.bucket))
+        take = min(s_bucket, passing.shape[1])
+        order = np.argsort(~passing, axis=1, kind="stable")[:, :take]
+        if take < s_bucket:
+            order = np.concatenate(
+                [order, np.zeros((Q, s_bucket - take), order.dtype)],
+                axis=1,
+            )
+        lane_live = np.arange(s_bucket)[None, :] < counts[:, None]
+        rows = np.where(lane_live, order, 0).astype(np.int32)
+        gidx = np.where(
+            lane_live, gp.index[order], np.int32(plan.n_candidates)
+        ).astype(np.int32)
+        jsz = np.where(
+            lane_live, np.take_along_axis(js, order, axis=1), 0
+        ).astype(np.int32)
+        out.append(Shortlist(gp, rows, gidx, jsz, s_bucket, int(counts.sum())))
+    return out
+
+
+class ShortlistOverflow(Exception):
+    """Fused compaction found more prefilter survivors than the staged
+    ``s_bucket`` has lanes for; the caller falls back to the host
+    :func:`build_shortlists` boundary for this batch, reusing the
+    already-computed join sizes."""
+
+
+class ShortlistHints:
+    """Adaptive per-workload shortlist-bucket predictor.
+
+    Grows immediately to ``bucket_shortlist(observed)`` when a batch
+    overflows or fills its rung; shrinks only with a full rung of
+    headroom (``bucket * 4 <= current``), then to ``bucket * 2``.
+    """
+
+    def __init__(self):
+        self._rungs: dict[tuple, int] = {}
+        self.overflows = 0
+
+    def get(self, key: tuple) -> int:
+        return self._rungs.get(key, MIN_SHORTLIST)
+
+    def observe(self, key: tuple, observed: int, overflowed: bool = False) -> None:
+        tgt = bucket_shortlist(int(observed))
+        cur = self._rungs.get(key, MIN_SHORTLIST)
+        if overflowed:
+            self.overflows += 1
+        if tgt > cur:
+            self._rungs[key] = tgt
+        elif tgt * 4 <= cur:
+            self._rungs[key] = tgt * 2
+
+
+@dataclass(frozen=True)
+class FusedSpec:
+    """Per-group compaction widths for one fused two-phase pass,
+    aligned with ``plan.groups``."""
+
+    s_buckets: tuple
+
+
+def fused_shortlist_spec(
+    plan: QueryPlan,
+    hints: ShortlistHints,
+    min_join: int,
+) -> FusedSpec:
+    """Choose each group's compaction width from the hint table (clamped
+    to the group's row bucket)."""
+    s_buckets = []
+    for gp in plan.groups:
+        key = (bool(plan.y_discrete), gp.est_id, int(min_join), False)
+        rung = bucket_shortlist(hints.get(key))
+        s_buckets.append(min(rung, bucket_rows(gp.bucket)))
+    return FusedSpec(tuple(s_buckets))
