@@ -8,14 +8,17 @@ without a card it exits non-zero before printing any result.  Phases,
 each of which fails the run (non-zero exit, no result line) if it fails:
 
   1. environment: card name and power limit, torch and nvcc versions,
-     the kernel build from ``src/repro_torch/kernels/knn_stats/csrc``
-     (its seconds and ``ptxas`` register/spill report);
+     the two kernel builds, ``knn_stats/csrc/radius_counts.cu`` and
+     ``pairwise_cheb/csrc/pairwise_cheb.cu``, one ``nvcc`` each, started
+     together (seconds and ``ptxas`` register/spill reports);
   2. every kernel against its plain PyTorch version on the card, on the
-     same inputs, required bit-equal (tolerance 0): radii, class counts
-     and ball/tie counts, at main-path width (B=4096 samples × P=256) in
-     both modes, plus k=1/8/K_MAX, widened class budgets, tie-heavy
-     values, ragged masks, few-neighbour rows, a P=512 batch and a
-     kb=128 batch;
+     same inputs, required bit-equal (tolerance 0, NaN positions equal):
+     radius_counts' radii, class counts and ball/tie counts, at
+     main-path width (B=4096 samples × P=256) in both modes, plus
+     k=1/8/K_MAX, widened class budgets, tie-heavy values, ragged masks,
+     few-neighbour rows, a P=512 batch and a kb=128 batch; pairwise_cheb's
+     DX/DY/DJ at B=4096 × P=256, P=300 with ragged masks, P=512,
+     exact-zero plateaus and NaN/±inf inputs;
   3. the main path: a C=65536-candidate TUPSK (n=256) corpus through
      ``SketchIndex.add``, then ``query_many`` with Q=16 continuous- and
      Q=16 discrete-target queries at ``min_join=24``, ``top_k=40``, cold
@@ -29,7 +32,30 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      beside its plain version's time and its bound;
   6. times: the warm ``query_many`` wall time (host clock around a
      synchronize, median of 10 per target dtype) and one profiled warm
-     pass (device time by kernel).
+     pass (device time by kernel);
+  7. ``DiscoveryService.submit`` over the phase-3 index with one queue
+     interleaving the 16 continuous and 16 discrete queries: join sizes
+     and rankings as phase 3's warm ``query_many``, MI within 1e-6, and
+     its warm wall time (median of 10);
+  8. ``submit_safe`` under faults, the queue plus two invalid sketches
+     (a NaN value; n=128): both quarantined, the first bucket's fused
+     dispatch failing once and retried, 4 NaN lanes per served query
+     fenced and recomputed through the materialized estimators (the
+     ``pairwise_cheb`` kernel), rankings as the clean ``submit``; then
+     with every fused and phase-1 dispatch failing, the buckets descend
+     to the reference rung and still rank the same;
+  9. ``submit_async``: four caller threads, 8 queries each in two
+     half-waves, ``pipeline_depth=2``: every handle resolves within a
+     timeout with its solo ``submit`` results, buckets coalesce and
+     windows overlap; the synchronising calls of one window dispatch
+     are counted under ``torch.cuda.set_sync_debug_mode("warn")``;
+ 10. the materialized estimators on phase 5's captured samples (MixedKSG
+     on the joint launch, DC-KSG on the class launches): MI within 1e-6
+     of the fused results, each ``pairwise_cheb`` chunk launch held
+     bit-equal to its plain version and timed beside it and its bound.
+
+Each of phases 3 and 7-9 sets every kernel's launch count to 0 just
+before it drives its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
 (``{"record": ...}``), then the kernels' JSON line, the card's name and
@@ -79,6 +105,8 @@ RC_OPS = {
 }
 # Bytes per sample row: x, y f32 + mask u8 in; r f32 + cnt i32 + 5 i32 out.
 RC_BYTES_PER_ROW = 9 + 28
+# pairwise_cheb: x, y f32 + mask u8 in per row; DX, DY, DJ f32 out per pair.
+PC_BYTES_PER_ROW, PC_BYTES_PER_PAIR = 9, 12
 
 C_MAIN, N_ROWS, N_SKETCH, Q = 65536, 384, 256, 16
 MIN_JOIN, TOP_K = 24, 40
@@ -86,6 +114,10 @@ C_CHECK = 1024
 N_PLANTED = 8
 WARM_REPS = 10
 SEED = 0
+FENCE_LANES = 4  # NaN lanes per served query in phase 8
+CALLERS, PER_CALLER = 4, 8
+HANDLE_TIMEOUT_S = 120.0
+MI_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -150,6 +182,53 @@ def check_radius_counts(dev) -> float:
         if err != 0.0:
             raise AssertionError(f"radius_counts {name} differs from ref: {err}")
         worst = max(worst, err)
+    return worst
+
+
+def pc_inputs(B: int, P: int, kind: str, gen: torch.Generator):
+    x = torch.randn(B, P, generator=gen)
+    y = torch.randn(B, P, generator=gen)
+    mask = torch.rand(B, P, generator=gen) > 0.2
+    if kind == "ragged":
+        keep = torch.randint(0, P + 1, (B, 1), generator=gen)
+        mask &= torch.arange(P)[None, :] < keep
+    elif kind == "plateaus":  # exact-zero distances between repeats
+        x = torch.round(x)
+        y = torch.round(y * 2) / 2
+    elif kind == "nonfinite":
+        for v in (x, y):
+            pick = torch.rand(B, P, generator=gen)
+            v[pick < 0.02] = float("nan")
+            v[(pick >= 0.02) & (pick < 0.04)] = float("inf")
+            v[(pick >= 0.04) & (pick < 0.06)] = float("-inf")
+    return x, y, mask
+
+
+PC_CASES = [("b4096_p256", 4096, 256, "random"), ("p300_ragged", 1024, 300, "ragged"),
+            ("p512", 1024, 512, "random"), ("plateaus", 2048, 256, "plateaus"),
+            ("nonfinite", 1024, 256, "nonfinite")]
+
+
+def check_pairwise_cheb(dev) -> float:
+    from repro_torch.kernels.pairwise_cheb import kernel, ref
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    worst = 0.0
+    for name, B, P, kind in PC_CASES:
+        x, y, m = (t.to(dev) for t in pc_inputs(B, P, kind, gen))
+        got = kernel.pairwise_cheb(x, y, m)
+        want = ref.pairwise_cheb(x, y, m)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(g, w) for g, w in zip(got, want))
+        nan = sum(int(w.isnan().sum()) for w in want)
+        log(f"[compare] pairwise_cheb {name}: B={B} P={P} max_abs_err={err} "
+            f"(NaN entries {nan}, positions equal)")
+        if err != 0.0:
+            raise AssertionError(f"pairwise_cheb {name} differs from ref: {err}")
+        if kind == "nonfinite" and nan == 0:
+            raise AssertionError("the non-finite case produced no NaN")
+        worst = max(worst, err)
+        del got, want
     return worst
 
 
@@ -371,6 +450,306 @@ def check_main_launches(seen: list, card: str) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phases 7-9: the service front end over the phase-3 index
+# ---------------------------------------------------------------------------
+
+def reset_launches() -> None:
+    from repro_torch.kernels.knn_stats import kernel as rc_kernel
+    from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
+
+    rc_kernel.radius_counts.launches = 0
+    pc_kernel.pairwise_cheb.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.knn_stats import kernel as rc_kernel
+    from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
+
+    return {"radius_counts": rc_kernel.radius_counts.launches,
+            "pairwise_cheb": pc_kernel.pairwise_cheb.launches}
+
+
+def by_query(queue_results, n: int) -> list:
+    """Split results of the interleaved queue (cont 0, disc 0, cont 1,
+    ...) back into [continuous results, discrete results]."""
+    return [list(queue_results[0:2 * n:2]), list(queue_results[1:2 * n:2])]
+
+
+def timed_submit(svc, queue) -> tuple[float, list]:
+    t0 = time.perf_counter()
+    out = svc.submit(queue, top_k=TOP_K, min_join=MIN_JOIN)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def run_submit(svc, queue, warm) -> dict:
+    """Phase 7: the interleaved queue through ``submit``, held against
+    phase 3's warm ``query_many`` results; its warm wall time."""
+    reset_launches()
+    _, first = timed_submit(svc, queue)
+    launches = read_launches()
+    if launches["radius_counts"] == 0:
+        raise AssertionError("submit never launched radius_counts")
+    for a, b in zip(by_query(first, Q), warm):
+        same_rankings(a, b, tol=MI_TOL)
+    times = [timed_submit(svc, queue)[0] for _ in range(WARM_REPS)]
+    adm = svc.stats()["admission"]
+    log(f"[service] submit of {len(queue)} interleaved queries: rankings and "
+        f"join sizes == warm query_many (MI within {MI_TOL}); warm median "
+        f"{float(np.median(times)):.4f} s (min {min(times):.4f}, max "
+        f"{max(times):.4f}); launches {launches}; batches {adm['batches']}, "
+        f"host_syncs {adm['host_syncs']}, fused_windows {adm['fused_windows']}")
+    return {"results": first, "launches": launches, "warm_s": times,
+            "warm_median_s": float(np.median(times))}
+
+
+def invalid_sketches(keys, y):
+    from dataclasses import replace
+
+    from repro_torch.core.sketch import build_sketch
+
+    sk = build_sketch(keys, y, n=N_SKETCH, side="train", value_is_discrete=False)
+    vals = sk.values.copy()
+    vals[3] = np.nan
+    nan_sk = replace(sk, values=vals)
+    small = build_sketch(keys, y, n=N_SKETCH // 2, side="train",
+                         value_is_discrete=False)
+    return [(nan_sk, "nonfinite_values"), (small, "capacity_mismatch")]
+
+
+def run_submit_safe(svc, queue, clean, bad) -> dict:
+    """Phase 8: quarantine, one retried bucket and the non-finite fence
+    through ``pairwise_cheb``; then the descent to the reference rung."""
+    from repro_torch.core.discovery import inject_faults
+
+    full = queue + [sk for sk, _ in bad]
+    n = len(queue)
+    adm0 = dict(svc.stats()["admission"])
+    reset_launches()
+    t0 = time.perf_counter()
+    with inject_faults({"fused_dispatch": [0], "scores": FENCE_LANES},
+                       seed=SEED) as plan:
+        res, outs = svc.submit_safe(full, top_k=TOP_K, min_join=MIN_JOIN)
+    torch.cuda.synchronize()
+    t_fenced = time.perf_counter() - t0
+    launches = read_launches()
+    for (sk, code), out, r in zip(bad, outs[n:], res[n:]):
+        if out.status != "quarantined" or out.error != code or r is not None:
+            raise AssertionError(f"invalid sketch not quarantined as {code}: {out}")
+    served = outs[:n]
+    if not all(o.ok and o.rung == "batched" for o in served):
+        raise AssertionError(f"a served query did not deliver on the batched rung: "
+                             f"{[o for o in served if not o.ok]}")
+    retried = sorted({i % 2 for i, o in enumerate(served) if o.retries})
+    if [o.retries for o in served[0::2]] != [1] * Q \
+            or any(o.retries for o in served[1::2]):
+        raise AssertionError(f"expected one retry on the first (continuous) "
+                             f"bucket only: {[o.retries for o in served]}")
+    if any(o.nonfinite_lanes != FENCE_LANES for o in served) \
+            or plan.corrupted != FENCE_LANES * n:
+        raise AssertionError(
+            f"fence: {plan.corrupted} lanes corrupted, per query "
+            f"{[o.nonfinite_lanes for o in served]}; expected {FENCE_LANES} each")
+    adm = svc.stats()["admission"]
+    if adm["nonfinite_lanes"] - adm0["nonfinite_lanes"] != plan.corrupted:
+        raise AssertionError("nonfinite_lanes does not count the fenced lanes")
+    if launches["pairwise_cheb"] == 0 or launches["radius_counts"] == 0:
+        raise AssertionError(f"submit_safe launches {launches}: the fence must "
+                             "reach pairwise_cheb and scoring radius_counts")
+    for a, b in zip(res[:n], clean):
+        same_rankings([a], [b], tol=MI_TOL)
+    log(f"[service] submit_safe under faults: 2 quarantined "
+        f"({[o.error for o in outs[n:]]}), bucket {retried} retried once, "
+        f"{plan.corrupted} NaN lanes fenced through the materialized path, "
+        f"rankings == clean submit (MI within {MI_TOL}); {t_fenced:.3f} s; "
+        f"launches {launches}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with inject_faults({"fused_dispatch": "all", "prefilter_dispatch": "all"}):
+        res2, outs2 = svc.submit_safe(full, top_k=TOP_K, min_join=MIN_JOIN)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    launches_ref = read_launches()
+    if not all(o.ok and o.rung == "reference" and o.fallbacks == 1
+               for o in outs2[:n]):
+        raise AssertionError(f"expected every served query on the reference rung: "
+                             f"{sorted({(o.status, o.rung) for o in outs2[:n]})}")
+    if any(o.status != "quarantined" for o in outs2[n:]):
+        raise AssertionError("invalid sketches not quarantined on the second run")
+    for a, b in zip(res2[:n], clean):
+        same_rankings([a], [b], tol=MI_TOL)
+    log(f"[service] submit_safe with every fused and phase-1 dispatch failing: "
+        f"all {n} served on the reference rung, rankings == clean submit; "
+        f"{t_ref:.3f} s; launches {launches_ref}")
+    return {"fenced_lanes": plan.corrupted, "fenced_s": t_fenced,
+            "launches": launches, "reference_rung_s": t_ref,
+            "launches_reference_rung": launches_ref,
+            "admission": svc.stats()["admission"]}
+
+
+def count_dispatch_syncs(svc, queue) -> dict:
+    """Synchronising calls made while one window is dispatched (staged,
+    uploaded on a side stream, enqueued), under
+    ``torch.cuda.set_sync_debug_mode("warn")``; the window is collected
+    after the mode is reset."""
+    import warnings
+
+    side = torch.cuda.Stream()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            win = svc._window_dispatch(queue, isolate=True, top_k=TOP_K,
+                                       min_join=MIN_JOIN, prefilter=None,
+                                       copy_stream=side)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    svc._window_collect(win)
+    msgs = [str(w.message) for w in caught if "ynchroniz" in str(w.message)]
+    return {"count": len(msgs), "first": msgs[:3]}
+
+
+def run_scheduler(svc, queue, clean) -> dict:
+    """Phase 9: four caller threads, two half-waves each, through the
+    micro-batch tier with double-buffered dispatch."""
+    import threading
+
+    syncs = count_dispatch_syncs(svc, queue[:2 * Q])
+    log(f"[sched] synchronising calls during one window dispatch "
+        f"(set_sync_debug_mode warn): {syncs['count']} {syncs['first']}")
+    reset_launches()
+    sched = svc.scheduler(pipeline_depth=2)
+    results, errors = {}, []
+
+    def drained():
+        deadline = time.perf_counter() + HANDLE_TIMEOUT_S
+        while sched._queued_count():
+            if time.perf_counter() > deadline:
+                raise TimeoutError("first half-wave never drained")
+            time.sleep(0.0002)
+
+    def caller(c: int):
+        try:
+            mine = list(range(c * PER_CALLER, (c + 1) * PER_CALLER))
+            half = PER_CALLER // 2
+            h1 = svc.submit_async([queue[i] for i in mine[:half]],
+                                  top_k=TOP_K, min_join=MIN_JOIN)
+            # The second half-wave lands while the first window is being
+            # dispatched, so the loop holds it in flight and overlaps.
+            drained()
+            h2 = svc.submit_async([queue[i] for i in mine[half:]],
+                                  top_k=TOP_K, min_join=MIN_JOIN)
+            for i, h in zip(mine, h1 + h2):
+                results[i] = (h.result(timeout=HANDLE_TIMEOUT_S), h.outcome())
+        except Exception as e:  # noqa: BLE001 — re-raised by the phase
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=caller, args=(c,)) for c in range(CALLERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HANDLE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    alive = any(t.is_alive() for t in threads)
+    tele = sched.stats()
+    svc.close()  # drains and joins the loop thread
+    launches = read_launches()
+    if alive or errors:
+        raise AssertionError(f"scheduler callers failed: alive={alive} {errors}")
+    if sorted(results) != list(range(CALLERS * PER_CALLER)):
+        raise AssertionError("not every handle resolved")
+    for i, (r, out) in results.items():
+        if not out.ok:
+            raise AssertionError(f"query {i}: {out}")
+        same_rankings([r], [clean[i]], tol=MI_TOL)
+    if not (tele["coalesce_ratio"] or 0) > 1 or tele["overlapped_windows"] < 1:
+        raise AssertionError(f"no coalescing or no overlap: {tele}")
+    if launches["radius_counts"] == 0:
+        raise AssertionError("the scheduler never launched radius_counts")
+    log(f"[sched] {CALLERS} callers x {PER_CALLER} queries in two half-waves: all "
+        f"resolved == solo submit (MI within {MI_TOL}) in {wall:.3f} s; windows "
+        f"{tele['windows']}, buckets {tele['dispatched_buckets']}, coalesce "
+        f"ratio {tele['coalesce_ratio']:.2f}, overlapped windows "
+        f"{tele['overlapped_windows']}; launches {launches}")
+    return {"wall_s": wall, "telemetry": tele, "launches": launches,
+            "dispatch_syncs": syncs}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the materialized estimators on the main path's own samples
+# ---------------------------------------------------------------------------
+
+def pc_bound(B: int, P: int) -> dict:
+    nbytes = B * P * PC_BYTES_PER_ROW + B * P * P * PC_BYTES_PER_PAIR
+    return {"bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "bytes": nbytes}
+
+
+def check_materialized(seen: list, card: str) -> list[dict]:
+    """Materialized vs fused MI on each captured launch's samples (MixedKSG
+    on joint launches, DC-KSG on class launches), then the first
+    ``pairwise_cheb`` chunk of each held bit-equal to its plain version
+    and timed beside it and its bound."""
+    from repro_torch.core import estimators as est
+    from repro_torch.kernels.pairwise_cheb import kernel, ref
+
+    rows = []
+    for x, y, m, args, _ in seen:
+        B, P = x.shape
+        if args["mode"] == "joint":
+            fn, name = est.mixed_ksg_mi, "mixed_ksg"
+        else:
+            fn, name = est.dc_ksg_mi, "dc_ksg"
+        fused = fn(x, y, m, k=args["k"])
+        before = kernel.pairwise_cheb.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mat = fn(x, y, m, k=args["k"], impl="materialized")
+        torch.cuda.synchronize()
+        t_mat = time.perf_counter() - t0
+        n_launch = kernel.pairwise_cheb.launches - before
+        diff = float((mat.double() - fused.double()).abs().max())
+        exact = bool(torch.equal(mat, fused))
+        if not torch.allclose(mat, fused, rtol=MI_TOL, atol=MI_TOL):
+            raise AssertionError(f"materialized {name} differs from fused on "
+                                 f"B={B}: max |diff| {diff}")
+        chunk = min(B, max(1, est._MATERIALIZED_ELEMS // (P * P)))
+        cx, cy, cm = x[:chunk].contiguous(), y[:chunk].contiguous(), m[:chunk].contiguous()
+        if name == "dc_ksg":
+            cx = cy  # the DC-KSG path forms DY from y against itself
+        got = kernel.pairwise_cheb(cx, cy, cm)
+        want = ref.pairwise_cheb(cx, cy, cm)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(g, w) for g, w in zip(got, want))
+        if err != 0.0:
+            raise AssertionError(f"pairwise_cheb main-path chunk differs: {err}")
+        del got, want
+        ms = time_cuda(lambda: kernel.pairwise_cheb(cx, cy, cm), 20)
+        plain_ms = time_cuda(lambda: ref.pairwise_cheb(cx, cy, cm), 5)
+        # The fence's own launches are this small: a query's few NaN lanes.
+        fx, fy, fm = cx[:FENCE_LANES], cy[:FENCE_LANES], cm[:FENCE_LANES]
+        fence_ms = time_cuda(lambda: kernel.pairwise_cheb(fx, fy, fm), 200)
+        row = {"estimator": name, "B": B, "P": P, "chunk": chunk,
+               "fence_shape_ms": fence_ms,
+               "fence_shape_bound_ms": pc_bound(FENCE_LANES, P)["bound_ms"],
+               "pairwise_cheb_launches": n_launch, "mi_max_abs_diff": diff,
+               "mi_bit_exact": exact, "materialized_s": t_mat,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               **pc_bound(chunk, P)}
+        log(f"[materialized] {name} on the main path's B={B} samples: MI max "
+            f"|materialized - fused| {diff:.3g} (bit-exact: {exact}), "
+            f"{n_launch} pairwise_cheb launches, {t_mat:.3f} s; chunk "
+            f"B={chunk} P={P}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms (bytes); B={FENCE_LANES} (a fence's "
+            f"shape): {fence_ms:.4f} ms, bound {row['fence_shape_bound_ms']:.4f} "
+            f"ms; card {card}")
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: end-to-end timing
 # ---------------------------------------------------------------------------
 
@@ -407,8 +786,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA card", file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.convert import index_from_numpy
+    from repro_torch.core.discovery import DiscoveryService
     from repro_torch.kernels.knn_stats import kernel
+    from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -420,14 +803,23 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[-1]
     log(f"[env] card: {card}")
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc}")
-    built = kernel.load_library()
-    log(f"[build] radius_counts: {built.seconds:.2f} s -> {built.path.name}")
-    for line in built.ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    # One nvcc per source, started together.
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(kernel.load_library),
+                   pool.submit(pc_kernel.load_library)]
+        built, pc_built = (f.result() for f in futures)
+    t_build = time.perf_counter() - t0
+    for name, b in (("radius_counts", built), ("pairwise_cheb", pc_built)):
+        log(f"[build] {name}: {b.seconds:.2f} s -> {b.path.name}")
+        for line in b.ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
+    log(f"[build] both kernels built in {t_build:.2f} s")
 
-    # Phase 2: kernel vs plain, bit-equal, on synthetic edge cases.
+    # Phase 2: kernels vs plain, bit-equal, on synthetic edge cases.
     max_err = check_radius_counts(dev)
+    pc_max_err = check_pairwise_cheb(dev)
 
     # Phase 3: main path at lake scale.
     t0 = time.perf_counter()
@@ -447,11 +839,13 @@ def main() -> int:
     log(f"[main] device flush of {len(index)} candidates x 2 dtypes: "
         f"{t_flush:.2f} s")
 
-    kernel.radius_counts.launches = 0
+    reset_launches()
     t_cold, cold = run_pass(index, [cont, disc], dev)
     launches_cold = kernel.radius_counts.launches
     t_warm, warm = run_pass(index, [cont, disc], dev)
     launches = kernel.radius_counts.launches
+    if pc_kernel.pairwise_cheb.launches:
+        raise AssertionError("query_many launched pairwise_cheb (fused path only)")
     log(f"[main] query_many cold {t_cold:.4f} s ({launches_cold} launches), "
         f"warm {t_warm:.4f} s ({launches - launches_cold} launches); "
         f"ingest {index.ingest_stats}")
@@ -497,7 +891,6 @@ def main() -> int:
             f"captured {len(seen)} launches; the warm pass made "
             f"{launches - launches_cold}")
     rc = check_main_launches(seen, card)
-    del seen
     max_err = max([max_err] + [r["max_abs_err"] for r in rc])
     rc_ms = sum(r["ms"] for r in rc)
     rc_plain = sum(r["plain_ms"] for r in rc)
@@ -523,16 +916,39 @@ def main() -> int:
     for row in prof_c["top"][:8]:
         log(f"[main]   {row['ms']:9.3f} ms x{row['count']:<4d} {row['name']}")
 
+    # Phases 7-9: the service front end over the same index.
+    svc = DiscoveryService(index=index, k=3)
+    queue = [sk for pair in zip(cont, disc) for sk in pair]
+    submit = run_submit(svc, queue, warm)
+    clean = submit.pop("results")
+    safe = run_submit_safe(svc, queue, clean, invalid_sketches(keys, y))
+    sched = run_scheduler(svc, queue, clean)
+
+    # Phase 10: the materialized estimators on phase 5's samples.
+    mat = check_materialized(seen, card)
+    del seen
+    pc_max_err = max([pc_max_err] + [r["max_abs_err"] for r in mat])
+    pc_ms = float(np.mean([r["ms"] for r in mat]))
+    pc_plain = float(np.mean([r["plain_ms"] for r in mat]))
+    pc_bound_ms = float(np.mean([r["bound_ms"] for r in mat]))
+    log(f"[time] pairwise_cheb, one launch at the materialized chunk "
+        f"(B={mat[0]['chunk']}, P={mat[0]['P']}), mean over {len(mat)} main-path "
+        f"sample sets: {pc_ms:.4f} ms, plain {pc_plain:.4f} ms, bound "
+        f"{pc_bound_ms:.4f} ms (bytes); card {card}")
+
     record = {
         "card": card, "torch": torch.__version__, "nvcc": nvcc,
-        "build_s": built.seconds, "C": len(index), "Q": Q,
+        "build_s": built.seconds, "build_pairwise_cheb_s": pc_built.seconds,
+        "build_wall_s": t_build, "C": len(index), "Q": Q,
         "min_join": MIN_JOIN, "top_k": TOP_K, "ingest_s": t_ingest, "flush_s": t_flush,
         "query_many_cold_s": t_cold, "query_many_warm_s": t_warm,
         "query_many_warm_continuous_s": warm_c,
         "query_many_warm_discrete_s": warm_d,
         "launches_cold": launches_cold, "launches_warm": launches - launches_cold,
         "profile_warm_continuous": prof_c,
-        "radius_counts": rc, "total_s": time.perf_counter() - t_start,
+        "radius_counts": rc, "submit": submit, "submit_safe": safe,
+        "scheduler": sched, "materialized": mat,
+        "total_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"record": record}))
     print(json.dumps({"kernels": [{
@@ -546,6 +962,18 @@ def main() -> int:
         "plain_ms": rc_plain,
         "bound_ms": rc_bound_ms,
         "bound_by": rc_by,
+        "library_ms": None,
+    }, {
+        "name": "pairwise_cheb",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/pairwise_cheb/csrc/pairwise_cheb.cu",
+        "replaces": "src/repro/kernels/pairwise_cheb/kernel.py:59",
+        "launches": safe["launches"]["pairwise_cheb"],
+        "max_abs_err": pc_max_err,
+        "ms": pc_ms,
+        "plain_ms": pc_plain,
+        "bound_ms": pc_bound_ms,
+        "bound_by": "bytes",
         "library_ms": None,
     }]}))
     print(card)

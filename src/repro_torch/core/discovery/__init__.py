@@ -1,11 +1,19 @@
-"""MI-based data discovery engine (PyTorch port), three layers:
+"""MI-based data discovery engine (PyTorch port): storage, layout and
+compute layers, and the serving front end on top:
 
   * :mod:`.index` — storage: :class:`SketchIndex`, candidate sketches in
     preallocated device tensors with incremental in-place ingest;
   * :mod:`.planner` — layout: :class:`QueryPlan`, estimator groups,
-    pow-2 bucket ladders, shortlists;
+    pow-2 bucket ladders, shortlists, the service's signatures,
+    coalescing and :class:`PlanCache`;
   * :mod:`.executors` — compute: partitioned and batched executors, and
-    the fused two-phase pipeline (prefilter, compaction, gather, score).
+    the fused two-phase pipeline (prefilter, compaction, gather, score);
+  * :mod:`.service` — :class:`DiscoveryService` (``submit``,
+    ``submit_safe``, ``submit_async``): admission control, the
+    retry/fallback ladder, the non-finite fence;
+  * :mod:`.resilience` — validation, outcomes, retry policy, fences and
+    the fault-injection harness;
+  * :mod:`.scheduler` — the micro-batch tier behind ``submit_async``.
 """
 
 from repro_torch.core.discovery.executors import (
@@ -13,42 +21,97 @@ from repro_torch.core.discovery.executors import (
     Executor,
     PartitionedLocalExecutor,
     stack_trains_host,
+    stage_trains_host,
+    upload_trains,
 )
 from repro_torch.core.discovery.index import CandidateMeta, SketchIndex
 from repro_torch.core.discovery.planner import (
+    MAX_Q_BUCKET,
     MIN_SHORTLIST,
+    CoalescedBucket,
     FusedSpec,
     GroupPlan,
+    PlanCache,
     QueryPlan,
+    ServicePlan,
     Shortlist,
     ShortlistHints,
     ShortlistOverflow,
     bucket_rows,
     bucket_shortlist,
     build_shortlists,
+    coalesce_queries,
     estimator_id,
     fused_shortlist_spec,
     partition_by_estimator,
+    plan_signature,
+    shortlist_signature,
 )
+from repro_torch.core.discovery.resilience import (
+    FAULT_SITES,
+    FaultPlan,
+    InjectedFault,
+    QueryOutcome,
+    RetryPolicy,
+    fence_nonfinite,
+    inject_faults,
+    maybe_fault,
+    reference_score_pairs,
+    validate_query,
+)
+from repro_torch.core.discovery.scheduler import (
+    PRIORITIES,
+    MicroBatchScheduler,
+    QueryHandle,
+    SchedulerBackpressure,
+    SchedulerStats,
+)
+from repro_torch.core.discovery.service import AdmissionStats, DiscoveryService
 
 __all__ = [
     "CandidateMeta",
     "SketchIndex",
+    "DiscoveryService",
+    "AdmissionStats",
+    "MicroBatchScheduler",
+    "QueryHandle",
+    "SchedulerBackpressure",
+    "SchedulerStats",
+    "PRIORITIES",
+    "CoalescedBucket",
+    "coalesce_queries",
     "QueryPlan",
     "GroupPlan",
+    "ServicePlan",
+    "PlanCache",
     "Shortlist",
     "ShortlistHints",
     "ShortlistOverflow",
     "FusedSpec",
     "build_shortlists",
     "fused_shortlist_spec",
+    "shortlist_signature",
     "partition_by_estimator",
     "estimator_id",
+    "plan_signature",
     "bucket_rows",
     "bucket_shortlist",
+    "MAX_Q_BUCKET",
     "MIN_SHORTLIST",
     "Executor",
     "PartitionedLocalExecutor",
     "BatchedExecutor",
     "stack_trains_host",
+    "stage_trains_host",
+    "upload_trains",
+    "FAULT_SITES",
+    "FaultPlan",
+    "InjectedFault",
+    "QueryOutcome",
+    "RetryPolicy",
+    "fence_nonfinite",
+    "inject_faults",
+    "maybe_fault",
+    "reference_score_pairs",
+    "validate_query",
 ]

@@ -16,6 +16,13 @@ returns pending handles whose ``collect`` is the first host sync, as
 in the reference.
 
 The estimator-id -> estimator mapping lives in :func:`_estimate` only.
+
+Fault-injection sites (:func:`~repro_torch.core.discovery.resilience.maybe_fault`)
+sit where the reference has them: ``staging`` and ``stack_h2d`` in the
+two halves of the train upload, ``dispatch`` / ``prefilter_dispatch`` /
+``shortlist_dispatch`` / ``fused_dispatch`` at the batched executor's
+entry points, and ``collect`` at each pending handle's first host sync.
+The partitioned executor, the service's reference rung, has none.
 """
 
 from __future__ import annotations
@@ -31,10 +38,14 @@ from repro_torch.core.discovery.planner import (
     QueryPlan,
     ShortlistOverflow,
 )
+from repro_torch.core.discovery.resilience import maybe_fault
 from repro_torch.core.join import presorted_join_size, sketch_join_presorted
 
 __all__ = [
     "stack_trains_host",
+    "stage_trains_host",
+    "upload_trains",
+    "train_arrays",
     "Executor",
     "PartitionedLocalExecutor",
     "BatchedExecutor",
@@ -47,19 +58,20 @@ _TRAIN_FIELDS = ("keys", "vals_f", "vals_u", "mask")
 _JOIN_PROBES = 1 << 25
 
 
-def _estimate(est_id: int, xf, xu, y_f, y_u, mask, k: int):
+def _estimate(est_id: int, xf, xu, y_f, y_u, mask, k: int,
+              impl: str = "fused"):
     """One estimator over a batch of joined samples (B, P)."""
     if est_id == EST_MLE:
         return estimators.mle_mi(xu, y_u, mask)
     if est_id == EST_MIXED:
-        return estimators.mixed_ksg_mi(xf, y_f, mask, k=k)
+        return estimators.mixed_ksg_mi(xf, y_f, mask, k=k, impl=impl)
     if est_id == EST_DC_XD:  # discrete X (candidate feature), continuous Y
         return estimators.dc_ksg_mi(
-            estimators.dense_rank(xu, mask), y_f, mask, k=k
+            estimators.dense_rank(xu, mask), y_f, mask, k=k, impl=impl
         )
     # continuous X, discrete Y
     return estimators.dc_ksg_mi(
-        estimators.dense_rank(y_u, mask), xf, mask, k=k
+        estimators.dense_rank(y_u, mask), xf, mask, k=k, impl=impl
     )
 
 
@@ -178,6 +190,10 @@ class _PendingScores:
         self._q_live = q_live
 
     def collect(self):
+        maybe_fault("collect")
+        return self._scatter()
+
+    def _scatter(self):
         q = self._q_live
         mi_out = np.zeros((q, self._plan.n_candidates), np.float32)
         js_out = np.zeros((q, self._plan.n_candidates), np.int32)
@@ -197,6 +213,7 @@ class _PendingJoinSizes:
         self._q_live = q_live
 
     def collect(self):
+        maybe_fault("collect")
         return [(gp, _host(js[:self._q_live])) for gp, js in self._blocks]
 
 
@@ -220,6 +237,7 @@ class _PendingShortlist:
         self._q_live = q_live
 
     def collect(self):
+        maybe_fault("collect")
         q = self._q_live
         host = [(_host(mi[:q]), sl.gidx[:q], sl.js[:q])
                 for sl, mi in self._blocks]
@@ -265,15 +283,17 @@ class _PendingFused:
             raise ShortlistOverflow(
                 "fused shortlist compaction overflowed its staged bucket"
             )
+        # The overflow fence is part of the fused protocol, not a
+        # failure, so it is checked before the fault site.
+        maybe_fault("collect")
         host = [(_host(mi[:q]), _host(gidx[:q]), _host(jsz[:q]))
                 for _gp, _s, mi, gidx, jsz, _js, _c in self._blocks]
         return _triples(host, q)
 
 
-def stack_trains_host(sketches: list, device) -> dict:
-    """Stack Q train ``Sketch`` objects into one leading-Q dict on
-    ``device``, one host-to-device copy per field.  Keys and the uint32
-    value view travel as zero-extended int64."""
+def _stack_host(sketches: list) -> dict:
+    """Stack Q train sketches into host numpy arrays, (Q, n) per field;
+    keys and the uint32 value view as zero-extended int64."""
     if not sketches:
         raise ValueError("no train sketches")
     y_disc = {bool(sk.value_is_discrete) for sk in sketches}
@@ -283,14 +303,67 @@ def stack_trains_host(sketches: list, device) -> dict:
             "(got both discrete and continuous); split the batch"
         )
     views = [sk.value_views() for sk in sketches]
-    host = {
+    return {
         "keys": np.stack([sk.key_hashes for sk in sketches]).astype(np.int64),
         "vals_f": np.stack([vf for vf, _ in views]),
         "vals_u": np.stack([vu for _, vu in views]).astype(np.int64),
         "mask": np.stack([sk.mask for sk in sketches]),
+        "y_discrete": y_disc.pop(),
     }
-    out = {f: torch.from_numpy(a).to(device) for f, a in host.items()}
-    out["y_discrete"] = y_disc.pop()
+
+
+def stage_trains_host(sketches: list, device) -> dict:
+    """The host half of a bucket's train upload: the Q sketches stacked
+    into one host tensor per field, in pinned memory when ``device`` is
+    a card, so that :func:`upload_trains` can copy them asynchronously
+    (the scheduler stages window N+1 while window N scores)."""
+    maybe_fault("staging")
+    host = _stack_host(sketches)
+    pin = torch.device(device).type == "cuda"
+    out = {}
+    for f in _TRAIN_FIELDS:
+        t = torch.from_numpy(host[f])
+        out[f] = t.pin_memory() if pin else t
+    out["y_discrete"] = host["y_discrete"]
+    return out
+
+
+def upload_trains(staged: dict, device, stream=None) -> dict:
+    """The device half: one ``non_blocking`` host-to-device copy per
+    field.  With a side CUDA ``stream`` the copies run there (beside
+    whatever the current stream is computing); the current stream then
+    waits for them, and ``record_stream`` tells the allocator the
+    tensors are used on it."""
+    maybe_fault("stack_h2d")
+    if stream is None:
+        out = {f: staged[f].to(device, non_blocking=True)
+               for f in _TRAIN_FIELDS}
+    else:
+        current = torch.cuda.current_stream(device)
+        with torch.cuda.stream(stream):
+            out = {f: staged[f].to(device, non_blocking=True)
+                   for f in _TRAIN_FIELDS}
+        current.wait_stream(stream)
+        for t in out.values():
+            t.record_stream(current)
+    out["y_discrete"] = staged["y_discrete"]
+    return out
+
+
+def stack_trains_host(sketches: list, device) -> dict:
+    """Stack Q train ``Sketch`` objects into one leading-Q dict on
+    ``device``, one host-to-device copy per field: :func:`stage_trains_host`
+    then :func:`upload_trains`."""
+    return upload_trains(stage_trains_host(sketches, device), device)
+
+
+def train_arrays(sketches: list, device) -> dict:
+    """The same stacked dict as :func:`stack_trains_host`, without the
+    fault sites: the upload of the service's reference rung and of the
+    non-finite fence, which must not depend on the path they rescue."""
+    host = _stack_host(sketches)
+    out = {f: torch.from_numpy(host[f]).to(device) for f in _TRAIN_FIELDS}
+    out["y_discrete"] = host["y_discrete"]
     return out
 
 
@@ -331,7 +404,7 @@ class PartitionedLocalExecutor(Executor):
             ]
             blocks.append((gp, torch.cat([mi for mi, _ in per_q]),
                            torch.cat([js for _, js in per_q])))
-        return _PendingScores(plan, blocks, Q).collect()
+        return _PendingScores(plan, blocks, Q)._scatter()
 
 
 class BatchedExecutor(Executor):
@@ -351,6 +424,7 @@ class BatchedExecutor(Executor):
     def dispatch(self, plan, trains):
         """Enqueue every group's dense scoring; the handle's ``collect``
         is the first host sync."""
+        maybe_fault("dispatch", "batched")
         trains, Q = self._prepare(trains)
         blocks = [
             (gp, *_score_group(trains, gp.arrays, est_id=gp.est_id, k=self.k))
@@ -365,6 +439,7 @@ class BatchedExecutor(Executor):
 
     def prefilter_dispatch(self, plan, trains):
         """Phase 1: enqueue the join-size prefilter for every group."""
+        maybe_fault("prefilter_dispatch", "batched")
         trains, Q = self._prepare(trains)
         blocks = [
             (gp, _join_sizes(trains["keys"], trains["mask"],
@@ -375,6 +450,7 @@ class BatchedExecutor(Executor):
 
     def shortlist_dispatch(self, plan, trains, shortlists):
         """Phase 2: gather and score every non-empty host shortlist."""
+        maybe_fault("shortlist_dispatch", "batched")
         trains, Q = self._prepare(trains)
         blocks = []
         for sl in shortlists:
@@ -392,6 +468,7 @@ class BatchedExecutor(Executor):
         score are enqueued without a host sync.  The handle raises
         ``ShortlistOverflow`` at collect when a width in ``spec`` was
         too small."""
+        maybe_fault("fused_dispatch", "batched")
         trains, Q = self._prepare(trains)
         blocks = []
         for gp, s_bucket in zip(plan.groups, spec.s_buckets):

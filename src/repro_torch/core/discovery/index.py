@@ -16,9 +16,11 @@ device, with the host shortlist boundary as the overflow fallback.
 ``fused=False`` forces the host boundary (the staged path); all three
 give the same rankings.
 
-Not in this slice: the mesh executors (``mesh=``), the phase-0
-containment gate (``min_containment > 0``) and its signature tier, the
-fault-injection sites and the plan leases (see ROADMAP.md).
+The device flush carries the ``flush`` fault-injection site, fired
+before any store mutation.  Not in this slice: the mesh executors
+(``mesh=``), the phase-0 containment gate (``min_containment > 0``) and
+its signature tier, and the reference's plan leases, which the port does
+not need (see ``_DeviceStore.append_block``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from repro_torch.core.discovery.planner import (
     estimator_id,
     fused_shortlist_spec,
 )
+from repro_torch.core.discovery.resilience import maybe_fault
 from repro_torch.core.join import KEY_MAX
 from repro_torch.core.sketch import Sketch, build_sketch
 from repro_torch.device import resolve_device
@@ -129,11 +132,19 @@ class _DeviceStore:
         preallocated tensors, where the reference donates the store
         buffer to a ``dynamic_update_slice``.  Only the new rows cross
         the bus.  A plan built before the append still sees its own rows
-        unchanged; the new rows land in rows it holds as dead.
+        unchanged; the new rows land in rows it holds as dead, and the
+        copy is enqueued behind whatever that plan's work already
+        enqueued on the same stream.  A grow allocates new tensors while
+        the old plan keeps its own.  So, unlike the reference, no plan
+        needs a lease against a flush.
         """
         n_new = block["keys"].shape[0]
         if n_new == 0:
             return
+        # Fault-injection site: fires before any store mutation, so an
+        # injected flush failure leaves rows and tensors consistent and
+        # the next flush retries the same pending block.
+        maybe_fault("flush")
         self.ensure_rows(self.rows + n_new)
         r0 = self.rows
         for name, a in self.arrays.items():
@@ -280,6 +291,8 @@ class SketchIndex:
     # ------------------------------------------------------------------
 
     def _host_block(self, idx: list[int]) -> dict[str, np.ndarray]:
+        """Candidates ``idx`` in device-store form: effective keys (masked
+        slots fenced to KEY_MAX) and the uint32 value view, both int64."""
         masks = np.stack([self._masks[i] for i in idx]).astype(bool)
         keys = np.stack([self._keys[i] for i in idx]).astype(np.int64)
         return {
@@ -288,6 +301,11 @@ class SketchIndex:
             "vals_u": np.stack([self._vals_u[i] for i in idx]).astype(np.int64),
             "mask": masks,
         }
+
+    def _host_row(self, i: int) -> dict[str, np.ndarray]:
+        """Candidate ``i``'s host arrays in device-store form (keys kept
+        as int64, where the reference's ``_host_row`` gives uint32)."""
+        return {name: a[0] for name, a in self._host_block([i]).items()}
 
     def _flush_groups(self, y_discrete: bool) -> _GroupState:
         state = self._groups.setdefault(bool(y_discrete), _GroupState())
@@ -335,8 +353,9 @@ class SketchIndex:
         return plan
 
     def train_arrays(self, sk: Sketch) -> dict:
-        """Train-side sketch formatted for the scorers, on the device."""
-        return _ex.stack_trains_host([sk], self.device)
+        """Train-side sketch formatted for the scorers, on the device, as
+        a Q=1 stacked dict (no fault sites: see ``executors.train_arrays``)."""
+        return _ex.train_arrays([sk], self.device)
 
     # ------------------------------------------------------------------
     # Queries

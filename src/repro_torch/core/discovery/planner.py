@@ -11,6 +11,14 @@ host-side phase boundary, and :class:`ShortlistHints` /
 :func:`fused_shortlist_spec` choose the on-device compaction widths of
 the fused path before phase 1 runs, with :class:`ShortlistOverflow` as
 the fallback signal when a width guess was too small.
+
+For the service: :func:`plan_signature` / :func:`shortlist_signature`
+(what a batch's layout is keyed on), :func:`coalesce_queries` (split a
+queue by signature and chunk it at ``max_q_bucket``), and
+:class:`PlanCache` / :class:`ServicePlan`.  The reference pads each
+chunk up a pow-2 Q ladder to bound its compiled programs; eager PyTorch
+compiles nothing, so the port chunks Q but never pads it, and a
+bucket's ``q_bucket`` is its chunk size.
 """
 
 from __future__ import annotations
@@ -39,6 +47,13 @@ __all__ = [
     "FusedSpec",
     "fused_shortlist_spec",
     "build_shortlists",
+    "MAX_Q_BUCKET",
+    "plan_signature",
+    "shortlist_signature",
+    "CoalescedBucket",
+    "coalesce_queries",
+    "ServicePlan",
+    "PlanCache",
 ]
 
 # Estimator ids (stable across the repo and equal to the reference's).
@@ -49,6 +64,10 @@ MIN_BUCKET = 8
 
 # Smallest bucket on the shortlist-size ladder.
 MIN_SHORTLIST = 8
+
+# Most queries an admission controller hands to one executor pass; larger
+# queues are chunked, which bounds the device memory one burst can pin.
+MAX_Q_BUCKET = 64
 
 
 def estimator_id(x_discrete: bool, y_discrete: bool) -> int:
@@ -230,3 +249,146 @@ def fused_shortlist_spec(
         rung = bucket_shortlist(hints.get(key))
         s_buckets.append(min(rung, bucket_rows(gp.bucket)))
     return FusedSpec(tuple(s_buckets))
+
+
+def plan_signature(plan: QueryPlan) -> tuple:
+    """Estimator signature of a plan: the target dtype, then (est_id,
+    bucket) per group.  The service batches queries by signature."""
+    return (bool(plan.y_discrete),) + tuple(
+        (gp.est_id, gp.bucket) for gp in plan.groups
+    )
+
+
+def shortlist_signature(shortlists: list) -> tuple:
+    """Layout signature of a phase-2 pass: ((est_id, s_bucket), ...) over
+    the non-empty groups; extends the plan-cache key of a two-phase
+    batch."""
+    return tuple(
+        (sl.group.est_id, sl.s_bucket)
+        for sl in shortlists if sl is not None
+    )
+
+
+@dataclass(frozen=True)
+class CoalescedBucket:
+    """One dispatchable bucket produced by :func:`coalesce_queries`:
+    queries from (possibly) many callers that share an estimator
+    signature.  ``chunk`` holds caller-supplied query ids in
+    priority-then-arrival order; ``priority`` is the best (lowest)
+    priority rank present; ``q_bucket`` is the chunk's size (Q is not
+    padded in the port)."""
+
+    signature: tuple
+    chunk: tuple
+    priority: int
+    q_bucket: int
+
+
+def coalesce_queries(entries, cap: int = MAX_Q_BUCKET) -> list[CoalescedBucket]:
+    """Pack ``(query_id, signature, priority)`` entries into buckets of at
+    most ``cap`` queries — the coalescing core of both the service's
+    admission (one caller, priority 0 throughout) and the micro-batch
+    scheduler (many callers, interactive before batch).
+
+    Grouping is by signature in first-seen order; within a group,
+    members sort by (priority, arrival), so interactive queries fill the
+    earlier chunks when a group overflows ``cap``.  Buckets are stably
+    ordered by priority, so equal-priority traffic dispatches in arrival
+    order.
+    """
+    if cap < 1:
+        raise ValueError(f"bucket cap must be >= 1, got {cap}")
+    groups: dict[tuple, list] = {}
+    for seq, (qid, sig, pr) in enumerate(entries):
+        groups.setdefault(sig, []).append((int(pr), seq, qid))
+    buckets: list[CoalescedBucket] = []
+    for sig, members in groups.items():
+        members.sort(key=lambda t: (t[0], t[1]))
+        for lo in range(0, len(members), cap):
+            part = members[lo:lo + cap]
+            buckets.append(CoalescedBucket(
+                signature=sig,
+                chunk=tuple(qid for _, _, qid in part),
+                priority=min(pr for pr, _, _ in part),
+                q_bucket=len(part),
+            ))
+    buckets.sort(key=lambda b: b.priority)  # stable: arrival order kept
+    return buckets
+
+
+@dataclass(frozen=True)
+class ServicePlan:
+    """One admitted batch layout: a corpus plan, its Q (chunk size) and
+    signature, and for two-phase batches the shortlist signature."""
+
+    plan: QueryPlan
+    q_bucket: int
+    signature: tuple
+    s_key: tuple | None = None
+
+
+class PlanCache:
+    """Admission-control plan cache keyed on (corpus version, target
+    dtype, Q[, shortlist signature]), insertion-order LRU.
+
+    It counts hits and misses so tests and ``DiscoveryService.stats()``
+    can show that steady-state traffic replans nothing; ``coalesced``
+    lookups (cross-caller micro-batches) share entries with solo traffic
+    and are counted apart.  A failed build caches nothing and is counted
+    under ``build_failures``, not as a miss.
+    """
+
+    def __init__(self, max_entries: int = 32):
+        self.max_entries = max_entries
+        self._entries: dict[tuple, ServicePlan] = {}
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.build_failures = 0
+        self.coalesced_hits = 0
+        self.coalesced_misses = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def lookup(
+        self, version: int, y_discrete: bool, q_bucket: int,
+        build, s_key: tuple | None = None, coalesced: bool = False,
+    ) -> ServicePlan:
+        """Cached ServicePlan for the key, building via ``build()`` — a
+        zero-argument callable returning the current QueryPlan — on a
+        miss."""
+        key = (int(version), bool(y_discrete), int(q_bucket), s_key)
+        hit = self._entries.pop(key, None)
+        if hit is not None:
+            self.hits += 1
+            if coalesced:
+                self.coalesced_hits += 1
+            self._entries[key] = hit  # re-insert: LRU touch
+            return hit
+        try:
+            plan = build()
+        except Exception:
+            self.build_failures += 1
+            raise
+        self.misses += 1
+        if coalesced:
+            self.coalesced_misses += 1
+        sp = ServicePlan(plan, int(q_bucket), plan_signature(plan), s_key)
+        while len(self._entries) >= self.max_entries:
+            self._entries.pop(next(iter(self._entries)))
+            self.evictions += 1
+        self._entries[key] = sp
+        return sp
+
+    @property
+    def stats(self) -> dict:
+        return {
+            "entries": len(self._entries),
+            "hits": self.hits,
+            "misses": self.misses,
+            "evictions": self.evictions,
+            "build_failures": self.build_failures,
+            "coalesced_hits": self.coalesced_hits,
+            "coalesced_misses": self.coalesced_misses,
+        }

@@ -1,0 +1,745 @@
+"""Admission-controlled discovery service: the serving front end
+(PyTorch port of ``repro.core.discovery.service``).
+
+:class:`DiscoveryService` sits between "a list of user queries" and the
+well-shaped batches the executors answer fast.  A real queue is mixed
+(discrete and continuous targets interleaved), bursty and concurrent
+with ingest; ``submit`` runs admission control over it:
+
+  1. **Split** — queries are partitioned by target dtype, and so by
+     estimator signature (:func:`~.planner.plan_signature`), so every
+     admitted bucket is homogeneous.
+  2. **Chunk** — each signature's queries are cut into buckets of at
+     most ``max_q_bucket`` (:func:`~.planner.coalesce_queries`).  The
+     reference also pads each bucket up a pow-2 Q ladder to bound its
+     compiled programs; eager PyTorch compiles nothing, so the port does
+     not pad (``padded_lanes`` stays 0, ``q_buckets`` records the chunk
+     sizes).
+  3. **Schedule** — every bucket is dispatched before any result is
+     transferred (the executors' ``dispatch`` / ``collect`` split).
+
+Results come back in arrival order and equal looping
+:meth:`SketchIndex.query` over the same queue.  With ``min_join`` > 0
+each bucket runs two-phase retrieval, by default as one fused device
+pipeline whose only host sync is its collect (``host_syncs``,
+``fused_windows``); a compaction overflow falls back to the host
+shortlist boundary for that bucket.
+
+**Fault isolation** (``resilience.py``): ``submit_safe`` returns
+``(results, outcomes)``.  Invalid sketches are quarantined at admission;
+a bucket whose dispatch or collect raises is retried under the
+service's :class:`~.resilience.RetryPolicy`, then served by the
+reference per-query loop; non-finite MI lanes are recomputed through
+the materialized estimators (the ``pairwise_cheb`` kernel on the card).
+Arrival counters commit at admission; delivery counters are staged per
+bucket and committed only after its collect.
+
+Not in this slice: ``mesh=`` (the distributed rung) and
+``min_containment > 0`` (the phase-0 gate) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from repro_torch.core.discovery import executors as _ex
+from repro_torch.core.discovery import resilience
+from repro_torch.core.discovery.index import _GATE_SLICE, _MESH_SLICE, SketchIndex
+from repro_torch.core.discovery.planner import (
+    MAX_Q_BUCKET,
+    PlanCache,
+    ShortlistOverflow,
+    build_shortlists,
+    coalesce_queries,
+    fused_shortlist_spec,
+    plan_signature,
+    shortlist_signature,
+)
+from repro_torch.core.discovery.resilience import QueryOutcome, RetryPolicy
+from repro_torch.core.sketch import Sketch
+
+__all__ = ["AdmissionStats", "DiscoveryService"]
+
+
+@dataclass
+class AdmissionStats:
+    """What admission control did to the traffic so far.
+
+    Arrival counters commit when a submit is admitted; delivery counters
+    (``batches`` onwards) only after the owning bucket's results were
+    collected.  The reference's phase-0 counters arrive with the gate.
+    """
+
+    submitted: int = 0       # queries accepted across all submit() calls
+    submits: int = 0         # submit() calls
+    quarantined: int = 0     # queries rejected at admission validation
+    batches: int = 0         # buckets that delivered
+    split_batches: int = 0   # extra chunks forced by the max_q_bucket cap
+    padded_lanes: int = 0    # dead query lanes (0: the port never pads Q)
+    prefiltered: int = 0     # queries served via two-phase retrieval
+    cands_considered: int = 0   # (query, candidate) pairs seen by phase 1
+    cands_shortlisted: int = 0  # pairs that reached phase-2 scoring
+    fused_windows: int = 0   # buckets delivered by the fused device path
+    host_syncs: int = 0      # device->host syncs paid by delivered buckets
+    #                          (fused/dense: 1; host-boundary two-phase: 2;
+    #                          fused overflow fallback: 3)
+    failed_buckets: int = 0  # buckets whose primary executor pass raised
+    retries: int = 0         # same-rung re-attempts across all buckets
+    fallbacks: int = 0       # executor-ladder descents across all buckets
+    nonfinite_lanes: int = 0  # score lanes fenced to the reference path
+    lost_queries: int = 0    # queries whose bucket exhausted the ladder
+    signatures: set = field(default_factory=set)
+    q_buckets: set = field(default_factory=set)
+    s_buckets: set = field(default_factory=set)
+
+    def as_dict(self) -> dict:
+        return {
+            "submitted": self.submitted,
+            "submits": self.submits,
+            "quarantined": self.quarantined,
+            "batches": self.batches,
+            "split_batches": self.split_batches,
+            "padded_lanes": self.padded_lanes,
+            "prefiltered": self.prefiltered,
+            "cands_considered": self.cands_considered,
+            "cands_shortlisted": self.cands_shortlisted,
+            "fused_windows": self.fused_windows,
+            "host_syncs": self.host_syncs,
+            "cands_filtered_out":
+                self.cands_considered - self.cands_shortlisted,
+            "failed_buckets": self.failed_buckets,
+            "retries": self.retries,
+            "fallbacks": self.fallbacks,
+            "nonfinite_lanes": self.nonfinite_lanes,
+            "lost_queries": self.lost_queries,
+            "signatures": len(self.signatures),
+            "q_buckets": sorted(self.q_buckets),
+            "s_buckets": sorted(self.s_buckets),
+        }
+
+
+class _BucketJob:
+    """One admitted bucket moving through dispatch -> collect, carrying
+    its staged stat deltas (committed only after a successful collect)
+    and its recovery bookkeeping."""
+
+    __slots__ = (
+        "chunk", "y_disc", "q_bucket", "sp", "sketches", "trains",
+        "pend1", "handle", "rung", "retries", "fallbacks", "error",
+        "staged",
+    )
+
+    def __init__(self, chunk: list[int], y_disc: bool, sketches: list):
+        self.chunk = chunk
+        self.y_disc = y_disc
+        self.q_bucket = len(chunk)
+        self.sp = None
+        self.sketches = sketches
+        self.trains = None
+        self.pend1 = None
+        self.handle = None
+        self.rung = None
+        self.retries = 0
+        self.fallbacks = 0
+        self.error = None
+        self.staged: dict = {}
+
+
+class _Window:
+    """One dispatched-but-uncollected admission window.
+
+    Everything ranking needs is captured at dispatch — the corpus size
+    and version the work was planned against, the serving options — so
+    :meth:`DiscoveryService._window_collect` can run later (after other
+    windows dispatched, after an ingest landed) and still give the
+    results of a synchronous submit.
+    """
+
+    __slots__ = (
+        "queries", "jobs", "results", "outcomes", "C", "version",
+        "top_k", "min_join", "rank", "isolate", "use_pref",
+    )
+
+    def __init__(self, queries: list, isolate: bool):
+        self.queries = queries
+        self.jobs: list[_BucketJob] = []
+        self.results: list = [None] * len(queries)
+        self.outcomes: list = [None] * len(queries)
+        self.C = 0
+        self.version = 0
+        self.top_k = 0
+        self.min_join = 0
+        self.rank = "mi"
+        self.isolate = isolate
+        self.use_pref = False
+
+
+def _check_options(rank: str, min_containment: float) -> None:
+    if rank not in ("mi", "hybrid"):
+        raise ValueError(f"rank must be 'mi' or 'hybrid', got {rank!r}")
+    if float(min_containment) > 0.0:
+        raise NotImplementedError(_GATE_SLICE)
+
+
+class DiscoveryService:
+    """Serving surface: live ingest + concurrent mixed queries.
+
+    ``add`` / ``add_table`` ingest candidate columns; ``submit`` answers
+    a queue of train sketches (``submit_safe`` behind quarantine, the
+    retry/fallback ladder and the numeric fence; ``submit_async``
+    through the micro-batch scheduler).  One service owns one
+    :class:`SketchIndex` (pass ``index=`` to wrap an existing corpus,
+    e.g. ``SketchIndex(device="cpu")`` for a CPU run; otherwise one is
+    made on the card).
+    """
+
+    def __init__(
+        self,
+        index: SketchIndex | None = None,
+        *,
+        n: int = 256,
+        method: str = "tupsk",
+        agg: str = "first",
+        k: int = 3,
+        mesh=None,
+        max_q_bucket: int = MAX_Q_BUCKET,
+        plan_cache_size: int = 32,
+        retry_policy: RetryPolicy | None = None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(_MESH_SLICE)
+        max_q_bucket = int(max_q_bucket)
+        if max_q_bucket < 1:
+            raise ValueError(f"max_q_bucket must be >= 1, got {max_q_bucket}")
+        self.index = index if index is not None else SketchIndex(
+            n=n, method=method, agg=agg
+        )
+        self.k = k
+        self.max_q_bucket = max_q_bucket
+        self.plan_cache = PlanCache(plan_cache_size)
+        self.admission = AdmissionStats()
+        self.retry_policy = retry_policy if retry_policy is not None \
+            else RetryPolicy()
+        self._batched = _ex.BatchedExecutor(k=k)
+        # The micro-batch scheduler is attached on the first
+        # submit_async; the lock makes racing first callers share one.
+        self._scheduler = None
+        self._scheduler_lock = threading.Lock()
+
+    # ------------------------------------------------------------------
+    # Ingest (delegates to the index; flushes ride the next submit)
+    # ------------------------------------------------------------------
+
+    def add(self, *args, **kwargs) -> None:
+        """Ingest one candidate column (see :meth:`SketchIndex.add`)."""
+        self.index.add(*args, **kwargs)
+
+    def add_table(self, table, key_column: str) -> None:
+        """Ingest every (key, value) pair of a table, atomically (see
+        :meth:`SketchIndex.add_table`)."""
+        self.index.add_table(table, key_column)
+
+    def __len__(self) -> int:
+        return len(self.index)
+
+    # ------------------------------------------------------------------
+    # Serving
+    # ------------------------------------------------------------------
+
+    def submit(
+        self,
+        queries: list[Sketch],
+        *,
+        top_k: int = 10,
+        min_join: int = 8,
+        prefilter: bool | None = None,
+        fused: bool | None = None,
+        min_containment: float = 0.0,
+        rank: str = "mi",
+    ) -> list[list]:
+        """Answer a mixed, arbitrarily sized queue of discovery queries:
+        one ranked result list per query, in arrival order, each equal
+        to ``index.query(sk, top_k=..., min_join=..., k=self.k)``.
+
+        ``prefilter`` (default on when ``min_join`` > 0) runs two-phase
+        retrieval; ``fused`` (default on with the prefilter) runs both
+        phases as one device pipeline per bucket.  ``rank="hybrid"``
+        re-weights each score by exact containment (mi x join_size /
+        train_size) before ranking.  The first bucket failure is counted
+        (``failed_buckets``) and re-raised; use :meth:`submit_safe` for
+        isolation.
+        """
+        results, _ = self._submit(
+            list(queries), top_k=top_k, min_join=min_join,
+            prefilter=prefilter, fused=fused, isolate=False,
+            min_containment=min_containment, rank=rank,
+        )
+        return results
+
+    def submit_safe(
+        self,
+        queries: list[Sketch],
+        *,
+        top_k: int = 10,
+        min_join: int = 8,
+        prefilter: bool | None = None,
+        fused: bool | None = None,
+        min_containment: float = 0.0,
+        rank: str = "mi",
+    ) -> tuple[list, list]:
+        """Fault-isolated :meth:`submit`: ``(results, outcomes)``, one
+        :class:`~.resilience.QueryOutcome` per query.  Invalid sketches
+        are quarantined (result None); a failing bucket retries, then
+        descends to the reference rung; non-finite MI lanes are
+        recomputed through the materialized estimators and counted
+        (``nonfinite_lanes``)."""
+        return self._submit(
+            list(queries), top_k=top_k, min_join=min_join,
+            prefilter=prefilter, fused=fused, isolate=True,
+            min_containment=min_containment, rank=rank,
+        )
+
+    # ------------------------------------------------------------------
+    # Async serving tier (micro-batch scheduler)
+    # ------------------------------------------------------------------
+
+    def scheduler(self, **kwargs):
+        """The service's micro-batch scheduler, created (and started) on
+        first use.  ``kwargs`` configure the first creation
+        (``window_ms``, ``max_depth``, ``pipeline_depth``, ``start``);
+        passing them after the scheduler exists is an error."""
+        if self._scheduler is None:
+            from repro_torch.core.discovery.scheduler import MicroBatchScheduler
+            with self._scheduler_lock:
+                if self._scheduler is None:
+                    self._scheduler = MicroBatchScheduler(self, **kwargs)
+                    return self._scheduler
+        if kwargs:
+            raise ValueError(
+                "scheduler already attached; its configuration is fixed "
+                f"at creation (got {sorted(kwargs)})"
+            )
+        return self._scheduler
+
+    def submit_async(
+        self,
+        queries,
+        *,
+        priority: str = "interactive",
+        top_k: int = 10,
+        min_join: int = 8,
+        prefilter: bool | None = None,
+        fused: bool | None = None,
+        min_containment: float = 0.0,
+        rank: str = "mi",
+    ):
+        """Future-style :meth:`submit_safe` through the micro-batch tier:
+        one :class:`~.scheduler.QueryHandle` per query (a single handle
+        for a single sketch), resolving to the ranked results and a
+        :class:`~.resilience.QueryOutcome`.  Queries of different
+        callers arriving within the scheduler's window share buckets;
+        ``priority`` is ``"interactive"`` (dispatched first) or
+        ``"batch"``; a full queue raises
+        :class:`~.scheduler.SchedulerBackpressure`."""
+        return self.scheduler().submit_async(
+            queries, priority=priority, top_k=top_k, min_join=min_join,
+            prefilter=prefilter, fused=fused,
+            min_containment=min_containment, rank=rank,
+        )
+
+    def close(self) -> None:
+        """Drain and stop the attached scheduler, if any (idempotent;
+        the synchronous surfaces keep working after close)."""
+        if self._scheduler is not None:
+            self._scheduler.close()
+            self._scheduler = None
+
+    def _submit(self, queries: list, **kw) -> tuple[list, list]:
+        window = self._window_dispatch(queries, **kw)
+        if window is None:
+            return [], []
+        return self._window_collect(window)
+
+    def _upload(self, sketches: list, copy_stream):
+        dev = self.index.device
+        return _ex.upload_trains(_ex.stage_trains_host(sketches, dev), dev,
+                                 stream=copy_stream)
+
+    def _window_dispatch(
+        self, queries: list, *, top_k: int, min_join: int,
+        prefilter: bool | None, isolate: bool, fused: bool | None = None,
+        min_containment: float = 0.0, rank: str = "mi",
+        priorities: list[int] | None = None, coalesced: bool = False,
+        copy_stream=None,
+    ) -> "_Window | None":
+        """Admission + dispatch half of a submit: validate, split by
+        signature, chunk, and enqueue every bucket's device work (the
+        host-boundary two-phase path also syncs phase 1 here).  Returns
+        an in-flight :class:`_Window` (None for an empty queue).
+
+        ``priorities`` (one rank per query, lower = sooner) orders the
+        scheduler's coalesced buckets; ``coalesced`` marks plan-cache
+        traffic as cross-caller; ``copy_stream`` is the scheduler's side
+        CUDA stream for the train uploads.
+        """
+        _check_options(rank, min_containment)
+        if not queries:
+            return None
+        st = self.admission
+        st.submits += 1
+        win = _Window(list(queries), isolate)
+        outcomes = win.outcomes
+
+        # 0. admission validation (isolate mode only: the legacy surface
+        # keeps its raise-from-the-depths behaviour for invalid inputs).
+        admitted: list[int] = []
+        for qi, sk in enumerate(queries):
+            if isolate:
+                bad = resilience.validate_query(sk, self.index)
+                if bad is not None:
+                    code, detail = bad
+                    outcomes[qi] = QueryOutcome(
+                        qi, "quarantined", error=code, detail=detail
+                    )
+                    st.quarantined += 1
+                    continue
+            admitted.append(qi)
+        st.submitted += len(admitted)
+        if not admitted:
+            return win
+
+        C = win.C = len(self.index)
+        version = win.version = self.index._version
+        use_pref = self.index._use_prefilter(prefilter, min_join)
+        use_fused = use_pref and (True if fused is None else bool(fused))
+        win.top_k, win.min_join, win.rank = top_k, min_join, rank
+        win.use_pref = use_pref
+
+        # 1. split the queue by target dtype -> estimator signature and
+        # chunk it (nothing flushes mid-dispatch, so one plan per dtype).
+        entries: list[tuple] = []
+        try:
+            sigs: dict[bool, tuple] = {}
+            for qi in admitted:
+                y_disc = bool(queries[qi].value_is_discrete)
+                if y_disc not in sigs:
+                    sigs[y_disc] = plan_signature(self.index.plan(y_disc))
+                entries.append((
+                    qi, sigs[y_disc],
+                    0 if priorities is None else int(priorities[qi]),
+                ))
+        except Exception as e:  # noqa: BLE001 — isolate into outcomes
+            if not isolate:
+                raise
+            # Planning failed for the whole queue (e.g. empty index):
+            # there is no per-bucket ladder to descend yet.
+            for qi in admitted:
+                outcomes[qi] = QueryOutcome(
+                    qi, "failed", error="plan_failed", detail=repr(e)
+                )
+            st.lost_queries += len(admitted)
+            return win
+
+        buckets = coalesce_queries(entries, self.max_q_bucket)
+        per_sig: dict[tuple, int] = {}
+        for b in buckets:
+            per_sig[b.signature] = per_sig.get(b.signature, 0) + 1
+        for sig, n_chunks in per_sig.items():
+            st.signatures.add(sig)
+            st.split_batches += n_chunks - 1
+        jobs = win.jobs = [
+            _BucketJob(list(b.chunk), b.signature[0],
+                       [queries[i] for i in b.chunk])
+            for b in buckets
+        ]
+
+        # 2. dispatch every bucket before any collect.  With the
+        # prefilter on and fused off, "dispatch" is phase 1 only.
+        for job in jobs:
+            job.rung = "batched"
+            try:
+                job.sp = self.plan_cache.lookup(
+                    version, job.y_disc, job.q_bucket,
+                    lambda y=job.y_disc: self.index.plan(y),
+                    coalesced=coalesced,
+                )
+                job.staged = {
+                    "batches": 1,
+                    "q_buckets": {job.q_bucket},
+                    "host_syncs": 1,
+                }
+                job.trains = self._upload(job.sketches, copy_stream)
+                if use_fused:
+                    job.handle = self._fused_dispatch(job, min_join, C, version)
+                elif use_pref:
+                    job.pend1 = self._batched.prefilter_dispatch(
+                        job.sp.plan, job.trains
+                    )
+                else:
+                    job.handle = self._batched.dispatch(job.sp.plan, job.trains)
+            except Exception as e:  # noqa: BLE001 — bucket-isolated
+                job.error = e
+                if not isolate:
+                    st.failed_buckets += 1
+                    raise
+
+        # 2b. host-boundary two-phase buckets only: collect join sizes,
+        # build shortlists and dispatch phase 2 for every bucket before
+        # any phase-2 collect.
+        if use_pref and not use_fused:
+            for job in jobs:
+                if job.error is not None:
+                    continue
+                try:
+                    job.handle = self._shortlist_phase(job, min_join, C, version)
+                except Exception as e:  # noqa: BLE001
+                    job.error = e
+                    if not isolate:
+                        st.failed_buckets += 1
+                        raise
+        return win
+
+    def _window_collect(self, win: "_Window") -> tuple[list, list]:
+        """Collect half of a submit: sync each bucket's results, fence,
+        rank against the corpus size the window dispatched with, scatter
+        to arrival order, and run the recovery ladder for failed
+        buckets."""
+        st = self.admission
+        queries, results, outcomes = win.queries, win.results, win.outcomes
+        C, version = win.C, win.version
+        top_k, min_join, rank, isolate = (win.top_k, win.min_join, win.rank,
+                                          win.isolate)
+        for job in win.jobs:
+            if job.error is not None:
+                continue
+            try:
+                triples = self._collect_triples(job, C, min_join, version)
+            except Exception as e:  # noqa: BLE001
+                job.error = e
+                if not isolate:
+                    st.failed_buckets += 1
+                    raise
+                continue
+            self._finish(job, triples, queries, results, outcomes,
+                         top_k, min_join, isolate, rank=rank, C=C)
+        for job in win.jobs:
+            if job.error is not None:
+                st.failed_buckets += 1
+                self._recover(job, queries, results, outcomes, top_k,
+                              min_join, win.use_pref, C, version, rank=rank)
+        return results, outcomes
+
+    def _shortlist_phase(self, job: _BucketJob, min_join: int, C: int,
+                         version: int):
+        """Collect a bucket's phase-1 join sizes, build its shortlists,
+        stage the prefilter stat deltas, and dispatch phase 2."""
+        pend1 = job.pend1
+        # A fused handle that overflowed replays its own phase-1 join
+        # sizes (already on the device) instead of recomputing them.
+        js = pend1.js_blocks() if hasattr(pend1, "js_blocks") \
+            else pend1.collect()
+        job.staged["host_syncs"] = job.staged.get("host_syncs", 1) + 1
+        shortlists = build_shortlists(job.sp.plan, js, min_join)
+        s_key = shortlist_signature(shortlists)
+        self.plan_cache.lookup(
+            version, job.y_disc, job.q_bucket,
+            lambda p=job.sp.plan: p, s_key=s_key,
+        )
+        job.staged["prefiltered"] = len(job.chunk)
+        job.staged["cands_considered"] = len(job.chunk) * C
+        job.staged["cands_shortlisted"] = sum(
+            sl.shortlisted for sl in shortlists if sl is not None
+        )
+        job.staged["s_buckets"] = {b for _, b in s_key}
+        return self._batched.shortlist_dispatch(
+            job.sp.plan, job.trains, shortlists
+        )
+
+    def _fused_dispatch(self, job: _BucketJob, min_join: int, C: int,
+                        version: int):
+        """Enqueue a bucket's whole fused two-phase pipeline; the
+        compaction widths come from the index's adaptive hints."""
+        plan = job.sp.plan
+        spec = fused_shortlist_spec(plan, self.index.shortlist_hints, min_join)
+        s_key = tuple(("fused", gp.est_id, s)
+                      for gp, s in zip(plan.groups, spec.s_buckets))
+        self.plan_cache.lookup(
+            version, job.y_disc, job.q_bucket, lambda p=plan: p, s_key=s_key,
+        )
+        job.staged["prefiltered"] = len(job.chunk)
+        job.staged["cands_considered"] = len(job.chunk) * C
+        job.staged["s_buckets"] = set(spec.s_buckets)
+        job.staged["fused_windows"] = 1
+        return self._batched.fused_dispatch(plan, job.trains, spec, min_join)
+
+    def _collect_triples(self, job: _BucketJob, C: int, min_join: int,
+                         version: int) -> list:
+        """First host sync of a bucket's handle -> one (values, global
+        indices, join sizes) triple per query.  A fused handle checks its
+        overflow fence here: on overflow the hints grow and the bucket
+        falls back to the host boundary, reusing the fused pass's join
+        sizes."""
+        handle = job.handle
+        if isinstance(handle, _ex._PendingScores):
+            mi, js = handle.collect()
+            gi = np.arange(C, dtype=np.int32)
+            return [(mi[q], gi, js[q]) for q in range(len(job.chunk))]
+        if isinstance(handle, _ex._PendingFused):
+            hints = self.index.shortlist_hints
+            try:
+                triples = handle.collect()
+            except ShortlistOverflow:
+                for eid, seen in handle.observed.items():
+                    hints.observe((job.y_disc, eid, int(min_join), False),
+                                  seen, overflowed=True)
+                job.pend1 = handle
+                job.handle = self._shortlist_phase(job, min_join, C, version)
+                job.staged["host_syncs"] = 3
+                job.staged["fused_windows"] = 0
+                return self._collect_triples(job, C, min_join, version)
+            for eid, seen in handle.observed.items():
+                hints.observe((job.y_disc, eid, int(min_join), False), seen)
+            job.staged["cands_shortlisted"] = handle.shortlisted
+            return triples
+        return handle.collect()
+
+    def _finish(
+        self, job: _BucketJob, triples: list, queries: list,
+        results: list, outcomes: list, top_k: int, min_join: int,
+        isolate: bool, rank: str = "mi", C: int | None = None,
+    ) -> None:
+        """Rank a delivered bucket (fencing non-finite lanes first in
+        isolate mode, per query row), scatter results, emit outcomes,
+        and commit the bucket's staged stat deltas.  ``C`` is the corpus
+        size the scores were computed against; ``rank="hybrid"`` scales
+        each score by join_size / train_size before ranking."""
+        st = self.admission
+        C = len(self.index) if C is None else int(C)
+        for row, qi in enumerate(job.chunk):
+            v, gi, js = triples[row]
+            nf = 0
+            if isolate:
+                v, gi, js = np.asarray(v), np.asarray(gi), np.asarray(js)
+                eligible = (gi < C) & (js >= min_join)
+                v = resilience.corrupt_scores(v, eligible)
+                v, nf = resilience.fence_nonfinite(
+                    v, gi, js, self.index, queries[qi], min_join, self.k
+                )
+                st.nonfinite_lanes += nf
+            if rank == "hybrid":
+                tsize = max(int(queries[qi].size), 1)
+                v = np.asarray(v, np.float32) * (
+                    np.asarray(js, np.float32) / np.float32(tsize)
+                )
+            results[qi] = self.index._rank(v, gi, js, top_k, min_join, C=C)
+            if isolate:
+                outcomes[qi] = QueryOutcome(
+                    qi, "ok", rung=job.rung, retries=job.retries,
+                    fallbacks=job.fallbacks, nonfinite_lanes=nf,
+                )
+        staged = job.staged
+        st.batches += staged.get("batches", 0)
+        st.prefiltered += staged.get("prefiltered", 0)
+        st.cands_considered += staged.get("cands_considered", 0)
+        st.cands_shortlisted += staged.get("cands_shortlisted", 0)
+        st.q_buckets.update(staged.get("q_buckets", ()))
+        st.s_buckets.update(staged.get("s_buckets", ()))
+        st.host_syncs += staged.get("host_syncs", 0)
+        st.fused_windows += staged.get("fused_windows", 0)
+
+    # ------------------------------------------------------------------
+    # Recovery ladder
+    # ------------------------------------------------------------------
+
+    def _recover(
+        self, job: _BucketJob, queries: list, results: list,
+        outcomes: list, top_k: int, min_join: int, use_pref: bool,
+        C: int, version: int, rank: str = "mi",
+    ) -> None:
+        """Retry a failed bucket with bounded backoff, then descend to
+        the reference rung; other buckets are untouched.  The primary
+        pass spent the batched rung's first attempt; the reference rung —
+        the dense per-query path of :meth:`SketchIndex.query`, free of
+        every fault site — gets a fresh attempt plus retries."""
+        st = self.admission
+        policy = self.retry_policy
+        rungs = ["batched", "reference"]
+        last_err = job.error
+        for ri, rung in enumerate(rungs):
+            if ri > 0:
+                job.fallbacks += 1
+                st.fallbacks += 1
+            delays = policy.delays()
+            for attempt in range(1 if ri == 0 else 0, 1 + len(delays)):
+                if attempt > 0:
+                    policy.sleep(delays[attempt - 1])
+                    job.retries += 1
+                    st.retries += 1
+                try:
+                    triples = self._run_bucket(job, queries, min_join,
+                                               use_pref, C, version, rung)
+                    job.rung = rung
+                    job.error = None
+                    self._finish(job, triples, queries, results, outcomes,
+                                 top_k, min_join, True, rank=rank, C=C)
+                    return
+                except Exception as e:  # noqa: BLE001 — keep descending
+                    last_err = e
+        for qi in job.chunk:
+            outcomes[qi] = QueryOutcome(
+                qi, "failed", rung=rungs[-1], error="ladder_exhausted",
+                detail=repr(last_err), retries=job.retries,
+                fallbacks=job.fallbacks,
+            )
+        st.lost_queries += len(job.chunk)
+
+    def _run_bucket(self, job: _BucketJob, queries: list, min_join: int,
+                    use_pref: bool, C: int, version: int, rung: str) -> list:
+        """Synchronously re-execute one bucket on the given rung and
+        return its per-query triples (``job.staged`` is rebuilt to match
+        what this run did)."""
+        job.staged = {
+            "batches": 1,
+            "q_buckets": {job.q_bucket} if rung != "reference" else set(),
+            "host_syncs": 1,
+        }
+        if rung == "reference":
+            ex = _ex.PartitionedLocalExecutor(k=self.k)
+            triples = []
+            for qi in job.chunk:
+                train = self.index.train_arrays(queries[qi])
+                mi, js = ex.execute(job.sp.plan, train)
+                triples.append((mi[0], np.arange(C), js[0]))
+            return triples
+        job.trains = _ex.stack_trains_host(job.sketches, self.index.device)
+        if use_pref:
+            job.pend1 = self._batched.prefilter_dispatch(job.sp.plan, job.trains)
+            job.handle = self._shortlist_phase(job, min_join, C, version)
+        else:
+            job.handle = self._batched.dispatch(job.sp.plan, job.trains)
+        return self._collect_triples(job, C, min_join, version)
+
+    # ------------------------------------------------------------------
+    # Observability
+    # ------------------------------------------------------------------
+
+    def stats(self) -> dict:
+        """Serving counters: admission decisions, resilience traffic
+        (quarantine / retry / fallback / fence), plan-cache traffic,
+        ingest transfer accounting and, once ``submit_async`` attached
+        it, the scheduler's telemetry.  The reference also reports
+        ``compiled_programs`` (its jit cache size) and ``tiers`` (the
+        phase-0 signature tier's bytes); eager PyTorch compiles no
+        programs, and the signature tier arrives with the gate."""
+        return {
+            "admission": self.admission.as_dict(),
+            "plan_cache": self.plan_cache.stats,
+            "ingest": self.index.ingest_stats,
+            "scheduler": (
+                self._scheduler.stats() if self._scheduler is not None
+                else None
+            ),
+        }

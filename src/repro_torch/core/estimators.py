@@ -10,11 +10,17 @@ returns (B,) float32 estimates:
     mixtures.
   * :func:`dc_ksg_mi`    — Ross (2014) for (discrete X, continuous Y).
 
-The KSG family gets its radii and counts from one fused
-``knn_radius_counts`` call over the whole batch (the CUDA kernel on the
-card).  The reference's ``impl="materialized"`` path needs the
-``pairwise_cheb`` kernel, which is off the discovery path and not ported,
-so the port's estimators take no ``impl`` argument.
+The KSG family takes ``impl``: ``"fused"`` (the default) gets its radii
+and counts from one ``knn_radius_counts`` call over the whole batch (the
+``radius_counts`` CUDA kernel on the card); ``"materialized"`` forms the
+three (P, P) distance matrices with ``pairwise_cheb`` (its CUDA kernel
+on the card) and reads the same statistics off them with ``torch.topk``
+/ ``torch.sort`` and compares, term for term as the reference.  The
+materialized statistics are formed in chunks of samples, so the (chunk,
+P, P) matrices stay bounded; the tails then run once over the whole
+batch, as on the fused path.  Both paths select the same float32
+distances and count the same pairs, so their statistics are equal and
+MI agrees bit for bit on the CPU.
 
 Integer and selection outputs (ranks, radii, counts) equal the
 reference's exactly.  The tails use ``torch.special.digamma``, which
@@ -24,9 +30,12 @@ bit for bit.
 
 from __future__ import annotations
 
+from typing import Literal
+
 import torch
 
 from repro_torch.kernels.knn_stats.ops import K_MAX, knn_radius_counts
+from repro_torch.kernels.pairwise_cheb.ops import pairwise_cheb
 
 __all__ = [
     "dense_rank",
@@ -38,6 +47,14 @@ __all__ = [
     "dc_ksg_mi",
     "estimate_mi",
 ]
+
+Impl = Literal["fused", "materialized"]
+
+# Bound on chunk * P * P elements per materialized (chunk, P, P) matrix:
+# 2048 samples at P=256, 512 MiB of float32 each.  With DX, DY, DJ and
+# the sort's values and int64 indices a chunk holds under 4 GB.
+_MATERIALIZED_ELEMS = 1 << 27
+
 
 def dense_rank(v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Dense int32 ranks of the valid entries of each row of ``v``
@@ -130,6 +147,37 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
+def _check_impl(impl: str) -> None:
+    if impl not in ("fused", "materialized"):
+        raise ValueError(f"unknown impl {impl!r}")
+
+
+def _materialized(stats, *arrays):
+    """Per-row statistics ``stats(*chunk)`` over samples of shape
+    (..., P), formed in chunks of samples; each result comes back in the
+    samples' shape."""
+    shape = arrays[0].shape
+    P = shape[-1]
+    flat = [a.reshape(-1, P) for a in arrays]
+    step = max(1, _MATERIALIZED_ELEMS // max(P * P, 1))
+    parts = [stats(*(a[s:s + step] for a in flat))
+             for s in range(0, max(flat[0].shape[0], 1), step)]
+    return tuple(torch.cat(cols).reshape(shape) for cols in zip(*parts))
+
+
+def _kth_smallest(d: torch.Tensor, k: int) -> torch.Tensor:
+    """k-th smallest entry along the last axis."""
+    return torch.topk(d, k, dim=-1, largest=False).values[..., k - 1]
+
+
+def _off_diagonal(P: int, device) -> torch.Tensor:
+    return ~torch.eye(P, dtype=torch.bool, device=device)
+
+
+def _count(cond: torch.Tensor) -> torch.Tensor:
+    return cond.sum(-1, dtype=torch.int32)
+
+
 def _ksg_tail(nx, ny, mask, M, k):
     per_i = _digamma(nx + 1.0) + _digamma(ny + 1.0)
     mean_term = torch.where(mask, per_i, 0.0).sum(-1) / M.clamp(min=1)
@@ -137,12 +185,24 @@ def _ksg_tail(nx, ny, mask, M, k):
     return torch.where(M > k, est, 0.0)
 
 
+def _ksg_stats(x, y, mask, k):
+    dx, dy, dj = pairwise_cheb(x, y, mask)
+    eps = _kth_smallest(dj, k)[..., None]
+    off = _off_diagonal(x.shape[-1], x.device)
+    return _count((dx < eps) & off), _count((dy < eps) & off)
+
+
 def ksg_mi(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-           k: int = 3) -> torch.Tensor:
+           k: int = 3, impl: Impl = "fused") -> torch.Tensor:
     """KSG estimator #1 (Kraskov et al. 2004) for continuous pairs."""
+    _check_impl(impl)
     M = mask.sum(-1)
-    _, _, c = knn_radius_counts(x, y, mask, k=k, mode="joint")
-    return _ksg_tail(c.x_lt, c.y_lt, mask, M, k)
+    if impl == "fused":
+        _, _, c = knn_radius_counts(x, y, mask, k=k, mode="joint")
+        return _ksg_tail(c.x_lt, c.y_lt, mask, M, k)
+    nx, ny = _materialized(lambda a, b, m: _ksg_stats(a, b, m, k),
+                           x.to(torch.float32), y.to(torch.float32), mask)
+    return _ksg_tail(nx, ny, mask, M, k)
 
 
 def _mixed_tail(rho, kp_tie, nx_tie, ny_tie, nx_cont, ny_cont, mask, M, k):
@@ -156,22 +216,55 @@ def _mixed_tail(rho, kp_tie, nx_tie, ny_tie, nx_cont, ny_cont, mask, M, k):
     return torch.where(M > k, est, 0.0)
 
 
+def _mixed_stats(x, y, mask, k):
+    dx, dy, dj = pairwise_cheb(x, y, mask)
+    rho = _kth_smallest(dj, k)
+    r = rho[..., None]
+    off = _off_diagonal(x.shape[-1], x.device)  # DX/DY hold +inf at invalid pairs
+    return (
+        rho,
+        _count((dj <= 0.0) & off) + 1, _count((dx <= 0.0) & off) + 1,
+        _count((dy <= 0.0) & off) + 1, _count((dx < r) & off) + 1,
+        _count((dy < r) & off) + 1,
+    )
+
+
 def mixed_ksg_mi(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-                 k: int = 3) -> torch.Tensor:
+                 k: int = 3, impl: Impl = "fused") -> torch.Tensor:
     """Gao et al. (2017) estimator for discrete-continuous mixtures:
     I ≈ ⟨ψ(k̃_i) + ln M − ln n_{x,i} − ln n_{y,i}⟩, counts including
     the point itself."""
+    _check_impl(impl)
     M = mask.sum(-1)
-    rho, _, c = knn_radius_counts(x, y, mask, k=k, mode="joint")
-    return _mixed_tail(
-        rho, c.j_eq + 1, c.x_eq + 1, c.y_eq + 1,
-        c.x_lt + 1, c.y_lt + 1, mask, M, k,
-    )
+    if impl == "fused":
+        rho, _, c = knn_radius_counts(x, y, mask, k=k, mode="joint")
+        return _mixed_tail(
+            rho, c.j_eq + 1, c.x_eq + 1, c.y_eq + 1,
+            c.x_lt + 1, c.y_lt + 1, mask, M, k,
+        )
+    stats = _materialized(lambda a, b, m: _mixed_stats(a, b, m, k),
+                          x.to(torch.float32), y.to(torch.float32), mask)
+    return _mixed_tail(*stats, mask, M, k)
+
+
+def _dc_stats(codes, y, mask, kk):
+    P = y.shape[-1]
+    off = _off_diagonal(P, y.device)
+    same = (codes[..., :, None] == codes[..., None, :]) \
+        & mask[..., :, None] & mask[..., None, :]
+    n_x = _count(same)  # includes self
+    k_eff = torch.clamp(n_x - 1, max=kk)
+    _, dy, _ = pairwise_cheb(y, y, mask)  # DY with +inf at invalid pairs
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=y.device)
+    dy_sorted = torch.sort(torch.where(same & off, dy, inf), dim=-1).values
+    idx = torch.clamp(k_eff - 1, 0, P - 1).long()
+    d_i = dy_sorted.gather(-1, idx[..., None])
+    return n_x, k_eff, _count((dy < d_i) & off)
 
 
 def dc_ksg_mi(
     x_codes: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, k: int = 3,
-    k_i: int | None = None,
+    impl: Impl = "fused", k_i: int | None = None,
 ) -> torch.Tensor:
     """Ross (2014) estimator for (discrete X, continuous Y).
 
@@ -181,6 +274,7 @@ def dc_ksg_mi(
     to ``max(k, k_i)``, capped at :data:`K_MAX`.  ``x_codes`` must be
     exactly float32-representable (dense ranks are).
     """
+    _check_impl(impl)
     if k_i is not None and k_i > K_MAX:
         raise ValueError(
             f"DC-KSG per-point neighbor budget k_i={k_i} exceeds "
@@ -191,13 +285,19 @@ def dc_ksg_mi(
     kk = k if k_i is None else k_i
     k_buf = max(k, kk)
     M = mask.sum(-1)
-    _, same_cnt, counts = knn_radius_counts(
-        x_codes.to(torch.float32), y, mask, k=k, k_max=k_buf, mode="class",
-        which="y", kk=kk,
-    )
-    n_x = same_cnt + mask.to(torch.int32)
-    k_eff = torch.clamp(n_x - 1, max=kk)
-    m_i = counts.y_lt
+    if impl == "fused":
+        _, same_cnt, counts = knn_radius_counts(
+            x_codes.to(torch.float32), y, mask, k=k, k_max=k_buf,
+            mode="class", which="y", kk=kk,
+        )
+        n_x = same_cnt + mask.to(torch.int32)
+        k_eff = torch.clamp(n_x - 1, max=kk)
+        m_i = counts.y_lt
+    else:
+        n_x, k_eff, m_i = _materialized(
+            lambda c, b, m: _dc_stats(c, b, m, kk),
+            x_codes, y.to(torch.float32), mask,
+        )
     valid_i = mask & (n_x >= 2)
     cnt = valid_i.sum(-1).clamp(min=1)
 

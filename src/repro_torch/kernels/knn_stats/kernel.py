@@ -1,82 +1,35 @@
 """CUDA binding of the fused radius+count kernel (``csrc/radius_counts.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C entry point, at first use, under ``build/kernels/`` at the
-root of the checkout (the file name carries a hash of the source, so an
-edited source is rebuilt).  The library is loaded with ``ctypes``.  A
-failed build raises; nothing falls back to the plain version.  Nothing
-here runs at import: the CPU tests import this module without ``nvcc``.
+The source is built at first use by :mod:`repro_torch.kernels._build`
+(``nvcc`` for ``sm_90a`` into ``build/kernels/``, loaded with ``ctypes``).
+A failed build raises; nothing falls back to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._build import BuiltLibrary, build, find_nvcc
+
 __all__ = ["SOURCE", "BuiltLibrary", "find_nvcc", "load_library", "radius_counts"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "radius_counts.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-_ARCH = "arch=compute_90a,code=sm_90a"
-
-
-@dataclass(frozen=True)
-class BuiltLibrary:
-    lib: ctypes.CDLL
-    path: Path
-    seconds: float  # wall time of the nvcc call (0.0 when reused)
-    ptxas: str  # nvcc's -Xptxas -v report (registers, spills, shared memory)
-
-
-def find_nvcc() -> str:
-    """Path of the nvcc that builds the kernels (PATH, then CUDA_HOME)."""
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the radius_counts kernel cannot be built")
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> BuiltLibrary:
     """Build (once per source version) and load the kernel library."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    out = _BUILD_DIR / f"radius_counts-{tag}.so"
-    seconds, report = 0.0, ""
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-               str(SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-        report = proc.stderr
-    lib = ctypes.CDLL(str(out))
-    fn = lib.radius_counts_launch
+    built = build(SOURCE)
+    fn = built.lib.radius_counts_launch
     fn.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
     )
     fn.restype = ctypes.c_int
-    return BuiltLibrary(lib, out, seconds, report)
+    return built
 
 
 def radius_counts(
