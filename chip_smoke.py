@@ -8,9 +8,10 @@ without a card it exits non-zero before printing any result.  Phases,
 each of which fails the run (non-zero exit, no result line) if it fails:
 
   1. environment: card name and power limit, torch and nvcc versions,
-     the two kernel builds, ``knn_stats/csrc/radius_counts.cu`` and
-     ``pairwise_cheb/csrc/pairwise_cheb.cu``, one ``nvcc`` each, started
-     together (seconds and ``ptxas`` register/spill reports);
+     the three kernel builds, ``knn_stats/csrc/radius_counts.cu``,
+     ``pairwise_cheb/csrc/pairwise_cheb.cu`` and
+     ``flash_attention/csrc/flash_attention.cu``, one ``nvcc`` each,
+     started together (seconds and ``ptxas`` register/spill reports);
   2. every kernel against its plain PyTorch version on the card, on the
      same inputs, required bit-equal (tolerance 0, NaN positions equal):
      radius_counts' radii, class counts and ball/tie counts, at
@@ -18,7 +19,14 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      k=1/8/K_MAX, widened class budgets, tie-heavy values, ragged masks,
      few-neighbour rows, a P=512 batch and a kb=128 batch; pairwise_cheb's
      DX/DY/DJ at B=4096 × P=256, P=300 with ragged masks, P=512,
-     exact-zero plateaus and NaN/±inf inputs;
+     exact-zero plateaus and NaN/±inf inputs; flash_attention against
+     ``ref.chunked_attention`` and ``ref.mha_reference``, causal and not,
+     GQA groups 1/2/4, S = 1/100/2048/2049, D = 128, Dk=192/Dv=128 and
+     D = 16, float32 (within atol 2e-5: the two differ in summation
+     order only) and bfloat16 (within one bfloat16 spacing of the plain
+     version's bfloat16 output plus 2e-5: both accumulate in float32 and
+     round once, and near zero the float32 difference spans several
+     spacings);
   3. the main path: a C=65536-candidate TUPSK (n=256) corpus through
      ``SketchIndex.add``, then ``query_many`` with Q=16 continuous- and
      Q=16 discrete-target queries at ``min_join=24``, ``top_k=40``, cold
@@ -52,9 +60,25 @@ each of which fails the run (non-zero exit, no result line) if it fails:
  10. the materialized estimators on phase 5's captured samples (MixedKSG
      on the joint launch, DC-KSG on the class launches): MI within 1e-6
      of the fused results, each ``pairwise_cheb`` chunk launch held
-     bit-equal to its plain version and timed beside it and its bound.
+     bit-equal to its plain version and timed beside it and its bound;
+ 11. the model serving path at full width: ``internlm2-1.8b`` at its
+     published widths and full depth (24 layers, 1.89 B float32
+     parameters from a seeded generator, bfloat16 activations) through
+     ``repro_torch.launch.serve.ContinuousBatcher``: 8 requests over 4
+     slots, prompts of 2048 tokens, 32 generated tokens each, max_len
+     4096.  It reports the prefill time per request, the decode time per
+     step, the aggregate generated tokens/s and the peak device memory,
+     and requires 24 flash launches per admitted request.  Then (a) one
+     request's 24 flash launches, captured with their inputs, each held
+     within phase 2's bfloat16 tolerance and timed beside the plain
+     version, its bound and ``scaled_dot_product_attention`` (the
+     yardstick the port never calls); (b) that request's served logits (its prefill and its
+     31 decode steps) against the port's float32 ``forward`` with the
+     plain attention, over the prompt and the generated tokens, within
+     ``SERVED_RTOL``; a forward whose attention drops the causal mask
+     must fall outside it.
 
-Each of phases 3 and 7-9 sets every kernel's launch count to 0 just
+Each of phases 3, 7-9 and 11 sets every kernel's launch count to 0 just
 before it drives its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
@@ -108,6 +132,11 @@ RC_BYTES_PER_ROW = 9 + 28
 # pairwise_cheb: x, y f32 + mask u8 in per row; DX, DY, DJ f32 out per pair.
 PC_BYTES_PER_ROW, PC_BYTES_PER_PAIR = 9, 12
 
+# Dense rates of one H100 SXM by operand type (NVIDIA data sheet): the
+# bf16/fp16 tensor cores, and float32 outside them (an FMA counts as two).
+PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
+               torch.float32: 67e12}
+
 C_MAIN, N_ROWS, N_SKETCH, Q = 65536, 384, 256, 16
 MIN_JOIN, TOP_K = 24, 40
 C_CHECK = 1024
@@ -118,6 +147,32 @@ FENCE_LANES = 4  # NaN lanes per served query in phase 8
 CALLERS, PER_CALLER = 4, 8
 HANDLE_TIMEOUT_S = 120.0
 MI_TOL = 1e-6
+
+# flash_attention tolerances (see fa_within): float32 sums differ in
+# order only; in bfloat16 both sides accumulate in float32 and round once.
+FA_F32_ATOL = 2e-5
+FA_BF16_ULPS = 1.0
+FA_CASES = [  # (Dk, Dv) x S x group x causal, for each dtype
+    (dtype, dk, dv, S, group, causal)
+    for dtype in (torch.float32, torch.bfloat16)
+    for dk, dv in ((128, 128), (192, 128), (16, 16))
+    for S in (1, 100, 2048, 2049)
+    for group in (1, 2, 4)
+    for causal in (True, False)
+]
+FA_HKV = 2
+
+# Phase 11: the serving path at full width.
+SERVE_ARCH = "internlm2-1.8b"
+SERVE_REQUESTS, SERVE_SLOTS = 8, 4
+SERVE_PROMPT, SERVE_GEN, SERVE_MAX = 2048, 32, 4096
+# Served logits (bfloat16 activations, weights and KV cache cast to
+# bfloat16) against the float32 forward with the plain attention, as the
+# largest relative RMS error over the request's 32 logit vectors.  On an
+# H100 the bfloat16 dtype policy alone comes to 0.043 (the bfloat16
+# forward through the kernel), and a forward without the causal mask to
+# 0.40-0.50; 0.10 sits between them with room on both sides.
+SERVED_RTOL = 0.10
 
 
 def log(msg: str) -> None:
@@ -229,6 +284,64 @@ def check_pairwise_cheb(dev) -> float:
             raise AssertionError("the non-finite case produced no NaN")
         worst = max(worst, err)
         del got, want
+    return worst
+
+
+def bf16_spacing(want: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 spacing at ``want`` (8 significant bits: 2^(e-8) for
+    |want| in [2^(e-1), 2^e))."""
+    w = want.float()
+    return torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8) \
+        .clamp_min(2.0 ** -133)
+
+
+def fa_within(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float, float]:
+    """(within tolerance, max abs error, worst error in bfloat16 spacings
+    or nan).  float32: atol FA_F32_ATOL.  bfloat16: one spacing of the
+    plain version's output plus FA_F32_ATOL, since each side rounds its
+    float32 result once and the two float32 results differ by up to
+    FA_F32_ATOL; near zero (outputs that come out of cancellation) that
+    absolute difference spans several spacings."""
+    err = _max_abs_err(got, want)
+    if got.dtype == torch.float32:
+        return err <= FA_F32_ATOL, err, float("nan")
+    diff = (got.float() - want.float()).abs()
+    spacing = bf16_spacing(want)
+    ok = bool((diff <= FA_BF16_ULPS * spacing + FA_F32_ATOL).all())
+    return ok, err, float((diff / spacing).max())
+
+
+def check_flash_attention(dev) -> float:
+    """The kernel against both plain versions on synthetic cases."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    worst, worst_ulps = 0.0, 0.0
+    for dtype, dk, dv, S, group, causal in FA_CASES:
+        hq = FA_HKV * group
+        q = torch.randn(1, hq, S, dk, generator=gen, device=dev).to(dtype)
+        k = torch.randn(1, FA_HKV, S, dk, generator=gen, device=dev).to(dtype)
+        v = torch.randn(1, FA_HKV, S, dv, generator=gen, device=dev).to(dtype)
+        scale = 1.0 / dk ** 0.5
+        got = kernel.flash_attention(q, k, v, scale=scale, causal=causal)
+        name = (f"{str(dtype)[6:]} Dk={dk} Dv={dv} S={S} group={group} "
+                f"causal={causal}")
+        for plain in (ref.chunked_attention, ref.mha_reference):
+            want = plain(q, k, v, scale=scale, causal=causal)
+            torch.cuda.synchronize()
+            ok, err, ulps = fa_within(got, want)
+            if not ok:
+                raise AssertionError(f"flash_attention {name} differs from "
+                                     f"{plain.__name__}: max_abs_err={err}, "
+                                     f"spacings={ulps}")
+            worst = max(worst, err)
+            if ulps == ulps:
+                worst_ulps = max(worst_ulps, ulps)
+        del got, want
+    log(f"[compare] flash_attention: {len(FA_CASES)} cases (float32 within "
+        f"atol {FA_F32_ATOL}, bfloat16 within {FA_BF16_ULPS} spacing + "
+        f"{FA_F32_ATOL}) against chunked_attention and mha_reference: "
+        f"max_abs_err={worst}, worst bfloat16 error in spacings={worst_ulps}")
     return worst
 
 
@@ -454,19 +567,23 @@ def check_main_launches(seen: list, card: str) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def reset_launches() -> None:
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.knn_stats import kernel as rc_kernel
     from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
 
     rc_kernel.radius_counts.launches = 0
     pc_kernel.pairwise_cheb.launches = 0
+    fa_kernel.flash_attention.launches = 0
 
 
 def read_launches() -> dict:
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.knn_stats import kernel as rc_kernel
     from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
 
     return {"radius_counts": rc_kernel.radius_counts.launches,
-            "pairwise_cheb": pc_kernel.pairwise_cheb.launches}
+            "pairwise_cheb": pc_kernel.pairwise_cheb.launches,
+            "flash_attention": fa_kernel.flash_attention.launches}
 
 
 def by_query(queue_results, n: int) -> list:
@@ -750,21 +867,281 @@ def check_materialized(seen: list, card: str) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the model serving path at full width
+# ---------------------------------------------------------------------------
+
+def fa_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool) -> dict:
+    """Least time for one launch: its multiply-adds (QK^T and PV over the
+    live (row, key) pairs, 2 FLOP each) at the tensor-core rate of the
+    operand type, or its bytes (q, k, v read once, o written once) over
+    the HBM rate."""
+    B, Hq, S, Dk = q.shape
+    Dv = v.shape[-1]
+    pairs = S * (S + 1) / 2 if causal else S * S
+    flop = 2.0 * pairs * (Dk + Dv) * Hq * B
+    nbytes = (q.numel() + k.numel() + v.numel() + B * Hq * S * Dv) * q.element_size()
+    t_ops = 1e3 * flop / PEAK_FLOP_S[q.dtype]
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flop, "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes}
+
+
+def rel_rms(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-row RMS of a - b over the RMS of b."""
+    a, b = a.double(), b.double()
+    return (a - b).pow(2).mean(-1).sqrt() / b.pow(2).mean(-1).sqrt()
+
+
+def run_serving(card: str, dev: torch.device) -> dict:
+    """Phase 11: ``ContinuousBatcher`` over ``internlm2-1.8b`` at full
+    width, then checks (a) and (b)."""
+    from types import SimpleNamespace
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg = M.get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    log(f"[serve] {SERVE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.padded_vocab_size}; {n_params} {cfg.param_dtype} "
+        f"parameters made on the card in {t_init:.2f} s")
+
+    # The served logits of request 0 (slot 0): its prefill, then each
+    # decode step while it is active.  Kept on the card (a device copy,
+    # no sync) and read back after the timed loop.
+    served = []
+    prefill_fn = T.prefill
+
+    def prefill_capture(*args, **kw):
+        logits, caches = prefill_fn(*args, **kw)
+        if not served:
+            served.append(logits[0, -1].clone())
+        return logits, caches
+
+    torch.cuda.reset_peak_memory_stats()
+    batcher = serve.ContinuousBatcher(cfg, params, SERVE_SLOTS, SERVE_MAX)
+    decode_fn = batcher._decode
+
+    def decode_capture(toks, pos):
+        logits, caches = decode_fn(toks, pos)
+        if batcher.active[0] and batcher.slot_req[0] == 0:
+            served.append(logits[0, 0].clone())
+        return logits, caches
+
+    batcher._decode = decode_capture
+    queue, finished, prefill_s, decode_s = list(range(SERVE_REQUESTS)), [], [], []
+    reset_launches()
+    T.prefill = prefill_capture
+    try:
+        t_run = time.perf_counter()
+        while len(finished) < SERVE_REQUESTS:
+            while queue:
+                t0 = time.perf_counter()
+                if not batcher.admit(queue[0], prompts[queue[0]]):
+                    break
+                torch.cuda.synchronize()
+                prefill_s.append(time.perf_counter() - t0)
+                queue.pop(0)
+            t0 = time.perf_counter()
+            batcher.step()
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0)
+            finished += batcher.retire(SERVE_GEN)
+        wall = time.perf_counter() - t_run
+    finally:
+        T.prefill = prefill_fn
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    expect = cfg.num_layers * SERVE_REQUESTS
+    if launches["flash_attention"] != expect:
+        raise AssertionError(f"serving made {launches['flash_attention']} flash "
+                             f"launches; expected {cfg.num_layers} per request, "
+                             f"{expect} in all")
+    if launches["radius_counts"] or launches["pairwise_cheb"]:
+        raise AssertionError(f"serving launched a discovery kernel: {launches}")
+    outs = [batcher.outputs[r] for r in range(SERVE_REQUESTS)]
+    if any(len(o) != SERVE_GEN for o in outs) or sorted(finished) != list(range(SERVE_REQUESTS)):
+        raise AssertionError("not every request finished with its tokens")
+    generated = sum(len(o) for o in outs)
+    rec = {
+        "arch": SERVE_ARCH, "params": n_params, "init_s": t_init,
+        "requests": SERVE_REQUESTS, "slots": SERVE_SLOTS, "prompt_len": SERVE_PROMPT,
+        "gen_len": SERVE_GEN, "max_len": SERVE_MAX, "launches": launches,
+        "prefill_ms": [1e3 * t for t in prefill_s],
+        "prefill_ms_median": 1e3 * float(np.median(prefill_s)),
+        "decode_steps": len(decode_s), "decode_ms": [1e3 * t for t in decode_s],
+        "decode_ms_median": 1e3 * float(np.median(decode_s)),
+        "wall_s": wall, "generated_tokens": generated,
+        "generated_tok_s": generated / wall,
+        "slot_tok_s": len(decode_s) * SERVE_SLOTS / wall,
+        "peak_mem_bytes": peak,
+    }
+    log(f"[serve] {SERVE_REQUESTS} requests x {SERVE_PROMPT}-token prompts over "
+        f"{SERVE_SLOTS} slots, {SERVE_GEN} tokens each: prefill median "
+        f"{rec['prefill_ms_median']:.2f} ms/request (min {min(rec['prefill_ms']):.2f},"
+        f" max {max(rec['prefill_ms']):.2f}), decode median "
+        f"{rec['decode_ms_median']:.2f} ms/step over {len(decode_s)} steps (min "
+        f"{min(rec['decode_ms']):.2f}, max {max(rec['decode_ms']):.2f}); "
+        f"{generated} tokens in {wall:.3f} s = {rec['generated_tok_s']:.1f} "
+        f"generated tok/s ({rec['slot_tok_s']:.1f} slot-steps/s); peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}; card {card}")
+
+    # (a) One request's 24 launches, captured with their inputs.
+    seen = []
+
+    def spy(q, k, v, *, scale, causal):
+        out = fa_kernel.flash_attention(q, k, v, scale=scale, causal=causal)
+        seen.append((q.clone(), k.clone(), v.clone(), scale, causal, out.clone()))
+        return out
+
+    tok0 = torch.as_tensor(prompts[0][None, :], device=dev)
+    fa_ops.kernel = SimpleNamespace(flash_attention=spy)
+    try:
+        T.prefill(cfg, params, {"tokens": tok0}, max_len=SERVE_MAX)
+    finally:
+        fa_ops.kernel = fa_kernel
+    torch.cuda.synchronize()
+    if len(seen) != cfg.num_layers:
+        raise AssertionError(f"captured {len(seen)} flash launches in one prefill")
+    rows = []
+    for layer, (q, k, v, scale, causal, got) in enumerate(seen):
+        want = fa_ref.chunked_attention(q, k, v, scale=scale, causal=causal)
+        torch.cuda.synchronize()
+        ok, err, ulps = fa_within(got, want)
+        if not ok:
+            raise AssertionError(f"flash launch of layer {layer} differs from the "
+                                 f"plain version: {ulps} spacings, max_abs_err {err}")
+        lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                             enable_gqa=True, scale=scale)
+        lib_err = _max_abs_err(lib, want)
+        ms = time_cuda(lambda: fa_kernel.flash_attention(q, k, v, scale=scale,
+                                                         causal=causal), 10)
+        plain_ms = time_cuda(lambda: fa_ref.chunked_attention(
+            q, k, v, scale=scale, causal=causal), 3)
+        lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True, scale=scale), 10)
+        rows.append({"layer": layer, "shape_q": list(q.shape), "shape_k": list(k.shape),
+                     "q_strides": list(q.stride()), "dtype": str(q.dtype),
+                     "max_abs_err": err, "ulps": ulps, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "library_max_abs_err": lib_err, **fa_bound(q, k, v, causal)})
+    del seen
+    fa = {k: float(np.mean([r[k] for r in rows]))
+          for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    fa["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    fa["ulps"] = max(r["ulps"] for r in rows)
+    fa["bound_by"] = rows[0]["bound_by"]
+    log(f"[time] flash_attention at the serve shape (q {rows[0]['shape_q']}, "
+        f"k {rows[0]['shape_k']}, {rows[0]['dtype']}, causal), mean over the "
+        f"{len(rows)} launches of one prefill: {fa['ms']:.4f} ms, plain "
+        f"{fa['plain_ms']:.4f} ms, scaled_dot_product_attention "
+        f"{fa['library_ms']:.4f} ms, bound {fa['bound_ms']:.4f} ms "
+        f"({fa['bound_by']}); all within {FA_BF16_ULPS} bfloat16 spacing + "
+        f"{FA_F32_ATOL} of the plain version (worst {fa['ulps']} spacings, "
+        f"max_abs_err {fa['max_abs_err']}); "
+        f"card {card}")
+
+    # Where the time goes: one more admit (a prefill) and one decode step
+    # of the four then active slots, each under the profiler.
+    for r in range(SERVE_SLOTS - 1):
+        batcher.admit(100 + r, prompts[r + 1])
+    prof = {"prefill": profile_call(lambda: batcher.admit(99, prompts[0])),
+            "decode": profile_call(batcher.step)}
+    for name, pr in prof.items():
+        log(f"[serve] profiled {name}: wall {pr['wall_ms']:.2f} ms, device "
+            f"{pr['device_ms']:.2f} ms (busy {pr['busy_share'] or 0:.2f}), "
+            f"{pr['launches']} kernel launches")
+        for row in pr["top"][:8]:
+            log(f"[serve]   {row['ms']:9.3f} ms x{row['count']:<5d} {row['name']}")
+
+    # (b) The served logits against the float32 forward with the plain
+    # attention, over the prompt and the tokens fed back.
+    toks = np.concatenate([prompts[0], np.asarray(outs[0][:-1], np.int32)])
+    toks = torch.as_tensor(toks[None, :], device=dev)
+    cfg32 = cfg.with_overrides(dtype="float32")
+    got = torch.stack(served).float().cpu()
+    if got.shape[0] != SERVE_GEN:
+        raise AssertionError(f"captured {got.shape[0]} served logit vectors")
+
+    def forward_tail(c, attention) -> torch.Tensor:
+        fa_ops.kernel = SimpleNamespace(flash_attention=attention)
+        try:
+            logits, _ = T.forward(c, params, {"tokens": toks})
+        finally:
+            fa_ops.kernel = fa_kernel
+        return logits[0, SERVE_PROMPT - 1:].float().cpu()
+
+    want = forward_tail(cfg32, fa_ref.mha_reference)
+    err = rel_rms(got, want)
+
+    def unmasked(q, k, v, *, scale, causal):
+        return fa_kernel.flash_attention(q, k, v, scale=scale, causal=False)
+
+    leak = rel_rms(forward_tail(cfg, unmasked), want)
+    fwd_bf16 = rel_rms(forward_tail(cfg, fa_kernel.flash_attention), want)
+    same_argmax = int((got.argmax(-1) == want.argmax(-1)).sum())
+    rec_b = {"served_rel_rms_max": float(err.max()),
+             "served_rel_rms": err.tolist(),
+             "served_max_abs": float((got - want).abs().max()),
+             "ref_logit_rms": float(want.pow(2).mean().sqrt()),
+             "bf16_forward_rel_rms_max": float(fwd_bf16.max()),
+             "unmasked_rel_rms_min": float(leak.min()),
+             "unmasked_rel_rms_max": float(leak.max()),
+             "argmax_agree": same_argmax, "tol": SERVED_RTOL}
+    log(f"[serve] served logits of request 0 (prefill + {SERVE_GEN - 1} decode "
+        f"steps) against the float32 forward with the plain attention: relative "
+        f"RMS error max {rec_b['served_rel_rms_max']:.5f} (tolerance "
+        f"{SERVED_RTOL}), max abs {rec_b['served_max_abs']:.5f} at logit RMS "
+        f"{rec_b['ref_logit_rms']:.4f}, argmax agrees at {same_argmax}/{SERVE_GEN}; "
+        f"the bfloat16 forward through the kernel: {rec_b['bf16_forward_rel_rms_max']:.5f}"
+        f"; with the causal mask dropped: {rec_b['unmasked_rel_rms_min']:.5f}-"
+        f"{rec_b['unmasked_rel_rms_max']:.5f}")
+    if not float(err.max()) <= SERVED_RTOL:
+        raise AssertionError(f"served logits differ from the float32 forward: "
+                             f"relative RMS {float(err.max())} > {SERVED_RTOL}")
+    if not float(leak.max()) > SERVED_RTOL:
+        raise AssertionError(f"a forward without the causal mask stays within the "
+                             f"tolerance ({float(leak.max())}): the check cannot "
+                             "see an unmasked causal edge")
+    del params, batcher
+    torch.cuda.empty_cache()
+    return {**rec, "flash": fa, "flash_launches_checked": rows,
+            "served_logits": rec_b, "profile": prof}
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: end-to-end timing
 # ---------------------------------------------------------------------------
 
-def profile_pass(index, batch) -> dict:
-    """Device time by kernel name over one warm ``query_many`` under
+def profile_call(fn) -> dict:
+    """Device time by kernel name over one call of ``fn`` under
     ``torch.profiler``, and the device's busy share of that window.  The
     profiler's own overhead lengthens the window, so the busy share is a
-    lower bound; the unprofiled wall time is measured separately."""
+    lower bound; unprofiled wall times are measured separately."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        index.query_many(batch, top_k=TOP_K, min_join=MIN_JOIN)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Kernel rows only: an operator's row repeats its kernels' time.
@@ -777,8 +1154,15 @@ def profile_pass(index, batch) -> dict:
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "busy_share": device_ms / wall_ms if device_ms else None,
+        "launches": sum(r[2] for r in rows),
         "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:12]],
     }
+
+
+def profile_pass(index, batch) -> dict:
+    """One warm ``query_many`` under the profiler."""
+    return profile_call(lambda: index.query_many(batch, top_k=TOP_K,
+                                                 min_join=MIN_JOIN))
 
 
 def main() -> int:
@@ -790,11 +1174,16 @@ def main() -> int:
 
     from repro_torch.convert import index_from_numpy
     from repro_torch.core.discovery import DiscoveryService
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.knn_stats import kernel
     from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    # Full float32 in the plain versions' products (PyTorch's defaults,
+    # set here so that no reference check runs in TF32).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -805,21 +1194,24 @@ def main() -> int:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc}")
     # One nvcc per source, started together.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         futures = [pool.submit(kernel.load_library),
-                   pool.submit(pc_kernel.load_library)]
-        built, pc_built = (f.result() for f in futures)
+                   pool.submit(pc_kernel.load_library),
+                   pool.submit(fa_kernel.load_library)]
+        built, pc_built, fa_built = (f.result() for f in futures)
     t_build = time.perf_counter() - t0
-    for name, b in (("radius_counts", built), ("pairwise_cheb", pc_built)):
+    for name, b in (("radius_counts", built), ("pairwise_cheb", pc_built),
+                    ("flash_attention", fa_built)):
         log(f"[build] {name}: {b.seconds:.2f} s -> {b.path.name}")
         for line in b.ptxas.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
-    log(f"[build] both kernels built in {t_build:.2f} s")
+    log(f"[build] all three kernels built in {t_build:.2f} s")
 
     # Phase 2: kernels vs plain, bit-equal, on synthetic edge cases.
     max_err = check_radius_counts(dev)
     pc_max_err = check_pairwise_cheb(dev)
+    fa_max_err = check_flash_attention(dev)
 
     # Phase 3: main path at lake scale.
     t0 = time.perf_counter()
@@ -936,10 +1328,18 @@ def main() -> int:
         f"sample sets: {pc_ms:.4f} ms, plain {pc_plain:.4f} ms, bound "
         f"{pc_bound_ms:.4f} ms (bytes); card {card}")
 
+    # Phase 11: the model serving path, with the discovery state freed.
+    n_index = len(index)
+    del index, svc, gpu_sub, cpu_sub
+    torch.cuda.empty_cache()
+    serving = run_serving(card, dev)
+    fa_max_err = max(fa_max_err, serving["flash"]["max_abs_err"])
+
     record = {
         "card": card, "torch": torch.__version__, "nvcc": nvcc,
         "build_s": built.seconds, "build_pairwise_cheb_s": pc_built.seconds,
-        "build_wall_s": t_build, "C": len(index), "Q": Q,
+        "build_flash_attention_s": fa_built.seconds,
+        "build_wall_s": t_build, "C": n_index, "Q": Q,
         "min_join": MIN_JOIN, "top_k": TOP_K, "ingest_s": t_ingest, "flush_s": t_flush,
         "query_many_cold_s": t_cold, "query_many_warm_s": t_warm,
         "query_many_warm_continuous_s": warm_c,
@@ -947,7 +1347,7 @@ def main() -> int:
         "launches_cold": launches_cold, "launches_warm": launches - launches_cold,
         "profile_warm_continuous": prof_c,
         "radius_counts": rc, "submit": submit, "submit_safe": safe,
-        "scheduler": sched, "materialized": mat,
+        "scheduler": sched, "materialized": mat, "serving": serving,
         "total_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"record": record}))
@@ -975,6 +1375,18 @@ def main() -> int:
         "bound_ms": pc_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
+        "launches": serving["launches"]["flash_attention"],
+        "max_abs_err": fa_max_err,
+        "ms": serving["flash"]["ms"],
+        "plain_ms": serving["flash"]["plain_ms"],
+        "bound_ms": serving["flash"]["bound_ms"],
+        "bound_by": serving["flash"]["bound_by"],
+        "library_ms": serving["flash"]["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

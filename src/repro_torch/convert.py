@@ -1,6 +1,8 @@
-"""State carry: build the port's index from a corpus held as numpy.
+"""State carry: build the port's state from the reference's, held as numpy.
 
-This system has no weights; its state is the sketch corpus.
+:func:`index_from_numpy` carries the discovery engine's state, the sketch
+corpus; :func:`model_params_from_numpy` carries a model's weights.
+
 :func:`index_from_numpy` takes the per-candidate host arrays a
 ``SketchIndex`` of either package keeps — keys, the two value views,
 masks, discreteness and the candidate metadata — and commits them to a
@@ -11,10 +13,14 @@ corpus.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig, scan_grouping
 from repro_torch.core.discovery.index import CandidateMeta, SketchIndex
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
 
-__all__ = ["index_from_numpy"]
+__all__ = ["index_from_numpy", "model_params_from_numpy"]
 
 
 def index_from_numpy(state: dict, device=None) -> SketchIndex:
@@ -52,3 +58,53 @@ def index_from_numpy(state: dict, device=None) -> SketchIndex:
             keys[c], vals_f[c], vals_u[c], masks[c],
         )
     return index
+
+
+def _leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_leaves(v) for v in tree.values())
+    return 1
+
+
+def model_params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
+    """The port's parameters (``transformer.init_params`` layout) holding
+    the weights of a reference parameter pytree.
+
+    ``tree`` is the reference's ``init_params`` output as nested dicts of
+    numpy arrays: ``embedding/table``, ``final_norm``, ``lm_head`` (unless
+    tied), ``prefix{i}`` layers and ``groups/layer{i}`` stacked on a
+    leading axis of ``num_groups``.  Layer ``L`` of the port is prefix
+    layer ``L`` or, after the prefix, group ``g``'s ``layer{i}`` with
+    ``g, i = divmod(L - len(prefix), len(group))``.  Weights keep the
+    reference's (in, out) layout, so every leaf is a copy, never a
+    transpose.  Shapes are checked, and every leaf must be used.
+    """
+    dev = resolve_device(device)
+    prefix, num_groups, group = scan_grouping(cfg)
+    params = transformer.init_params(cfg, None, device="meta").to_empty(device=dev)
+    used = 0
+    for name, p in params.named_parameters():
+        parts = name.split(".")
+        sub, g = tree, None
+        if parts[0] == "layers":
+            L = int(parts[1])
+            if L < len(prefix):
+                sub = tree[f"prefix{L}"]
+            else:
+                g, i = divmod(L - len(prefix), len(group))
+                sub = tree["groups"][f"layer{i}"]
+            parts = parts[2:]
+        for key in parts:
+            sub = sub[key]
+        a = np.asarray(sub if g is None else np.asarray(sub)[g])
+        if a.shape != tuple(p.shape):
+            raise ValueError(f"{name}: shape {a.shape}, expected {tuple(p.shape)}")
+        if a.dtype.name == "bfloat16":  # numpy has no bfloat16; exact via f32
+            a = a.astype(np.float32)
+        with torch.no_grad():
+            p.copy_(torch.tensor(a))
+        used += g in (None, 0)  # a stacked leaf counts once
+    if used != _leaves(tree):
+        raise ValueError(f"the tree holds {_leaves(tree)} leaves; "
+                         f"{used} map onto the port's parameters")
+    return params

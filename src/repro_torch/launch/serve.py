@@ -1,0 +1,149 @@
+"""Serving launcher (PyTorch port): continuous-batching decode loop.
+
+Prefill each admitted prompt (causal attention through the flash
+kernel on the card), then run the single-token decode step over a fixed
+set of slots; finished sequences release their slot to queued requests.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --smoke \
+      --requests 12 --slots 4 --prompt-len 32 --gen-len 16 [--device cpu]
+
+The default device is ``cuda``, which raises without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.models import transformer as T
+
+
+class ContinuousBatcher:
+    """Slot-based scheduler: fixed decode batch, dynamic request swap-in.
+
+    The counterpart of ``repro/launch/serve.py::ContinuousBatcher``.  Two
+    differences of mechanism, none of result: a prompt's cache rows are
+    spliced into the batched cache with an in-place ``copy_`` of that
+    slot's rows (the reference rebuilds the whole cache tree), and the
+    decode step updates the caches in place.  The reference's shared
+    ``pos`` frontier is kept exactly: every slot writes and attends at the
+    largest position among the active slots, so a slot admitted with a
+    shorter history attends over zero rows between its own end and the
+    frontier.  Per-slot positions would be a feature the reference lacks.
+    """
+
+    def __init__(self, cfg, params, slots: int, max_len: int):
+        self.cfg, self.params = cfg, params
+        self.device = params["embedding"]["table"].device
+        self.slots = slots
+        self.max_len = max_len
+        self.caches = T.init_decode_caches(cfg, slots, max_len, self.device)
+        self.pos = np.zeros(slots, np.int32)
+        self.active = np.zeros(slots, bool)
+        self.outputs: dict[int, list[int]] = {}
+        self.slot_req = [-1] * slots
+
+    def _decode(self, toks: torch.Tensor, pos: int):
+        return T.decode_step(self.cfg, self.params, self.caches, toks, pos)
+
+    def admit(self, req_id: int, prompt: np.ndarray) -> bool:
+        free = np.flatnonzero(~self.active)
+        if len(free) == 0:
+            return False
+        slot = int(free[0])
+        tokens = torch.as_tensor(np.asarray(prompt)[None, :], device=self.device)
+        logits, cache1 = T.prefill(self.cfg, self.params, {"tokens": tokens},
+                                   max_len=self.max_len)
+        for batched, one in zip(self.caches, cache1):
+            for name, buf in batched.items():
+                buf[slot].copy_(one[name][0])
+        tok = int(torch.argmax(logits[0, -1]))
+        self.pos[slot] = len(prompt)
+        self.active[slot] = True
+        self.slot_req[slot] = req_id
+        self.outputs[req_id] = [tok]
+        return True
+
+    def step(self) -> None:
+        """One decode step for every active slot."""
+        toks = np.zeros((self.slots, 1), np.int32)
+        for s in range(self.slots):
+            if self.active[s]:
+                toks[s, 0] = self.outputs[self.slot_req[s]][-1]
+        # Slots share a common `pos` frontier, as in the reference.
+        pos = int(self.pos[self.active].max()) if self.active.any() else 0
+        if pos >= self.max_len:
+            raise ValueError(f"decode position {pos} is past max_len={self.max_len}")
+        logits, self.caches = self._decode(
+            torch.as_tensor(toks, device=self.device), pos)
+        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        for s in range(self.slots):
+            if self.active[s]:
+                self.outputs[self.slot_req[s]].append(int(nxt[s]))
+                self.pos[s] += 1
+
+    def retire(self, gen_len: int) -> list[int]:
+        done = []
+        for s in range(self.slots):
+            rid = self.slot_req[s]
+            if self.active[s] and len(self.outputs[rid]) >= gen_len:
+                self.active[s] = False
+                done.append(rid)
+        return done
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", choices=["host", "none"], default="none")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+
+    if args.mesh != "none":
+        raise NotImplementedError("--mesh host: the port has no mesh yet; it "
+                                  "comes with the multi-GPU slice")
+    dev = resolve_device(args.device)
+    cfg = M.get_config(args.arch, smoke=args.smoke)
+    rng = np.random.default_rng(args.seed)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = T.init_params(cfg, gen, device=dev)
+
+    batcher = ContinuousBatcher(cfg, params, args.slots, args.max_len)
+    queue = list(range(args.requests))
+    prompts = {
+        r: rng.integers(0, cfg.vocab_size, size=args.prompt_len).astype(np.int32)
+        for r in queue
+    }
+    finished = []
+    t0 = time.time()
+    steps = 0
+    while len(finished) < args.requests:
+        while queue and batcher.admit(queue[0], prompts[queue[0]]):
+            print(f"[serve] admitted request {queue.pop(0)}")
+        batcher.step()
+        steps += 1
+        for rid in batcher.retire(args.gen_len):
+            finished.append(rid)
+            print(f"[serve] finished request {rid}: "
+                  f"{batcher.outputs[rid][:8]}...")
+    dt = time.time() - t0
+    print(f"[serve] {args.requests} requests, {steps} decode steps, "
+          f"{steps * args.slots / dt:.1f} tok/s aggregate (device={dev})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,112 @@
+"""Shared building blocks: inits, norms, rotary embeddings.
+
+The port's counterpart of ``repro/models/common.py``.  Parameters are
+``nn.ParameterDict``s with the reference's leaf names (``w``, ``b``,
+``scale``) and layouts (a dense weight is (in, out)), gathered into
+``nn.ModuleDict``s by the layer modules, so a carried JAX pytree maps
+onto them name for name.  Parameters are made with ``requires_grad``
+off: this slice serves, and training comes in a later one.  ``shard``
+is the identity: the port has no mesh yet.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+__all__ = [
+    "dtype_of",
+    "param",
+    "normal",
+    "dense_init",
+    "linear",
+    "rmsnorm_init",
+    "norm_apply",
+    "rope_cos_sin",
+    "apply_rope",
+    "shard",
+]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype string (``"bfloat16"``, ...)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def normal(shape, gen: torch.Generator | None, device, scale: float,
+           dtype=torch.float32) -> torch.Tensor:
+    """``scale`` times a float32 standard normal draw, cast to ``dtype``.
+    On the ``meta`` device (shapes only) no generator is used."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * scale).to(dtype)
+
+
+def dense_init(gen: torch.Generator | None, in_dim: int, out_dim: int, *,
+               device, scale: float = 0.02, bias: bool = False,
+               dtype=torch.float32) -> nn.ParameterDict:
+    p = nn.ParameterDict({"w": param(normal((in_dim, out_dim), gen, device,
+                                            scale, dtype))})
+    if bias:
+        p["b"] = param(torch.zeros((out_dim,), dtype=dtype, device=device))
+    return p
+
+
+def linear(p: nn.ParameterDict, x: torch.Tensor) -> torch.Tensor:
+    """x @ w (+ b), computing in x.dtype (params cast on the fly)."""
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def rmsnorm_init(d: int, parametric: bool, dtype: torch.dtype,
+                 device) -> nn.ParameterDict:
+    if not parametric:
+        return nn.ParameterDict()
+    return nn.ParameterDict(
+        {"scale": param(torch.ones((d,), dtype=dtype, device=device))})
+
+
+def norm_apply(p: nn.ParameterDict, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm: the variance accumulates in float32 (products of the
+    activation dtype are exact there), the scale multiply stays in the
+    activation dtype; ``nonparametric_ln`` layers carry no scale."""
+    xf = x.float()
+    var = (xf * xf).sum(dim=-1, keepdim=True) / x.shape[-1]
+    y = x * torch.rsqrt(var + eps).to(x.dtype)
+    if "scale" in p:
+        y = y * p["scale"].to(x.dtype)
+    return y
+
+
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float):
+    """positions (...,) -> cos/sin (..., dim/2), float32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D) with cos/sin (..., S, 1, D/2) or broadcastable."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """The reference's sharding hook; the identity without a mesh."""
+    return x

@@ -1,0 +1,193 @@
+"""The port's model stack against ``repro.models`` at smoke size.
+
+Parameters come from the reference's ``init_params`` and are carried
+into the port with ``convert.model_params_from_numpy``; the same seeded
+token batches go through both.  For the four dense text architectures
+(every layer ``attn`` + ``dense``) the port's ``forward`` logits,
+``prefill`` logits and caches, and one ``decode_step``'s logits and
+caches are held against JAX within atol 1e-4, the bound
+``tests/test_models.py`` puts on decode against forward (float32 smoke
+configs; the two packages differ in summation order only).  The config
+registry, layer layouts and parameter counts are compared with the
+reference for all ten configs, and the configs the port does not run
+yet must raise ``NotImplementedError``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import REGISTRY as J_REGISTRY
+from repro.configs.base import layer_layout as j_layer_layout
+from repro.configs.base import scan_grouping as j_scan_grouping
+from repro.models import model as JM
+from repro.models import transformer as JT
+from repro_torch.configs import REGISTRY
+from repro_torch.configs.base import layer_layout, scan_grouping
+from repro_torch.convert import model_params_from_numpy
+from repro_torch.models import model as M
+from repro_torch.models import transformer as T
+
+DENSE_ARCHS = ["internlm2-1.8b", "olmo-1b", "mistral-nemo-12b", "qwen1.5-110b"]
+OTHER_ARCHS = sorted(set(J_REGISTRY) - set(DENSE_ARCHS))
+ATOL = 1e-4
+B, S, MAX = 2, 16, 32
+
+
+def carried(arch, seed=0):
+    cfg = M.get_config(arch, smoke=True)
+    jparams = JT.init_params(cfg, jax.random.key(seed))
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    return cfg, jparams, model_params_from_numpy(cfg, tree, device="cpu")
+
+
+def tokens(cfg, shape, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32)
+
+
+def jax_layer_cache(jcaches, L):
+    """Layer L's {"k", "v"} from the reference's stacked cache tree (the
+    dense layouts have no prefix and a one-layer group)."""
+    return {n: np.asarray(a[L]) for n, a in jcaches["groups"]["layer0"].items()}
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def arch_state(request):
+    return carried(request.param)
+
+
+def test_forward_logits_equal_jax(arch_state):
+    cfg, jparams, params = arch_state
+    toks = tokens(cfg, (B, S), seed=1)
+    want, jaux = JT.forward(cfg, jparams, {"tokens": jnp.asarray(toks)})
+    got, aux = T.forward(cfg, params, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (B, S, cfg.padded_vocab_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    assert float(aux) == float(jaux) == 0.0
+
+
+def test_prefill_and_decode_step_equal_jax(arch_state):
+    cfg, jparams, params = arch_state
+    toks = tokens(cfg, (B, S + 1), seed=2)
+    jl, jc = JT.prefill(cfg, jparams, {"tokens": jnp.asarray(toks[:, :S])},
+                        max_len=MAX)
+    tl, tc = T.prefill(cfg, params, {"tokens": torch.from_numpy(toks[:, :S])},
+                       max_len=MAX)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    assert len(tc) == cfg.num_layers
+    for L, cache in enumerate(tc):
+        for name, want in jax_layer_cache(jc, L).items():
+            assert cache[name].shape == want.shape == (B, MAX, cfg.num_kv_heads,
+                                                      cfg.head_dim)
+            np.testing.assert_allclose(cache[name].numpy(), want, atol=ATOL)
+
+    nxt = toks[:, S:S + 1]
+    jl2, jc2 = JT.decode_step(cfg, jparams, jc, jnp.asarray(nxt), jnp.int32(S))
+    tl2, tc2 = T.decode_step(cfg, params, tc, torch.from_numpy(nxt), S)
+    assert tc2 is tc  # updated in place
+    np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), atol=ATOL)
+    for L, cache in enumerate(tc2):
+        for name, want in jax_layer_cache(jc2, L).items():
+            np.testing.assert_allclose(cache[name].numpy(), want, atol=ATOL)
+
+
+def test_decode_matches_forward(arch_state):
+    """The port alone: prefill + two decode steps == forward over the
+    prompt and the two tokens."""
+    cfg, _, params = arch_state
+    toks = torch.from_numpy(tokens(cfg, (B, S + 2), seed=3))
+    logits_pre, caches = T.prefill(cfg, params, {"tokens": toks[:, :S]},
+                                   max_len=MAX)
+    full, _ = T.forward(cfg, params, {"tokens": toks})
+    np.testing.assert_allclose(logits_pre[:, 0].numpy(), full[:, S - 1].numpy(),
+                               atol=ATOL)
+    for i in range(2):
+        logits, caches = T.decode_step(cfg, params, caches,
+                                       toks[:, S + i:S + i + 1], S + i)
+        np.testing.assert_allclose(logits[:, 0].numpy(),
+                                   full[:, S + i].numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", sorted(J_REGISTRY))
+def test_configs_layout_and_grouping_equal_reference(arch):
+    for full, jfull in zip(REGISTRY[arch], J_REGISTRY[arch]):
+        assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
+        assert full.padded_vocab_size == jfull.padded_vocab_size
+        assert ([(s.mixer, s.ffn) for s in layer_layout(full)]
+                == [(s.mixer, s.ffn) for s in j_layer_layout(jfull)])
+        prefix, g, group = scan_grouping(full)
+        jprefix, jg, jgroup = j_scan_grouping(jfull)
+        assert g == jg
+        assert [(s.mixer, s.ffn) for s in prefix + group] \
+            == [(s.mixer, s.ffn) for s in jprefix + jgroup]
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_param_count_equals_reference(arch, smoke):
+    cfg = M.get_config(arch, smoke=smoke)
+    assert M.count_params_analytic(cfg) == JM.count_params_analytic(
+        JM.get_config(arch, smoke=smoke))
+    assert cfg.param_count() == M.count_params_analytic(cfg)
+
+
+def test_internlm2_full_size_count():
+    """The full-width configuration the card serves: 1.89 B parameters."""
+    assert M.count_params_analytic(M.get_config("internlm2-1.8b")) == 1_889_634_304
+
+
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
+def test_unported_layouts_raise(arch):
+    cfg = M.get_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match="slice"):
+        T.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="slice"):
+        T.init_decode_caches(cfg, 1, 8)
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_decode_caches"])
+def test_default_device_raises_without_card(entry):
+    """Both entry points default to the card, as the rest of the port."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = M.get_config("olmo-1b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "init_params":
+            T.init_params(cfg, torch.Generator().manual_seed(0))
+        else:
+            T.init_decode_caches(cfg, 1, 8)
+
+
+def test_init_params_seeded_and_shaped():
+    cfg = M.get_config("qwen1.5-110b", smoke=True)
+    a = T.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    b = T.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    for (na, pa), (nb, pb) in zip(a.named_parameters(), b.named_parameters()):
+        assert na == nb and torch.equal(pa, pb) and not pa.requires_grad
+    names = dict(a.named_parameters())
+    assert names["layers.0.mixer.wq.w"].shape == (cfg.d_model,
+                                                   cfg.num_heads * cfg.head_dim)
+    assert "layers.0.mixer.wq.b" in names  # qwen1.5's QKV bias
+    olmo = T.init_params(M.get_config("olmo-1b", smoke=True),
+                         torch.Generator().manual_seed(0), device="cpu")
+    onames = dict(olmo.named_parameters())
+    assert "lm_head.w" not in onames  # tied embeddings
+    assert not any("scale" in n for n in onames)  # non-parametric LN
+
+
+def test_carry_rejects_mismatched_tree():
+    cfg = M.get_config("olmo-1b", smoke=True)
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  JT.init_params(cfg, jax.random.key(0)))
+    bad = dict(tree, embedding={"table": tree["embedding"]["table"][:, :8]})
+    with pytest.raises(ValueError, match="shape"):
+        model_params_from_numpy(cfg, bad, device="cpu")
+    extra = dict(tree, lm_head={"w": np.zeros((cfg.d_model, 8), np.float32)})
+    with pytest.raises(ValueError, match="leaves"):
+        model_params_from_numpy(cfg, extra, device="cpu")
