@@ -8,10 +8,11 @@ without a card it exits non-zero before printing any result.  Phases,
 each of which fails the run (non-zero exit, no result line) if it fails:
 
   1. environment: card name and power limit, torch and nvcc versions,
-     the three kernel builds, ``knn_stats/csrc/radius_counts.cu``,
-     ``pairwise_cheb/csrc/pairwise_cheb.cu`` and
-     ``flash_attention/csrc/flash_attention.cu``, one ``nvcc`` each,
-     started together (seconds and ``ptxas`` register/spill reports);
+     the five kernel sources, ``knn_stats/csrc/radius_counts.cu``,
+     ``knn_stats/csrc/knn_two_op.cu``, ``pairwise_cheb/csrc/pairwise_cheb.cu``,
+     ``flash_attention/csrc/flash_attention.cu`` and
+     ``murmur3/csrc/murmur3_fib.cu``, one ``nvcc`` each, started together
+     (seconds and ``ptxas`` register/spill reports);
   2. every kernel against its plain PyTorch version on the card, on the
      same inputs, required bit-equal (tolerance 0, NaN positions equal):
      radius_counts' radii, class counts and ball/tie counts, at
@@ -26,7 +27,13 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      order only) and bfloat16 (within one bfloat16 spacing of the plain
      version's bfloat16 output plus 2e-5: both accumulate in float32 and
      round once, and near zero the float32 difference spans several
-     spacings);
+     spacings); knn_smallest in both modes at P = 1/2/31/255/256/257/512
+     and kb = 1/3/8/128, and ball_counts with both ``which`` at r = 0,
+     +inf and an existing distance, with all-invalid samples, ties and
+     +-inf values, bit-equal; hash_keys on the words 0, 1, 0x7FFFFFFF,
+     0x80000000, 0xFFFFFFFF and random ones, n = 0/1/127/32769, scalar
+     and per-element seeds, Fibonacci on and off, bit-equal to the plain
+     version and to the host's numpy hashes;
   3. the main path: a C=65536-candidate TUPSK (n=256) corpus through
      ``SketchIndex.add``, then ``query_many`` with Q=16 continuous- and
      Q=16 discrete-target queries at ``min_join=24``, ``top_k=40``, cold
@@ -61,6 +68,18 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      on the joint launch, DC-KSG on the class launches): MI within 1e-6
      of the fused results, each ``pairwise_cheb`` chunk launch held
      bit-equal to its plain version and timed beside it and its bound;
+ 12. the two-op kNN API on phase 5's captured launches: ``knn_with_counts``
+     with the radius rule ``radius_counts`` fuses (2 kernel launches per
+     call, counted), its radius, class count and five counts bit-equal to
+     the captured ``radius_counts`` outputs; ``knn_smallest`` and
+     ``ball_counts`` each bit-equal to its plain version on the whole
+     batch, timed beside it, its bound and the fused kernel;
+ 13. the lake's keys hashed on the card: all C x 384 key words of phase
+     3's corpus through ``hash_keys`` (the key hash, the TUPSK tuple-key
+     re-hash with the key hashes as per-element seeds, and its Fibonacci
+     rank; 3 launches, counted), each bit-equal to ``murmur3_32_np`` /
+     ``fibonacci32_np`` on the host, timed beside the plain version and
+     the byte bound;
  11. the model serving path at full width: ``internlm2-1.8b`` at its
      published widths and full depth (24 layers, 1.89 B float32
      parameters from a seeded generator, bfloat16 activations) through
@@ -78,8 +97,10 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      ``SERVED_RTOL``; a forward whose attention drops the causal mask
      must fall outside it.
 
-Each of phases 3, 7-9 and 11 sets every kernel's launch count to 0 just
-before it drives its path and reads the counts just after.
+Phases 12 and 13 run after phase 10 and before phase 11, so that the
+serving path starts with the discovery state freed.  Each of phases 3,
+7-9 and 11-13 sets every kernel's launch count to 0 just before it
+drives its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
 (``{"record": ...}``), then the kernels' JSON line, the card's name and
@@ -88,6 +109,7 @@ power limit, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -129,6 +151,25 @@ RC_OPS = {
 }
 # Bytes per sample row: x, y f32 + mask u8 in; r f32 + cnt i32 + 5 i32 out.
 RC_BYTES_PER_ROW = 9 + 28
+# The two-op kernels, counted from the code as RC_OPS is.  knn_smallest,
+# as (float, int) per valid (i, j != i) pair and per same-class pair:
+#   joint: 2 subtractions, 2 abs, max, the compare against the running
+#          W-th smallest;
+#   class: the class test per pair; per same-class pair 1 subtraction,
+#          1 abs, the select compare and the class-count add.
+# ball_counts per valid pair:
+#   all: 2 subtractions, 2 abs, 4 count compares; 5 adds, 1 and;
+#   y:   1 subtraction, 1 abs, |dy|<r; 1 add.
+KNN_OPS = {"joint": ((6, 0), (0, 0)), "class": ((1, 0), (3, 1))}
+BC_OPS = {"all": (8, 6), "y": (3, 1)}
+# Bytes per sample row: knn_smallest reads x, y f32 + mask u8 and writes
+# kb f32 + cnt i32; ball_counts reads y, r f32 + mask u8 (and x f32 for
+# "all") and writes 5 i32.
+KNN_BYTES_IN, BC_BYTES = 9, {"all": 13 + 20, "y": 9 + 20}
+# murmur3_fib per element: int64 key (and int64 seed when seeds are per
+# element) in, int64 hash out; 20 integer operations (21 with the
+# Fibonacci multiply), counted from murmur3_fib.cu.
+HASH_INT_OPS = 20
 # pairwise_cheb: x, y f32 + mask u8 in per row; DX, DY, DJ f32 out per pair.
 PC_BYTES_PER_ROW, PC_BYTES_PER_PAIR = 9, 12
 
@@ -138,6 +179,7 @@ PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
                torch.float32: 67e12}
 
 C_MAIN, N_ROWS, N_SKETCH, Q = 65536, 384, 256, 16
+KEY_SEED = 3  # murmur seed of the lake's key columns
 MIN_JOIN, TOP_K = 24, 40
 C_CHECK = 1024
 N_PLANTED = 8
@@ -190,7 +232,7 @@ def rc_inputs(B: int, P: int, mode: str, gen: torch.Generator):
     x[:, : P // 4] = torch.round(x[:, : P // 4])
     if mode == "class":
         x = torch.randint(0, 6, (B, P), generator=gen).float()
-        x[:, :3] = 100.0 + torch.arange(3).float()  # singleton classes
+        x[:, :3] = 100.0 + torch.arange(min(3, P)).float()  # singleton classes
     y = torch.round(torch.randn(B, P, generator=gen) * 10) / 10
     keep = torch.randint(0, P + 1, (B, 1), generator=gen)
     mask = (torch.arange(P)[None, :] < keep) & (torch.rand(B, P, generator=gen) > 0.1)
@@ -345,9 +387,119 @@ def check_flash_attention(dev) -> float:
     return worst
 
 
+TWO_OP_P = (1, 2, 31, 255, 256, 257, 512)  # 512: the LV2SK/PRISK 2n capacity
+TWO_OP_KB = (1, 3, 8, 128)
+HASH_N = (0, 1, 127, 32769)
+HASH_EDGE = (0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF)
+
+
+def two_op_inputs(B: int, P: int, mode: str, gen: torch.Generator):
+    """``rc_inputs`` plus an all-invalid sample and +-inf values."""
+    x, y, mask = rc_inputs(B, P, mode, gen)
+    mask[0] = False
+    pick = torch.rand(B, P, generator=gen)
+    y[pick < 0.01] = float("inf")
+    y[(pick >= 0.01) & (pick < 0.02)] = float("-inf")
+    if mode == "joint":
+        x[(pick >= 0.02) & (pick < 0.03)] = float("inf")
+    return x, y, mask
+
+
+def bit_equal(name: str, got, want) -> float:
+    """Max abs error of ``got`` against ``want`` (tensors or tuples of
+    them), which must be 0 (NaN positions equal)."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    torch.cuda.synchronize()
+    err = max(_max_abs_err(g, w) for g, w in zip(got, want))
+    if err != 0.0:
+        raise AssertionError(f"{name} differs from its plain version: {err}")
+    return err
+
+
+def check_knn_two_op(dev) -> float:
+    """knn_smallest (joint and class, every P and kb) and ball_counts
+    (both ``which``, r = 0, +inf, an existing distance) against their
+    plain versions, bit-equal."""
+    from repro_torch.kernels.knn_stats import kernel, ref
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    worst, n = 0.0, 0
+    for mode in ("joint", "class"):
+        for P in TWO_OP_P:
+            B = 64 if P > 256 else 256
+            x, y, m = (t.to(dev) for t in two_op_inputs(B, P, mode, gen))
+            for kb in TWO_OP_KB:
+                worst = max(worst, bit_equal(
+                    f"knn_smallest {mode} P={P} kb={kb}",
+                    kernel.knn_smallest(x, y, m, kb=kb, mode=mode),
+                    ref.knn_smallest(x, y, m, kb=kb, mode=mode)))
+                n += 1
+            if mode == "class":
+                continue
+            knn, _ = ref.knn_smallest(x, y, m, kb=3, mode="joint")
+            radii = {"zero": torch.zeros_like(x),
+                     "inf": torch.full_like(x, float("inf")),
+                     "distance": knn[..., 2].contiguous()}
+            for rname, r in radii.items():
+                for which in ("all", "y"):
+                    worst = max(worst, bit_equal(
+                        f"ball_counts {which} P={P} r={rname}",
+                        kernel.ball_counts(x, y, m, r, which=which),
+                        ref.ball_counts(x, y, m, r, which=which)))
+                    n += 1
+    log(f"[compare] knn_smallest / ball_counts: {n} cases (P {TWO_OP_P}, kb "
+        f"{TWO_OP_KB}, joint and class; r = 0, +inf, an existing distance; "
+        f"which all and y; all-invalid samples, ties, +-inf values): "
+        f"max_abs_err={worst}")
+    return worst
+
+
+def check_hash_keys(dev) -> float:
+    """hash_keys against its plain version on the card and the host's
+    numpy hashes, bit-equal: edge words, scalar and per-element seeds,
+    Fibonacci on and off."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels.murmur3 import ops, ref
+
+    rng = np.random.default_rng(SEED + 4)
+    worst, n = 0.0, 0
+    for size in HASH_N:
+        words = rng.integers(0, 2**32, size=size, dtype=np.uint32)
+        words[:min(size, len(HASH_EDGE))] = HASH_EDGE[:size]
+        seeds = rng.integers(0, 2**32, size=size, dtype=np.uint32)
+        keys = torch.from_numpy(words.astype(np.int64)).to(dev)
+        for seed in (0xFFFFFFFF, torch.from_numpy(seeds.astype(np.int64)).to(dev)):
+            host_seed = seed if isinstance(seed, int) else seeds
+            host = hashing.murmur3_32_np(words, seed=host_seed)
+            for fib in (True, False):
+                got = ops.hash_keys(keys, seed, fibonacci=fib)
+                worst = max(worst, bit_equal(
+                    f"hash_keys n={size} fib={fib}", got,
+                    ref.murmur3_fib_ref(keys, seed, fibonacci=fib)))
+                on_host = hashing.fibonacci32_np(host) if fib else host
+                if not np.array_equal(got.cpu().numpy(), on_host):
+                    raise AssertionError(f"hash_keys n={size} fib={fib} differs "
+                                         "from the host's numpy hashes")
+                n += 1
+    log(f"[compare] hash_keys: {n} cases (n {HASH_N}, words {HASH_EDGE}, scalar "
+        f"and per-element seeds, Fibonacci on and off) against the plain version "
+        f"and murmur3_32_np/fibonacci32_np: max_abs_err={worst}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
+
+def key_words(c: int) -> np.ndarray:
+    """The raw key words of lake column c: the joinable columns (c % 16
+    == 1) share the train key universe 0..383, every other column has a
+    range of its own."""
+    if c % 16 == 1:
+        return np.arange(N_ROWS, dtype=np.uint32)
+    return np.arange((c + 1) * N_ROWS, (c + 2) * N_ROWS, dtype=np.uint32)
+
 
 def make_corpus(C: int, seed: int = SEED):
     """A lake of C candidate columns, each a 384-row table.
@@ -364,8 +516,7 @@ def make_corpus(C: int, seed: int = SEED):
     from repro_torch.core import hashing
 
     rng = np.random.default_rng(seed)
-    keys = hashing.murmur3_32_np(np.arange(N_ROWS, dtype=np.uint32),
-                                 seed=np.uint32(3))
+    keys = hashing.murmur3_32_np(key_words(1), seed=np.uint32(KEY_SEED))
     y = rng.normal(size=N_ROWS).astype(np.float32)
     edges = np.quantile(y, np.linspace(0, 1, 9)[1:-1])
     rows, planted_c, planted_d = [], [], []
@@ -386,9 +537,7 @@ def make_corpus(C: int, seed: int = SEED):
             j += 1
             continue
         disc = c % 4 == 0
-        kk = hashing.murmur3_32_np(
-            np.arange((c + 1) * N_ROWS, (c + 2) * N_ROWS, dtype=np.uint32),
-            seed=np.uint32(3))
+        kk = hashing.murmur3_32_np(key_words(c), seed=np.uint32(KEY_SEED))
         v = (rng.integers(0, 8, size=N_ROWS).astype(np.int64) if disc
              else rng.normal(size=N_ROWS).astype(np.float32))
         rows.append((name, "k", "v", kk, v, disc))
@@ -499,25 +648,42 @@ def capture_launches(index, batches) -> list:
     return seen
 
 
-def rc_bound(mask: torch.Tensor, args: dict, cnt: torch.Tensor) -> dict:
-    """Least time for one launch on these inputs: the operations its
-    data needs at the issue rates, or its bytes over the HBM rate."""
-    n = mask.sum(-1, dtype=torch.float64)
-    pairs = float((n * (n - 1)).sum())
-    same = float(cnt[mask].sum(dtype=torch.float64)) \
-        if args["mode"] == "class" else 0.0
-    (pf, pi), (sf, si) = RC_OPS[(args["mode"], args["which"])]
-    f_ops, i_ops = pairs * pf + same * sf, pairs * pi + same * si
+def bound(f_ops: float, i_ops: float, nbytes: float) -> dict:
+    """Least time for the work: its float and int operations at the
+    issue rates, or its bytes over the HBM rate, whichever is longer."""
     t_ops = 1e3 * max((f_ops + i_ops) / FP32_INSTR_PER_S,
                       i_ops / INT32_INSTR_PER_S)
-    nbytes = mask.numel() * RC_BYTES_PER_ROW
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     return {
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "ops_ms": t_ops, "bytes_ms": t_bytes, "valid_pairs": pairs, "same_class_pairs": same,
+        "ops_ms": t_ops, "bytes_ms": t_bytes,
         "float_ops": f_ops, "int_ops": i_ops, "bytes": nbytes,
     }
+
+
+def bound_by(rows: list[dict]) -> str:
+    """What bounds the sum of several launches."""
+    return ("operations" if sum(r["ops_ms"] for r in rows)
+            >= sum(r["bytes_ms"] for r in rows) else "bytes")
+
+
+def pair_counts(mask: torch.Tensor, mode: str, cnt: torch.Tensor) -> tuple:
+    """(valid j != i pairs, same-class pairs) of these samples."""
+    n = mask.sum(-1, dtype=torch.float64)
+    pairs = float((n * (n - 1)).sum())
+    same = float(cnt[mask].sum(dtype=torch.float64)) if mode == "class" else 0.0
+    return pairs, same
+
+
+def rc_bound(mask: torch.Tensor, args: dict, cnt: torch.Tensor) -> dict:
+    """Least time for one launch on these inputs: the operations its
+    data needs at the issue rates, or its bytes over the HBM rate."""
+    pairs, same = pair_counts(mask, args["mode"], cnt)
+    (pf, pi), (sf, si) = RC_OPS[(args["mode"], args["which"])]
+    return {**bound(pairs * pf + same * sf, pairs * pi + same * si,
+                    mask.numel() * RC_BYTES_PER_ROW),
+            "valid_pairs": pairs, "same_class_pairs": same}
 
 
 def time_cuda(fn, reps: int) -> float:
@@ -566,24 +732,28 @@ def check_main_launches(seen: list, card: str) -> list[dict]:
 # Phases 7-9: the service front end over the phase-3 index
 # ---------------------------------------------------------------------------
 
-def reset_launches() -> None:
+def wrappers() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.knn_stats import kernel as rc_kernel
+    from repro_torch.kernels.murmur3 import kernel as mm_kernel
     from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
 
-    rc_kernel.radius_counts.launches = 0
-    pc_kernel.pairwise_cheb.launches = 0
-    fa_kernel.flash_attention.launches = 0
+    return {"radius_counts": rc_kernel.radius_counts,
+            "knn_smallest": rc_kernel.knn_smallest,
+            "ball_counts": rc_kernel.ball_counts,
+            "pairwise_cheb": pc_kernel.pairwise_cheb,
+            "murmur3_fib": mm_kernel.murmur3_fib,
+            "flash_attention": fa_kernel.flash_attention}
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.knn_stats import kernel as rc_kernel
-    from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
-
-    return {"radius_counts": rc_kernel.radius_counts.launches,
-            "pairwise_cheb": pc_kernel.pairwise_cheb.launches,
-            "flash_attention": fa_kernel.flash_attention.launches}
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 def by_query(queue_results, n: int) -> list:
@@ -867,6 +1037,166 @@ def check_materialized(seen: list, card: str) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the two-op kNN API on the main path's own samples
+# ---------------------------------------------------------------------------
+
+def radius_rule(args: dict, mask: torch.Tensor):
+    """The radius ``radius_counts`` fuses, as a ``knn_with_counts``
+    callable: the k-th smallest in joint mode, the DC-KSG clipped
+    within-class extraction (budget kk, buffer kb) in class mode."""
+    k, kb, kk = args["k"], args["kb"], args["kk"]
+    if args["mode"] == "joint":
+        return lambda knn, cnt: knn[..., k - 1]
+    m = mask.to(torch.int32)
+
+    def clipped(knn, cnt):
+        idx = (torch.clamp(cnt + m - 1, max=kk) - 1).clamp(0, kb - 1)
+        return knn.gather(-1, idx.to(torch.int64)[..., None])[..., 0]
+    return clipped
+
+
+def knn_bound(mask, mode, kb, cnt) -> dict:
+    pairs, same = pair_counts(mask, mode, cnt)
+    (pf, pi), (sf, si) = KNN_OPS[mode]
+    return bound(pairs * pf + same * sf, pairs * pi + same * si,
+                 mask.numel() * (KNN_BYTES_IN + 4 * kb + 4))
+
+
+def bc_bound(mask, which) -> dict:
+    pairs, _ = pair_counts(mask, "joint", None)
+    pf, pi = BC_OPS[which]
+    return bound(pairs * pf, pairs * pi, mask.numel() * BC_BYTES[which])
+
+
+def run_two_op(seen: list, card: str) -> dict:
+    """Phase 12: ``knn_with_counts`` on each launch phase 5 captured, with
+    the radius rule ``radius_counts`` uses; 2 kernel launches per call;
+    r, cnt and all five counts bit-equal to the captured outputs.  Then
+    each kernel against its plain version on the same (whole) batch, and
+    timed beside it, its bound and the fused kernel."""
+    from repro_torch.kernels.knn_stats import kernel, ops, ref
+
+    reset_launches()
+    outs = [ops.knn_with_counts(x, y, m, k=args["k"], k_max=args["kb"],
+                                mode=args["mode"], which=args["which"],
+                                radius=radius_rule(args, m))
+            for x, y, m, args, _ in seen]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"knn_smallest": len(seen), "ball_counts": len(seen)}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"knn_with_counts over {len(seen)} captured launches "
+                             f"made {launches}; expected {want}")
+    rows = []
+    for (x, y, m, args, fused), (knn, cnt, counts) in zip(seen, outs):
+        B, P = x.shape
+        name = f"{args['mode']}/{args['which']} k={args['k']} kb={args['kb']} B={B} P={P}"
+        rule = radius_rule(args, m)
+        r, counts = rule(knn, cnt), torch.stack(tuple(counts))
+        two_op_err = bit_equal(f"knn_with_counts {name} against radius_counts",
+                               (r, cnt, counts), fused)
+        mode, which, kb = args["mode"], args["which"], args["kb"]
+        rr = r.contiguous()
+        knn_err = bit_equal(f"knn_smallest {name}", (knn, cnt),
+                            ref.knn_smallest(x, y, m, kb=kb, mode=mode))
+        bc_err = bit_equal(f"ball_counts {name}", counts,
+                           ref.ball_counts(x, y, m, rr, which=which))
+        kw = dict(k=args["k"], k_max=kb, mode=mode, which=which, radius=rule)
+        row = {
+            "mode": mode, "which": which, "k": args["k"], "kb": kb, "kk": args["kk"],
+            "B": B, "P": P, "plain_batch": B, "two_op_vs_fused_err": two_op_err,
+            "knn_smallest": {
+                "max_abs_err": knn_err,
+                "ms": time_cuda(lambda: kernel.knn_smallest(x, y, m, kb=kb, mode=mode), 20),
+                "plain_ms": time_cuda(lambda: ref.knn_smallest(x, y, m, kb=kb, mode=mode), 2),
+                **knn_bound(m, mode, kb, cnt)},
+            "ball_counts": {
+                "max_abs_err": bc_err,
+                "ms": time_cuda(lambda: kernel.ball_counts(x, y, m, rr, which=which), 20),
+                "plain_ms": time_cuda(lambda: ref.ball_counts(x, y, m, rr, which=which), 2),
+                **bc_bound(m, which)},
+            "knn_with_counts_ms": time_cuda(lambda: ops.knn_with_counts(x, y, m, **kw), 20),
+            "radius_counts_ms": time_cuda(lambda: kernel.radius_counts(x, y, m, **args), 20),
+        }
+        log(f"[two-op] {name}: knn_with_counts == radius_counts (r, cnt, 5 counts), "
+            f"each kernel == its plain version on the whole batch; knn_smallest "
+            f"{row['knn_smallest']['ms']:.4f} ms (plain {row['knn_smallest']['plain_ms']:.4f}, "
+            f"bound {row['knn_smallest']['bound_ms']:.4f} {row['knn_smallest']['bound_by']}), "
+            f"ball_counts {row['ball_counts']['ms']:.4f} ms (plain "
+            f"{row['ball_counts']['plain_ms']:.4f}, bound {row['ball_counts']['bound_ms']:.4f} "
+            f"{row['ball_counts']['bound_by']}); knn_with_counts "
+            f"{row['knn_with_counts_ms']:.4f} ms against radius_counts "
+            f"{row['radius_counts_ms']:.4f} ms; card {card}")
+        rows.append(row)
+    del outs
+    return {"launches": launches, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the lake's keys hashed on the card
+# ---------------------------------------------------------------------------
+
+def hash_bound(n: int, per_element_seed: bool, fib: bool) -> dict:
+    return bound(0.0, float(n) * (HASH_INT_OPS + fib),
+                 n * (16 + 8 * per_element_seed))
+
+
+def run_hash_lake(rows: list, card: str, dev) -> dict:
+    """Phase 13: every key word of the C-column lake (C x 384) through
+    ``hash_keys``: the key hash (scalar seed), the TUPSK tuple-key re-hash
+    (per-element seeds: the key hashes) and its Fibonacci rank, each
+    bit-equal to the numpy hashes the sketches are built from."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels.murmur3 import ops, ref
+
+    t0 = time.perf_counter()
+    raw = np.concatenate([key_words(c) for c in range(len(rows))])
+    host_key = np.concatenate([r[3] for r in rows])
+    col = np.repeat(np.arange(len(rows), dtype=np.int64), N_ROWS)
+    j = hashing.occurrence_index((col << 32) | host_key.astype(np.int64))
+    host_tuple = hashing.murmur3_32_np(j.astype(np.uint32), seed=host_key)
+    host_rank = hashing.fibonacci32_np(host_tuple)
+    t_host = time.perf_counter() - t0
+    raw_t = torch.from_numpy(raw.astype(np.int64)).to(dev)
+    j_t = torch.from_numpy(j).to(dev)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    key_h = ops.hash_keys(raw_t, KEY_SEED, fibonacci=False)
+    tuple_h = ops.hash_keys(j_t, key_h, fibonacci=False)
+    rank = ops.hash_keys(j_t, key_h)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if {k: v for k, v in launches.items() if v} != {"murmur3_fib": 3}:
+        raise AssertionError(f"hashing the lake made {launches}; expected 3 "
+                             "murmur3_fib launches")
+    for name, got, host in (("key hash", key_h, host_key),
+                            ("tuple-key re-hash", tuple_h, host_tuple),
+                            ("TUPSK rank", rank, host_rank)):
+        if not np.array_equal(got.cpu().numpy(), host.astype(np.int64)):
+            raise AssertionError(f"the lake's {name} differs from the host's")
+    passes = {"key": (raw_t, KEY_SEED, False), "tuple": (j_t, key_h, False),
+              "rank": (j_t, key_h, True)}
+    out, err = {}, 0.0
+    for name, (keys, seeds, fib) in passes.items():
+        err = max(err, bit_equal(f"hash_keys {name} pass", ops.hash_keys(keys, seeds, fibonacci=fib),
+                                 ref.murmur3_fib_ref(keys, seeds, fibonacci=fib)))
+        out[name] = {
+            "ms": time_cuda(lambda: ops.hash_keys(keys, seeds, fibonacci=fib), 20),
+            "plain_ms": time_cuda(lambda: ref.murmur3_fib_ref(keys, seeds, fibonacci=fib), 3),
+            **hash_bound(keys.numel(), not isinstance(seeds, int), fib)}
+    n = raw.size
+    log(f"[hash] the lake's {n} key words ({len(rows)} columns x {N_ROWS} rows): key "
+        f"hash, tuple-key re-hash and TUPSK rank on the card == murmur3_32_np / "
+        f"fibonacci32_np on the host (host side {t_host:.2f} s); "
+        + "; ".join(f"{k} pass {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
+                    f"{v['bound_ms']:.4f} {v['bound_by']})" for k, v in out.items())
+        + f"; card {card}")
+    return {"words": n, "launches": launches, "max_abs_err": err, "host_s": t_host,
+            "passes": out}
+
+
+# ---------------------------------------------------------------------------
 # Phase 11: the model serving path at full width
 # ---------------------------------------------------------------------------
 
@@ -935,6 +1265,7 @@ def run_serving(card: str, dev: torch.device) -> dict:
             served.append(logits[0, -1].clone())
         return logits, caches
 
+    start_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     batcher = serve.ContinuousBatcher(cfg, params, SERVE_SLOTS, SERVE_MAX)
     decode_fn = batcher._decode
@@ -974,7 +1305,7 @@ def run_serving(card: str, dev: torch.device) -> dict:
         raise AssertionError(f"serving made {launches['flash_attention']} flash "
                              f"launches; expected {cfg.num_layers} per request, "
                              f"{expect} in all")
-    if launches["radius_counts"] or launches["pairwise_cheb"]:
+    if any(v for k, v in launches.items() if k != "flash_attention"):
         raise AssertionError(f"serving launched a discovery kernel: {launches}")
     outs = [batcher.outputs[r] for r in range(SERVE_REQUESTS)]
     if any(len(o) != SERVE_GEN for o in outs) or sorted(finished) != list(range(SERVE_REQUESTS)):
@@ -991,7 +1322,7 @@ def run_serving(card: str, dev: torch.device) -> dict:
         "wall_s": wall, "generated_tokens": generated,
         "generated_tok_s": generated / wall,
         "slot_tok_s": len(decode_s) * SERVE_SLOTS / wall,
-        "peak_mem_bytes": peak,
+        "peak_mem_bytes": peak, "start_mem_bytes": start_mem,
     }
     log(f"[serve] {SERVE_REQUESTS} requests x {SERVE_PROMPT}-token prompts over "
         f"{SERVE_SLOTS} slots, {SERVE_GEN} tokens each: prefill median "
@@ -1176,6 +1507,7 @@ def main() -> int:
     from repro_torch.core.discovery import DiscoveryService
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.knn_stats import kernel
+    from repro_torch.kernels.murmur3 import kernel as mm_kernel
     from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
 
     t_start = time.perf_counter()
@@ -1193,25 +1525,29 @@ def main() -> int:
     log(f"[env] card: {card}")
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc}")
     # One nvcc per source, started together.
+    loaders = {"radius_counts": kernel.load_library,
+               "knn_two_op": kernel.load_two_op_library,
+               "pairwise_cheb": pc_kernel.load_library,
+               "flash_attention": fa_kernel.load_library,
+               "murmur3_fib": mm_kernel.load_library}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        futures = [pool.submit(kernel.load_library),
-                   pool.submit(pc_kernel.load_library),
-                   pool.submit(fa_kernel.load_library)]
-        built, pc_built, fa_built = (f.result() for f in futures)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in loaders.items()}
+        builds = {name: f.result() for name, f in futures.items()}
     t_build = time.perf_counter() - t0
-    for name, b in (("radius_counts", built), ("pairwise_cheb", pc_built),
-                    ("flash_attention", fa_built)):
+    for name, b in builds.items():
         log(f"[build] {name}: {b.seconds:.2f} s -> {b.path.name}")
         for line in b.ptxas.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {line.strip()}")
-    log(f"[build] all three kernels built in {t_build:.2f} s")
+    log(f"[build] all {len(builds)} sources built in {t_build:.2f} s")
 
     # Phase 2: kernels vs plain, bit-equal, on synthetic edge cases.
     max_err = check_radius_counts(dev)
     pc_max_err = check_pairwise_cheb(dev)
     fa_max_err = check_flash_attention(dev)
+    two_op_err = check_knn_two_op(dev)
+    hash_err = check_hash_keys(dev)
 
     # Phase 3: main path at lake scale.
     t0 = time.perf_counter()
@@ -1236,8 +1572,9 @@ def main() -> int:
     launches_cold = kernel.radius_counts.launches
     t_warm, warm = run_pass(index, [cont, disc], dev)
     launches = kernel.radius_counts.launches
-    if pc_kernel.pairwise_cheb.launches:
-        raise AssertionError("query_many launched pairwise_cheb (fused path only)")
+    off_path = {k: v for k, v in read_launches().items() if v and k != "radius_counts"}
+    if off_path:
+        raise AssertionError(f"query_many launched {off_path} (fused path only)")
     log(f"[main] query_many cold {t_cold:.4f} s ({launches_cold} launches), "
         f"warm {t_warm:.4f} s ({launches - launches_cold} launches); "
         f"ingest {index.ingest_stats}")
@@ -1287,8 +1624,7 @@ def main() -> int:
     rc_ms = sum(r["ms"] for r in rc)
     rc_plain = sum(r["plain_ms"] for r in rc)
     rc_bound_ms = sum(r["bound_ms"] for r in rc)
-    rc_by = ("operations" if sum(r["ops_ms"] for r in rc)
-             >= sum(r["bytes_ms"] for r in rc) else "bytes")
+    rc_by = bound_by(rc)
     log(f"[time] radius_counts, the {len(rc)} launches of one warm pass: "
         f"{rc_ms:.4f} ms, plain {rc_plain:.4f} ms, bound {rc_bound_ms:.4f} ms "
         f"({rc_by}); card {card}")
@@ -1318,7 +1654,6 @@ def main() -> int:
 
     # Phase 10: the materialized estimators on phase 5's samples.
     mat = check_materialized(seen, card)
-    del seen
     pc_max_err = max([pc_max_err] + [r["max_abs_err"] for r in mat])
     pc_ms = float(np.mean([r["ms"] for r in mat]))
     pc_plain = float(np.mean([r["plain_ms"] for r in mat]))
@@ -1328,17 +1663,26 @@ def main() -> int:
         f"sample sets: {pc_ms:.4f} ms, plain {pc_plain:.4f} ms, bound "
         f"{pc_bound_ms:.4f} ms (bytes); card {card}")
 
-    # Phase 11: the model serving path, with the discovery state freed.
+    # Phase 12: the two-op kNN API on phase 5's samples; phase 13: the
+    # lake's keys hashed on the card.  Both run before phase 11, so that
+    # the serving path starts with the discovery state freed.
+    two_op = run_two_op(seen, card)
     n_index = len(index)
-    del index, svc, gpu_sub, cpu_sub
+    del seen, index, svc, gpu_sub, cpu_sub
+    lake_hash = run_hash_lake(rows, card, dev)
+    del rows
+    gc.collect()  # the index sits in reference cycles; free its stores now
     torch.cuda.empty_cache()
+    knn_rows = [r["knn_smallest"] for r in two_op["rows"]]
+    bc_rows = [r["ball_counts"] for r in two_op["rows"]]
+
+    # Phase 11: the model serving path, with the discovery state freed.
     serving = run_serving(card, dev)
     fa_max_err = max(fa_max_err, serving["flash"]["max_abs_err"])
 
     record = {
         "card": card, "torch": torch.__version__, "nvcc": nvcc,
-        "build_s": built.seconds, "build_pairwise_cheb_s": pc_built.seconds,
-        "build_flash_attention_s": fa_built.seconds,
+        "build_s": {name: b.seconds for name, b in builds.items()},
         "build_wall_s": t_build, "C": n_index, "Q": Q,
         "min_join": MIN_JOIN, "top_k": TOP_K, "ingest_s": t_ingest, "flush_s": t_flush,
         "query_many_cold_s": t_cold, "query_many_warm_s": t_warm,
@@ -1347,7 +1691,8 @@ def main() -> int:
         "launches_cold": launches_cold, "launches_warm": launches - launches_cold,
         "profile_warm_continuous": prof_c,
         "radius_counts": rc, "submit": submit, "submit_safe": safe,
-        "scheduler": sched, "materialized": mat, "serving": serving,
+        "scheduler": sched, "materialized": mat, "two_op": two_op,
+        "lake_hash": lake_hash, "serving": serving,
         "total_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"record": record}))
@@ -1387,6 +1732,42 @@ def main() -> int:
         "bound_ms": serving["flash"]["bound_ms"],
         "bound_by": serving["flash"]["bound_by"],
         "library_ms": serving["flash"]["library_ms"],
+    }, {
+        "name": "knn_smallest",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/knn_stats/csrc/knn_two_op.cu",
+        "replaces": "src/repro/kernels/knn_stats/kernel.py:381",
+        "launches": two_op["launches"]["knn_smallest"],
+        "max_abs_err": max([two_op_err] + [r["max_abs_err"] for r in knn_rows]),
+        "ms": sum(r["ms"] for r in knn_rows),
+        "plain_ms": sum(r["plain_ms"] for r in knn_rows),
+        "bound_ms": sum(r["bound_ms"] for r in knn_rows),
+        "bound_by": bound_by(knn_rows),
+        "library_ms": None,
+    }, {
+        "name": "ball_counts",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/knn_stats/csrc/knn_two_op.cu",
+        "replaces": "src/repro/kernels/knn_stats/kernel.py:426",
+        "launches": two_op["launches"]["ball_counts"],
+        "max_abs_err": max([two_op_err] + [r["max_abs_err"] for r in bc_rows]),
+        "ms": sum(r["ms"] for r in bc_rows),
+        "plain_ms": sum(r["plain_ms"] for r in bc_rows),
+        "bound_ms": sum(r["bound_ms"] for r in bc_rows),
+        "bound_by": bound_by(bc_rows),
+        "library_ms": None,
+    }, {
+        "name": "murmur3_fib",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/murmur3/csrc/murmur3_fib.cu",
+        "replaces": "src/repro/kernels/murmur3/kernel.py:63",
+        "launches": lake_hash["launches"]["murmur3_fib"],
+        "max_abs_err": max(hash_err, lake_hash["max_abs_err"]),
+        "ms": sum(p["ms"] for p in lake_hash["passes"].values()),
+        "plain_ms": sum(p["plain_ms"] for p in lake_hash["passes"].values()),
+        "bound_ms": sum(p["bound_ms"] for p in lake_hash["passes"].values()),
+        "bound_by": bound_by(list(lake_hash["passes"].values())),
+        "library_ms": None,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
