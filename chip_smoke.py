@@ -8,11 +8,12 @@ without a card it exits non-zero before printing any result.  Phases,
 each of which fails the run (non-zero exit, no result line) if it fails:
 
   1. environment: card name and power limit, torch and nvcc versions,
-     the five kernel sources, ``knn_stats/csrc/radius_counts.cu``,
+     the six kernel sources, ``knn_stats/csrc/radius_counts.cu``,
      ``knn_stats/csrc/knn_two_op.cu``, ``pairwise_cheb/csrc/pairwise_cheb.cu``,
-     ``flash_attention/csrc/flash_attention.cu`` and
+     ``flash_attention/csrc/flash_attention.cu`` (the CUDA-core kernel),
+     ``flash_attention/csrc/flash_wgmma.cu`` (the Hopper kernel) and
      ``murmur3/csrc/murmur3_fib.cu``, one ``nvcc`` each, started together
-     (seconds and ``ptxas`` register/spill reports);
+     (seconds and ``ptxas`` register/spill/shared-memory reports);
   2. every kernel against its plain PyTorch version on the card, on the
      same inputs, required bit-equal (tolerance 0, NaN positions equal):
      radius_counts' radii, class counts and ball/tie counts, at
@@ -20,13 +21,21 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      k=1/8/K_MAX, widened class budgets, tie-heavy values, ragged masks,
      few-neighbour rows, a P=512 batch and a kb=128 batch; pairwise_cheb's
      DX/DY/DJ at B=4096 × P=256, P=300 with ragged masks, P=512,
-     exact-zero plateaus and NaN/±inf inputs; flash_attention against
-     ``ref.chunked_attention`` and ``ref.mha_reference``, causal and not,
-     GQA groups 1/2/4, S = 1/100/2048/2049, D = 128, Dk=192/Dv=128 and
-     D = 16, float32 (within atol 2e-5: the two differ in summation
-     order only) and bfloat16 (within one bfloat16 spacing of the plain
-     version's bfloat16 output plus 2e-5: both accumulate in float32 and
-     round once, and near zero the float32 difference spans several
+     exact-zero plateaus and NaN/±inf inputs; flash_attention, causal and
+     not, GQA groups 1/2/4, S = 1/100/2048/2049, (Dk, Dv) = (128, 128),
+     (64, 64), (192, 128) and (16, 16), float32, bfloat16 and float16,
+     each case required to reach the kernel the dispatch rule names:
+     bfloat16/float16 at the first three head dims the Hopper kernel,
+     held against ``ref.mha_reference`` and its own plain version
+     ``ref.chunked_attention(p_dtype=...)`` within one spacing
+     of the output dtype + 2^-8 max|v| (per batch x head) + 2e-5 (P is
+     rounded to bf16/fp16 before P·V: at most 2^-9 of itself, so the
+     output moves by at most 2^-9 max|v|, bounded with a factor 2); the
+     rest the CUDA-core kernel against ``ref.chunked_attention`` and
+     ``ref.mha_reference``, float32 within atol 2e-5 (the two differ in
+     summation order only) and 16-bit within one spacing of the plain
+     version's output plus 2e-5 (both accumulate in float32 and round
+     once, and near zero the float32 difference spans several
      spacings); knn_smallest in both modes at P = 1/2/31/255/256/257/512
      and kb = 1/3/8/128, and ball_counts with both ``which`` at r = 0,
      +inf and an existing distance, with all-invalid samples, ties and
@@ -87,15 +96,21 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      slots, prompts of 2048 tokens, 32 generated tokens each, max_len
      4096.  It reports the prefill time per request, the decode time per
      step, the aggregate generated tokens/s and the peak device memory,
-     and requires 24 flash launches per admitted request.  Then (a) one
-     request's 24 flash launches, captured with their inputs, each held
-     within phase 2's bfloat16 tolerance and timed beside the plain
-     version, its bound and ``scaled_dot_product_attention`` (the
-     yardstick the port never calls); (b) that request's served logits (its prefill and its
-     31 decode steps) against the port's float32 ``forward`` with the
-     plain attention, over the prompt and the generated tokens, within
+     and requires 24 launches of the Hopper flash kernel per admitted
+     request and none of the CUDA-core one.  Then (a) one request's 24
+     flash launches, captured with their inputs, each held within phase
+     2's Hopper tolerance of both plain versions and timed beside its
+     plain version, the CUDA-core kernel, its bound and
+     ``scaled_dot_product_attention`` (the yardstick the port never
+     calls); (b) that request's served logits (its prefill and its 31
+     decode steps) against the port's float32 ``forward`` with the plain
+     attention, over the prompt and the generated tokens, within
      ``SERVED_RTOL``; a forward whose attention drops the causal mask
-     must fall outside it.
+     must fall outside it; (c) the float32 ``forward`` of the same
+     tokens through the kernels (the CUDA-core kernel's path: 24
+     launches, none of the Hopper one), its logits within 1e-3 relative
+     RMS of the plain float32 forward, each of its 24 launches held
+     within atol 2e-5 of the plain version and timed as in (a).
 
 Phases 12 and 13 run after phase 10 and before phase 11, so that the
 serving path starts with the discovery state freed.  Each of phases 3,
@@ -194,15 +209,21 @@ MI_TOL = 1e-6
 # order only; in bfloat16 both sides accumulate in float32 and round once.
 FA_F32_ATOL = 2e-5
 FA_BF16_ULPS = 1.0
+# The Hopper kernel rounds P (in [0, 1]) to bf16/fp16 before P.V: at most
+# 2^-9 of itself, so the output moves by at most 2^-9 max|v|; held within
+# one output spacing + FA_P_VREL max|v| (per batch x head) + FA_F32_ATOL,
+# a factor 2 of margin (see fa_within_p).
+FA_P_VREL = 2.0 ** -8
 FA_CASES = [  # (Dk, Dv) x S x group x causal, for each dtype
     (dtype, dk, dv, S, group, causal)
-    for dtype in (torch.float32, torch.bfloat16)
-    for dk, dv in ((128, 128), (192, 128), (16, 16))
+    for dtype in (torch.float32, torch.bfloat16, torch.float16)
+    for dk, dv in ((128, 128), (64, 64), (192, 128), (16, 16))
     for S in (1, 100, 2048, 2049)
     for group in (1, 2, 4)
     for causal in (True, False)
 ]
 FA_HKV = 2
+FA_TIME_REPS = 50  # launches per CUDA-event timing of a captured flash launch
 
 # Phase 11: the serving path at full width.
 SERVE_ARCH = "internlm2-1.8b"
@@ -215,6 +236,11 @@ SERVE_PROMPT, SERVE_GEN, SERVE_MAX = 2048, 32, 4096
 # forward through the kernel), and a forward without the causal mask to
 # 0.40-0.50; 0.10 sits between them with room on both sides.
 SERVED_RTOL = 0.10
+# The float32 forward through the CUDA-core flash kernel against the same
+# forward with the plain attention: the attention outputs differ in
+# summation order only (within FA_F32_ATOL), which 24 layers carry into
+# the logits at a relative RMS far below this.
+F32_FWD_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -329,11 +355,13 @@ def check_pairwise_cheb(dev) -> float:
     return worst
 
 
-def bf16_spacing(want: torch.Tensor) -> torch.Tensor:
-    """The bfloat16 spacing at ``want`` (8 significant bits: 2^(e-8) for
-    |want| in [2^(e-1), 2^e))."""
+def spacing(want: torch.Tensor) -> torch.Tensor:
+    """The spacing of ``want``'s 16-bit dtype at ``want`` (bfloat16: 8
+    significant bits, 2^(e-8) for |want| in [2^(e-1), 2^e); float16: 11
+    bits, 2^(e-11))."""
     w = want.float()
-    return torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8) \
+    bits = 11 if want.dtype == torch.float16 else 8
+    return torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - bits) \
         .clamp_min(2.0 ** -133)
 
 
@@ -348,42 +376,83 @@ def fa_within(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float, float
     if got.dtype == torch.float32:
         return err <= FA_F32_ATOL, err, float("nan")
     diff = (got.float() - want.float()).abs()
-    spacing = bf16_spacing(want)
-    ok = bool((diff <= FA_BF16_ULPS * spacing + FA_F32_ATOL).all())
-    return ok, err, float((diff / spacing).max())
+    ulp = spacing(want)
+    ok = bool((diff <= FA_BF16_ULPS * ulp + FA_F32_ATOL).all())
+    return ok, err, float((diff / ulp).max())
 
 
-def check_flash_attention(dev) -> float:
-    """The kernel against both plain versions on synthetic cases."""
+def fa_within_p(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor,
+                group: int) -> tuple[bool, float, float]:
+    """The Hopper kernel's tolerance: (within, max abs error, worst error
+    in units of the bound).  The bound is one spacing of the output dtype
+    at ``want`` + FA_P_VREL * max|v| over the (batch, KV head) the output
+    row reads + FA_F32_ATOL."""
+    vmax = v.float().abs().amax(dim=(2, 3), keepdim=True)
+    tol = (spacing(want) + FA_P_VREL * vmax.repeat_interleave(group, dim=1)
+           + FA_F32_ATOL)
+    units = float(((got.float() - want.float()).abs() / tol).max())
+    return units <= 1.0, _max_abs_err(got, want), units
+
+
+def check_flash_attention(dev) -> dict:
+    """Both kernels against their plain versions on synthetic cases, each
+    case through the dispatching ``kernel.flash_attention`` and required
+    to reach the kernel the rule names.  Returns the worst errors by
+    kernel name."""
+    from functools import partial
+
     from repro_torch.kernels.flash_attention import kernel, ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    worst, worst_ulps = 0.0, 0.0
+    worst = {"flash_attention": 0.0, "flash_attention_wgmma": 0.0}
+    units = {"flash_attention": 0.0, "flash_attention_wgmma": 0.0}
+    n = {"flash_attention": 0, "flash_attention_wgmma": 0}
     for dtype, dk, dv, S, group, causal in FA_CASES:
         hq = FA_HKV * group
         q = torch.randn(1, hq, S, dk, generator=gen, device=dev).to(dtype)
         k = torch.randn(1, FA_HKV, S, dk, generator=gen, device=dev).to(dtype)
         v = torch.randn(1, FA_HKV, S, dv, generator=gen, device=dev).to(dtype)
         scale = 1.0 / dk ** 0.5
+        hopper = dtype != torch.float32 and (dk, dv) in kernel.WGMMA_HEAD_DIMS
+        name = "flash_attention_wgmma" if hopper else "flash_attention"
+        reset_launches()
         got = kernel.flash_attention(q, k, v, scale=scale, causal=causal)
-        name = (f"{str(dtype)[6:]} Dk={dk} Dv={dv} S={S} group={group} "
+        case = (f"{str(dtype)[6:]} Dk={dk} Dv={dv} S={S} group={group} "
                 f"causal={causal}")
-        for plain in (ref.chunked_attention, ref.mha_reference):
+        if read_launches() != {**{k_: 0 for k_ in wrappers()}, name: 1}:
+            raise AssertionError(f"flash_attention {case} did not reach "
+                                 f"{name}: {read_launches()}")
+        if hopper:
+            plains = (partial(ref.chunked_attention, p_dtype=dtype),
+                      ref.mha_reference)
+        else:
+            plains = (ref.chunked_attention, ref.mha_reference)
+        for plain in plains:
             want = plain(q, k, v, scale=scale, causal=causal)
             torch.cuda.synchronize()
-            ok, err, ulps = fa_within(got, want)
+            if hopper:
+                ok, err, u = fa_within_p(got, want, v, group)
+            else:
+                ok, err, u = fa_within(got, want)
             if not ok:
-                raise AssertionError(f"flash_attention {name} differs from "
-                                     f"{plain.__name__}: max_abs_err={err}, "
-                                     f"spacings={ulps}")
-            worst = max(worst, err)
-            if ulps == ulps:
-                worst_ulps = max(worst_ulps, ulps)
+                raise AssertionError(f"{name} {case} differs from its plain "
+                                     f"version: max_abs_err={err}, units={u}")
+            worst[name] = max(worst[name], err)
+            if u == u:
+                units[name] = max(units[name], u)
+        n[name] += 1
         del got, want
-    log(f"[compare] flash_attention: {len(FA_CASES)} cases (float32 within "
-        f"atol {FA_F32_ATOL}, bfloat16 within {FA_BF16_ULPS} spacing + "
-        f"{FA_F32_ATOL}) against chunked_attention and mha_reference: "
-        f"max_abs_err={worst}, worst bfloat16 error in spacings={worst_ulps}")
+    log(f"[compare] flash_attention_wgmma: {n['flash_attention_wgmma']} cases "
+        f"(bf16/fp16 at (Dk, Dv) in {sorted(kernel.WGMMA_HEAD_DIMS)}) within 1 "
+        f"spacing + {FA_P_VREL} max|v| + {FA_F32_ATOL} of mha_reference and of "
+        f"chunked_attention(p_dtype): max_abs_err="
+        f"{worst['flash_attention_wgmma']}, worst error in units of the bound="
+        f"{units['flash_attention_wgmma']}")
+    log(f"[compare] flash_attention (CUDA cores): {n['flash_attention']} cases "
+        f"(float32 within atol {FA_F32_ATOL}, 16-bit within {FA_BF16_ULPS} "
+        f"spacing + {FA_F32_ATOL}) against chunked_attention and mha_reference: "
+        f"max_abs_err={worst['flash_attention']}, worst 16-bit error in "
+        f"spacings={units['flash_attention']}")
     return worst
 
 
@@ -744,7 +813,8 @@ def wrappers() -> dict:
             "ball_counts": rc_kernel.ball_counts,
             "pairwise_cheb": pc_kernel.pairwise_cheb,
             "murmur3_fib": mm_kernel.murmur3_fib,
-            "flash_attention": fa_kernel.flash_attention}
+            "flash_attention": fa_kernel.flash_attention_simt,
+            "flash_attention_wgmma": fa_kernel.flash_attention_wgmma}
 
 
 def reset_launches() -> None:
@@ -1224,12 +1294,150 @@ def rel_rms(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a - b).pow(2).mean(-1).sqrt() / b.pow(2).mean(-1).sqrt()
 
 
-def run_serving(card: str, dev: torch.device) -> dict:
-    """Phase 11: ``ContinuousBatcher`` over ``internlm2-1.8b`` at full
-    width, then checks (a) and (b)."""
+def capture_flash(fn, n: int) -> list:
+    """Run ``fn`` with every flash launch of ``ops.attention`` captured
+    with its inputs and output; require ``n`` launches."""
     from types import SimpleNamespace
 
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    seen = []
+
+    def spy(q, k, v, *, scale, causal):
+        out = fa_kernel.flash_attention(q, k, v, scale=scale, causal=causal)
+        seen.append((q.clone(), k.clone(), v.clone(), scale, causal, out.clone()))
+        return out
+
+    fa_ops.kernel = SimpleNamespace(flash_attention=spy)
+    try:
+        fn()
+    finally:
+        fa_ops.kernel = fa_kernel
+    torch.cuda.synchronize()
+    if len(seen) != n:
+        raise AssertionError(f"captured {len(seen)} flash launches; expected {n}")
+    return seen
+
+
+def device_ms_per_call(calls: list, reps: int = 5) -> float:
+    """Device time of the kernels the calls launch, per call: each call
+    run ``reps`` times in one ``torch.profiler`` window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 / (reps * len(calls))
+
+
+def hold_flash_launches(seen: list, card: str, name: str) -> dict:
+    """Each captured launch of kernel ``name`` held against both plain
+    versions on its own inputs (the kernel's tolerance), then timed there
+    beside its plain version, its bound, ``scaled_dot_product_attention``
+    and, for the Hopper kernel, the CUDA-core kernel on the same inputs."""
+    from functools import partial
+
     import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    hopper = name == "flash_attention_wgmma"
+    launch = wrappers()[name]
+    rows = []
+    for layer, (q, k, v, scale, causal, got) in enumerate(seen):
+        group = q.shape[1] // k.shape[1]
+        if hopper:
+            plain = partial(fa_ref.chunked_attention, p_dtype=q.dtype)
+        else:
+            plain = fa_ref.chunked_attention
+        units = []
+        for ref_fn in (plain, fa_ref.mha_reference):
+            want = ref_fn(q, k, v, scale=scale, causal=causal)
+            torch.cuda.synchronize()
+            ok, err, u = (fa_within_p(got, want, v, group) if hopper
+                          else fa_within(got, want))
+            if not ok:
+                raise AssertionError(f"{name} launch of layer {layer} differs "
+                                     f"from its plain version: {u} units, "
+                                     f"max_abs_err {err}")
+            units.append((err, u))
+        lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                             enable_gqa=True, scale=scale)
+        lib_err = _max_abs_err(lib, want)
+        ms = time_cuda(lambda: launch(q, k, v, scale=scale, causal=causal),
+                       FA_TIME_REPS)
+        plain_ms = time_cuda(lambda: plain(q, k, v, scale=scale, causal=causal), 3)
+        lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True, scale=scale),
+            FA_TIME_REPS)
+        row = {"layer": layer, "shape_q": list(q.shape), "shape_k": list(k.shape),
+               "q_strides": list(q.stride()), "dtype": str(q.dtype),
+               "max_abs_err": max(e for e, _ in units),
+               "units": max(u for _, u in units),
+               "max_abs_err_vs_mha": units[1][0], "event_ms": ms,
+               "plain_ms": plain_ms, "library_event_ms": lib_ms,
+               "library_max_abs_err": lib_err, **fa_bound(q, k, v, causal)}
+        if hopper:
+            row["simt_ms"] = time_cuda(lambda: fa_kernel.flash_attention_simt(
+                q, k, v, scale=scale, causal=causal), 3)
+        rows.append(row)
+    keys = (("event_ms", "plain_ms", "library_event_ms", "bound_ms")
+            + (("simt_ms",) if hopper else ()))
+    fa = {k: float(np.mean([r[k] for r in rows])) for k in keys}
+    # CUDA events around back-to-back launches measure the host instead
+    # once its time per call exceeds the kernel's (the Hopper kernel's
+    # does), so the kernel's and SDPA's times ("ms", "library_ms") are the
+    # same launches' device time under the profiler; the event times stay
+    # in the record, beside the host's own time per call (the wrapper's
+    # checks, tensor maps and ctypes call, clocked without a synchronize).
+    calls = [lambda q=q, k=k, v=v, sc=sc, c=c: launch(q, k, v, scale=sc, causal=c)
+             for q, k, v, sc, c, _ in seen]
+    lib_calls = [lambda q=q, k=k, v=v, sc=sc, c=c: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=c, enable_gqa=True, scale=sc)
+                 for q, k, v, sc, c, _ in seen]
+    fa["ms"] = device_ms_per_call(calls)
+    fa["library_ms"] = device_ms_per_call(lib_calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fn in calls:
+        fn()
+    fa["host_ms"] = 1e3 * (time.perf_counter() - t0) / len(calls)
+    torch.cuda.synchronize()
+    fa["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    fa["units"] = max(r["units"] for r in rows)
+    fa["bound_by"] = rows[0]["bound_by"]
+    fa["rows"] = rows
+    unit = ("units of 1 spacing + 2^-8 max|v| + 2e-5" if hopper else
+            ("bfloat16 spacings" if rows[0]["dtype"] != "torch.float32"
+             else f"(float32, atol {FA_F32_ATOL})"))
+    simt = f", the CUDA-core kernel {fa['simt_ms']:.4f} ms" if hopper else ""
+    log(f"[time] {name} at q {rows[0]['shape_q']}, k {rows[0]['shape_k']}, "
+        f"{rows[0]['dtype']}, causal={seen[0][4]}, mean over the {len(rows)} "
+        f"launches: {fa['ms']:.4f} ms device time under the profiler (CUDA "
+        f"events around {FA_TIME_REPS} launches {fa['event_ms']:.4f} ms; host "
+        f"time per call {fa['host_ms']:.4f} ms), plain {fa['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {fa['library_ms']:.4f} ms (events "
+        f"{fa['library_event_ms']:.4f})"
+        f"{simt}, bound {fa['bound_ms']:.4f} ms ({fa['bound_by']}); all within tolerance of "
+        f"both plain versions (worst {fa['units']} {unit}, max_abs_err "
+        f"{fa['max_abs_err']}); card {card}")
+    return fa
+
+
+def run_serving(card: str, dev: torch.device) -> dict:
+    """Phase 11: ``ContinuousBatcher`` over ``internlm2-1.8b`` at full
+    width, then checks (a)-(c)."""
+    from types import SimpleNamespace
 
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1301,12 +1509,10 @@ def run_serving(card: str, dev: torch.device) -> dict:
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     expect = cfg.num_layers * SERVE_REQUESTS
-    if launches["flash_attention"] != expect:
-        raise AssertionError(f"serving made {launches['flash_attention']} flash "
-                             f"launches; expected {cfg.num_layers} per request, "
-                             f"{expect} in all")
-    if any(v for k, v in launches.items() if k != "flash_attention"):
-        raise AssertionError(f"serving launched a discovery kernel: {launches}")
+    if launches != {**{k: 0 for k in launches}, "flash_attention_wgmma": expect}:
+        raise AssertionError(f"serving made launches {launches}; expected "
+                             f"{cfg.num_layers} of flash_attention_wgmma per "
+                             f"request, {expect} in all, and nothing else")
     outs = [batcher.outputs[r] for r in range(SERVE_REQUESTS)]
     if any(len(o) != SERVE_GEN for o in outs) or sorted(finished) != list(range(SERVE_REQUESTS)):
         raise AssertionError("not every request finished with its tokens")
@@ -1335,59 +1541,11 @@ def run_serving(card: str, dev: torch.device) -> dict:
         f"memory {peak / 2**30:.2f} GiB; launches {launches}; card {card}")
 
     # (a) One request's 24 launches, captured with their inputs.
-    seen = []
-
-    def spy(q, k, v, *, scale, causal):
-        out = fa_kernel.flash_attention(q, k, v, scale=scale, causal=causal)
-        seen.append((q.clone(), k.clone(), v.clone(), scale, causal, out.clone()))
-        return out
-
     tok0 = torch.as_tensor(prompts[0][None, :], device=dev)
-    fa_ops.kernel = SimpleNamespace(flash_attention=spy)
-    try:
-        T.prefill(cfg, params, {"tokens": tok0}, max_len=SERVE_MAX)
-    finally:
-        fa_ops.kernel = fa_kernel
-    torch.cuda.synchronize()
-    if len(seen) != cfg.num_layers:
-        raise AssertionError(f"captured {len(seen)} flash launches in one prefill")
-    rows = []
-    for layer, (q, k, v, scale, causal, got) in enumerate(seen):
-        want = fa_ref.chunked_attention(q, k, v, scale=scale, causal=causal)
-        torch.cuda.synchronize()
-        ok, err, ulps = fa_within(got, want)
-        if not ok:
-            raise AssertionError(f"flash launch of layer {layer} differs from the "
-                                 f"plain version: {ulps} spacings, max_abs_err {err}")
-        lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                             enable_gqa=True, scale=scale)
-        lib_err = _max_abs_err(lib, want)
-        ms = time_cuda(lambda: fa_kernel.flash_attention(q, k, v, scale=scale,
-                                                         causal=causal), 10)
-        plain_ms = time_cuda(lambda: fa_ref.chunked_attention(
-            q, k, v, scale=scale, causal=causal), 3)
-        lib_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True, scale=scale), 10)
-        rows.append({"layer": layer, "shape_q": list(q.shape), "shape_k": list(k.shape),
-                     "q_strides": list(q.stride()), "dtype": str(q.dtype),
-                     "max_abs_err": err, "ulps": ulps, "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "library_max_abs_err": lib_err, **fa_bound(q, k, v, causal)})
+    seen = capture_flash(lambda: T.prefill(cfg, params, {"tokens": tok0},
+                                           max_len=SERVE_MAX), cfg.num_layers)
+    fa = hold_flash_launches(seen, card, "flash_attention_wgmma")
     del seen
-    fa = {k: float(np.mean([r[k] for r in rows]))
-          for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    fa["max_abs_err"] = max(r["max_abs_err"] for r in rows)
-    fa["ulps"] = max(r["ulps"] for r in rows)
-    fa["bound_by"] = rows[0]["bound_by"]
-    log(f"[time] flash_attention at the serve shape (q {rows[0]['shape_q']}, "
-        f"k {rows[0]['shape_k']}, {rows[0]['dtype']}, causal), mean over the "
-        f"{len(rows)} launches of one prefill: {fa['ms']:.4f} ms, plain "
-        f"{fa['plain_ms']:.4f} ms, scaled_dot_product_attention "
-        f"{fa['library_ms']:.4f} ms, bound {fa['bound_ms']:.4f} ms "
-        f"({fa['bound_by']}); all within {FA_BF16_ULPS} bfloat16 spacing + "
-        f"{FA_F32_ATOL} of the plain version (worst {fa['ulps']} spacings, "
-        f"max_abs_err {fa['max_abs_err']}); "
-        f"card {card}")
 
     # Where the time goes: one more admit (a prefill) and one decode step
     # of the four then active slots, each under the profiler.
@@ -1451,9 +1609,30 @@ def run_serving(card: str, dev: torch.device) -> dict:
         raise AssertionError(f"a forward without the causal mask stays within the "
                              f"tolerance ({float(leak.max())}): the check cannot "
                              "see an unmasked causal edge")
-    del params, batcher
+
+    # (c) The float32 forward through the kernels: the CUDA-core kernel's
+    # path (float32 is not the Hopper kernel's), then its 24 launches.
+    reset_launches()
+    f32 = forward_tail(cfg32, fa_kernel.flash_attention)
+    launches_f32 = read_launches()
+    if launches_f32 != {**{k: 0 for k in launches_f32},
+                        "flash_attention": cfg.num_layers}:
+        raise AssertionError(f"the float32 forward made launches {launches_f32}; "
+                             f"expected {cfg.num_layers} of flash_attention")
+    f32_err = float(rel_rms(f32, want).max())
+    log(f"[serve] float32 forward through the CUDA-core flash kernel "
+        f"({launches_f32['flash_attention']} launches): logits within relative "
+        f"RMS {f32_err:.3e} of the plain float32 forward (tolerance {F32_FWD_RTOL})")
+    if not f32_err <= F32_FWD_RTOL:
+        raise AssertionError(f"float32 forward through the kernel differs: "
+                             f"relative RMS {f32_err} > {F32_FWD_RTOL}")
+    seen = capture_flash(lambda: T.forward(cfg32, params, {"tokens": toks}),
+                         cfg.num_layers)
+    fa32 = hold_flash_launches(seen, card, "flash_attention")
+    del seen, params, batcher
     torch.cuda.empty_cache()
-    return {**rec, "flash": fa, "flash_launches_checked": rows,
+    return {**rec, "flash": fa, "flash_f32": fa32,
+            "flash_f32_launches": launches_f32, "f32_forward_rel_rms": f32_err,
             "served_logits": rec_b, "profile": prof}
 
 
@@ -1529,6 +1708,7 @@ def main() -> int:
                "knn_two_op": kernel.load_two_op_library,
                "pairwise_cheb": pc_kernel.load_library,
                "flash_attention": fa_kernel.load_library,
+               "flash_attention_wgmma": fa_kernel.load_wgmma_library,
                "murmur3_fib": mm_kernel.load_library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as pool:
@@ -1538,14 +1718,15 @@ def main() -> int:
     for name, b in builds.items():
         log(f"[build] {name}: {b.seconds:.2f} s -> {b.path.name}")
         for line in b.ptxas.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling", "registers", "spill",
+                                       "setmaxnreg", "warning")):
                 log(f"[build] {line.strip()}")
     log(f"[build] all {len(builds)} sources built in {t_build:.2f} s")
 
     # Phase 2: kernels vs plain, bit-equal, on synthetic edge cases.
     max_err = check_radius_counts(dev)
     pc_max_err = check_pairwise_cheb(dev)
-    fa_max_err = check_flash_attention(dev)
+    fa_err = check_flash_attention(dev)
     two_op_err = check_knn_two_op(dev)
     hash_err = check_hash_keys(dev)
 
@@ -1678,7 +1859,10 @@ def main() -> int:
 
     # Phase 11: the model serving path, with the discovery state freed.
     serving = run_serving(card, dev)
-    fa_max_err = max(fa_max_err, serving["flash"]["max_abs_err"])
+    fa_err = {"flash_attention": max(fa_err["flash_attention"],
+                                     serving["flash_f32"]["max_abs_err"]),
+              "flash_attention_wgmma": max(fa_err["flash_attention_wgmma"],
+                                           serving["flash"]["max_abs_err"])}
 
     record = {
         "card": card, "torch": torch.__version__, "nvcc": nvcc,
@@ -1725,8 +1909,20 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
-        "launches": serving["launches"]["flash_attention"],
-        "max_abs_err": fa_max_err,
+        "launches": serving["flash_f32_launches"]["flash_attention"],
+        "max_abs_err": fa_err["flash_attention"],
+        "ms": serving["flash_f32"]["ms"],
+        "plain_ms": serving["flash_f32"]["plain_ms"],
+        "bound_ms": serving["flash_f32"]["bound_ms"],
+        "bound_by": serving["flash_f32"]["bound_by"],
+        "library_ms": serving["flash_f32"]["library_ms"],
+    }, {
+        "name": "flash_attention_wgmma",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
+        "launches": serving["launches"]["flash_attention_wgmma"],
+        "max_abs_err": fa_err["flash_attention_wgmma"],
         "ms": serving["flash"]["ms"],
         "plain_ms": serving["flash"]["plain_ms"],
         "bound_ms": serving["flash"]["bound_ms"],

@@ -3,9 +3,11 @@ plain chunked version on the CPU.
 
 ``attention(q, k, v)`` takes the reference's (B, H, S, D) layout and
 contract (``repro/kernels/flash_attention/ops.py::attention``).  A CPU
-tensor takes ``ref.chunked_attention``; a CUDA tensor launches the
-hand-written kernel (``kernel.py``) or raises, and never takes the plain
-path.  There is no block autotuner and no host-side padding of S or D:
+tensor takes ``ref.chunked_attention``; a CUDA tensor launches a
+hand-written kernel (``kernel.flash_attention``: the Hopper kernel for
+bfloat16/float16 at its head dims, which rounds P to that dtype before
+P·V, the CUDA-core kernel otherwise) or raises, and never takes the
+plain path.  There is no block autotuner and no host-side padding of S or D:
 the kernel masks its own ragged edge.  Unlike the reference, a
 non-causal call at an S that is not a block multiple is exact (the
 reference lets its padded keys into the softmax).

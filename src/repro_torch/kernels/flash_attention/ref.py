@@ -7,7 +7,10 @@
     weighted sum in float32, the finite ``-1e30`` mask, ``safe_l``).  It
     is what ``ops.attention`` runs on a CPU tensor.  Unlike the
     reference's ``lax.scan`` version it takes any S: the last chunk is
-    simply shorter.
+    simply shorter.  With ``p_dtype`` it is the plain version of the
+    Hopper kernel (``csrc/flash_wgmma.cu``): the chunks are the kernel's
+    ``KEY_TILE`` keys, and each chunk's weights ``exp(s - m_new)`` are
+    rounded to ``p_dtype`` before P·V while l sums the unrounded weights.
 
 Layout as the reference: q (B, Hq, S, Dk), k (B, Hkv, S, Dk),
 v (B, Hkv, S, Dv) -> (B, Hq, S, Dv) in q's dtype; KV head = h // group.
@@ -17,12 +20,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["mha_reference", "chunked_attention"]
+__all__ = ["KEY_TILE", "mha_reference", "chunked_attention"]
 
 _NEG_INF = -1e30
 # Keys per chunk of the online softmax: bounds the live (B, H, S, chunk)
 # score tensor; the reference's ``cfg.attn_chunk`` default.
 _CHUNK = 1024
+# Keys per K/V tile of the Hopper kernel: the chunk of its rounding rule.
+KEY_TILE = 128
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -40,14 +45,20 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      scale: float, causal: bool = True) -> torch.Tensor:
-    """Online-softmax attention over KV chunks of ``_CHUNK`` keys (flash
-    semantics): peak live memory O(B·H·S·chunk), not O(B·H·S²)."""
+                      scale: float, causal: bool = True,
+                      p_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (flash semantics): peak
+    live memory O(B·H·S·chunk), not O(B·H·S²).
+
+    ``p_dtype``: the Hopper kernel's rule (see the module docstring):
+    chunks of ``KEY_TILE`` keys, each chunk's weights rounded to this
+    dtype before P·V.  None: chunks of ``_CHUNK`` keys, weights kept in
+    float32."""
     B, Hq, S, Dk = q.shape
     Dv = v.shape[-1]
     Hkv = k.shape[1]
     group = Hq // Hkv
-    chunk = max(1, min(_CHUNK, S))
+    chunk = max(1, min(_CHUNK if p_dtype is None else KEY_TILE, S))
     qf = q.float().reshape(B, Hkv, group, S, Dk)
     q_pos = torch.arange(S, device=q.device)
 
@@ -68,6 +79,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
+        if p_dtype is not None:
+            p = p.to(p_dtype).float()
         acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd",
                                                     p, v_blk)
         m = m_new

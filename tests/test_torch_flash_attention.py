@@ -12,8 +12,10 @@ the same sums in float32 and differ only in summation order.  bfloat16:
 both sides accumulate in float32 and round once at the end, so an output
 may differ by one bfloat16 ulp (a relative spacing of at most 2^-7).
 
-The ``cuda``-marked tests hold the CUDA kernel against the plain
-versions on the card (the same tolerances) and skip without one.
+The ``cuda``-marked tests hold the CUDA-core kernel against the plain
+versions on the card (the same tolerances) and skip without one; the
+Hopper kernel and the p_dtype plain version are held in
+``tests/test_torch_flash_wgmma.py``.
 """
 
 import numpy as np
@@ -218,9 +220,9 @@ def test_cuda_kernel_matches_plain_f32(cuda_device, case, causal):
     arrs = _inputs(*case, seed=case[3])
     q, k, v = _torch(arrs, device=cuda_device)
     scale = 1.0 / case[4] ** 0.5
-    before = kernel.flash_attention.launches
+    before = kernel.flash_attention_simt.launches
     got = ops.attention(q, k, v, scale=scale, causal=causal)
-    assert kernel.flash_attention.launches == before + 1
+    assert kernel.flash_attention_simt.launches == before + 1
     want = ref.mha_reference(q, k, v, scale=scale, causal=causal)
     torch.cuda.synchronize()
     np.testing.assert_allclose(_np(got), _np(want), atol=F32_ATOL)
@@ -229,9 +231,12 @@ def test_cuda_kernel_matches_plain_f32(cuda_device, case, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_cuda_kernel_matches_plain_half(cuda_device, dtype):
+    """The CUDA-core kernel on 16-bit inputs (``ops.attention`` sends these
+    to the Hopper kernel; tests/test_torch_flash_wgmma.py holds that one)."""
     arrs = _inputs(1, 16, 8, 513, 128, 128, seed=14)
     q, k, v = _torch(arrs, dtype=dtype, device=cuda_device)
-    got = ops.attention(q, k, v, causal=True)
+    got = kernel.flash_attention_simt(q, k, v, scale=1.0 / 128 ** 0.5,
+                                      causal=True)
     want = ref.chunked_attention(q, k, v, scale=1.0 / 128 ** 0.5, causal=True)
     torch.cuda.synchronize()
     assert got.dtype == dtype
