@@ -8,7 +8,8 @@ without a card it exits non-zero before printing any result.  Phases,
 each of which fails the run (non-zero exit, no result line) if it fails:
 
   1. environment: card name and power limit, torch and nvcc versions,
-     the six kernel sources, ``knn_stats/csrc/radius_counts.cu``,
+     the six kernel sources (``radius_counts.cu`` holds both bodies),
+     ``knn_stats/csrc/radius_counts.cu``,
      ``knn_stats/csrc/knn_two_op.cu``, ``pairwise_cheb/csrc/pairwise_cheb.cu``,
      ``flash_attention/csrc/flash_attention.cu`` (the CUDA-core kernel),
      ``flash_attention/csrc/flash_wgmma.cu`` (the Hopper kernel) and
@@ -18,8 +19,12 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      same inputs, required bit-equal (tolerance 0, NaN positions equal):
      radius_counts' radii, class counts and ball/tie counts, at
      main-path width (B=4096 samples × P=256) in both modes, plus
-     k=1/8/K_MAX, widened class budgets, tie-heavy values, ragged masks,
-     few-neighbour rows, a P=512 batch and a kb=128 batch; pairwise_cheb's
+     k=1/5/8/16/17/K_MAX, widened class budgets, tie-heavy values, ragged
+     masks, few-neighbour rows, P=40/512/1024/2048 and kb=32/128 batches,
+     and edge rows (NaN and +-inf x or y in valid rows, duplicated points,
+     -0.0 beside +0.0 codes, a NaN code, exactly k neighbours), each case
+     required to reach the body ``kernel.takes_staged`` names and both
+     bodies reached; pairwise_cheb's
      DX/DY/DJ at B=4096 × P=256, P=300 with ragged masks, P=512,
      exact-zero plateaus and NaN/±inf inputs; flash_attention, causal and
      not, GQA groups 1/2/4, S = 1/100/2048/2049, (Dk, Dv) = (128, 128),
@@ -52,8 +57,11 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      rankings and join sizes identical, MI within rtol 1e-5 / atol 1e-5;
   5. every kernel launch of one warm pass per target dtype, captured
      with its inputs and outputs: each output held bit-equal to the
-     plain version on the same inputs, then timed there (CUDA events)
-     beside its plain version's time and its bound;
+     plain version on the same inputs, then timed there (CUDA events and
+     profiler device time) beside its plain version's time, its bound
+     (the sorted route's operations, RC_NEED_*) and share, the direct
+     algorithm's bound (RC_OPS) and share, and the tiled body on the
+     same inputs (held bit-equal too);
   6. times: the warm ``query_many`` wall time (host clock around a
      synchronize, median of 10 per target dtype) and one profiled warm
      pass (device time by kernel);
@@ -77,6 +85,11 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      on the joint launch, DC-KSG on the class launches): MI within 1e-6
      of the fused results, each ``pairwise_cheb`` chunk launch held
      bit-equal to its plain version and timed beside it and its bound;
+ 14. the wide-buffer path: one warm ``query_many`` per target dtype at
+     k=32, past the staged body's 16-lane buffer, with every kernel's
+     launch count set to 0 just before and read just after: every
+     launch must reach the tiled body (3, none of the staged one), each
+     held bit-equal to the plain version and timed as in phase 5;
  12. the two-op kNN API on phase 5's captured launches: ``knn_with_counts``
      with the radius rule ``radius_counts`` fuses (2 kernel launches per
      call, counted), its radius, class count and five counts bit-equal to
@@ -112,9 +125,9 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      RMS of the plain float32 forward, each of its 24 launches held
      within atol 2e-5 of the plain version and timed as in (a).
 
-Phases 12 and 13 run after phase 10 and before phase 11, so that the
-serving path starts with the discovery state freed.  Each of phases 3,
-7-9 and 11-13 sets every kernel's launch count to 0 just before it
+Phases 14, 12 and 13 run after phase 10 and before phase 11, so that
+the serving path starts with the discovery state freed.  Each of phases
+3, 7-9 and 11-14 sets every kernel's launch count to 0 just before it
 drives its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
@@ -164,6 +177,25 @@ RC_OPS = {
     ("class", "all"): ((8, 6), (1, 1)),
     ("class", "y"): ((4, 1), (1, 1)),
 }
+# RC_OPS prices the direct algorithm, which tests every pair for selection
+# and for every count.  The bound in the kernels line counts instead what
+# the function needs once a sample is sorted by x (by the class code in
+# class mode), as (float, int):
+#   the sort: log2(n!) compares a sample, the least any comparison sort
+#     needs; class mode reads its runs off the sorted codes, one compare
+#     a column and one add a row for cnt;
+#   selection: joint mode visits the band |dx| < r of each row, the only
+#     columns it could select (2 subtractions, 2 abs, max, the select
+#     compare per band pair); class mode the row's own class (1
+#     subtraction, 1 abs, the select compare per same-class pair);
+#   the y counts per valid (i, j != i) pair: 1 subtraction, 1 abs,
+#     |dy| < r and an add (with which == all also dy == 0 and an add);
+#   the x counts (which == all): four binary searches a row of
+#     ceil(log2(n+1)) steps (a subtraction and a compare each), and j_eq
+#     over the row's x-tie range (1 subtraction, 1 abs, dy == 0, an add).
+RC_NEED_Y = {"all": (4, 2), "y": (3, 1)}
+RC_NEED_BAND, RC_NEED_SAME, RC_NEED_TIE = (6, 0), (3, 0), (3, 1)
+RC_NEED_SEARCHES, RC_NEED_STEP = 4, (2, 0)
 # Bytes per sample row: x, y f32 + mask u8 in; r f32 + cnt i32 + 5 i32 out.
 RC_BYTES_PER_ROW = 9 + 28
 # The two-op kernels, counted from the code as RC_OPS is.  knn_smallest,
@@ -202,6 +234,7 @@ WARM_REPS = 10
 SEED = 0
 FENCE_LANES = 4  # NaN lanes per served query in phase 8
 CALLERS, PER_CALLER = 4, 8
+WIDE_K = 32  # phase 14: a k past the staged body's buffer
 HANDLE_TIMEOUT_S = 120.0
 MI_TOL = 1e-6
 
@@ -224,6 +257,7 @@ FA_CASES = [  # (Dk, Dv) x S x group x causal, for each dtype
 ]
 FA_HKV = 2
 FA_TIME_REPS = 50  # launches per CUDA-event timing of a captured flash launch
+PROFILE_TRIES = 5  # profiler windows device_ms_per_call tries
 
 # Phase 11: the serving path at full width.
 SERVE_ARCH = "internlm2-1.8b"
@@ -267,18 +301,63 @@ def rc_inputs(B: int, P: int, mode: str, gen: torch.Generator):
     return x, y, mask
 
 
+def rc_edge_inputs(B: int, P: int, mode: str, k: int, gen: torch.Generator):
+    """``rc_inputs`` plus the edge rows of the staged body's exactness
+    argument: NaN and +-inf x or y in valid rows, a run of duplicated
+    points (all-zero distances), -0.0 beside +0.0 class codes and a NaN
+    class code, and a share of samples with exactly k+1 valid rows (each
+    valid row has exactly k neighbours)."""
+    x, y, mask = rc_inputs(B, P, mode, gen)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    for v in (x, y):
+        hit = torch.rand(B, P, generator=gen) < 0.015
+        v[hit] = special[torch.randint(0, 3, (int(hit.sum()),), generator=gen)]
+    d0 = P // 2
+    d1 = min(P, d0 + max(2, P // 16))
+    x[:, d0:d1] = x[:, d0:d0 + 1]
+    y[:, d0:d1] = y[:, d0:d0 + 1]
+    if mode == "class":
+        q = max(1, P // 16)
+        x[:, 3:3 + q] = -0.0
+        x[:, 3 + q:3 + 2 * q] = 0.0
+        x[:, P - 1] = float("nan")
+    exact = torch.rand(B, generator=gen) < 0.1
+    mask[exact] = torch.arange(P)[None, :] < min(P, k + 1)
+    return x, y, mask
+
+
 RC_CASES = [
-    # name, B, P, mode, which, k, kb, kk
-    ("joint_k3", 4096, 256, "joint", "all", 3, 3, 3),
-    ("class_k3_y", 4096, 256, "class", "y", 3, 3, 3),
-    ("joint_k1", 4096, 256, "joint", "all", 1, 1, 1),
-    ("joint_k8_y", 4096, 256, "joint", "y", 8, 8, 8),
-    ("class_k8_all", 4096, 256, "class", "all", 8, 8, 8),
-    ("class_kk6_kb8", 4096, 256, "class", "y", 3, 8, 6),
-    ("joint_kmax", 512, 256, "joint", "all", 128, 128, 128),
-    ("joint_p512", 1024, 512, "joint", "all", 3, 3, 3),
-    ("class_p512", 1024, 512, "class", "y", 3, 3, 3),
-    ("class_kb128", 1024, 256, "class", "y", 3, 128, 128),
+    # name, B, P, mode, which, k, kb, kk, edge rows
+    ("joint_k3", 4096, 256, "joint", "all", 3, 3, 3, False),
+    ("class_k3_y", 4096, 256, "class", "y", 3, 3, 3, False),
+    ("joint_k1", 4096, 256, "joint", "all", 1, 1, 1, False),
+    ("joint_k8_y", 4096, 256, "joint", "y", 8, 8, 8, False),
+    ("class_k8_all", 4096, 256, "class", "all", 8, 8, 8, False),
+    ("class_kk6_kb8", 4096, 256, "class", "y", 3, 8, 6, False),
+    ("joint_kmax", 512, 256, "joint", "all", 128, 128, 128, False),
+    ("joint_p512", 1024, 512, "joint", "all", 3, 3, 3, False),
+    ("class_p512", 1024, 512, "class", "y", 3, 3, 3, False),
+    ("class_kb128", 1024, 256, "class", "y", 3, 128, 128, False),
+    ("joint_k5", 2048, 256, "joint", "all", 5, 5, 5, False),
+    ("class_kb5_all", 2048, 256, "class", "all", 3, 5, 4, False),
+    ("joint_k15_p1024", 256, 1024, "joint", "all", 15, 15, 15, False),
+    ("class_p1024", 256, 1024, "class", "all", 3, 3, 3, False),
+    ("joint_p40", 4096, 40, "joint", "all", 3, 3, 3, False),
+    ("class_p40", 4096, 40, "class", "y", 3, 3, 3, False),
+    ("joint_k16", 512, 256, "joint", "all", 16, 16, 16, False),
+    ("joint_k17", 512, 256, "joint", "all", 17, 17, 17, False),
+    ("class_kb32", 1024, 256, "class", "all", 3, 32, 32, False),
+    ("joint_p2048", 128, 2048, "joint", "all", 3, 3, 3, False),
+    ("class_p2048", 128, 2048, "class", "y", 3, 3, 3, False),
+    ("edge_joint_k3", 4096, 256, "joint", "all", 3, 3, 3, True),
+    ("edge_joint_k3_y", 4096, 256, "joint", "y", 3, 3, 3, True),
+    ("edge_class_k3_y", 4096, 256, "class", "y", 3, 3, 3, True),
+    ("edge_class_kk6_all", 4096, 256, "class", "all", 3, 8, 6, True),
+    ("edge_joint_p40", 4096, 40, "joint", "all", 3, 3, 3, True),
+    ("edge_class_p512", 1024, 512, "class", "y", 3, 3, 3, True),
+    ("edge_joint_k16", 512, 256, "joint", "all", 16, 16, 16, True),
+    ("edge_joint_k17", 512, 256, "joint", "all", 17, 17, 17, True),
+    ("edge_class_p2048", 128, 2048, "class", "all", 3, 3, 3, True),
 ]
 
 
@@ -290,21 +369,35 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_radius_counts(dev) -> float:
+    """Phase 2 for radius_counts: every case through the wrapper, bit-equal
+    to the plain version, and each body reached by the cases the rule
+    sends to it."""
     from repro_torch.kernels.knn_stats import kernel, ref
 
     gen = torch.Generator().manual_seed(SEED)
     worst = 0.0
-    for name, B, P, mode, which, k, kb, kk in RC_CASES:
-        x, y, m = (t.to(dev) for t in rc_inputs(B, P, mode, gen))
+    reached = {"staged": 0, "tiled": 0}
+    for name, B, P, mode, which, k, kb, kk, edge in RC_CASES:
+        make = (lambda: rc_edge_inputs(B, P, mode, k, gen)) if edge else (
+            lambda: rc_inputs(B, P, mode, gen))
+        x, y, m = (t.to(dev) for t in make())
         args = dict(k=k, kb=kb, kk=kk, mode=mode, which=which)
+        body = "staged" if kernel.takes_staged(P, mode, k, kb) else "tiled"
+        before = getattr(kernel, f"radius_counts_{body}").launches
         got = kernel.radius_counts(x, y, m, **args)
         want = ref.radius_counts(x, y, m, **args)
         torch.cuda.synchronize()
+        if getattr(kernel, f"radius_counts_{body}").launches != before + 1:
+            raise AssertionError(f"radius_counts {name} did not reach the {body} body")
+        reached[body] += 1
         err = max(_max_abs_err(g, w) for g, w in zip(got, want))
-        log(f"[compare] radius_counts {name}: B={B} P={P} max_abs_err={err}")
+        log(f"[compare] radius_counts {name} ({body}): B={B} P={P} "
+            f"max_abs_err={err}")
         if err != 0.0:
             raise AssertionError(f"radius_counts {name} differs from ref: {err}")
         worst = max(worst, err)
+    if not all(reached.values()):
+        raise AssertionError(f"a radius_counts body was not reached: {reached}")
     return worst
 
 
@@ -689,12 +782,12 @@ def same_rankings(a, b, tol: float = 1e-5) -> None:
 # Phase 5: the main path's own kernel launches
 # ---------------------------------------------------------------------------
 
-def capture_launches(index, batches) -> list:
-    """One warm ``query_many`` per batch with the kernel's wrapper
-    wrapped to keep a copy of each launch's inputs, arguments and
-    outputs, exactly as the main path made it.  The wrap replaces the
-    module ``ops`` dispatches through, so the wrapper itself (and its
-    launch counter) stays untouched."""
+def capture_launches(index, batches, **query_kw) -> list:
+    """One warm ``query_many`` per batch (``query_kw`` passed on) with
+    the kernel's wrapper wrapped to keep a copy of each launch's inputs,
+    arguments and outputs, exactly as the main path made it.  The wrap
+    replaces the module ``ops`` dispatches through, so the wrapper itself
+    (and its launch counter) stays untouched.  Fails on a non-finite MI."""
     from types import SimpleNamespace
 
     from repro_torch.kernels.knn_stats import kernel, ops
@@ -710,7 +803,9 @@ def capture_launches(index, batches) -> list:
     ops.kernel = SimpleNamespace(radius_counts=spy)
     try:
         for b in batches:
-            index.query_many(b, top_k=TOP_K, min_join=MIN_JOIN)
+            res = index.query_many(b, top_k=TOP_K, min_join=MIN_JOIN, **query_kw)
+            if not all(np.isfinite(mi) for r in res for _, mi, _ in r):
+                raise AssertionError(f"query_many {query_kw} returned a non-finite MI")
     finally:
         ops.kernel = kernel
     torch.cuda.synchronize()
@@ -745,14 +840,57 @@ def pair_counts(mask: torch.Tensor, mode: str, cnt: torch.Tensor) -> tuple:
     return pairs, same
 
 
-def rc_bound(mask: torch.Tensor, args: dict, cnt: torch.Tensor) -> dict:
+def band_pairs(x: torch.Tensor, mask: torch.Tensor, r: torch.Tensor) -> float:
+    """Valid (i, j != i) pairs with |fl(x_i - x_j)| < r_i: the columns
+    joint selection has to visit (NaN meets no condition)."""
+    B, P = x.shape
+    off_diag = ~torch.eye(P, dtype=torch.bool, device=x.device)
+    chunk = max(1, (1 << 26) // (P * P))
+    total = 0
+    for s in range(0, B, chunk):
+        xs, ms = x[s:s + chunk], mask[s:s + chunk]
+        near = (xs[:, :, None] - xs[:, None, :]).abs() < r[s:s + chunk, :, None]
+        total += int((near & ms[:, :, None] & ms[:, None, :] & off_diag).sum())
+    return float(total)
+
+
+def rc_bound(x: torch.Tensor, mask: torch.Tensor, args: dict,
+             want: tuple) -> dict:
     """Least time for one launch on these inputs: the operations its
-    data needs at the issue rates, or its bytes over the HBM rate."""
-    pairs, same = pair_counts(mask, args["mode"], cnt)
-    (pf, pi), (sf, si) = RC_OPS[(args["mode"], args["which"])]
-    return {**bound(pairs * pf + same * sf, pairs * pi + same * si,
-                    mask.numel() * RC_BYTES_PER_ROW),
-            "valid_pairs": pairs, "same_class_pairs": same}
+    data needs once each sample is sorted (RC_NEED_*) at the issue rates,
+    or its bytes over the HBM rate.  The direct algorithm's count
+    (RC_OPS) on the same inputs sits beside it as ``rc_ops_*``."""
+    mode, which = args["mode"], args["which"]
+    r, cnt, counts = want
+    pairs, same = pair_counts(mask, mode, cnt)
+    (pf, pi), (sf, si) = RC_OPS[(mode, which)]
+    direct = bound(pairs * pf + same * sf, pairs * pi + same * si,
+                   mask.numel() * RC_BYTES_PER_ROW)
+
+    n = mask.sum(-1, dtype=torch.float64)
+    rows = float(n.sum())
+    f = float((torch.lgamma(n + 1) / np.log(2)).sum())  # the sort
+    i = 0.0
+    yf, yi = RC_NEED_Y[which]
+    f, i = f + pairs * yf, i + pairs * yi
+    if mode == "joint":
+        band = band_pairs(x, mask, r)
+        f, i = f + band * RC_NEED_BAND[0], i + band * RC_NEED_BAND[1]
+    else:
+        band = 0.0
+        f, i = f + rows + same * RC_NEED_SAME[0], i + rows + same * RC_NEED_SAME[1]
+    ties = 0.0
+    if which == "all":
+        ties = float(counts[2][mask].sum(dtype=torch.float64))
+        steps = RC_NEED_SEARCHES * float((n * torch.ceil(torch.log2(n + 1))).sum())
+        f += ties * RC_NEED_TIE[0] + steps * RC_NEED_STEP[0]
+        i += ties * RC_NEED_TIE[1] + steps * RC_NEED_STEP[1]
+    return {**bound(f, i, mask.numel() * RC_BYTES_PER_ROW),
+            "rc_ops_bound_ms": direct["bound_ms"],
+            "rc_ops_float_ops": direct["float_ops"],
+            "rc_ops_int_ops": direct["int_ops"],
+            "valid_pairs": pairs, "same_class_pairs": same,
+            "band_pairs": band, "x_tie_pairs": ties}
 
 
 def time_cuda(fn, reps: int) -> float:
@@ -770,31 +908,72 @@ def time_cuda(fn, reps: int) -> float:
 
 def check_main_launches(seen: list, card: str) -> list[dict]:
     """Each captured launch against the plain version on its own inputs
-    (bit-equal required), then both timed there beside the bound."""
+    (bit-equal required), then timed there: CUDA events and profiler
+    device time, beside the plain version and the bound; a staged launch
+    also through the tiled body (the earlier one-thread-a-row design) on
+    the same inputs, held bit-equal and timed."""
     from repro_torch.kernels.knn_stats import kernel, ref
 
     rows = []
     for x, y, m, args, got in seen:
         want = ref.radius_counts(x, y, m, **args)
+        B, P = x.shape
+        staged = kernel.takes_staged(P, args["mode"], args["k"], args["kb"])
+        # The tiled body takes every launch the staged one does.
+        tiled_err = max(_max_abs_err(g, w) for g, w in zip(
+            kernel.radius_counts_tiled(x, y, m, **args), want)) if staged else 0.0
         torch.cuda.synchronize()
         err = max(_max_abs_err(g, w) for g, w in zip(got, want))
-        B, P = x.shape
         name = f"{args['mode']}/{args['which']} k={args['k']} B={B} P={P}"
         log(f"[compare] radius_counts main-path launch {name}: "
-            f"max_abs_err={err}")
-        if err != 0.0:
+            f"max_abs_err={err} (the tiled body on the same inputs {tiled_err})")
+        if err != 0.0 or tiled_err != 0.0:
             raise AssertionError(
-                f"radius_counts main-path launch {name} differs from ref: {err}")
-        ms = time_cuda(lambda: kernel.radius_counts(x, y, m, **args), 20)
+                f"radius_counts main-path launch {name} differs from ref: "
+                f"{err}, tiled body {tiled_err}")
+
+        def launch():
+            kernel.radius_counts(x, y, m, **args)
+
+        ms = time_cuda(launch, 20)
+        device_ms = device_ms_per_call([launch])
         plain_ms = time_cuda(lambda: ref.radius_counts(x, y, m, **args), 2)
         row = {"mode": args["mode"], "which": args["which"], "k": args["k"],
-               "B": B, "P": P, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, **rc_bound(m, args, want[1])}
-        log(f"[time] radius_counts {name}: {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}); card {card}")
+               "kb": args["kb"], "B": B, "P": P,
+               "body": "staged" if staged else "tiled", "max_abs_err": err,
+               "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+               **rc_bound(x, m, args, want)}
+        row["bound_share"] = row["bound_ms"] / ms
+        row["rc_ops_share"] = row["rc_ops_bound_ms"] / ms
+        other = ""
+        if staged:
+            row["tiled_ms"] = time_cuda(
+                lambda: kernel.radius_counts_tiled(x, y, m, **args), 10)
+            other = f", the tiled body {row['tiled_ms']:.4f} ms"
+        log(f"[time] radius_counts {name} ({row['body']}): {ms:.4f} ms events, "
+            f"{device_ms:.4f} ms device, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}, {100 * row['bound_share']:.1f}%; the direct "
+            f"algorithm's {row['rc_ops_bound_ms']:.4f} ms, "
+            f"{100 * row['rc_ops_share']:.1f}%){other}, "
+            f"plain {plain_ms:.4f} ms; card {card}")
         rows.append(row)
     return rows
+
+
+def run_wide_buffer(index, batches, card: str) -> dict:
+    """Phase 14: one warm ``query_many`` per target dtype at k=WIDE_K, a
+    buffer width the staged body does not take: every launch must reach
+    the tiled body (counts set to 0 just before, read just after), each
+    held bit-equal to the plain version on its own inputs and timed
+    there."""
+    reset_launches()
+    seen = capture_launches(index, batches, k=WIDE_K)
+    launches = read_launches()
+    if launches["radius_counts_tiled"] == 0 or launches["radius_counts_staged"]:
+        raise AssertionError(f"k={WIDE_K} query_many launched {launches}; "
+                             "expected the tiled body only")
+    rows = check_main_launches(seen, card)
+    return {"k": WIDE_K, "launches": launches, "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -809,6 +988,8 @@ def wrappers() -> dict:
     from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
 
     return {"radius_counts": rc_kernel.radius_counts,
+            "radius_counts_staged": rc_kernel.radius_counts_staged,
+            "radius_counts_tiled": rc_kernel.radius_counts_tiled,
             "knn_smallest": rc_kernel.knn_smallest,
             "ball_counts": rc_kernel.ball_counts,
             "pairwise_cheb": pc_kernel.pairwise_cheb,
@@ -1322,21 +1503,27 @@ def capture_flash(fn, n: int) -> list:
 
 def device_ms_per_call(calls: list, reps: int = 5) -> float:
     """Device time of the kernels the calls launch, per call: each call
-    run ``reps`` times in one ``torch.profiler`` window."""
+    run ``reps`` times in one ``torch.profiler`` window.  A window that
+    recorded no device time (the profiler now and then drops a short
+    window's kernels) is profiled again, up to ``PROFILE_TRIES`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for fn in calls:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in calls:
-                fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / (reps * len(calls))
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in calls:
+                    fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / (reps * len(calls))
+    raise AssertionError(f"the profiler recorded no device time in "
+                         f"{PROFILE_TRIES} windows")
 
 
 def hold_flash_launches(seen: list, card: str, name: str) -> dict:
@@ -1753,9 +1940,15 @@ def main() -> int:
     launches_cold = kernel.radius_counts.launches
     t_warm, warm = run_pass(index, [cont, disc], dev)
     launches = kernel.radius_counts.launches
-    off_path = {k: v for k, v in read_launches().items() if v and k != "radius_counts"}
+    main_launches = read_launches()
+    off_path = {k: v for k, v in main_launches.items()
+                if v and k not in ("radius_counts", "radius_counts_staged")}
     if off_path:
-        raise AssertionError(f"query_many launched {off_path} (fused path only)")
+        raise AssertionError(f"query_many launched {off_path} (the fused path's "
+                             "staged body only)")
+    if main_launches["radius_counts_staged"] != launches:
+        raise AssertionError(f"query_many launched {main_launches}; every "
+                             "radius_counts launch must reach the staged body")
     log(f"[main] query_many cold {t_cold:.4f} s ({launches_cold} launches), "
         f"warm {t_warm:.4f} s ({launches - launches_cold} launches); "
         f"ingest {index.ingest_stats}")
@@ -1806,9 +1999,15 @@ def main() -> int:
     rc_plain = sum(r["plain_ms"] for r in rc)
     rc_bound_ms = sum(r["bound_ms"] for r in rc)
     rc_by = bound_by(rc)
+    rc_device = sum(r["device_ms"] for r in rc)
+    rc_tiled = sum(r["tiled_ms"] for r in rc)
+    rc_direct = sum(r["rc_ops_bound_ms"] for r in rc)
     log(f"[time] radius_counts, the {len(rc)} launches of one warm pass: "
-        f"{rc_ms:.4f} ms, plain {rc_plain:.4f} ms, bound {rc_bound_ms:.4f} ms "
-        f"({rc_by}); card {card}")
+        f"{rc_ms:.4f} ms events, {rc_device:.4f} ms device, bound "
+        f"{rc_bound_ms:.4f} ms ({rc_by}, {100 * rc_bound_ms / rc_ms:.1f}%; the "
+        f"direct algorithm's {rc_direct:.4f} ms, {100 * rc_direct / rc_ms:.1f}%), "
+        f"the tiled body on the same inputs {rc_tiled:.4f} ms, plain "
+        f"{rc_plain:.4f} ms; card {card}")
 
     # Phase 6: warm-pass wall time per dtype, host clock around a
     # synchronize, and one profiled warm pass.
@@ -1844,6 +2043,14 @@ def main() -> int:
         f"sample sets: {pc_ms:.4f} ms, plain {pc_plain:.4f} ms, bound "
         f"{pc_bound_ms:.4f} ms (bytes); card {card}")
 
+    # Phase 14: the wide-buffer path (k=WIDE_K) through the tiled body.
+    wide = run_wide_buffer(index, [cont, disc], card)
+    wide_rows = wide["rows"]
+    log(f"[time] radius_counts_tiled, the {len(wide_rows)} launches of a k="
+        f"{WIDE_K} warm pass: {sum(r['ms'] for r in wide_rows):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in wide_rows):.4f} ms (the direct algorithm's "
+        f"{sum(r['rc_ops_bound_ms'] for r in wide_rows):.4f} ms); card {card}")
+
     # Phase 12: the two-op kNN API on phase 5's samples; phase 13: the
     # lake's keys hashed on the card.  Both run before phase 11, so that
     # the serving path starts with the discovery state freed.
@@ -1874,7 +2081,7 @@ def main() -> int:
         "query_many_warm_discrete_s": warm_d,
         "launches_cold": launches_cold, "launches_warm": launches - launches_cold,
         "profile_warm_continuous": prof_c,
-        "radius_counts": rc, "submit": submit, "submit_safe": safe,
+        "radius_counts": rc, "radius_counts_wide": wide, "submit": submit, "submit_safe": safe,
         "scheduler": sched, "materialized": mat, "two_op": two_op,
         "lake_hash": lake_hash, "serving": serving,
         "total_s": time.perf_counter() - t_start,
@@ -1885,12 +2092,24 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/knn_stats/csrc/radius_counts.cu",
         "replaces": "src/repro/kernels/knn_stats/kernel.py:481",
-        "launches": launches,
+        "launches": main_launches["radius_counts_staged"],
         "max_abs_err": max_err,
         "ms": rc_ms,
         "plain_ms": rc_plain,
         "bound_ms": rc_bound_ms,
         "bound_by": rc_by,
+        "library_ms": None,
+    }, {
+        "name": "radius_counts_tiled",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/knn_stats/csrc/radius_counts.cu",
+        "replaces": "src/repro/kernels/knn_stats/kernel.py:481",
+        "launches": wide["launches"]["radius_counts_tiled"],
+        "max_abs_err": max([max_err] + [r["max_abs_err"] for r in wide_rows]),
+        "ms": sum(r["ms"] for r in wide_rows),
+        "plain_ms": sum(r["plain_ms"] for r in wide_rows),
+        "bound_ms": sum(r["bound_ms"] for r in wide_rows),
+        "bound_by": bound_by(wide_rows),
         "library_ms": None,
     }, {
         "name": "pairwise_cheb",

@@ -1,10 +1,19 @@
 """CUDA bindings of the kNN-statistics kernels: the fused radius+count
-kernel (``csrc/radius_counts.cu``) and the two-op kernels ``knn_smallest``
-and ``ball_counts`` (``csrc/knn_two_op.cu``).
+kernel (``csrc/radius_counts.cu``, two bodies) and the two-op kernels
+``knn_smallest`` and ``ball_counts`` (``csrc/knn_two_op.cu``).
+
+:func:`radius_counts` sends each call to one body of the fused kernel by
+a fixed rule on its parameters (:func:`takes_staged`): the staged body
+(:func:`radius_counts_staged`: one warp a sample, its valid columns
+sorted by x in shared memory, selection along the sorted order) or the
+tiled body (:func:`radius_counts_tiled`: column tiles, one row a thread,
+any P and buffers up to ``K_MAX``).  Both are bit-equal to
+``ref.radius_counts``.
 
 Each source is built at first use by :mod:`repro_torch.kernels._build`
 (``nvcc`` for ``sm_90a`` into ``build/kernels/``, loaded with ``ctypes``).
-A failed build raises; nothing falls back to the plain version.
+A failed build or launch raises; nothing falls back to another body or
+to the plain version.
 """
 
 from __future__ import annotations
@@ -17,23 +26,32 @@ import torch
 
 from repro_torch.kernels._build import BuiltLibrary, build, find_nvcc
 
-__all__ = ["SOURCE", "TWO_OP_SOURCE", "BuiltLibrary", "ball_counts",
-           "find_nvcc", "knn_smallest", "load_library", "load_two_op_library",
-           "radius_counts"]
+__all__ = ["SOURCE", "STAGED_MAX_P", "STAGED_MAX_W", "TWO_OP_SOURCE",
+           "BuiltLibrary", "ball_counts", "find_nvcc", "knn_smallest",
+           "load_library", "load_two_op_library", "radius_counts",
+           "radius_counts_staged", "radius_counts_tiled", "takes_staged"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "radius_counts.cu"
 TWO_OP_SOURCE = Path(__file__).resolve().parent / "csrc" / "knn_two_op.cu"
 
+# The staged body's range (radius_counts.cu, staged::kMaxP / kMaxW): the
+# whole sample in one warp's shared memory, and a register buffer of at
+# most 16 lanes.
+STAGED_MAX_P = 1024
+STAGED_MAX_W = 16
+
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> BuiltLibrary:
-    """Build (once per source version) and load the kernel library."""
+    """Build (once per source version) and load the kernel library (both
+    bodies' entries)."""
     built = build(SOURCE)
-    fn = built.lib.radius_counts_launch
-    fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
-    )
-    fn.restype = ctypes.c_int
+    for name in ("radius_counts_launch", "radius_counts_tiled_launch"):
+        fn = getattr(built.lib, name)
+        fn.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+        )
+        fn.restype = ctypes.c_int
     return built
 
 
@@ -81,6 +99,16 @@ def _raise_on(name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def takes_staged(P: int, mode: str, k: int, kb: int) -> bool:
+    """The dispatch rule of :func:`radius_counts`: the staged body when
+    the sample fits one warp's shared memory (``P <= STAGED_MAX_P``) and
+    the buffer of the ``need`` smallest distances fits its registers
+    (``need <= STAGED_MAX_W``, need = k in joint mode, kb in class mode);
+    the tiled body otherwise."""
+    need = k if mode == "joint" else kb
+    return P <= STAGED_MAX_P and need <= STAGED_MAX_W
+
+
 def radius_counts(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -95,8 +123,20 @@ def radius_counts(
     """Launch the kernel on B samples: the same contract as
     ``ref.radius_counts`` (x, y float32 (B, P), mask bool (B, P), all
     contiguous on one CUDA device).  Returns (r (B, P) float32, cnt
-    (B, P) int32, counts (5, B, P) int32).  ``radius_counts.launches``
-    counts the launches."""
+    (B, P) int32, counts (5, B, P) int32).  The body is the one
+    :func:`takes_staged` names; ``radius_counts.launches`` counts the
+    launches of both, each body's own ``launches`` its own."""
+    if x.device.type != "cuda":
+        raise ValueError(f"radius_counts kernel needs CUDA tensors, got {x.device}")
+    body = (radius_counts_staged if takes_staged(x.shape[-1], mode, k, kb)
+            else radius_counts_tiled)
+    out = body(x, y, mask, k=k, kb=kb, kk=kk, mode=mode, which=which)
+    if x.numel():  # the C entries launch nothing for an empty batch
+        radius_counts.launches += 1
+    return out
+
+
+def _launch_rc(entry: str, x, y, mask, k, kb, kk, mode, which):
     B, P = _check_batch("radius_counts", x, y, mask)
     built = load_library()
     r = torch.empty((B, P), dtype=torch.float32, device=x.device)
@@ -104,18 +144,39 @@ def radius_counts(
     counts = torch.empty((5, B, P), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = built.lib.radius_counts_launch(
+        err = getattr(built.lib, entry)(
             x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, P, int(k),
             int(kb), int(kk), int(mode == "joint"), int(which == "all"),
             r.data_ptr(), cnt.data_ptr(), counts.data_ptr(), stream,
         )
-    _raise_on("radius_counts", err)
-    if B * P:  # the C entry launches nothing for an empty batch
-        radius_counts.launches += 1
-    return r, cnt, counts
+    _raise_on(entry, err)
+    return (r, cnt, counts), int(B * P > 0)
+
+
+def radius_counts_staged(x, y, mask, *, k, kb, kk, mode, which):
+    """The staged body (``radius_counts_launch``): the contract of
+    :func:`radius_counts` within :func:`takes_staged`'s range (outside it
+    the launch is refused and this raises).
+    ``radius_counts_staged.launches`` counts its launches."""
+    out, launched = _launch_rc("radius_counts_launch", x, y, mask, k, kb, kk,
+                               mode, which)
+    radius_counts_staged.launches += launched
+    return out
+
+
+def radius_counts_tiled(x, y, mask, *, k, kb, kk, mode, which):
+    """The tiled body (``radius_counts_tiled_launch``): the contract of
+    :func:`radius_counts` for any P and kb up to ``K_MAX``.
+    ``radius_counts_tiled.launches`` counts its launches."""
+    out, launched = _launch_rc("radius_counts_tiled_launch", x, y, mask, k,
+                               kb, kk, mode, which)
+    radius_counts_tiled.launches += launched
+    return out
 
 
 radius_counts.launches = 0
+radius_counts_staged.launches = 0
+radius_counts_tiled.launches = 0
 
 
 def knn_smallest(

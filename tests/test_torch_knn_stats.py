@@ -39,6 +39,33 @@ def _samples(P, mode, seed):
     return x, y, mask
 
 
+def _edge_samples(P, mode, k, seed, finite=True):
+    """``_samples`` plus edge rows: a run of duplicated points (all-zero
+    distances), -0.0 beside +0.0 class codes (and ``_samples``' singleton
+    class), and one sample whose k+1 valid rows have exactly k neighbours
+    each; with ``finite=False`` also NaN and +-inf x or y in valid rows
+    and a NaN class code."""
+    x, y, mask = _samples(P, mode, seed)
+    rng = np.random.default_rng(seed + 1)
+    d0 = P // 2
+    d1 = min(P, d0 + max(2, P // 16))
+    x[:, d0:d1] = x[:, d0:d0 + 1]
+    y[:, d0:d1] = y[:, d0:d0 + 1]
+    if mode == "class":
+        q = max(1, P // 16)
+        x[:, 1:1 + q] = -0.0
+        x[:, 1 + q:1 + 2 * q] = 0.0
+    mask[2] = np.arange(P) < k + 1
+    if not finite:
+        for v in (x, y):
+            hit = rng.uniform(size=v.shape) < 0.03
+            v[hit] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32),
+                                size=int(hit.sum()))
+        if mode == "class":
+            x[:, P - 1] = np.nan
+    return x, y, mask
+
+
 CASES = [
     # P, mode, which, k, k_max, kk
     (256, "joint", "all", 1, None, None),
@@ -142,20 +169,51 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The card-side cases: CASES, then cases that reach the tiled body beyond
+# the staged body's columns (P=2048) and past its buffer (k=17, kb=32),
+# the staged body at its widest buffer (k=16), then the edge rows (finite
+# and not) at P = 40, 256 and 512.
+CUDA_CASES = [c + (None,) for c in CASES] + [
+    (2048, "joint", "all", 3, None, None, None),
+    (2048, "class", "y", 3, None, None, None),
+    (256, "joint", "all", 17, None, None, None),
+    (256, "class", "all", 3, 32, None, None),
+    (256, "joint", "all", 16, None, None, None),
+    (2048, "class", "all", 3, None, None, False),
+] + [
+    (P, mode, which, k, k_max, kk, finite)
+    for P in (40, 256, 512)
+    for mode, which, k, k_max, kk in (("joint", "all", 3, None, None),
+                                      ("class", "y", 3, None, None),
+                                      ("class", "all", 3, 8, 6))
+    for finite in (True, False)
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,mode,which,k,k_max,kk", CASES)
-def test_cuda_kernel_matches_plain(cuda_device, P, mode, which, k, k_max, kk):
-    """On the card: the CUDA kernel bit-equal to the plain version."""
-    x, y, mask = _samples(P, mode, seed=P + k)
+@pytest.mark.parametrize("P,mode,which,k,k_max,kk,finite", CUDA_CASES)
+def test_cuda_kernel_matches_plain(cuda_device, P, mode, which, k, k_max, kk,
+                                   finite):
+    """On the card: the CUDA kernel bit-equal to the plain version, through
+    the body ``kernel.takes_staged`` names (``finite`` None: ``_samples``;
+    else ``_edge_samples``)."""
+    if finite is None:
+        x, y, mask = _samples(P, mode, seed=P + k)
+    else:
+        x, y, mask = _edge_samples(P, mode, k, seed=P + k, finite=finite)
     kb = k if k_max is None else k_max
     kkv = k if kk is None else kk
     args = dict(k=k, kb=kb, kk=kkv, mode=mode, which=which)
     T = [torch.from_numpy(a).to(cuda_device) for a in (x, y, mask)]
+    body = (kernel.radius_counts_staged if kernel.takes_staged(P, mode, k, kb)
+            else kernel.radius_counts_tiled)
     before = kernel.radius_counts.launches
+    before_body = body.launches
     got = kernel.radius_counts(*T, **args)
     want = ref.radius_counts(*T, **args)
     torch.cuda.synchronize()
     assert kernel.radius_counts.launches == before + 1
+    assert body.launches == before_body + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     # and through ops, which dispatches CUDA tensors to the kernel
