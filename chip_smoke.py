@@ -90,6 +90,24 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      launch count set to 0 just before and read just after: every
      launch must reach the tiled body (3, none of the staged one), each
      held bit-equal to the plain version and timed as in phase 5;
+ 15. the phase-0 containment gate on the phase-3 index (its signature
+     tier, 16 keys a candidate, flushed with the sketches) at
+     ``min_containment=0.1``, which separates the lake's joinable columns
+     from the rest exactly: (a) the cold gated ``query_many`` per target
+     dtype overflows its survivor rungs and re-runs each window ungated
+     (counted); (b) the warm gated pass delivers gated, its rankings and
+     join sizes equal to phase 3's warm ungated pass (MI within 1e-6),
+     with exactly 3 ``radius_counts`` launches, all of the staged body,
+     and the survivor and shortlist counts per group; (c) each launch of
+     a warm gated pass held bit-equal to the plain version and timed as
+     in phase 5; (d) gated and ungated warm ``query_many`` alternated,
+     median of 10 each per dtype, one profiled pass of each (device time
+     by kernel family) and the parts on their own (the signature sweep,
+     the survivor-width joins, the corpus-wide joins they replace);
+     (e) ``DiscoveryService.submit`` of phase 7's queue gated: rankings
+     as in (b), every window delivered gated, its warm median beside the
+     ungated one and the synchronising calls of one gated window
+     dispatch beside an ungated one's;
  12. the two-op kNN API on phase 5's captured launches: ``knn_with_counts``
      with the radius rule ``radius_counts`` fuses (2 kernel launches per
      call, counted), its radius, class count and five counts bit-equal to
@@ -125,10 +143,10 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      RMS of the plain float32 forward, each of its 24 launches held
      within atol 2e-5 of the plain version and timed as in (a).
 
-Phases 14, 12 and 13 run after phase 10 and before phase 11, so that
-the serving path starts with the discovery state freed.  Each of phases
-3, 7-9 and 11-14 sets every kernel's launch count to 0 just before it
-drives its path and reads the counts just after.
+Phases 14, 15, 12 and 13 run after phase 10 and before phase 11, so
+that the serving path starts with the discovery state freed.  Each of
+phases 3, 7-9 and 11-15 sets every kernel's launch count to 0 just
+before it drives its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
 (``{"record": ...}``), then the kernels' JSON line, the card's name and
@@ -235,6 +253,10 @@ SEED = 0
 FENCE_LANES = 4  # NaN lanes per served query in phase 8
 CALLERS, PER_CALLER = 4, 8
 WIDE_K = 32  # phase 14: a k past the staged body's buffer
+# Phase 15: the containment threshold.  The lake's joinable columns hold
+# all of the train key universe and the rest none of it, so 0.1 separates
+# them exactly and gated results must equal ungated ones.
+GATE_MC = 0.1
 HANDLE_TIMEOUT_S = 120.0
 MI_TOL = 1e-6
 
@@ -258,6 +280,17 @@ FA_CASES = [  # (Dk, Dv) x S x group x causal, for each dtype
 FA_HKV = 2
 FA_TIME_REPS = 50  # launches per CUDA-event timing of a captured flash launch
 PROFILE_TRIES = 5  # profiler windows device_ms_per_call tries
+# Kernel families a profiled pass's device time is summed by (a kernel
+# name containing one of the words; radius_counts first, so that its
+# rows never count as a sort).
+PROFILE_KINDS = {
+    "radius_counts": ("radius_counts",),
+    "searchsorted": ("searchsorted",),
+    "gather": ("index", "gather"),
+    "sort": ("sort", "Sort"),
+    "scan": ("scan", "Scan"),
+    "copy": ("copy", "Memcpy"),
+}
 
 # Phase 11: the serving path at full width.
 SERVE_ARCH = "internlm2-1.8b"
@@ -737,10 +770,12 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def run_pass(index, batches, device) -> tuple[float, list]:
-    """One ``query_many`` per target dtype; wall seconds and results."""
+def run_pass(index, batches, device, **query_kw) -> tuple[float, list]:
+    """One ``query_many`` per target dtype (``query_kw`` passed on); wall
+    seconds and results."""
     t0 = time.perf_counter()
-    out = [index.query_many(b, top_k=TOP_K, min_join=MIN_JOIN) for b in batches]
+    out = [index.query_many(b, top_k=TOP_K, min_join=MIN_JOIN, **query_kw)
+           for b in batches]
     sync(device)
     return time.perf_counter() - t0, out
 
@@ -1126,7 +1161,7 @@ def run_submit_safe(svc, queue, clean, bad) -> dict:
             "admission": svc.stats()["admission"]}
 
 
-def count_dispatch_syncs(svc, queue) -> dict:
+def count_dispatch_syncs(svc, queue, min_containment: float = 0.0) -> dict:
     """Synchronising calls made while one window is dispatched (staged,
     uploaded on a side stream, enqueued), under
     ``torch.cuda.set_sync_debug_mode("warn")``; the window is collected
@@ -1140,7 +1175,8 @@ def count_dispatch_syncs(svc, queue) -> dict:
             warnings.simplefilter("always")
             win = svc._window_dispatch(queue, isolate=True, top_k=TOP_K,
                                        min_join=MIN_JOIN, prefilter=None,
-                                       copy_stream=side)
+                                       copy_stream=side,
+                                       min_containment=min_containment)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     svc._window_collect(win)
@@ -1213,6 +1249,198 @@ def run_scheduler(svc, queue, clean) -> dict:
         f"{tele['overlapped_windows']}; launches {launches}")
     return {"wall_s": wall, "telemetry": tele, "launches": launches,
             "dispatch_syncs": syncs}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the phase-0 containment gate over the phase-3 index
+# ---------------------------------------------------------------------------
+
+def gate_groups(index, batch, dev) -> dict:
+    """One warm gated batch through the executor, for what the handle
+    reports per group: survivor and shortlist widths and counts."""
+    from repro_torch.core.discovery import (BatchedExecutor, fused_shortlist_spec,
+                                            stack_trains_host, tier_spec)
+
+    plan = index.plan(batch[0].value_is_discrete)
+    tspec = tier_spec(plan, index.tier_hints, GATE_MC)
+    spec = fused_shortlist_spec(plan, index.tier_hints, MIN_JOIN)
+    handle = BatchedExecutor(k=3).tiered_dispatch(
+        plan, stack_trains_host(batch, dev), tspec, spec, MIN_JOIN, GATE_MC)
+    handle.collect()
+    return {
+        "survivors": handle.survivors, "shortlisted": handle.shortlisted,
+        "groups": [{"est_id": gp.est_id, "rows": gp.size, "bucket": gp.bucket,
+                    "s_surv": s0, "s_bucket": min(s0, s1),
+                    "survivors_max": handle.observed_t0[gp.est_id],
+                    "shortlist_max": handle.observed[gp.est_id]}
+                   for gp, s0, s1 in zip(plan.groups, tspec.s_survivors,
+                                         spec.s_buckets)],
+    }
+
+
+def profile_gate_parts(index, batch, dev) -> dict:
+    """Device time of the parts on one warm batch, each under the
+    profiler alone: the signature sweep with its survivor compaction and
+    the survivor-width exact joins (the gated path), and the corpus-wide
+    join-size prefilter they replace (the ungated path)."""
+    from repro_torch.core.discovery import executors as ex
+    from repro_torch.core.discovery import stack_trains_host, tier_spec
+    from repro_torch.core.discovery.planner import stage_min_containment
+
+    plan = index.plan(batch[0].value_is_discrete)
+    trains = stack_trains_host(batch, dev)
+    tk, tm = trains["keys"], trains["mask"]
+    widths = tier_spec(plan, index.tier_hints, GATE_MC).s_survivors
+    mc = stage_min_containment(GATE_MC)
+
+    def sweep():
+        return [ex._containment_gate(tk, tm, gp.sig, gp.live, mc, s)
+                for gp, s in zip(plan.groups, widths)]
+
+    gates = sweep()
+    return {
+        "signature_sweep": profile_call(sweep),
+        "survivor_joins": profile_call(lambda: [
+            ex._survivor_join_sizes(tk, tm, gp.arrays, rows0)
+            for gp, (rows0, _, _) in zip(plan.groups, gates)]),
+        "corpus_joins": profile_call(lambda: [
+            ex._join_sizes(tk, tm, gp.arrays["keys"], gp.arrays["mask"])
+            for gp in plan.groups]),
+    }
+
+
+def run_gated(index, batches, warm, svc, queue, card: str, dev) -> dict:
+    """Phase 15: the gated path at ``min_containment=GATE_MC`` on the
+    phase-3 index: (a) the cold pass (survivor overflow, ungated re-run);
+    (b) a warm pass equal to phase 3's warm ungated one, 3 staged
+    launches; (c) each launch of a warm gated pass held bit-equal and
+    timed; (d) gated and ungated warm medians alternated, and profiles;
+    (e) ``DiscoveryService.submit`` gated, its windows and syncs."""
+    gate = {"min_containment": GATE_MC}
+    hints = index.tier_hints
+
+    # (a) the cold gated pass overflows the MIN_SURVIVORS rungs by design
+    # and re-runs each window ungated; its results are the ungated ones.
+    reset_launches()
+    over0 = hints.overflows
+    t_cold, cold = run_pass(index, batches, dev, **gate)
+    cold_launches = read_launches()
+    overflows = hints.overflows - over0
+    if overflows == 0:
+        raise AssertionError("the cold gated pass did not overflow its survivor "
+                             "rungs (MIN_SURVIVORS lanes against 4096 survivors)")
+    for a, b in zip(cold, warm):
+        same_rankings(a, b, tol=MI_TOL)
+    log(f"[gate] cold gated query_many: {t_cold:.4f} s, {overflows} survivor "
+        f"overflows, each window re-run ungated; rankings == warm ungated; "
+        f"launches {cold_launches}")
+
+    # (b) the warm gated pass delivers gated: no overflow, 3 staged launches.
+    reset_launches()
+    over0 = hints.overflows
+    t_warm, gated = run_pass(index, batches, dev, **gate)
+    launches = read_launches()
+    if hints.overflows != over0:
+        raise AssertionError("the warm gated pass overflowed")
+    if (launches["radius_counts_staged"] != 3 or launches["radius_counts"] != 3
+            or launches["radius_counts_tiled"]):
+        raise AssertionError(f"warm gated pass launched {launches}; expected 3 "
+                             "staged radius_counts launches and no tiled one")
+    for a, b in zip(gated, warm):
+        same_rankings(a, b, tol=MI_TOL)
+    groups = [gate_groups(index, b, dev) for b in batches]
+    log(f"[gate] warm gated query_many: {t_warm:.4f} s, rankings and join sizes "
+        f"== warm ungated (MI within {MI_TOL}); launches {launches}")
+    for name, g in zip(("continuous", "discrete"), groups):
+        log(f"[gate]   {name}: {g['survivors']} survivors, {g['shortlisted']} "
+            f"shortlisted of {Q} x {len(index)}; groups {g['groups']}")
+
+    # (c) each launch of a warm gated pass, held bit-equal and timed.
+    seen = capture_launches(index, batches, **gate)
+    if len(seen) != 3:
+        raise AssertionError(f"captured {len(seen)} launches of a warm gated pass")
+    rows = check_main_launches(seen, card)
+    if any(r["body"] != "staged" for r in rows):
+        raise AssertionError("a gated launch did not reach the staged body")
+    log(f"[time] radius_counts, the 3 launches of a warm gated pass: "
+        f"{sum(r['ms'] for r in rows):.4f} ms events, "
+        f"{sum(r['device_ms'] for r in rows):.4f} ms device, B "
+        f"{[r['B'] for r in rows]}; card {card}")
+
+    # (d) gated and ungated warm medians, alternated; profiles side by side.
+    times = {(kind, dt): [] for kind in ("gated", "ungated")
+             for dt in ("continuous", "discrete")}
+    for _ in range(WARM_REPS):
+        for dt, b in zip(("continuous", "discrete"), batches):
+            times[("gated", dt)].append(run_pass(index, [b], dev, **gate)[0])
+            times[("ungated", dt)].append(run_pass(index, [b], dev)[0])
+    medians = {f"{kind}_{dt}_s": float(np.median(v))
+               for (kind, dt), v in times.items()}
+    log(f"[gate] warm query_many, median of {WARM_REPS}, alternated: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in medians.items())
+        + "".join(f"; {kind} {dt} min {min(v):.4f} max {max(v):.4f}"
+                  for (kind, dt), v in times.items()) + f"; card {card}")
+    prof = {"gated": profile_pass(index, batches[0], **gate),
+            "ungated": profile_pass(index, batches[0])}
+    parts = profile_gate_parts(index, batches[0], dev)
+    for kind, p in prof.items():
+        log(f"[gate] profiled warm continuous query_many, {kind}: wall "
+            f"{p['wall_ms']:.2f} ms, device {p['device_ms']:.2f} ms, "
+            f"{p['launches']} launches; by kind "
+            + ", ".join(f"{k} {v['ms']:.3f} ms x{v['count']}"
+                        for k, v in p["kinds"].items()))
+    log("[gate] parts on the same batch, device ms: "
+        + ", ".join(f"{k} {v['device_ms']:.3f} (searchsorted "
+                    f"{v['kinds']['searchsorted']['ms']:.3f})"
+                    for k, v in parts.items()))
+
+    # (e) the service: gated windows on the interleaved queue.
+    reset_launches()
+    adm0 = dict(svc.stats()["admission"])
+    sub = svc.submit(queue, top_k=TOP_K, min_join=MIN_JOIN, **gate)
+    torch.cuda.synchronize()
+    sub_launches = read_launches()
+    for a, b in zip(by_query(sub, Q), warm):
+        same_rankings(a, b, tol=MI_TOL)
+    stats = svc.stats()
+    adm = stats["admission"]
+    windows = adm["gated_windows"] - adm0["gated_windows"]
+    if windows != adm["batches"] - adm0["batches"] or windows == 0:
+        raise AssertionError(f"gated submit delivered {windows} gated windows "
+                             f"of {adm['batches'] - adm0['batches']}")
+    if sub_launches["radius_counts_staged"] != 3 or sub_launches["radius_counts"] != 3:
+        raise AssertionError(f"gated submit launched {sub_launches}")
+    sub_times = {"gated": [], "ungated": []}
+    for _ in range(WARM_REPS):
+        for kind, kw in (("gated", gate), ("ungated", {})):
+            t0 = time.perf_counter()
+            svc.submit(queue, top_k=TOP_K, min_join=MIN_JOIN, **kw)
+            torch.cuda.synchronize()
+            sub_times[kind].append(time.perf_counter() - t0)
+    syncs = {"gated": count_dispatch_syncs(svc, queue, GATE_MC),
+             "ungated": count_dispatch_syncs(svc, queue)}
+    log(f"[gate] submit of {len(queue)} interleaved queries gated: rankings == "
+        f"warm query_many, {windows} gated windows, t0_selectivity "
+        f"{adm['t0_selectivity']}, tiers {stats['tiers']}; warm median gated "
+        f"{float(np.median(sub_times['gated'])):.4f} s, ungated "
+        f"{float(np.median(sub_times['ungated'])):.4f} s; synchronising calls "
+        f"per window dispatch gated {syncs['gated']['count']}, ungated "
+        f"{syncs['ungated']['count']} {syncs['gated']['first']}; launches "
+        f"{sub_launches}")
+    return {
+        "min_containment": GATE_MC, "cold_s": t_cold,
+        "cold_overflows": overflows, "cold_launches": cold_launches,
+        "warm_s": t_warm, "launches": launches, "groups": groups,
+        "radius_counts": rows,
+        "warm_times_s": {f"{k}_{d}": v for (k, d), v in times.items()},
+        "warm_medians_s": medians, "profile": prof, "parts": parts,
+        "submit": {"gated_windows": windows, "launches": sub_launches,
+                   "admission": adm, "tiers": stats["tiers"],
+                   "times_s": sub_times,
+                   "median_s": {k: float(np.median(v))
+                                for k, v in sub_times.items()},
+                   "dispatch_syncs": syncs},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1847,19 +2075,26 @@ def profile_call(fn) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    kinds = {kind: {"ms": 0.0, "count": 0} for kind in (*PROFILE_KINDS, "other")}
+    for name, ms, count in rows:
+        kind = next((k for k, words in PROFILE_KINDS.items()
+                     if any(w in name for w in words)), "other")
+        kinds[kind]["ms"] += ms
+        kinds[kind]["count"] += count
     return {
         "wall_ms": wall_ms,
         "device_ms": device_ms,
         "busy_share": device_ms / wall_ms if device_ms else None,
         "launches": sum(r[2] for r in rows),
+        "kinds": kinds,
         "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:12]],
     }
 
 
-def profile_pass(index, batch) -> dict:
+def profile_pass(index, batch, **query_kw) -> dict:
     """One warm ``query_many`` under the profiler."""
     return profile_call(lambda: index.query_many(batch, top_k=TOP_K,
-                                                 min_join=MIN_JOIN))
+                                                 min_join=MIN_JOIN, **query_kw))
 
 
 def main() -> int:
@@ -2051,6 +2286,10 @@ def main() -> int:
         f"{sum(r['bound_ms'] for r in wide_rows):.4f} ms (the direct algorithm's "
         f"{sum(r['rc_ops_bound_ms'] for r in wide_rows):.4f} ms); card {card}")
 
+    # Phase 15: the phase-0 containment gate on the same index.
+    gated = run_gated(index, [cont, disc], warm, DiscoveryService(index=index, k=3),
+                      queue, card, dev)
+
     # Phase 12: the two-op kNN API on phase 5's samples; phase 13: the
     # lake's keys hashed on the card.  Both run before phase 11, so that
     # the serving path starts with the discovery state freed.
@@ -2081,7 +2320,8 @@ def main() -> int:
         "query_many_warm_discrete_s": warm_d,
         "launches_cold": launches_cold, "launches_warm": launches - launches_cold,
         "profile_warm_continuous": prof_c,
-        "radius_counts": rc, "radius_counts_wide": wide, "submit": submit, "submit_safe": safe,
+        "radius_counts": rc, "radius_counts_wide": wide, "gated": gated,
+        "submit": submit, "submit_safe": safe,
         "scheduler": sched, "materialized": mat, "two_op": two_op,
         "lake_hash": lake_hash, "serving": serving,
         "total_s": time.perf_counter() - t_start,

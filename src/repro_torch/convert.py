@@ -30,11 +30,14 @@ def index_from_numpy(state: dict, device=None) -> SketchIndex:
     key hashes; ``vals_f`` (C, cap) float32; ``vals_u`` (C, cap) uint32
     (or int64 already zero-extended); ``masks`` (C, cap) bool;
     ``meta``: C tuples (table, key_column, value_column,
-    value_is_discrete).  Candidate keys must satisfy the sorted-at-ingest
-    invariant (valid keys strictly ascending); this is checked.
+    value_is_discrete); optional ``sig_width`` (default 16), the phase-0
+    signature width of the index mirrored.  Candidate keys must satisfy
+    the sorted-at-ingest invariant (valid keys strictly ascending); this
+    is checked.
     """
     index = SketchIndex(n=state["n"], method=state["method"],
-                        agg=state["agg"], device=device)
+                        agg=state["agg"], device=device,
+                        sig_width=state.get("sig_width", 16))
     keys = np.asarray(state["keys"], dtype=np.uint32)
     vals_f = np.asarray(state["vals_f"], dtype=np.float32)
     vals_u = np.asarray(state["vals_u"]).astype(np.int64) & 0xFFFFFFFF

@@ -6,8 +6,9 @@ compute layers, and the serving front end on top:
   * :mod:`.planner` — layout: :class:`QueryPlan`, estimator groups,
     pow-2 bucket ladders, shortlists, the service's signatures,
     coalescing and :class:`PlanCache`;
-  * :mod:`.executors` — compute: partitioned and batched executors, and
-    the fused two-phase pipeline (prefilter, compaction, gather, score);
+  * :mod:`.executors` — compute: partitioned and batched executors, the
+    fused two-phase pipeline (prefilter, compaction, gather, score) and
+    the phase-0 containment gate in front of it;
   * :mod:`.service` — :class:`DiscoveryService` (``submit``,
     ``submit_safe``, ``submit_async``): admission control, the
     retry/fallback ladder, the non-finite fence;
@@ -28,6 +29,7 @@ from repro_torch.core.discovery.index import CandidateMeta, SketchIndex
 from repro_torch.core.discovery.planner import (
     MAX_Q_BUCKET,
     MIN_SHORTLIST,
+    MIN_SURVIVORS,
     CoalescedBucket,
     FusedSpec,
     GroupPlan,
@@ -37,8 +39,11 @@ from repro_torch.core.discovery.planner import (
     Shortlist,
     ShortlistHints,
     ShortlistOverflow,
+    SurvivorOverflow,
+    TierSpec,
     bucket_rows,
     bucket_shortlist,
+    bucket_survivors,
     build_shortlists,
     coalesce_queries,
     estimator_id,
@@ -46,6 +51,7 @@ from repro_torch.core.discovery.planner import (
     partition_by_estimator,
     plan_signature,
     shortlist_signature,
+    tier_spec,
 )
 from repro_torch.core.discovery.resilience import (
     FAULT_SITES,
@@ -87,7 +93,10 @@ __all__ = [
     "Shortlist",
     "ShortlistHints",
     "ShortlistOverflow",
+    "SurvivorOverflow",
     "FusedSpec",
+    "TierSpec",
+    "tier_spec",
     "build_shortlists",
     "fused_shortlist_spec",
     "shortlist_signature",
@@ -96,8 +105,10 @@ __all__ = [
     "plan_signature",
     "bucket_rows",
     "bucket_shortlist",
+    "bucket_survivors",
     "MAX_Q_BUCKET",
     "MIN_SHORTLIST",
+    "MIN_SURVIVORS",
     "Executor",
     "PartitionedLocalExecutor",
     "BatchedExecutor",

@@ -5,7 +5,9 @@
   * :class:`BatchedExecutor` — the multi-query path: every group scores
     all Q queries at once.  Its ``fused_dispatch`` runs the two-phase
     pipeline — join-size prefilter, shortlist compaction, gather, score
-    — on the device with no host sync until ``collect``.
+    — on the device with no host sync until ``collect``; its
+    ``tiered_dispatch`` puts the phase-0 containment gate (a signature
+    sweep and survivor compaction) in front of the same pipeline.
 
 Where the reference vmaps a per-sample body over (Q, candidates), the
 port writes the batch dimension out: one join over all (Q × rows)
@@ -20,8 +22,8 @@ The estimator-id -> estimator mapping lives in :func:`_estimate` only.
 Fault-injection sites (:func:`~repro_torch.core.discovery.resilience.maybe_fault`)
 sit where the reference has them: ``staging`` and ``stack_h2d`` in the
 two halves of the train upload, ``dispatch`` / ``prefilter_dispatch`` /
-``shortlist_dispatch`` / ``fused_dispatch`` at the batched executor's
-entry points, and ``collect`` at each pending handle's first host sync.
+``shortlist_dispatch`` / ``fused_dispatch`` / ``tiered_dispatch`` at the
+batched executor's entry points, and ``collect`` at each pending handle's first host sync.
 The partitioned executor, the service's reference rung, has none.
 """
 
@@ -37,9 +39,15 @@ from repro_torch.core.discovery.planner import (
     EST_MLE,
     QueryPlan,
     ShortlistOverflow,
+    SurvivorOverflow,
+    stage_min_containment,
 )
 from repro_torch.core.discovery.resilience import maybe_fault
-from repro_torch.core.join import presorted_join_size, sketch_join_presorted
+from repro_torch.core.join import (
+    presorted_join_size,
+    signature_join_size,
+    sketch_join_presorted,
+)
 
 __all__ = [
     "stack_trains_host",
@@ -130,28 +138,34 @@ def _join_sizes(train_keys, train_mask, cand_keys, cand_mask) -> torch.Tensor:
     return torch.cat(out).T.contiguous()
 
 
+def _compact_lanes(passing: torch.Tensor, width: int):
+    """Compact each row's passing columns, ascending, into ``width``
+    lanes.  The prefix count of passing columns is monotone, so the l-th
+    passing column is the first position where it reaches l + 1: a
+    batched ``searchsorted`` reads every lane off it.  Dead lanes take
+    column 0.  ``counts`` is unclamped, so a collect-side fence sees
+    ``counts > width``.  Returns (pos, lane_live, counts)."""
+    Q = passing.shape[0]
+    cum = torch.cumsum(passing, dim=1, dtype=torch.int32)
+    counts = cum[:, -1]
+    lanes = torch.arange(1, width + 1, dtype=torch.int32,
+                         device=passing.device)
+    raw = torch.searchsorted(cum, lanes.expand(Q, width).contiguous())
+    lane_live = (
+        torch.arange(width, device=passing.device)[None, :] < counts[:, None]
+    )
+    return torch.where(lane_live, raw, 0), lane_live, counts
+
+
 def _compact_shortlist(js, live, min_join, sentinel: int, index,
                        s_bucket: int):
     """Device shortlist compaction — the fused replacement for the host
     :func:`~repro_torch.core.discovery.planner.build_shortlists` boundary.
-
-    The prefix count of passing rows is monotone, so the l-th passing
-    row is the first position where it reaches l + 1: a batched
-    ``searchsorted`` reads every lane off it.  Dead lanes take row 0,
-    the sentinel global id and join size 0, and are still scored.
-    ``counts`` is returned unclamped so the collect-side fence sees
-    ``counts > s_bucket``.  Returns (rows, gidx, jsz, counts).
-    """
-    Q = js.shape[0]
-    passing = (js >= min_join) & live[None, :]
-    cum = torch.cumsum(passing, dim=1, dtype=torch.int32)
-    counts = cum[:, -1]
-    lanes = torch.arange(1, s_bucket + 1, dtype=torch.int32, device=js.device)
-    rows_raw = torch.searchsorted(cum, lanes.expand(Q, s_bucket).contiguous())
-    lane_live = (
-        torch.arange(s_bucket, device=js.device)[None, :] < counts[:, None]
+    Dead lanes take row 0, the sentinel global id and join size 0, and
+    are still scored.  Returns (rows, gidx, jsz, counts)."""
+    rows, lane_live, counts = _compact_lanes(
+        (js >= min_join) & live[None, :], s_bucket
     )
-    rows = torch.where(lane_live, rows_raw, 0)
     gidx = torch.where(lane_live, index[rows], sentinel)
     jsz = torch.where(lane_live, js.gather(1, rows), 0)
     return rows, gidx, jsz, counts
@@ -171,8 +185,96 @@ def _fused_score_group(trains: dict, gp, min_join, sentinel: int,
     return mi, gidx, jsz, js, counts
 
 
+def _signature_estimates(train_keys, train_mask, sig) -> torch.Tensor:
+    """(Q, rows) float32 signature join-size estimates, chunked over the
+    signature rows so the (Q, chunk·w) probe temporaries stay bounded."""
+    Q = train_keys.shape[0]
+    w = sig.shape[1] - 1
+    step = max(1, _JOIN_PROBES // max(Q * w, 1))
+    return torch.cat([
+        signature_join_size(train_keys, train_mask, sig[r0:r0 + step])
+        for r0 in range(0, sig.shape[0], step)
+    ], dim=1)
+
+
+def _containment_gate(train_keys, train_mask, sig, live,
+                      min_containment: float, s_surv: int):
+    """The phase-0 containment gate for one group.
+
+    One signature sweep over every group row estimates containment as
+    the signature join size over the train size (``max(sum(mask), 1)``,
+    float32); rows at or above the staged float32 threshold (and live)
+    are compacted, ascending, into ``s_surv`` survivor lanes, so the
+    exact phases keep the dense path's ranking ties.  Returns (rows
+    (Q, s_surv), lane_live, counts (Q,) unclamped: ``counts > s_surv``
+    is the survivor-buffer fence).
+    """
+    tsize = train_mask.sum(1).clamp_min(1).to(torch.float32)
+    cont = _signature_estimates(train_keys, train_mask, sig) / tsize[:, None]
+    return _compact_lanes((cont >= min_containment) & live[None, :], s_surv)
+
+
+def _survivor_join_sizes(train_keys, train_mask, arrays, rows0):
+    """(Q, s_surv) int32 exact join sizes of each query's survivor rows
+    ``rows0``: the candidate rows are gathered per query, a chunk of
+    survivors at a time, so the (Q, chunk, n) probe temporaries stay
+    bounded as in :func:`_join_sizes`."""
+    Q, n = train_keys.shape
+    step = max(1, _JOIN_PROBES // max(Q * n, 1))
+    out = []
+    for s0 in range(0, rows0.shape[1], step):
+        r = rows0[:, s0:s0 + step]
+        out.append(presorted_join_size(
+            train_keys[:, None], train_mask[:, None],
+            arrays["keys"][r], arrays["mask"][r],
+        ))
+    return torch.cat(out, dim=1)
+
+
+def _tiered_score_group(trains: dict, gp, min_join: int,
+                        min_containment: float, sentinel: int, *,
+                        est_id: int, k: int, s_surv: int, s_bucket: int):
+    """Gate -> prefilter -> compact -> gather -> score for one group,
+    all enqueued on the device.  Every exact phase runs at survivor
+    width; the within-survivor compaction keeps ascending row order and
+    the scorer is the fused path's own, so a candidate that clears the
+    gate scores as on the ungated path.  Dead lanes take group row 0, as
+    the fused path's do (the reference's take the first survivor, whose
+    full join the estimator would score for nothing).  Returns
+    (mi (Q, s_bucket), gidx, jsz, counts0 (Q,), counts1 (Q,)), both
+    counts unclamped."""
+    rows0, live0, counts0 = _containment_gate(
+        trains["keys"], trains["mask"], gp.sig, gp.live, min_containment,
+        s_surv,
+    )
+    js = _survivor_join_sizes(trains["keys"], trains["mask"], gp.arrays,
+                              rows0)
+    pos, lane_live, counts1 = _compact_lanes((js >= min_join) & live0,
+                                             s_bucket)
+    rows = torch.where(lane_live, rows0.gather(1, pos), 0)
+    gidx = torch.where(lane_live, gp.index_dev[rows], sentinel)
+    jsz = torch.where(lane_live, js.gather(1, pos), 0)
+    mi, _ = _gather_score_group(trains, gp.arrays, rows, est_id=est_id, k=k)
+    return mi, gidx, jsz, counts0, counts1
+
+
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def _host_many(tensors: list) -> list:
+    """Several 4-byte device tensors on the host in one transfer: packed
+    as int32 words, copied once, split and viewed back."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1).view(torch.int32) for t in tensors])
+    words = _host(flat)
+    out, o = [], 0
+    for t in tensors:
+        dt = np.dtype(str(t.dtype).removeprefix("torch."))
+        out.append(words[o:o + t.numel()].view(dt).reshape(tuple(t.shape)))
+        o += t.numel()
+    return out
 
 
 def _empty_triple():
@@ -289,6 +391,59 @@ class _PendingFused:
         host = [(_host(mi[:q]), _host(gidx[:q]), _host(jsz[:q]))
                 for _gp, _s, mi, gidx, jsz, _js, _c in self._blocks]
         return _triples(host, q)
+
+
+class _PendingTiered:
+    """Dispatched tiered (phase-0-gated) batch.
+
+    ``collect`` moves the survivor counts, the shortlist counts and the
+    score blocks to the host in one transfer, then checks both fences: a
+    group whose survivor count exceeds its ``s_surv`` lanes, or whose
+    within-survivor shortlist count exceeds its ``s_bucket`` lanes,
+    raises :class:`SurvivorOverflow` (the caller re-runs the window
+    ungated).  ``observed_t0`` / ``observed`` (per-est_id max counts)
+    feed the survivor and shortlist rungs; ``survivors`` /
+    ``shortlisted`` feed the admission stats.
+    """
+
+    def __init__(self, blocks: list, q_live: int):
+        # blocks: [(group, s_surv, s_bucket, mi, gidx, jsz, c0, c1)]
+        self._blocks = blocks
+        self._q_live = q_live
+        self.observed: dict[int, int] = {}
+        self.observed_t0: dict[int, int] = {}
+        self.shortlisted = 0
+        self.survivors = 0
+
+    def _fence(self, counts: list) -> None:
+        overflow = False
+        survivors = shortlisted = 0
+        for (gp, s_surv, s_bucket, *_rest), (c0, c1) in zip(self._blocks,
+                                                             counts):
+            m0, m1 = int(c0.max(initial=0)), int(c1.max(initial=0))
+            self.observed_t0[gp.est_id] = max(
+                self.observed_t0.get(gp.est_id, 0), m0)
+            self.observed[gp.est_id] = max(self.observed.get(gp.est_id, 0), m1)
+            survivors += int(c0.sum())
+            shortlisted += int(c1.sum())
+            overflow |= m0 > s_surv or m1 > s_bucket
+        self.survivors = survivors
+        self.shortlisted = shortlisted
+        if overflow:
+            raise SurvivorOverflow(
+                "phase-0 containment gate overflowed its staged buffers"
+            )
+
+    def collect(self):
+        q = self._q_live
+        flat = _host_many([t[:q] for *_h, mi, gidx, jsz, c0, c1
+                           in self._blocks for t in (mi, gidx, jsz, c0, c1)])
+        per = [flat[i:i + 5] for i in range(0, len(flat), 5)]
+        # The fences are part of the tiered protocol, not a failure, so
+        # they are checked before the fault site.
+        self._fence([(c0, c1) for *_b, c0, c1 in per])
+        maybe_fault("collect")
+        return _triples([(mi, gi, jz) for mi, gi, jz, _c0, _c1 in per], q)
 
 
 def _stack_host(sketches: list) -> dict:
@@ -478,3 +633,31 @@ class BatchedExecutor(Executor):
             )
             blocks.append((gp, int(s_bucket), mi, gidx, jsz, js, counts))
         return _PendingFused(blocks, Q)
+
+    def tiered_dispatch(self, plan, trains, tspec, spec, min_join: int,
+                        min_containment: float):
+        """Tiered retrieval: the phase-0 containment gate and the fused
+        pipeline, per group, enqueued without a host sync.  ``tspec``
+        (:class:`~repro_torch.core.discovery.planner.TierSpec`) gives the
+        survivor widths, ``spec`` the shortlist widths, each clamped to
+        its group's survivor width.  The threshold reaches the device as
+        a kernel scalar.  The handle raises ``SurvivorOverflow`` at
+        collect when a width was too small: re-run the window through
+        ``fused_dispatch``."""
+        maybe_fault("tiered_dispatch", "batched")
+        trains, Q = self._prepare(trains)
+        mc = stage_min_containment(min_containment)
+        blocks = []
+        for gp, s_surv, s_bucket in zip(plan.groups, tspec.s_survivors,
+                                        spec.s_buckets):
+            if gp.sig is None:
+                raise ValueError(
+                    "tiered dispatch on a plan without a signature tier"
+                )
+            sb = min(int(s_bucket), int(s_surv))
+            mi, gidx, jsz, c0, c1 = _tiered_score_group(
+                trains, gp, int(min_join), mc, plan.n_candidates,
+                est_id=gp.est_id, k=self.k, s_surv=int(s_surv), s_bucket=sb,
+            )
+            blocks.append((gp, int(s_surv), sb, mi, gidx, jsz, c0, c1))
+        return _PendingTiered(blocks, Q)

@@ -16,11 +16,18 @@ device, with the host shortlist boundary as the overflow fallback.
 ``fused=False`` forces the host boundary (the staged path); all three
 give the same rankings.
 
+``min_containment > 0`` puts the phase-0 containment gate in front of
+the fused pipeline: every flush also writes each candidate's
+bottom-``sig_width`` key signature (:func:`_signature_block`), one
+signature sweep over the whole corpus estimates each candidate's
+containment of the train keys, and only the survivors reach the exact
+phases, which then run at survivor width.  A survivor-buffer overflow
+re-runs the window ungated.
+
 The device flush carries the ``flush`` fault-injection site, fired
-before any store mutation.  Not in this slice: the mesh executors
-(``mesh=``), the phase-0 containment gate (``min_containment > 0``) and
-its signature tier, and the reference's plan leases, which the port does
-not need (see ``_DeviceStore.append_block``).
+before either tier mutates.  Not in this slice: the mesh executors
+(``mesh=``), and the reference's plan leases, which the port does not
+need (see ``_DeviceStore.append_block``).
 """
 
 from __future__ import annotations
@@ -37,9 +44,11 @@ from repro_torch.core.discovery.planner import (
     QueryPlan,
     ShortlistHints,
     ShortlistOverflow,
+    SurvivorOverflow,
     build_shortlists,
     estimator_id,
     fused_shortlist_spec,
+    tier_spec,
 )
 from repro_torch.core.discovery.resilience import maybe_fault
 from repro_torch.core.join import KEY_MAX
@@ -60,18 +69,27 @@ _DTYPES = {
 }
 _FILL = {"keys": KEY_MAX, "vals_f": 0, "vals_u": 0, "mask": False}
 
-# Device bytes per (row, capacity-column) slot: keys i64 + vals_f f32 +
-# vals_u i64 + mask bool.
-_BYTES_PER_SLOT = 21
-
 _MESH_SLICE = (
     "mesh= needs the multi-GPU executors, a later slice of the port "
     "(ROADMAP.md: multi-GPU)"
 )
-_GATE_SLICE = (
-    "min_containment > 0 needs the phase-0 containment gate, a later "
-    "slice of the port (ROADMAP.md: phase-0 gate)"
-)
+
+
+def _signature_block(block: dict[str, np.ndarray], w: int) -> np.ndarray:
+    """Phase-0 signatures of a host block about to be flushed.
+
+    The block's keys are effective (masked slots fenced to KEY_MAX, the
+    valid prefix first, ascending), so its first ``w`` columns are each
+    candidate's bottom-``w`` keys, the sample
+    :func:`~repro_torch.core.join.signature_join_size` estimates from.
+    They are kept as int32 bit patterns of the uint32 keys (the fence
+    becomes -1), followed by one column with the live key count.  Built
+    from the same host block as the sketch rows, inside the same
+    append, so the two tiers never disagree about a candidate.
+    """
+    keys = np.ascontiguousarray(block["keys"][:, :w]).astype(np.uint32)
+    count = block["mask"].sum(axis=1, dtype=np.int32)
+    return np.concatenate([keys.view(np.int32), count[:, None]], axis=1)
 
 
 @dataclass
@@ -87,20 +105,37 @@ class _DeviceStore:
 
     Rows [0, rows) are live; rows beyond carry an all-False mask and
     KEY_MAX keys, so they join empty wherever they leak into a batch.
+    ``sig_cols`` adds the phase-0 signature tier under ``arrays["sig"]``:
+    (cap_rows, sig_cols + 1) int32, dead rows -1, on the same capacity
+    ladder and in the same ``append_block`` as the sketches.
     """
 
-    def __init__(self, cap_cols: int, device: torch.device):
+    def __init__(self, cap_cols: int, device: torch.device,
+                 sig_cols: int | None = None):
         self.cap_cols = cap_cols
         self.device = device
+        self.sig_cols = sig_cols
+        self._dtypes = dict(_DTYPES)
+        self._fill = dict(_FILL)
+        if sig_cols:
+            self._dtypes["sig"] = torch.int32
+            self._fill["sig"] = -1
         self.cap_rows = 0
         self.rows = 0
         self.arrays: dict[str, torch.Tensor] = {}
         self.grows = 0
         self.h2d_rows = 0
 
+    def _cols(self, name: str) -> int:
+        return self.sig_cols + 1 if name == "sig" else self.cap_cols
+
     @property
-    def device_bytes(self) -> int:
-        return self.cap_rows * self.cap_cols * _BYTES_PER_SLOT
+    def device_bytes(self) -> dict[str, int]:
+        """Allocated device bytes per tier (capacity, not live rows)."""
+        nbytes = {name: a.numel() * a.element_size()
+                  for name, a in self.arrays.items()}
+        return {"sketch": sum(v for k, v in nbytes.items() if k != "sig"),
+                "signature": nbytes.get("sig", 0)}
 
     def ensure_rows(self, need: int) -> None:
         if need <= self.cap_rows:
@@ -114,9 +149,9 @@ class _DeviceStore:
         while new_cap < need:
             new_cap *= 2
         new = {
-            name: torch.full((new_cap, self.cap_cols), _FILL[name], dtype=dt,
-                             device=self.device)
-            for name, dt in _DTYPES.items()
+            name: torch.full((new_cap, self._cols(name)), self._fill[name],
+                             dtype=dt, device=self.device)
+            for name, dt in self._dtypes.items()
         }
         if self.cap_rows:
             for name, a in self.arrays.items():
@@ -141,9 +176,11 @@ class _DeviceStore:
         n_new = block["keys"].shape[0]
         if n_new == 0:
             return
+        if self.sig_cols:
+            block = {**block, "sig": _signature_block(block, self.sig_cols)}
         # Fault-injection site: fires before any store mutation, so an
-        # injected flush failure leaves rows and tensors consistent and
-        # the next flush retries the same pending block.
+        # injected flush failure leaves rows and tensors of both tiers
+        # consistent and the next flush retries the same pending block.
         maybe_fault("flush")
         self.ensure_rows(self.rows + n_new)
         r0 = self.rows
@@ -167,14 +204,19 @@ class SketchIndex:
     incremental ingest and version-checked group-major query plans.
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present.
+    ``sig_width`` is the phase-0 signature width: the bottom-``sig_width``
+    keys of every candidate, kept on the device for the containment gate
+    (clamped to the sketch capacity; <= 0 keeps no signature tier).
     """
 
     def __init__(self, n: int = 256, method: str = "tupsk",
-                 agg: str = "first", device: str | torch.device | None = None):
+                 agg: str = "first", device: str | torch.device | None = None,
+                 sig_width: int = 16):
         self.n = n
         self.method = method
         self.agg = agg
         self.device = resolve_device(device)
+        self.sig_width = int(sig_width)
         self.meta: list[CandidateMeta] = []
         self._keys: list[np.ndarray] = []
         self._vals_f: list[np.ndarray] = []
@@ -187,6 +229,10 @@ class SketchIndex:
         self._plan_cache: dict[bool, tuple[int, QueryPlan]] = {}
         # Adaptive compaction-width rungs of the fused two-phase path.
         self.shortlist_hints = ShortlistHints()
+        # The gated path's own rungs: its survivor rungs ("tier0" keys)
+        # and its shortlist rungs, which count within the survivors and
+        # so must not shrink the ungated path's.
+        self.tier_hints = ShortlistHints()
 
     def __len__(self) -> int:
         return len(self.meta)
@@ -275,7 +321,8 @@ class SketchIndex:
         """Host->device transfer accounting: rows ever uploaded into the
         group stores (equal to the candidates per cached dtype when
         ingest is incremental), capacity doublings, rows not yet on the
-        device, and allocated device bytes."""
+        device, and the allocated device bytes of each tier (full
+        sketches; phase-0 signatures)."""
         stores = [st for state in self._groups.values()
                   for st in state.stores.values()]
         flushed = max([0] + [s.flushed for s in self._groups.values()])
@@ -283,7 +330,9 @@ class SketchIndex:
             "group_h2d_rows": sum(st.h2d_rows for st in stores),
             "group_store_grows": sum(st.grows for st in stores),
             "pending_rows": len(self.meta) - flushed,
-            "sketch_bytes": sum(st.device_bytes for st in stores),
+            "sketch_bytes": sum(st.device_bytes["sketch"] for st in stores),
+            "signature_bytes": sum(st.device_bytes["signature"]
+                                   for st in stores),
         }
 
     # ------------------------------------------------------------------
@@ -302,6 +351,14 @@ class SketchIndex:
             "mask": masks,
         }
 
+    def _sig_cols(self) -> int | None:
+        """The committed signature width: ``sig_width`` clamped to the
+        sketch capacity (at capacity <= width the signature is the whole
+        key set and the gate's estimate exact); None without a tier."""
+        if self.sig_width <= 0 or self._cap_cols is None:
+            return None
+        return min(self.sig_width, self._cap_cols)
+
     def _host_row(self, i: int) -> dict[str, np.ndarray]:
         """Candidate ``i``'s host arrays in device-store form (keys kept
         as int64, where the reference's ``_host_row`` gives uint32)."""
@@ -317,7 +374,8 @@ class SketchIndex:
                 by_eid.setdefault(eid, []).append(i)
             for eid, idx in by_eid.items():
                 store = state.stores.setdefault(
-                    eid, _DeviceStore(self._cap_cols, self.device)
+                    eid, _DeviceStore(self._cap_cols, self.device,
+                                      self._sig_cols())
                 )
                 store.append_block(self._host_block(idx))
                 state.index.setdefault(eid, []).extend(idx)
@@ -345,8 +403,9 @@ class SketchIndex:
             ])
             live = torch.from_numpy(np.arange(store.cap_rows) < g).to(self.device)
             groups.append(GroupPlan(
-                eid, dict(store.arrays), index, live, g,
-                torch.from_numpy(index).to(self.device),
+                eid, {name: store.arrays[name] for name in _DTYPES}, index,
+                live, g, torch.from_numpy(index).to(self.device),
+                sig=store.arrays.get("sig"),
             ))
         plan = QueryPlan(y_is_discrete, C, groups, self.device)
         self._plan_cache[y_is_discrete] = (self._version, plan)
@@ -403,12 +462,71 @@ class SketchIndex:
             triples = ex.shortlist_dispatch(plan, trains, shortlists).collect()
         return triples
 
+    def _tiered_triples(self, plan: QueryPlan, trains, min_join: int,
+                        min_containment: float, ex) -> list:
+        """The phase-0 containment gate in front of the fused pipeline.
+
+        One signature sweep over every candidate estimates its
+        containment of the train keys; only the survivors reach the
+        exact prefilter, compaction, gather and scoring, which run at
+        survivor width.  The one host sync is the fused path's collect.
+        A fence breach (:class:`SurvivorOverflow`) re-runs the window
+        through the ungated :meth:`_fused_triples`.  Survivor and
+        shortlist rungs live in ``tier_hints``.
+        """
+        hints = self.tier_hints
+        tspec = tier_spec(plan, hints, min_containment)
+        spec = fused_shortlist_spec(plan, hints, min_join)
+        handle = ex.tiered_dispatch(plan, trains, tspec, spec, min_join,
+                                    min_containment)
+        try:
+            triples = handle.collect()
+            overflowed = False
+        except SurvivorOverflow:
+            triples = None
+            overflowed = True
+        mc_key = round(float(min_containment), 6)
+        for eid, m in handle.observed_t0.items():
+            hints.observe(("tier0", plan.y_discrete, eid, mc_key, False), m,
+                          overflowed=overflowed)
+        for eid, m in handle.observed.items():
+            if overflowed:
+                # A truncated survivor buffer truncates the shortlist
+                # count with it; the survivor count bounds it from above,
+                # so growing to it converges in one round.
+                m = max(m, handle.observed_t0.get(eid, 0))
+            hints.observe((plan.y_discrete, eid, int(min_join), False), m,
+                          overflowed=overflowed)
+        if overflowed:
+            triples = self._fused_triples(plan, trains, min_join, ex)
+        return triples
+
     def _two_phase(self, plan: QueryPlan, trains, top_k: int,
-                   min_join: int, k: int, fused: bool | None) -> list:
+                   min_join: int, k: int, fused: bool | None,
+                   min_containment: float = 0.0) -> list:
         """Join-size prefilter (phase 1), then gather-and-score of the
-        survivors (phase 2); one ranked list per query."""
+        survivors (phase 2); one ranked list per query.
+        ``min_containment`` > 0 puts the phase-0 gate in front of the
+        fused pipeline (it needs the fused path and the signature tier);
+        at 0 the window takes the ungated fused path."""
+        use_fused = fused is None or bool(fused)
+        gate = float(min_containment) > 0.0
+        if gate and not use_fused:
+            raise ValueError(
+                "min_containment > 0 requires the fused pipeline "
+                "(fused=False forces the host-boundary reference path, "
+                "which has no phase-0 gate)"
+            )
+        if gate and any(gp.sig is None for gp in plan.groups):
+            raise ValueError(
+                "min_containment > 0 requires a signature tier; this "
+                "index was built with sig_width <= 0"
+            )
         ex = _ex.BatchedExecutor(k=k)
-        if fused is None or fused:
+        if gate:
+            triples = self._tiered_triples(plan, trains, min_join,
+                                           min_containment, ex)
+        elif use_fused:
             triples = self._fused_triples(plan, trains, min_join, ex)
         else:
             shortlists = build_shortlists(
@@ -419,12 +537,17 @@ class SketchIndex:
             self._rank(v, gi, js, top_k, min_join) for v, gi, js in triples
         ]
 
-    @staticmethod
-    def _check_slice(mesh, min_containment) -> None:
+    def _check_options(self, mesh, min_containment, prefilter,
+                       min_join) -> None:
         if mesh is not None:
             raise NotImplementedError(_MESH_SLICE)
-        if float(min_containment) > 0.0:
-            raise NotImplementedError(_GATE_SLICE)
+        if float(min_containment) > 0.0 and not self._use_prefilter(
+            prefilter, min_join
+        ):
+            raise ValueError(
+                "min_containment > 0 requires two-phase retrieval "
+                "(prefilter=False disables the pipeline the gate fronts)"
+            )
 
     def query(self, train_sketch: Sketch, top_k: int = 10, mesh=None,
               min_join: int = 8, k: int = 3, prefilter: bool | None = None,
@@ -433,14 +556,19 @@ class SketchIndex:
 
         Returns a list of (CandidateMeta, mi, join_size), best first.
         ``prefilter`` (default: on when ``min_join`` > 0) runs two-phase
-        retrieval, fused unless ``fused=False``.
+        retrieval, fused unless ``fused=False``.  ``min_containment`` > 0
+        adds the phase-0 containment gate: only candidates whose
+        estimated containment (signature join size / train size) reaches
+        the threshold are scored.  The gate is an estimate, exact for
+        candidates holding at most ``sig_width`` keys.
         """
-        self._check_slice(mesh, min_containment)
+        self._check_options(mesh, min_containment, prefilter, min_join)
         train = self.train_arrays(train_sketch)
         C = len(self.meta)
         plan = self.plan(train_sketch.value_is_discrete)
         if self._use_prefilter(prefilter, min_join):
-            return self._two_phase(plan, train, top_k, min_join, k, fused)[0]
+            return self._two_phase(plan, train, top_k, min_join, k, fused,
+                                   min_containment)[0]
         mi, jsz = _ex.PartitionedLocalExecutor(k=k).execute(plan, train)
         return self._rank(mi[0], np.arange(C), jsz[0], top_k, min_join)
 
@@ -450,7 +578,7 @@ class SketchIndex:
                    min_containment: float = 0.0):
         """Answer Q concurrent discovery queries of one target dtype in
         one executor pass; one result list per train sketch."""
-        self._check_slice(mesh, min_containment)
+        self._check_options(mesh, min_containment, prefilter, min_join)
         if not train_sketches:
             return []
         y_disc = {bool(sk.value_is_discrete) for sk in train_sketches}
@@ -463,7 +591,8 @@ class SketchIndex:
         plan = self.plan(y_disc.pop())
         C = len(self.meta)
         if self._use_prefilter(prefilter, min_join):
-            return self._two_phase(plan, trains, top_k, min_join, k, fused)
+            return self._two_phase(plan, trains, top_k, min_join, k, fused,
+                                   min_containment)
         mi, js = _ex.BatchedExecutor(k=k).execute(plan, trains)
         return [
             self._rank(mi[q], np.arange(C), js[q], top_k, min_join)

@@ -10,7 +10,10 @@ shortlist axis up its own pow-2 ladder; :func:`build_shortlists` is the
 host-side phase boundary, and :class:`ShortlistHints` /
 :func:`fused_shortlist_spec` choose the on-device compaction widths of
 the fused path before phase 1 runs, with :class:`ShortlistOverflow` as
-the fallback signal when a width guess was too small.
+the fallback signal when a width guess was too small.  The phase-0
+containment gate sizes its survivor buffer up a third pow-2 ladder
+(:func:`bucket_survivors`, :func:`tier_spec`), with
+:class:`SurvivorOverflow` as its fallback signal.
 
 For the service: :func:`plan_signature` / :func:`shortlist_signature`
 (what a batch's layout is keyed on), :func:`coalesce_queries` (split a
@@ -39,13 +42,19 @@ __all__ = [
     "bucket_shortlist",
     "MIN_BUCKET",
     "MIN_SHORTLIST",
+    "MIN_SURVIVORS",
+    "bucket_survivors",
     "GroupPlan",
     "QueryPlan",
     "Shortlist",
     "ShortlistOverflow",
+    "SurvivorOverflow",
     "ShortlistHints",
     "FusedSpec",
     "fused_shortlist_spec",
+    "stage_min_containment",
+    "TierSpec",
+    "tier_spec",
     "build_shortlists",
     "MAX_Q_BUCKET",
     "plan_signature",
@@ -64,6 +73,9 @@ MIN_BUCKET = 8
 
 # Smallest bucket on the shortlist-size ladder.
 MIN_SHORTLIST = 8
+
+# Smallest bucket on the phase-0 survivor ladder (tiered retrieval).
+MIN_SURVIVORS = 8
 
 # Most queries an admission controller hands to one executor pass; larger
 # queues are chunked, which bounds the device memory one burst can pin.
@@ -103,6 +115,12 @@ def bucket_shortlist(n: int) -> int:
     return _next_pow2(max(n, MIN_SHORTLIST))
 
 
+def bucket_survivors(n: int) -> int:
+    """Survivor-ladder bucket for ``n`` phase-0 gate survivors: next
+    power of two >= max(n, MIN_SURVIVORS)."""
+    return _next_pow2(max(n, MIN_SURVIVORS))
+
+
 @dataclass(frozen=True)
 class GroupPlan:
     """One homogeneous estimator group in group-major device layout.
@@ -111,7 +129,9 @@ class GroupPlan:
     int64 form); rows [size, bucket) are dead (mask all-False, join
     empty, score 0.0).  ``index`` maps group row -> global candidate
     index; dead rows map to the sentinel ``n_candidates``.
-    ``index_dev`` / ``live`` are the device copies the fused path reads.
+    ``index_dev`` / ``live`` are the device copies the fused path reads;
+    ``sig`` is the group's (bucket, w + 1) int32 signature tier, or
+    None when the index keeps none.
     """
 
     est_id: int
@@ -120,6 +140,7 @@ class GroupPlan:
     live: torch.Tensor  # (bucket,) bool, on the device
     size: int  # live rows
     index_dev: torch.Tensor = field(default=None, compare=False, repr=False)
+    sig: torch.Tensor | None = field(default=None, compare=False, repr=False)
 
     @property
     def bucket(self) -> int:
@@ -202,6 +223,14 @@ class ShortlistOverflow(Exception):
     already-computed join sizes."""
 
 
+class SurvivorOverflow(Exception):
+    """The phase-0 gate found more survivors than the staged survivor
+    buffer has lanes for (or the within-survivor shortlist more than its
+    width); the caller re-runs the window through the ungated fused
+    path, and the observation grows the rungs so the next window at this
+    selectivity stays gated."""
+
+
 class ShortlistHints:
     """Adaptive per-workload shortlist-bucket predictor.
 
@@ -249,6 +278,43 @@ def fused_shortlist_spec(
         rung = bucket_shortlist(hints.get(key))
         s_buckets.append(min(rung, bucket_rows(gp.bucket)))
     return FusedSpec(tuple(s_buckets))
+
+
+def stage_min_containment(min_containment: float) -> float:
+    """The gate's threshold: ``min_containment`` rounded to 6 decimals
+    (part of the reference's semantics: 0.1234567 gates at 0.123457),
+    then to float32, returned as the Python float of that float32 value
+    so that the compare is the same in float32 and in float64."""
+    return float(np.float32(round(float(min_containment), 6)))
+
+
+@dataclass(frozen=True)
+class TierSpec:
+    """Per-group phase-0 survivor-buffer widths for one tiered pass,
+    aligned with ``plan.groups``; ``signature`` is the tier's part of
+    the plan-cache ``s_key`` (``"tier0"`` entries, disjoint from the
+    ``"fused"`` ones, so a gated window and its ungated twin never share
+    an entry)."""
+
+    s_survivors: tuple
+    signature: tuple
+
+
+def tier_spec(plan: QueryPlan, hints: ShortlistHints,
+              min_containment: float) -> TierSpec:
+    """Choose each group's survivor-buffer width from the hint table, as
+    :func:`fused_shortlist_spec` does, the hint keyed on the rounded
+    threshold (survivor counts track the gate's selectivity, not
+    ``min_join``) and clamped to the group's row bucket."""
+    mc_key = round(float(min_containment), 6)
+    s_survivors = []
+    for gp in plan.groups:
+        key = ("tier0", bool(plan.y_discrete), gp.est_id, mc_key, False)
+        rung = bucket_survivors(hints.get(key))
+        s_survivors.append(min(rung, bucket_rows(gp.bucket)))
+    sig = tuple(("tier0", gp.est_id, s)
+                for gp, s in zip(plan.groups, s_survivors))
+    return TierSpec(tuple(s_survivors), sig)
 
 
 def plan_signature(plan: QueryPlan) -> tuple:

@@ -20,13 +20,12 @@ The four pieces ``DiscoveryService.submit_safe`` composes, as in
   * **Deterministic fault injection** — :func:`inject_faults` arms the
     named sites threaded through ``executors.py`` (``stack_h2d``,
     ``staging``, ``dispatch``, ``prefilter_dispatch``,
-    ``shortlist_dispatch``, ``fused_dispatch``, ``collect``),
-    ``index.py`` (``flush``) and ``scheduler.py`` (``window_timer``,
-    ``ingest_midflight``) with seeded failure schedules.  The
-    pseudo-site ``scores`` does not raise: it corrupts collected MI
-    lanes with NaN (:func:`corrupt_scores`) to drive the fence end to
-    end.  The reference's ``tiered_dispatch`` site arrives with the
-    phase-0 gate.
+    ``shortlist_dispatch``, ``fused_dispatch``, ``tiered_dispatch``,
+    ``collect``), ``index.py`` (``flush``) and ``scheduler.py``
+    (``window_timer``, ``ingest_midflight``) with seeded failure
+    schedules.  The pseudo-site ``scores`` does not raise: it corrupts
+    collected MI lanes with NaN (:func:`corrupt_scores`) to drive the
+    fence end to end.
 
 Import discipline: this module sits below ``executors`` / ``index`` /
 ``service`` in the import graph (they call the hooks here), so it
@@ -73,6 +72,7 @@ FAULT_SITES = (
     "prefilter_dispatch",  # two-phase phase 1 enqueue
     "shortlist_dispatch",  # two-phase phase 2 enqueue
     "fused_dispatch",      # fused two-phase enqueue (single pipeline)
+    "tiered_dispatch",     # phase-0-gated tiered enqueue
     "collect",             # any pending handle's first host sync
     "flush",               # index._DeviceStore.append_block (ingest)
     "window_timer",        # scheduler loop's coalesce-window tick

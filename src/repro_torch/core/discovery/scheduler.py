@@ -319,7 +319,7 @@ class MicroBatchScheduler:
             raise ValueError(
                 f"priority must be one of {PRIORITIES}, got {priority!r}"
             )
-        _check_options(rank, min_containment)
+        _check_options(rank)
         single = not isinstance(queries, (list, tuple))
         sketches = [queries] if single else list(queries)
         opts = {

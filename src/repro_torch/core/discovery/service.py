@@ -23,7 +23,10 @@ Results come back in arrival order and equal looping
 each bucket runs two-phase retrieval, by default as one fused device
 pipeline whose only host sync is its collect (``host_syncs``,
 ``fused_windows``); a compaction overflow falls back to the host
-shortlist boundary for that bucket.
+shortlist boundary for that bucket.  ``min_containment`` > 0 puts the
+phase-0 containment gate in front of that pipeline (``gated_windows``,
+``cands_gated_t0``); a survivor-buffer overflow re-runs the bucket
+ungated.
 
 **Fault isolation** (``resilience.py``): ``submit_safe`` returns
 ``(results, outcomes)``.  Invalid sketches are quarantined at admission;
@@ -34,8 +37,8 @@ the materialized estimators (the ``pairwise_cheb`` kernel on the card).
 Arrival counters commit at admission; delivery counters are staged per
 bucket and committed only after its collect.
 
-Not in this slice: ``mesh=`` (the distributed rung) and
-``min_containment > 0`` (the phase-0 gate) raise ``NotImplementedError``.
+Not in this slice: ``mesh=`` (the distributed rung) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,16 +50,18 @@ import numpy as np
 
 from repro_torch.core.discovery import executors as _ex
 from repro_torch.core.discovery import resilience
-from repro_torch.core.discovery.index import _GATE_SLICE, _MESH_SLICE, SketchIndex
+from repro_torch.core.discovery.index import _MESH_SLICE, SketchIndex
 from repro_torch.core.discovery.planner import (
     MAX_Q_BUCKET,
     PlanCache,
     ShortlistOverflow,
+    SurvivorOverflow,
     build_shortlists,
     coalesce_queries,
     fused_shortlist_spec,
     plan_signature,
     shortlist_signature,
+    tier_spec,
 )
 from repro_torch.core.discovery.resilience import QueryOutcome, RetryPolicy
 from repro_torch.core.sketch import Sketch
@@ -70,7 +75,7 @@ class AdmissionStats:
 
     Arrival counters commit when a submit is admitted; delivery counters
     (``batches`` onwards) only after the owning bucket's results were
-    collected.  The reference's phase-0 counters arrive with the gate.
+    collected.
     """
 
     submitted: int = 0       # queries accepted across all submit() calls
@@ -83,9 +88,17 @@ class AdmissionStats:
     cands_considered: int = 0   # (query, candidate) pairs seen by phase 1
     cands_shortlisted: int = 0  # pairs that reached phase-2 scoring
     fused_windows: int = 0   # buckets delivered by the fused device path
+    gated_windows: int = 0   # buckets delivered by the phase-0-gated path
+    cands_considered_t0: int = 0  # (query, candidate) pairs swept by the
+    #                               phase-0 signature gate
+    cands_gated_t0: int = 0  # pairs the gate passed into the exact phases
+    signature_bytes: int = 0  # device bytes of the signature tier the
+    #                           most recent gated window swept
     host_syncs: int = 0      # device->host syncs paid by delivered buckets
-    #                          (fused/dense: 1; host-boundary two-phase: 2;
-    #                          fused overflow fallback: 3)
+    #                          (fused/dense/tiered: 1; host-boundary
+    #                          two-phase: 2; fused overflow fallback: 3;
+    #                          a tiered overflow adds 1 to what the
+    #                          ungated re-run pays)
     failed_buckets: int = 0  # buckets whose primary executor pass raised
     retries: int = 0         # same-rung re-attempts across all buckets
     fallbacks: int = 0       # executor-ladder descents across all buckets
@@ -107,6 +120,16 @@ class AdmissionStats:
             "cands_considered": self.cands_considered,
             "cands_shortlisted": self.cands_shortlisted,
             "fused_windows": self.fused_windows,
+            "gated_windows": self.gated_windows,
+            "cands_considered_t0": self.cands_considered_t0,
+            "cands_gated_t0": self.cands_gated_t0,
+            # The share of swept (query, candidate) pairs the gate let
+            # through to the exact phases.
+            "t0_selectivity": (
+                self.cands_gated_t0 / self.cands_considered_t0
+                if self.cands_considered_t0 else None
+            ),
+            "signature_bytes": self.signature_bytes,
             "host_syncs": self.host_syncs,
             "cands_filtered_out":
                 self.cands_considered - self.cands_shortlisted,
@@ -160,7 +183,8 @@ class _Window:
 
     __slots__ = (
         "queries", "jobs", "results", "outcomes", "C", "version",
-        "top_k", "min_join", "rank", "isolate", "use_pref",
+        "top_k", "min_join", "min_containment", "rank", "isolate",
+        "use_pref",
     )
 
     def __init__(self, queries: list, isolate: bool):
@@ -172,16 +196,15 @@ class _Window:
         self.version = 0
         self.top_k = 0
         self.min_join = 0
+        self.min_containment = 0.0
         self.rank = "mi"
         self.isolate = isolate
         self.use_pref = False
 
 
-def _check_options(rank: str, min_containment: float) -> None:
+def _check_options(rank: str) -> None:
     if rank not in ("mi", "hybrid"):
         raise ValueError(f"rank must be 'mi' or 'hybrid', got {rank!r}")
-    if float(min_containment) > 0.0:
-        raise NotImplementedError(_GATE_SLICE)
 
 
 class DiscoveryService:
@@ -193,7 +216,7 @@ class DiscoveryService:
     through the micro-batch scheduler).  One service owns one
     :class:`SketchIndex` (pass ``index=`` to wrap an existing corpus,
     e.g. ``SketchIndex(device="cpu")`` for a CPU run; otherwise one is
-    made on the card).
+    made on the card, with a ``sig_width``-wide signature tier).
     """
 
     def __init__(
@@ -208,6 +231,7 @@ class DiscoveryService:
         max_q_bucket: int = MAX_Q_BUCKET,
         plan_cache_size: int = 32,
         retry_policy: RetryPolicy | None = None,
+        sig_width: int = 16,
     ):
         if mesh is not None:
             raise NotImplementedError(_MESH_SLICE)
@@ -215,7 +239,7 @@ class DiscoveryService:
         if max_q_bucket < 1:
             raise ValueError(f"max_q_bucket must be >= 1, got {max_q_bucket}")
         self.index = index if index is not None else SketchIndex(
-            n=n, method=method, agg=agg
+            n=n, method=method, agg=agg, sig_width=sig_width
         )
         self.k = k
         self.max_q_bucket = max_q_bucket
@@ -268,7 +292,9 @@ class DiscoveryService:
         retrieval; ``fused`` (default on with the prefilter) runs both
         phases as one device pipeline per bucket.  ``rank="hybrid"``
         re-weights each score by exact containment (mi x join_size /
-        train_size) before ranking.  The first bucket failure is counted
+        train_size) before ranking.  ``min_containment`` > 0 (fused path
+        only) adds the phase-0 containment gate in front of each
+        bucket's pipeline.  The first bucket failure is counted
         (``failed_buckets``) and re-raised; use :meth:`submit_safe` for
         isolation.
         """
@@ -385,7 +411,7 @@ class DiscoveryService:
         traffic as cross-caller; ``copy_stream`` is the scheduler's side
         CUDA stream for the train uploads.
         """
-        _check_options(rank, min_containment)
+        _check_options(rank)
         if not queries:
             return None
         st = self.admission
@@ -415,7 +441,15 @@ class DiscoveryService:
         version = win.version = self.index._version
         use_pref = self.index._use_prefilter(prefilter, min_join)
         use_fused = use_pref and (True if fused is None else bool(fused))
+        use_gate = use_fused and float(min_containment) > 0.0
+        if float(min_containment) > 0.0 and not use_fused:
+            raise ValueError(
+                "min_containment > 0 requires the fused two-phase "
+                "pipeline (prefilter off or fused=False disables the "
+                "path the phase-0 gate fronts)"
+            )
         win.top_k, win.min_join, win.rank = top_k, min_join, rank
+        win.min_containment = min_containment
         win.use_pref = use_pref
 
         # 1. split the queue by target dtype -> estimator signature and
@@ -472,7 +506,11 @@ class DiscoveryService:
                     "host_syncs": 1,
                 }
                 job.trains = self._upload(job.sketches, copy_stream)
-                if use_fused:
+                if use_gate:
+                    job.handle = self._tiered_dispatch(
+                        job, min_join, min_containment, C, version
+                    )
+                elif use_fused:
                     job.handle = self._fused_dispatch(job, min_join, C, version)
                 elif use_pref:
                     job.pend1 = self._batched.prefilter_dispatch(
@@ -516,7 +554,10 @@ class DiscoveryService:
             if job.error is not None:
                 continue
             try:
-                triples = self._collect_triples(job, C, min_join, version)
+                triples = self._collect_triples(
+                    job, C, min_join, version,
+                    min_containment=win.min_containment,
+                )
             except Exception as e:  # noqa: BLE001
                 job.error = e
                 if not isolate:
@@ -525,6 +566,8 @@ class DiscoveryService:
                 continue
             self._finish(job, triples, queries, results, outcomes,
                          top_k, min_join, isolate, rank=rank, C=C)
+        # Recovery is ungated: a rung that rescues a failing bucket adds
+        # no approximate filter on top.
         for job in win.jobs:
             if job.error is not None:
                 st.failed_buckets += 1
@@ -575,18 +618,51 @@ class DiscoveryService:
         job.staged["fused_windows"] = 1
         return self._batched.fused_dispatch(plan, job.trains, spec, min_join)
 
+    def _tiered_dispatch(self, job: _BucketJob, min_join: int,
+                         min_containment: float, C: int, version: int):
+        """Enqueue a bucket's phase-0-gated pipeline: the corpus-wide
+        signature sweep and the fused chain, one dispatch, one collect.
+        Survivor and shortlist widths come from the tier hints and join
+        the plan-cache key (``"tier0"`` entries beside ``"fused"`` ones,
+        so a gated window never shares its ungated twin's entry)."""
+        plan = job.sp.plan
+        hints = self.index.tier_hints
+        tspec = tier_spec(plan, hints, min_containment)
+        spec = fused_shortlist_spec(plan, hints, min_join)
+        s_key = tuple(("fused", gp.est_id, s)
+                      for gp, s in zip(plan.groups, spec.s_buckets))
+        self.plan_cache.lookup(
+            version, job.y_disc, job.q_bucket, lambda p=plan: p,
+            s_key=s_key + tspec.signature,
+        )
+        job.staged["prefiltered"] = len(job.chunk)
+        job.staged["cands_considered"] = len(job.chunk) * C
+        job.staged["cands_considered_t0"] = len(job.chunk) * C
+        job.staged["s_buckets"] = set(spec.s_buckets)
+        job.staged["fused_windows"] = 1
+        job.staged["gated_windows"] = 1
+        job.staged["signature_bytes"] = \
+            self.index.ingest_stats["signature_bytes"]
+        return self._batched.tiered_dispatch(
+            plan, job.trains, tspec, spec, min_join, min_containment,
+        )
+
     def _collect_triples(self, job: _BucketJob, C: int, min_join: int,
-                         version: int) -> list:
+                         version: int, min_containment: float = 0.0) -> list:
         """First host sync of a bucket's handle -> one (values, global
         indices, join sizes) triple per query.  A fused handle checks its
         overflow fence here: on overflow the hints grow and the bucket
         falls back to the host boundary, reusing the fused pass's join
-        sizes."""
+        sizes.  A tiered handle that overflows grows both rungs and
+        re-runs the bucket through the ungated fused path."""
         handle = job.handle
         if isinstance(handle, _ex._PendingScores):
             mi, js = handle.collect()
             gi = np.arange(C, dtype=np.int32)
             return [(mi[q], gi, js[q]) for q in range(len(job.chunk))]
+        if isinstance(handle, _ex._PendingTiered):
+            return self._collect_tiered(job, handle, C, min_join, version,
+                                        min_containment)
         if isinstance(handle, _ex._PendingFused):
             hints = self.index.shortlist_hints
             try:
@@ -605,6 +681,41 @@ class DiscoveryService:
             job.staged["cands_shortlisted"] = handle.shortlisted
             return triples
         return handle.collect()
+
+    def _collect_tiered(self, job: _BucketJob, handle, C: int,
+                        min_join: int, version: int,
+                        min_containment: float) -> list:
+        hints = self.index.tier_hints
+        mc_key = round(float(min_containment), 6)
+        try:
+            triples = handle.collect()
+        except SurvivorOverflow:
+            for eid, seen in handle.observed_t0.items():
+                hints.observe(("tier0", job.y_disc, eid, mc_key, False),
+                              seen, overflowed=True)
+            for eid, seen in handle.observed.items():
+                # The truncated survivor buffer truncated this count too;
+                # the survivor count bounds it from above.
+                hints.observe((job.y_disc, eid, int(min_join), False),
+                              max(seen, handle.observed_t0.get(eid, 0)),
+                              overflowed=True)
+            # The gate did not deliver this window: its staged counters
+            # are withdrawn, and the sync its fence paid is added to what
+            # the ungated re-run stages.
+            job.staged["gated_windows"] = 0
+            job.staged.pop("cands_considered_t0", None)
+            job.staged.pop("signature_bytes", None)
+            job.handle = self._fused_dispatch(job, min_join, C, version)
+            triples = self._collect_triples(job, C, min_join, version)
+            job.staged["host_syncs"] = job.staged.get("host_syncs", 1) + 1
+            return triples
+        for eid, seen in handle.observed_t0.items():
+            hints.observe(("tier0", job.y_disc, eid, mc_key, False), seen)
+        for eid, seen in handle.observed.items():
+            hints.observe((job.y_disc, eid, int(min_join), False), seen)
+        job.staged["cands_gated_t0"] = handle.survivors
+        job.staged["cands_shortlisted"] = handle.shortlisted
+        return triples
 
     def _finish(
         self, job: _BucketJob, triples: list, queries: list,
@@ -649,6 +760,11 @@ class DiscoveryService:
         st.s_buckets.update(staged.get("s_buckets", ()))
         st.host_syncs += staged.get("host_syncs", 0)
         st.fused_windows += staged.get("fused_windows", 0)
+        st.gated_windows += staged.get("gated_windows", 0)
+        st.cands_considered_t0 += staged.get("cands_considered_t0", 0)
+        st.cands_gated_t0 += staged.get("cands_gated_t0", 0)
+        if "signature_bytes" in staged:
+            st.signature_bytes = staged["signature_bytes"]
 
     # ------------------------------------------------------------------
     # Recovery ladder
@@ -729,15 +845,21 @@ class DiscoveryService:
     def stats(self) -> dict:
         """Serving counters: admission decisions, resilience traffic
         (quarantine / retry / fallback / fence), plan-cache traffic,
-        ingest transfer accounting and, once ``submit_async`` attached
-        it, the scheduler's telemetry.  The reference also reports
-        ``compiled_programs`` (its jit cache size) and ``tiers`` (the
-        phase-0 signature tier's bytes); eager PyTorch compiles no
-        programs, and the signature tier arrives with the gate."""
+        ingest transfer accounting, the device bytes of each tier (full
+        sketches; phase-0 signatures, and the signature width) and, once
+        ``submit_async`` attached it, the scheduler's telemetry.  The
+        reference also reports ``compiled_programs`` (its jit cache
+        size); eager PyTorch compiles no programs."""
+        ingest = self.index.ingest_stats
         return {
             "admission": self.admission.as_dict(),
             "plan_cache": self.plan_cache.stats,
-            "ingest": self.index.ingest_stats,
+            "ingest": ingest,
+            "tiers": {
+                "sketch_bytes": ingest["sketch_bytes"],
+                "signature_bytes": ingest["signature_bytes"],
+                "signature_width": self.index._sig_cols(),
+            },
             "scheduler": (
                 self._scheduler.stats() if self._scheduler is not None
                 else None

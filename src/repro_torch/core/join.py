@@ -11,6 +11,8 @@ The sketch join recovers a sample of the left-outer join
     (``build_sketch(side="cand")`` emits valid keys ascending, padding
     last): one ``searchsorted`` against the candidate keys, then every
     value view is gathered from the same positions.
+  * :func:`signature_join_size` — the phase-0 gate's estimate, batched:
+    (Q, n) train rows against (R, w + 1) signature rows.
   * :func:`full_left_join` — the materialized ground truth.
 
 Keys are carried as **int64 holding the uint32 hash, zero-extended**:
@@ -37,6 +39,7 @@ __all__ = [
     "sketch_join",
     "sketch_join_presorted",
     "presorted_join_size",
+    "signature_join_size",
     "full_left_join",
 ]
 
@@ -164,6 +167,51 @@ def presorted_join_size(
         keys_effective=keys_effective,
     )
     return matched.sum(-1, dtype=torch.int32)
+
+
+def signature_join_size(
+    train_keys: torch.Tensor,
+    train_mask: torch.Tensor,
+    sig: torch.Tensor,
+) -> torch.Tensor:
+    """(Q, R) float32 join-size estimates of R candidates from their
+    bottom-``w`` key signatures, for each of Q train sketches.
+
+    ``sig`` (R, w + 1) int32 holds each candidate's ``w`` smallest
+    effective keys as uint32 bit patterns (dead columns -1, the
+    0xFFFFFFFF fence) and then its live key count.  Sketch keys are
+    uniform hashes, so the signature is an exchangeable ``w``-subset of
+    the candidate's keys and
+
+        ``est = matched_in_signature * cand_valid / sig_valid``
+
+    estimates :func:`presorted_join_size`, exactly when the candidate
+    holds at most ``w`` keys.  The signature keys probe the sorted,
+    fenced train row (a left and a right ``searchsorted`` count each
+    key's train-side multiplicity): 2·``w`` probes per candidate.  Each
+    train row is sorted once for all R candidates.  A valid key equal to
+    0xFFFFFFFF reads as the fence on both sides, a perturbation of at
+    most one key of an estimate.
+    """
+    Q, n = train_keys.shape
+    R, w = sig.shape[0], sig.shape[1] - 1
+    # int32 bit patterns -> zero-extended uint32: keys >= 2^31 keep their
+    # order and the -1 fence becomes KEY_MAX.
+    sk = sig[:, :w].to(torch.int64) & KEY_MAX
+    sig_mask = sk != KEY_MAX
+    sig_valid = sig_mask.sum(1, dtype=torch.int32)
+    cand_valid = sig[:, w].clamp_min(0)
+    tk_sorted = torch.where(train_mask, train_keys.to(torch.int64),
+                            KEY_MAX).sort(dim=1).values
+    n_valid = train_mask.sum(1, dtype=torch.int64)
+    probes = sk.reshape(1, R * w).expand(Q, R * w).contiguous()
+    lo = torch.searchsorted(tk_sorted, probes)
+    hi = torch.searchsorted(tk_sorted, probes, right=True)
+    hi = torch.minimum(hi, n_valid[:, None])  # the fenced tail is masked rows
+    hits = (hi - lo).clamp_min_(0).reshape(Q, R, w)
+    raw = torch.where(sig_mask[None], hits, 0).sum(-1, dtype=torch.int32)
+    scale = cand_valid.to(torch.float32) / sig_valid.clamp_min(1).to(torch.float32)
+    return raw.to(torch.float32) * scale[None, :]
 
 
 def full_left_join(

@@ -274,13 +274,18 @@ def test_incremental_ingest_and_plan_versions():
     assert keys.dtype == torch.int64 and int(keys.max()) == 0xFFFFFFFF
 
 
-def test_rejects_invalid_and_later_slices(port_indexes):
+def test_rejects_invalid_and_later_slices(port_indexes, j_index):
     ix = port_indexes["add"]
     sk = _sketches(t_build, False)[0]
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ix.query(sk, mesh=object())
-    with pytest.raises(NotImplementedError, match="phase-0"):
-        ix.query_many([sk], min_containment=0.1)
+    # The phase-0 gate is ported: a gated batch equals the reference's.
+    gated = ix.query_many([sk], top_k=12, min_join=MIN_JOIN,
+                          min_containment=0.1)
+    assert gated[0]
+    assert_same_results(gated, j_index.query_many(
+        _sketches(j_build, False)[:1], top_k=12, min_join=MIN_JOIN,
+        min_containment=0.1))
     with pytest.raises(ValueError, match="one target dtype"):
         ix.query_many([sk, _sketches(t_build, True)[0]])
     with pytest.raises(ValueError, match="capacity"):

@@ -179,9 +179,8 @@ class TestFaultHarness:
     def test_unknown_site_rejected(self):
         with pytest.raises(ValueError, match="unknown fault site"):
             FaultPlan({"warp_core": "all"})
-        # the gate's site arrives with the gate slice
-        with pytest.raises(ValueError, match="unknown fault site"):
-            FaultPlan({"tiered_dispatch": "all"})
+        # the gate's site is a known one
+        FaultPlan({"tiered_dispatch": "all"})
 
     def test_no_nesting(self):
         with inject_faults({"collect": 1}):

@@ -148,9 +148,17 @@ class TestHandles:
             sched.submit_async(sk, priority="urgent")
         with pytest.raises(ValueError, match="rank"):
             sched.submit_async(sk, rank="mae")
-        with pytest.raises(NotImplementedError, match="phase-0"):
-            sched.submit_async(sk, min_containment=0.3)
         assert not sched._queued_count()
+        # The phase-0 gate is ported: a gated handle resolves to the
+        # reference's gated submit.
+        handle = sched.submit_async(sk, min_containment=0.1)
+        sched.run_pending()
+        assert not sched._queued_count()
+        want = _corpus_service(seed=3, cls=JService).submit(
+            [_query(np.random.default_rng(2), build=j_build)],
+            min_containment=0.1)
+        assert want[0]
+        assert_same_results([handle.result(timeout=30)], want)
         sched.close()
 
 

@@ -291,12 +291,17 @@ class TestSubmitContracts:
         svc.submit(list(reversed(sks)), top_k=3, min_join=MIN_JOIN)
         assert svc.plan_cache.stats["misses"] == misses  # all hits
 
-    def test_later_slices_raise(self, index):
+    def test_later_slices_raise(self, index, j_index):
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             DiscoveryService(index=index, mesh=object())
         svc = DiscoveryService(index=index)
-        with pytest.raises(NotImplementedError, match="phase-0"):
-            svc.submit(_queue(1), min_containment=0.2)
+        # The phase-0 gate is ported: a gated submit equals the reference's.
+        gated = svc.submit(_queue(3), top_k=5, min_join=MIN_JOIN,
+                           min_containment=0.2)
+        assert all(gated)
+        assert_same_results(gated, JService(index=j_index).submit(
+            _queue(3, build=j_build), top_k=5, min_join=MIN_JOIN,
+            min_containment=0.2))
         with pytest.raises(ValueError, match="rank"):
             svc.submit(_queue(1), rank="mae")
 
@@ -304,7 +309,8 @@ class TestSubmitContracts:
         svc = DiscoveryService(index=index)
         svc.submit(_queue(3), top_k=3, min_join=MIN_JOIN)
         st = svc.stats()
-        assert set(st) == {"admission", "plan_cache", "ingest", "scheduler"}
+        assert set(st) == {"admission", "plan_cache", "ingest", "tiers",
+                           "scheduler"}
         assert st["scheduler"] is None
         assert st["admission"]["cands_filtered_out"] >= 0
         assert st["ingest"]["pending_rows"] == 0
