@@ -4,8 +4,14 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It needs a CUDA device and ``nvcc``;
-without a card it exits non-zero before printing any result.  Phases,
-each of which fails the run (non-zero exit, no result line) if it fails:
+without a card it exits non-zero before printing any result.  The port's
+compiled programs (``repro_torch.compile``: the discovery group programs
+and the serving decode step, captured once per key as CUDA graphs and
+replayed) are on throughout, as ``jax.jit`` is in the reference; the
+phases that wrap a kernel's Python call to capture its inputs run under
+``compile.eager()``, and every launch count is counted through replays.
+Phases, each of which fails the run (non-zero exit, no result line) if
+it fails:
 
   1. environment: card name and power limit, torch and nvcc versions,
      the six kernel sources (``radius_counts.cu`` holds both bodies),
@@ -85,10 +91,11 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      on the joint launch, DC-KSG on the class launches): MI within 1e-6
      of the fused results, each ``pairwise_cheb`` chunk launch held
      bit-equal to its plain version and timed beside it and its bound;
- 14. the wide-buffer path: one warm ``query_many`` per target dtype at
-     k=32, past the staged body's 16-lane buffer, with every kernel's
-     launch count set to 0 just before and read just after: every
-     launch must reach the tiled body (3, none of the staged one), each
+ 14. the wide-buffer path: ``query_many`` per target dtype at k=32, past
+     the staged body's 16-lane buffer: a first pass builds the k=32
+     programs, then one replayed pass with every kernel's launch count
+     set to 0 just before and read just after: every launch must reach
+     the tiled body (3, none of the staged one); each launch of a pass
      held bit-equal to the plain version and timed as in phase 5;
  15. the phase-0 containment gate on the phase-3 index (its signature
      tier, 16 keys a candidate, flushed with the sketches) at
@@ -133,7 +140,7 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      2's Hopper tolerance of both plain versions and timed beside its
      plain version, the CUDA-core kernel, its bound and
      ``scaled_dot_product_attention`` (the yardstick the port never
-     calls); (b) that request's served logits (its prefill and its 31
+     calls); then phase 16 (d) below; (b) that request's served logits (its prefill and its 31
      decode steps) against the port's float32 ``forward`` with the plain
      attention, over the prompt and the generated tokens, within
      ``SERVED_RTOL``; a forward whose attention drops the causal mask
@@ -143,10 +150,25 @@ each of which fails the run (non-zero exit, no result line) if it fails:
      RMS of the plain float32 forward, each of its 24 launches held
      within atol 2e-5 of the plain version and timed as in (a).
 
-Phases 14, 15, 12 and 13 run after phase 10 and before phase 11, so
-that the serving path starts with the discovery state freed.  Each of
-phases 3, 7-9 and 11-15 sets every kernel's launch count to 0 just
-before it drives its path and reads the counts just after.
+ 16. compiled programs against ``compile.eager()``, on the phase-3 index
+     and the phase-11 model: (a) warm ``query_many`` per target dtype,
+     results bit-equal, ``compile_count()`` unchanged by a second warm
+     pass, exactly 3 ``radius_counts`` launches a pass counted through
+     replays, medians of 10 alternated, one profiled pass of each
+     (device ms, busy share, the host's launch calls); (b) the same at
+     ``min_containment=0.1``; (c) ``submit`` (bit-equal to its eager
+     run, rankings as phase 7) and ``submit_async`` with programs on, no
+     synchronising call in a window dispatch, and ``compiled_programs``,
+     ``padded_lanes``, ``q_buckets``; (d) at the end of phase 11 (a), the
+     captured decode step against the eager one from identical copies of
+     the caches: logits and caches bit-equal, medians of 10 alternated
+     and a profile of each.
+
+Phases 14, 15, 16 (a)-(c), 12 and 13 run after phase 10 and before
+phase 11, so that the serving path starts with the discovery state
+freed.  Each of phases 3, 7-9 and 11-16 sets every kernel's launch
+count to 0 just before it drives its path and reads the counts just
+after.
 
 Near the end it prints the run's full record as one JSON line
 (``{"record": ...}``), then the kernels' JSON line, the card's name and
@@ -822,9 +844,12 @@ def capture_launches(index, batches, **query_kw) -> list:
     the kernel's wrapper wrapped to keep a copy of each launch's inputs,
     arguments and outputs, exactly as the main path made it.  The wrap
     replaces the module ``ops`` dispatches through, so the wrapper itself
-    (and its launch counter) stays untouched.  Fails on a non-finite MI."""
+    (and its launch counter) stays untouched.  It runs under
+    ``compile.eager()``: a replayed program makes no Python call to wrap.
+    Fails on a non-finite MI."""
     from types import SimpleNamespace
 
+    from repro_torch import compile as programs
     from repro_torch.kernels.knn_stats import kernel, ops
 
     seen = []
@@ -837,10 +862,13 @@ def capture_launches(index, batches, **query_kw) -> list:
 
     ops.kernel = SimpleNamespace(radius_counts=spy)
     try:
-        for b in batches:
-            res = index.query_many(b, top_k=TOP_K, min_join=MIN_JOIN, **query_kw)
-            if not all(np.isfinite(mi) for r in res for _, mi, _ in r):
-                raise AssertionError(f"query_many {query_kw} returned a non-finite MI")
+        with programs.eager():
+            for b in batches:
+                res = index.query_many(b, top_k=TOP_K, min_join=MIN_JOIN,
+                                       **query_kw)
+                if not all(np.isfinite(mi) for r in res for _, mi, _ in r):
+                    raise AssertionError(
+                        f"query_many {query_kw} returned a non-finite MI")
     finally:
         ops.kernel = kernel
     torch.cuda.synchronize()
@@ -996,19 +1024,29 @@ def check_main_launches(seen: list, card: str) -> list[dict]:
 
 
 def run_wide_buffer(index, batches, card: str) -> dict:
-    """Phase 14: one warm ``query_many`` per target dtype at k=WIDE_K, a
-    buffer width the staged body does not take: every launch must reach
-    the tiled body (counts set to 0 just before, read just after), each
-    held bit-equal to the plain version on its own inputs and timed
-    there."""
+    """Phase 14: ``query_many`` per target dtype at k=WIDE_K, a buffer
+    width the staged body does not take: the first pass builds the k=32
+    programs, and the second, replayed, must reach the tiled body only
+    (counts set to 0 just before it, read just after); then each launch
+    of a pass, captured under ``eager()``, held bit-equal to the plain
+    version on its own inputs and timed there."""
+    from repro_torch.compile import compile_count
+
+    n0 = compile_count()
+    run_pass(index, batches, "cuda", k=WIDE_K)
+    built = compile_count() - n0
     reset_launches()
-    seen = capture_launches(index, batches, k=WIDE_K)
+    run_pass(index, batches, "cuda", k=WIDE_K)
     launches = read_launches()
-    if launches["radius_counts_tiled"] == 0 or launches["radius_counts_staged"]:
-        raise AssertionError(f"k={WIDE_K} query_many launched {launches}; "
-                             "expected the tiled body only")
+    if launches["radius_counts_tiled"] != 3 or launches["radius_counts_staged"]:
+        raise AssertionError(f"k={WIDE_K} warm query_many launched {launches}; "
+                             "expected 3 launches of the tiled body only")
+    seen = capture_launches(index, batches, k=WIDE_K)
+    if len(seen) != 3:
+        raise AssertionError(f"captured {len(seen)} launches at k={WIDE_K}")
     rows = check_main_launches(seen, card)
-    return {"k": WIDE_K, "launches": launches, "rows": rows}
+    return {"k": WIDE_K, "launches": launches, "programs_built": built,
+            "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1441,6 +1479,151 @@ def run_gated(index, batches, warm, svc, queue, card: str, dev) -> dict:
                                 for k, v in sub_times.items()},
                    "dispatch_syncs": syncs},
     }
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: compiled programs against eager
+# ---------------------------------------------------------------------------
+
+def flat_results(results) -> list:
+    """Ranked results as plain tuples, for an exact comparison."""
+    return [[(m.table, mi, js) for m, mi, js in r] for r in results]
+
+
+def host_breakdown(index, batch, dev, min_containment: float = 0.0) -> dict:
+    """Where a warm fused (or gated) batch's wall time goes on the host:
+    the steps of ``SketchIndex.query_many`` one at a time, each on the
+    host clock, with a synchronize after the dispatch so that the
+    device's share stands apart (ms)."""
+    from repro_torch.core.discovery import executors as ex
+    from repro_torch.core.discovery import fused_shortlist_spec, tier_spec
+
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    staged = ex.stage_trains_host(batch, dev)
+    t.append(time.perf_counter())
+    trains = ex.upload_trains(staged, dev)
+    t.append(time.perf_counter())
+    plan = index.plan(batch[0].value_is_discrete)
+    t.append(time.perf_counter())
+    bx = ex.BatchedExecutor(k=3)
+    if min_containment:
+        hints = index.tier_hints
+        handle = bx.tiered_dispatch(
+            plan, trains, tier_spec(plan, hints, min_containment),
+            fused_shortlist_spec(plan, hints, MIN_JOIN), MIN_JOIN,
+            min_containment)
+    else:
+        handle = bx.fused_dispatch(
+            plan, trains, fused_shortlist_spec(plan, index.shortlist_hints,
+                                               MIN_JOIN), MIN_JOIN)
+    t.append(time.perf_counter())
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    triples = handle.collect()
+    t.append(time.perf_counter())
+    [index._rank(v, gi, js, TOP_K, MIN_JOIN) for v, gi, js in triples]
+    t.append(time.perf_counter())
+    names = ("stage", "upload", "plan", "dispatch", "device_wait", "collect",
+             "rank")
+    return {f"{n}_ms": 1e3 * (b - a) for n, a, b in zip(names, t, t[1:])}
+
+
+def compare_programs(index, batches, dev, card, **query_kw) -> dict:
+    """Phase 16 (a) / (b): warm ``query_many`` per target dtype with the
+    group programs on and under ``eager()``: results bit-equal, no
+    program built by a second warm pass, 3 ``radius_counts`` launches a
+    pass counted through replays, medians of 10 alternated, and one
+    profiled continuous pass of each."""
+    from repro_torch import compile as programs
+
+    on = run_pass(index, batches, dev, **query_kw)[1]
+    with programs.eager():
+        off = run_pass(index, batches, dev, **query_kw)[1]
+    for a, b in zip(on, off):
+        if flat_results(a) != flat_results(b):
+            raise AssertionError(f"query_many {query_kw}: programs differ from "
+                                 "eager()")
+    n0 = programs.compile_count()
+    reset_launches()
+    run_pass(index, batches, dev, **query_kw)
+    launches = read_launches()
+    if programs.compile_count() != n0:
+        raise AssertionError("a warm pass built a program")
+    if launches["radius_counts"] != 3 or launches["radius_counts_staged"] != 3:
+        raise AssertionError(f"a replayed warm pass launched {launches}; "
+                             "expected 3 staged radius_counts launches")
+    times = {(mode, dt): [] for mode in ("programs", "eager")
+             for dt in ("continuous", "discrete")}
+    for _ in range(WARM_REPS):
+        for dt, b in zip(("continuous", "discrete"), batches):
+            times[("programs", dt)].append(run_pass(index, [b], dev, **query_kw)[0])
+            with programs.eager():
+                times[("eager", dt)].append(run_pass(index, [b], dev, **query_kw)[0])
+    medians = {f"{mode}_{dt}_s": float(np.median(v))
+               for (mode, dt), v in times.items()}
+    prof = {"programs": profile_pass(index, batches[0], **query_kw)}
+    with programs.eager():
+        prof["eager"] = profile_pass(index, batches[0], **query_kw)
+    mc = query_kw.get("min_containment", 0.0)
+    host = {"programs": host_breakdown(index, batches[0], dev, mc)}
+    with programs.eager():
+        host["eager"] = host_breakdown(index, batches[0], dev, mc)
+    name = "gated" if query_kw else "ungated"
+    log(f"[programs] {name} warm query_many: programs == eager() bit for bit, "
+        f"compile_count steady at {n0}, {launches['radius_counts']} replayed "
+        f"radius_counts launches; medians of {WARM_REPS}, alternated: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in medians.items())
+        + "".join(f"; {m} {d} min {min(v):.4f} max {max(v):.4f}"
+                  for (m, d), v in times.items()) + f"; card {card}")
+    for mode, p in prof.items():
+        log(f"[programs] profiled {name} continuous pass, {mode}: wall "
+            f"{p['wall_ms']:.2f} ms, device {p['device_ms']:.2f} ms (busy "
+            f"{p['busy_share'] or 0:.2f}), {p['launches']} kernels, "
+            f"{p['launch_api_calls']} host launch calls {p['launch_api']}")
+    for mode, h in host.items():
+        log(f"[programs] {name} continuous batch step by step, {mode}: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in h.items()))
+    return {"bit_equal": True, "compile_count": n0, "launches": launches,
+            "times_s": {f"{m}_{d}": v for (m, d), v in times.items()},
+            "medians_s": medians, "profile": prof, "host_ms": host}
+
+
+def run_programs_service(svc, queue, clean, card) -> dict:
+    """Phase 16 (c): ``submit`` and ``submit_async`` with programs on:
+    results as phases 7 and 9 (and bit-equal to ``submit`` under
+    ``eager()``), no synchronising call in a window dispatch, and the
+    service's program and ladder counters."""
+    from repro_torch import compile as programs
+
+    on = svc.submit(queue, top_k=TOP_K, min_join=MIN_JOIN)
+    with programs.eager():
+        off = svc.submit(queue, top_k=TOP_K, min_join=MIN_JOIN)
+    if flat_results(on) != flat_results(off):
+        raise AssertionError("submit with programs differs from eager()")
+    for a, b in zip(on, clean):
+        same_rankings([a], [b], tol=MI_TOL)
+    syncs = count_dispatch_syncs(svc, queue)
+    if syncs["count"]:
+        raise AssertionError(f"a window dispatch synchronised: {syncs}")
+    sched = svc.scheduler(pipeline_depth=2)
+    handles = svc.submit_async(queue, top_k=TOP_K, min_join=MIN_JOIN)
+    got = [h.result(timeout=HANDLE_TIMEOUT_S) for h in handles]
+    tele = sched.stats()
+    svc.close()
+    if flat_results(got) != flat_results(on):
+        raise AssertionError("submit_async with programs differs from submit")
+    stats = svc.stats()
+    adm = stats["admission"]
+    log(f"[programs] submit and submit_async of {len(queue)} queries with "
+        f"programs on: == eager() submit bit for bit, == phase 7 (MI within "
+        f"{MI_TOL}); {syncs['count']} synchronising calls per window "
+        f"dispatch; compiled_programs {stats['compiled_programs']}, "
+        f"padded_lanes {adm['padded_lanes']}, q_buckets {adm['q_buckets']}, "
+        f"windows {tele['windows']}; card {card}")
+    return {"dispatch_syncs": syncs, "compiled_programs": stats["compiled_programs"],
+            "padded_lanes": adm["padded_lanes"], "q_buckets": adm["q_buckets"],
+            "scheduler": tele}
 
 
 # ---------------------------------------------------------------------------
@@ -1971,9 +2154,11 @@ def run_serving(card: str, dev: torch.device) -> dict:
     for name, pr in prof.items():
         log(f"[serve] profiled {name}: wall {pr['wall_ms']:.2f} ms, device "
             f"{pr['device_ms']:.2f} ms (busy {pr['busy_share'] or 0:.2f}), "
-            f"{pr['launches']} kernel launches")
+            f"{pr['launches']} kernel launches, {pr['launch_api_calls']} host "
+            f"launch calls")
         for row in pr["top"][:8]:
             log(f"[serve]   {row['ms']:9.3f} ms x{row['count']:<5d} {row['name']}")
+    decode16 = compare_decode(batcher, card)
 
     # (b) The served logits against the float32 forward with the plain
     # attention, over the prompt and the tokens fed back.
@@ -2048,7 +2233,74 @@ def run_serving(card: str, dev: torch.device) -> dict:
     torch.cuda.empty_cache()
     return {**rec, "flash": fa, "flash_f32": fa32,
             "flash_f32_launches": launches_f32, "f32_forward_rel_rms": f32_err,
-            "served_logits": rec_b, "profile": prof}
+            "served_logits": rec_b, "profile": prof, "programs": decode16}
+
+
+def compare_decode(batcher, card: str) -> dict:
+    """Phase 16 (d): the batcher's captured decode step against its eager
+    step, from identical copies of the caches at the same tokens and
+    position: logits and caches bit-equal; then both timed at that
+    position (host clock around a synchronize, alternated, median of
+    10; each call rewrites the same cache row) and profiled once."""
+    from repro_torch import compile as programs
+
+    active = np.flatnonzero(batcher.active)
+    pos = int(batcher.pos[active].max())
+    toks = np.zeros((batcher.slots, 1), np.int32)
+    for s in active:
+        toks[s, 0] = batcher.outputs[batcher.slot_req[s]][-1]
+    toks = torch.as_tensor(toks, device=batcher.device)
+    mine = batcher.caches
+    twin = [{n: t.clone() for n, t in c.items()} for c in mine]
+    n0 = programs.compile_count()
+    got, _ = batcher._decode(toks, pos)
+    replayed = programs.compile_count() == n0
+    batcher.caches = twin
+    try:
+        with programs.eager():
+            want, _ = batcher._decode(toks, pos)
+    finally:
+        batcher.caches = mine
+    torch.cuda.synchronize()
+    caches_equal = all(torch.equal(a[k], b[k]) for a, b in zip(mine, twin)
+                       for k in a)
+    if not (replayed and torch.equal(got, want) and caches_equal):
+        raise AssertionError(f"captured decode step differs from eager: "
+                             f"replayed {replayed}, logits equal "
+                             f"{torch.equal(got, want)}, caches equal {caches_equal}")
+    del twin, got, want
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def step():
+        batcher._decode(toks, pos)
+
+    def eager_step():
+        with programs.eager():
+            batcher._decode(toks, pos)
+
+    times = {"programs": [], "eager": []}
+    for _ in range(WARM_REPS):
+        times["programs"].append(timed(step))
+        times["eager"].append(timed(eager_step))
+    prof = {"programs": profile_call(step), "eager": profile_call(eager_step)}
+    med = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+    log(f"[programs] decode step ({batcher.slots} slots, pos {pos}): captured "
+        f"== eager bit for bit (logits and caches); median of {WARM_REPS}, "
+        f"alternated: programs {med['programs']:.2f} ms, eager "
+        f"{med['eager']:.2f} ms; profiled: "
+        + "; ".join(f"{k} wall {p['wall_ms']:.2f} device {p['device_ms']:.2f} ms "
+                    f"(busy {p['busy_share'] or 0:.2f}), {p['launches']} kernels, "
+                    f"{p['launch_api_calls']} host launch calls"
+                    for k, p in prof.items()) + f"; card {card}")
+    return {"bit_equal": True, "pos": pos,
+            "times_ms": {k: [1e3 * t for t in v] for k, v in times.items()},
+            "median_ms": med, "profile": prof}
 
 
 # ---------------------------------------------------------------------------
@@ -2075,6 +2327,11 @@ def profile_call(fn) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    # The host's launch calls (kernel and graph launches, the `cuda*` and
+    # `cu*` API entries), as the profiler's CPU rows count them.
+    api = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.key.startswith("cu")
+           and "Launch" in e.key}
     kinds = {kind: {"ms": 0.0, "count": 0} for kind in (*PROFILE_KINDS, "other")}
     for name, ms, count in rows:
         kind = next((k for k, words in PROFILE_KINDS.items()
@@ -2086,8 +2343,15 @@ def profile_call(fn) -> dict:
         "device_ms": device_ms,
         "busy_share": device_ms / wall_ms if device_ms else None,
         "launches": sum(r[2] for r in rows),
+        "launch_api_calls": sum(api.values()),
+        "launch_api": api,
         "kinds": kinds,
         "top": [{"name": n[:80], "ms": ms, "count": c} for n, ms, c in rows[:12]],
+        "cpu_top": [{"name": e.key[:80], "self_ms": e.self_cpu_time_total / 1e3,
+                     "count": e.count}
+                    for e in sorted((e for e in prof.key_averages()
+                                     if e.device_type == DeviceType.CPU),
+                                    key=lambda e: -e.self_cpu_time_total)[:12]],
     }
 
 
@@ -2104,6 +2368,7 @@ def main() -> int:
         return 2
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch import compile as programs
     from repro_torch.convert import index_from_numpy
     from repro_torch.core.discovery import DiscoveryService
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -2171,7 +2436,11 @@ def main() -> int:
         f"{t_flush:.2f} s")
 
     reset_launches()
+    c0 = programs.compile_stats()
     t_cold, cold = run_pass(index, [cont, disc], dev)
+    c1 = programs.compile_stats()
+    cold_build = {"programs": c1["built"] - c0["built"],
+                  "build_s": c1["build_s"] - c0["build_s"]}
     launches_cold = kernel.radius_counts.launches
     t_warm, warm = run_pass(index, [cont, disc], dev)
     launches = kernel.radius_counts.launches
@@ -2184,9 +2453,10 @@ def main() -> int:
     if main_launches["radius_counts_staged"] != launches:
         raise AssertionError(f"query_many launched {main_launches}; every "
                              "radius_counts launch must reach the staged body")
-    log(f"[main] query_many cold {t_cold:.4f} s ({launches_cold} launches), "
-        f"warm {t_warm:.4f} s ({launches - launches_cold} launches); "
-        f"ingest {index.ingest_stats}")
+    log(f"[main] query_many cold {t_cold:.4f} s ({launches_cold} launches; "
+        f"{cold_build['programs']} programs built in {cold_build['build_s']:.3f} s "
+        f"of it), warm {t_warm:.4f} s ({launches - launches_cold} launches, "
+        f"replayed); ingest {index.ingest_stats}")
     if launches == 0:
         raise AssertionError("the main path never launched radius_counts")
     check_planted(cold, planted_c, planted_d)
@@ -2290,6 +2560,20 @@ def main() -> int:
     gated = run_gated(index, [cont, disc], warm, DiscoveryService(index=index, k=3),
                       queue, card, dev)
 
+    # Phase 16 (a)-(c): the group programs against eager(), ungated and
+    # gated, and the service with programs on.
+    prog = {"ungated": compare_programs(index, [cont, disc], dev, card),
+            "gated": compare_programs(index, [cont, disc], dev, card,
+                                      min_containment=GATE_MC),
+            "service": run_programs_service(DiscoveryService(index=index, k=3),
+                                            queue, clean, card),
+            "discovery_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "compile": programs.compile_stats()}
+    log(f"[programs] discovery phases 3-16: {prog['compile']['built']} programs "
+        f"built ({prog['compile']['alive']} alive) in "
+        f"{prog['compile']['build_s']:.2f} s of warm-up and capture; peak device "
+        f"memory {prog['discovery_peak_mem_bytes'] / 2**30:.2f} GiB; card {card}")
+
     # Phase 12: the two-op kNN API on phase 5's samples; phase 13: the
     # lake's keys hashed on the card.  Both run before phase 11, so that
     # the serving path starts with the discovery state freed.
@@ -2316,6 +2600,7 @@ def main() -> int:
         "build_wall_s": t_build, "C": n_index, "Q": Q,
         "min_join": MIN_JOIN, "top_k": TOP_K, "ingest_s": t_ingest, "flush_s": t_flush,
         "query_many_cold_s": t_cold, "query_many_warm_s": t_warm,
+        "query_many_cold_build": cold_build, "programs": prog,
         "query_many_warm_continuous_s": warm_c,
         "query_many_warm_discrete_s": warm_d,
         "launches_cold": launches_cold, "launches_warm": launches - launches_cold,
@@ -2324,6 +2609,7 @@ def main() -> int:
         "submit": submit, "submit_safe": safe,
         "scheduler": sched, "materialized": mat, "two_op": two_op,
         "lake_hash": lake_hash, "serving": serving,
+        "compile_end": programs.compile_stats(),
         "total_s": time.perf_counter() - t_start,
     }
     print(json.dumps({"record": record}))

@@ -8,7 +8,8 @@ compute layers, and the serving front end on top:
     coalescing and :class:`PlanCache`;
   * :mod:`.executors` — compute: partitioned and batched executors, the
     fused two-phase pipeline (prefilter, compaction, gather, score) and
-    the phase-0 containment gate in front of it;
+    the phase-0 containment gate in front of it, each group's body a
+    compiled program (:mod:`repro_torch.compile`; :func:`compile_count`);
   * :mod:`.service` — :class:`DiscoveryService` (``submit``,
     ``submit_safe``, ``submit_async``): admission control, the
     retry/fallback ladder, the non-finite fence;
@@ -17,10 +18,12 @@ compute layers, and the serving front end on top:
   * :mod:`.scheduler` — the micro-batch tier behind ``submit_async``.
 """
 
+from repro_torch.compile import compile_count
 from repro_torch.core.discovery.executors import (
     BatchedExecutor,
     Executor,
     PartitionedLocalExecutor,
+    pad_trains_q,
     stack_trains_host,
     stage_trains_host,
     upload_trains,
@@ -41,6 +44,7 @@ from repro_torch.core.discovery.planner import (
     ShortlistOverflow,
     SurvivorOverflow,
     TierSpec,
+    bucket_queries,
     bucket_rows,
     bucket_shortlist,
     bucket_survivors,
@@ -103,6 +107,7 @@ __all__ = [
     "partition_by_estimator",
     "estimator_id",
     "plan_signature",
+    "bucket_queries",
     "bucket_rows",
     "bucket_shortlist",
     "bucket_survivors",
@@ -112,6 +117,8 @@ __all__ = [
     "Executor",
     "PartitionedLocalExecutor",
     "BatchedExecutor",
+    "compile_count",
+    "pad_trains_q",
     "stack_trains_host",
     "stage_trains_host",
     "upload_trains",

@@ -17,6 +17,20 @@ batch.  PyTorch enqueues device work asynchronously, so ``dispatch``
 returns pending handles whose ``collect`` is the first host sync, as
 in the reference.
 
+Each group's body — dense (:func:`_score_group`), fused
+(:func:`_fused_score_group`) and tiered (:func:`_tiered_score_group`) —
+runs as a compiled program (:mod:`repro_torch.compile`, the reference's
+``jax.jit`` with the same static arguments): on the card it is captured
+once per key as a CUDA graph and replayed after that.  The group's
+device store is read in place; the trains, the plan's ``live`` /
+``index_dev`` and the device scalars ``min_join``, ``sentinel`` and the
+staged ``min_containment`` are the program's inputs.  ``q_bucket=`` on
+every dispatch pads the query axis up the pow-2 ladder
+(:func:`pad_trains_q`: dead lanes repeat lane 0), which bounds the
+programs a bursty queue builds; the handles return the live lanes only.
+The host-boundary two-phase path (``prefilter_dispatch`` /
+``shortlist_dispatch``, the fused path's overflow fallback) runs eager.
+
 The estimator-id -> estimator mapping lives in :func:`_estimate` only.
 
 Fault-injection sites (:func:`~repro_torch.core.discovery.resilience.maybe_fault`)
@@ -32,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.compile import program
 from repro_torch.core import estimators
 from repro_torch.core.discovery.planner import (
     EST_DC_XD,
@@ -54,6 +69,7 @@ __all__ = [
     "stage_trains_host",
     "upload_trains",
     "train_arrays",
+    "pad_trains_q",
     "Executor",
     "PartitionedLocalExecutor",
     "BatchedExecutor",
@@ -102,12 +118,16 @@ def _score_pairs(trains: dict, ck, cf, cu, cm, *, est_id: int, k: int):
     return mi.reshape(Q, S), mask.sum(-1, dtype=torch.int32)
 
 
-def _score_group(trains: dict, arrays: dict, *, est_id: int, k: int):
+def _score_group_impl(trains: dict, arrays: dict, *, est_id: int, k: int):
     """Dense homogeneous scoring: every query against every group row.
     Returns (mi (Q, bucket), js (Q, bucket))."""
     Q = trains["keys"].shape[0]
     cand = [arrays[f][None].expand(Q, -1, -1) for f in _TRAIN_FIELDS]
     return _score_pairs(trains, *cand, est_id=est_id, k=k)
+
+
+_score_group = program(_score_group_impl, static=("est_id", "k"),
+                       resident=("arrays",))
 
 
 def _gather_score_group(trains: dict, arrays: dict, rows: torch.Tensor,
@@ -157,8 +177,7 @@ def _compact_lanes(passing: torch.Tensor, width: int):
     return torch.where(lane_live, raw, 0), lane_live, counts
 
 
-def _compact_shortlist(js, live, min_join, sentinel: int, index,
-                       s_bucket: int):
+def _compact_shortlist(js, live, min_join, sentinel, index, s_bucket: int):
     """Device shortlist compaction — the fused replacement for the host
     :func:`~repro_torch.core.discovery.planner.build_shortlists` boundary.
     Dead lanes take row 0, the sentinel global id and join size 0, and
@@ -171,18 +190,25 @@ def _compact_shortlist(js, live, min_join, sentinel: int, index,
     return rows, gidx, jsz, counts
 
 
-def _fused_score_group(trains: dict, gp, min_join, sentinel: int,
-                       *, est_id: int, k: int, s_bucket: int):
+def _fused_score_group_impl(trains: dict, arrays: dict, index, live,
+                            min_join, sentinel, *, est_id: int, k: int,
+                            s_bucket: int):
     """Fused prefilter -> compact -> gather -> score for one group, all
-    enqueued on the device.  Returns (mi (Q, s_bucket), gidx, jsz,
+    enqueued on the device.  ``min_join`` / ``sentinel`` are int32
+    device scalars.  Returns (mi (Q, s_bucket), gidx, jsz,
     js (Q, bucket), counts (Q,))."""
     js = _join_sizes(trains["keys"], trains["mask"],
-                     gp.arrays["keys"], gp.arrays["mask"])
+                     arrays["keys"], arrays["mask"])
     rows, gidx, jsz, counts = _compact_shortlist(
-        js, gp.live, min_join, sentinel, gp.index_dev, s_bucket
+        js, live, min_join, sentinel, index, s_bucket
     )
-    mi, _ = _gather_score_group(trains, gp.arrays, rows, est_id=est_id, k=k)
+    mi, _ = _gather_score_group(trains, arrays, rows, est_id=est_id, k=k)
     return mi, gidx, jsz, js, counts
+
+
+_fused_score_group = program(_fused_score_group_impl,
+                             static=("est_id", "k", "s_bucket"),
+                             resident=("arrays",))
 
 
 def _signature_estimates(train_keys, train_mask, sig) -> torch.Tensor:
@@ -197,15 +223,16 @@ def _signature_estimates(train_keys, train_mask, sig) -> torch.Tensor:
     ], dim=1)
 
 
-def _containment_gate(train_keys, train_mask, sig, live,
-                      min_containment: float, s_surv: int):
+def _containment_gate(train_keys, train_mask, sig, live, min_containment,
+                      s_surv: int):
     """The phase-0 containment gate for one group.
 
     One signature sweep over every group row estimates containment as
     the signature join size over the train size (``max(sum(mask), 1)``,
-    float32); rows at or above the staged float32 threshold (and live)
-    are compacted, ascending, into ``s_surv`` survivor lanes, so the
-    exact phases keep the dense path's ranking ties.  Returns (rows
+    float32); rows at or above the staged float32 threshold (a float or
+    a 0-dim float32 tensor) and live are compacted, ascending, into
+    ``s_surv`` survivor lanes, so the exact phases keep the dense path's
+    ranking ties.  Returns (rows
     (Q, s_surv), lane_live, counts (Q,) unclamped: ``counts > s_surv``
     is the survivor-buffer fence).
     """
@@ -231,31 +258,36 @@ def _survivor_join_sizes(train_keys, train_mask, arrays, rows0):
     return torch.cat(out, dim=1)
 
 
-def _tiered_score_group(trains: dict, gp, min_join: int,
-                        min_containment: float, sentinel: int, *,
-                        est_id: int, k: int, s_surv: int, s_bucket: int):
+def _tiered_score_group_impl(trains: dict, arrays: dict, sig, index, live,
+                             min_join, min_containment, sentinel, *,
+                             est_id: int, k: int, s_surv: int,
+                             s_bucket: int):
     """Gate -> prefilter -> compact -> gather -> score for one group,
     all enqueued on the device.  Every exact phase runs at survivor
     width; the within-survivor compaction keeps ascending row order and
     the scorer is the fused path's own, so a candidate that clears the
     gate scores as on the ungated path.  Dead lanes take group row 0, as
     the fused path's do (the reference's take the first survivor, whose
-    full join the estimator would score for nothing).  Returns
-    (mi (Q, s_bucket), gidx, jsz, counts0 (Q,), counts1 (Q,)), both
-    counts unclamped."""
+    full join the estimator would score for nothing).  ``min_join`` /
+    ``sentinel`` are int32 device scalars, ``min_containment`` the
+    staged float32 threshold.  Returns (mi (Q, s_bucket), gidx, jsz,
+    counts0 (Q,), counts1 (Q,)), both counts unclamped."""
     rows0, live0, counts0 = _containment_gate(
-        trains["keys"], trains["mask"], gp.sig, gp.live, min_containment,
-        s_surv,
+        trains["keys"], trains["mask"], sig, live, min_containment, s_surv,
     )
-    js = _survivor_join_sizes(trains["keys"], trains["mask"], gp.arrays,
-                              rows0)
+    js = _survivor_join_sizes(trains["keys"], trains["mask"], arrays, rows0)
     pos, lane_live, counts1 = _compact_lanes((js >= min_join) & live0,
                                              s_bucket)
     rows = torch.where(lane_live, rows0.gather(1, pos), 0)
-    gidx = torch.where(lane_live, gp.index_dev[rows], sentinel)
+    gidx = torch.where(lane_live, index[rows], sentinel)
     jsz = torch.where(lane_live, js.gather(1, pos), 0)
-    mi, _ = _gather_score_group(trains, gp.arrays, rows, est_id=est_id, k=k)
+    mi, _ = _gather_score_group(trains, arrays, rows, est_id=est_id, k=k)
     return mi, gidx, jsz, counts0, counts1
+
+
+_tiered_score_group = program(_tiered_score_group_impl,
+                              static=("est_id", "k", "s_surv", "s_bucket"),
+                              resident=("arrays", "sig"))
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -522,6 +554,48 @@ def train_arrays(sketches: list, device) -> dict:
     return out
 
 
+def pad_trains_q(trains: dict, q_bucket: int) -> dict:
+    """Pad a stacked train dict up to ``q_bucket`` query lanes.  Dead
+    lanes repeat lane 0: real data, so every lane runs what a live lane
+    runs, and live lanes equal the unpadded run's; callers slice
+    ``[:Q]``."""
+    Q = int(trains["keys"].shape[0])
+    if q_bucket < Q:
+        raise ValueError(f"q_bucket {q_bucket} < batch size {Q}")
+    if q_bucket == Q:
+        return trains
+    pad = q_bucket - Q
+    out = {
+        f: torch.cat([trains[f],
+                      trains[f][:1].expand((pad,) + tuple(trains[f].shape[1:]))])
+        for f in _TRAIN_FIELDS
+    }
+    out["y_discrete"] = bool(trains.get("y_discrete", False))
+    return out
+
+
+def _pad_rows_q(a: np.ndarray, q_bucket: int) -> np.ndarray:
+    """Pad a host (Q, ...) shortlist operand to ``q_bucket`` query lanes
+    by repeating lane 0 (the same discipline as :func:`pad_trains_q`)."""
+    q = a.shape[0]
+    if q_bucket <= q:
+        return a
+    return np.concatenate(
+        [a, np.broadcast_to(a[:1], (q_bucket - q,) + a.shape[1:])]
+    )
+
+
+def _train_inputs(trains: dict) -> dict:
+    """The tensor fields of a stacked train dict: a program's input."""
+    return {f: trains[f] for f in _TRAIN_FIELDS}
+
+
+def _device_scalar(value, dtype, device) -> torch.Tensor:
+    """A 0-dim device tensor made by a fill (no host copy): what the
+    reference traces as a scalar, as a program input."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def _as_stacked_trains(trains: dict) -> dict:
     if trains["keys"].dim() == 1:  # single query -> Q == 1
         return {
@@ -563,39 +637,44 @@ class PartitionedLocalExecutor(Executor):
 
 
 class BatchedExecutor(Executor):
-    """Multi-query batched scoring: one pass per group over all Q
-    queries.  (The reference pads Q up a pow-2 ladder to bound its
-    compiled programs; eager PyTorch compiles nothing, so Q is scored as
-    given.)"""
+    """Multi-query batched scoring: one program per group over all Q
+    queries, with optional Q padding (``q_bucket=``: the pow-2 ladder
+    that bounds the compiled programs; dead lanes repeat lane 0 and
+    never leave the device)."""
 
     def __init__(self, k: int = 3):
         self.k = k
 
     @staticmethod
-    def _prepare(trains):
+    def _prepare(trains, q_bucket: int | None):
         trains = _as_stacked_trains(trains)
-        return trains, int(trains["keys"].shape[0])
+        Q = int(trains["keys"].shape[0])
+        if q_bucket is not None:
+            trains = pad_trains_q(trains, q_bucket)
+        return trains, Q
 
-    def dispatch(self, plan, trains):
+    def dispatch(self, plan, trains, *, q_bucket: int | None = None):
         """Enqueue every group's dense scoring; the handle's ``collect``
         is the first host sync."""
         maybe_fault("dispatch", "batched")
-        trains, Q = self._prepare(trains)
+        trains, Q = self._prepare(trains, q_bucket)
         blocks = [
-            (gp, *_score_group(trains, gp.arrays, est_id=gp.est_id, k=self.k))
+            (gp, *_score_group(_train_inputs(trains), gp.arrays,
+                               est_id=gp.est_id, k=self.k))
             for gp in plan.groups
         ]
         return _PendingScores(plan, blocks, Q)
 
-    def execute(self, plan, trains):
-        return self.dispatch(plan, trains).collect()
+    def execute(self, plan, trains, *, q_bucket: int | None = None):
+        return self.dispatch(plan, trains, q_bucket=q_bucket).collect()
 
     # -- two-phase retrieval ------------------------------------------------
 
-    def prefilter_dispatch(self, plan, trains):
+    def prefilter_dispatch(self, plan, trains, *,
+                           q_bucket: int | None = None):
         """Phase 1: enqueue the join-size prefilter for every group."""
         maybe_fault("prefilter_dispatch", "batched")
-        trains, Q = self._prepare(trains)
+        trains, Q = self._prepare(trains, q_bucket)
         blocks = [
             (gp, _join_sizes(trains["keys"], trains["mask"],
                              gp.arrays["keys"], gp.arrays["mask"]))
@@ -603,50 +682,63 @@ class BatchedExecutor(Executor):
         ]
         return _PendingJoinSizes(blocks, Q)
 
-    def shortlist_dispatch(self, plan, trains, shortlists):
+    def shortlist_dispatch(self, plan, trains, shortlists, *,
+                           q_bucket: int | None = None):
         """Phase 2: gather and score every non-empty host shortlist."""
         maybe_fault("shortlist_dispatch", "batched")
-        trains, Q = self._prepare(trains)
+        trains, Q = self._prepare(trains, q_bucket)
+        qb = int(trains["keys"].shape[0])
         blocks = []
         for sl in shortlists:
             if sl is None:
                 continue
-            rows = torch.from_numpy(sl.rows).to(plan.device)
+            rows = torch.from_numpy(_pad_rows_q(sl.rows, qb)).to(plan.device)
             mi, _ = _gather_score_group(
                 trains, sl.group.arrays, rows, est_id=sl.group.est_id, k=self.k
             )
             blocks.append((sl, mi))
         return _PendingShortlist(blocks, Q)
 
-    def fused_dispatch(self, plan, trains, spec, min_join: int):
+    def fused_dispatch(self, plan, trains, spec, min_join: int, *,
+                       q_bucket: int | None = None):
         """Fused two-phase: per group, prefilter, compaction, gather and
         score are enqueued without a host sync.  The handle raises
         ``ShortlistOverflow`` at collect when a width in ``spec`` was
         too small."""
         maybe_fault("fused_dispatch", "batched")
-        trains, Q = self._prepare(trains)
+        trains, Q = self._prepare(trains, q_bucket)
+        t_in = _train_inputs(trains)
+        dev = trains["keys"].device
+        mj = _device_scalar(int(min_join), torch.int32, dev)
+        sentinel = _device_scalar(plan.n_candidates, torch.int32, dev)
         blocks = []
         for gp, s_bucket in zip(plan.groups, spec.s_buckets):
             mi, gidx, jsz, js, counts = _fused_score_group(
-                trains, gp, int(min_join), plan.n_candidates,
+                t_in, gp.arrays, gp.index_dev, gp.live, mj, sentinel,
                 est_id=gp.est_id, k=self.k, s_bucket=int(s_bucket),
             )
             blocks.append((gp, int(s_bucket), mi, gidx, jsz, js, counts))
         return _PendingFused(blocks, Q)
 
     def tiered_dispatch(self, plan, trains, tspec, spec, min_join: int,
-                        min_containment: float):
+                        min_containment: float, *,
+                        q_bucket: int | None = None):
         """Tiered retrieval: the phase-0 containment gate and the fused
         pipeline, per group, enqueued without a host sync.  ``tspec``
         (:class:`~repro_torch.core.discovery.planner.TierSpec`) gives the
         survivor widths, ``spec`` the shortlist widths, each clamped to
-        its group's survivor width.  The threshold reaches the device as
-        a kernel scalar.  The handle raises ``SurvivorOverflow`` at
-        collect when a width was too small: re-run the window through
-        ``fused_dispatch``."""
+        its group's survivor width.  The staged threshold reaches the
+        program as a float32 device scalar.  The handle raises
+        ``SurvivorOverflow`` at collect when a width was too small:
+        re-run the window through ``fused_dispatch``."""
         maybe_fault("tiered_dispatch", "batched")
-        trains, Q = self._prepare(trains)
-        mc = stage_min_containment(min_containment)
+        trains, Q = self._prepare(trains, q_bucket)
+        t_in = _train_inputs(trains)
+        dev = trains["keys"].device
+        mj = _device_scalar(int(min_join), torch.int32, dev)
+        mc = _device_scalar(stage_min_containment(min_containment),
+                            torch.float32, dev)
+        sentinel = _device_scalar(plan.n_candidates, torch.int32, dev)
         blocks = []
         for gp, s_surv, s_bucket in zip(plan.groups, tspec.s_survivors,
                                         spec.s_buckets):
@@ -656,8 +748,9 @@ class BatchedExecutor(Executor):
                 )
             sb = min(int(s_bucket), int(s_surv))
             mi, gidx, jsz, c0, c1 = _tiered_score_group(
-                trains, gp, int(min_join), mc, plan.n_candidates,
-                est_id=gp.est_id, k=self.k, s_surv=int(s_surv), s_bucket=sb,
+                t_in, gp.arrays, gp.sig, gp.index_dev, gp.live, mj, mc,
+                sentinel, est_id=gp.est_id, k=self.k, s_surv=int(s_surv),
+                s_bucket=sb,
             )
             blocks.append((gp, int(s_surv), sb, mi, gidx, jsz, c0, c1))
         return _PendingTiered(blocks, Q)

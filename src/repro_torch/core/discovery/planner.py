@@ -17,11 +17,11 @@ containment gate sizes its survivor buffer up a third pow-2 ladder
 
 For the service: :func:`plan_signature` / :func:`shortlist_signature`
 (what a batch's layout is keyed on), :func:`coalesce_queries` (split a
-queue by signature and chunk it at ``max_q_bucket``), and
-:class:`PlanCache` / :class:`ServicePlan`.  The reference pads each
-chunk up a pow-2 Q ladder to bound its compiled programs; eager PyTorch
-compiles nothing, so the port chunks Q but never pads it, and a
-bucket's ``q_bucket`` is its chunk size.
+queue by signature, chunk it at ``max_q_bucket`` and bucket each chunk
+up the pow-2 Q ladder, :func:`bucket_queries`), and :class:`PlanCache` /
+:class:`ServicePlan`.  The Q ladder bounds the compiled programs
+(:mod:`repro_torch.compile`) a bursty queue can build to one per
+(signature, Q bucket, width), as in the reference.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ __all__ = [
     "MIN_SHORTLIST",
     "MIN_SURVIVORS",
     "bucket_survivors",
+    "bucket_queries",
     "GroupPlan",
     "QueryPlan",
     "Shortlist",
@@ -77,8 +78,8 @@ MIN_SHORTLIST = 8
 # Smallest bucket on the phase-0 survivor ladder (tiered retrieval).
 MIN_SURVIVORS = 8
 
-# Most queries an admission controller hands to one executor pass; larger
-# queues are chunked, which bounds the device memory one burst can pin.
+# Largest rung of the Q-axis ladder: the most queries an admission
+# controller hands to one executor pass; larger queues are chunked.
 MAX_Q_BUCKET = 64
 
 
@@ -119,6 +120,21 @@ def bucket_survivors(n: int) -> int:
     """Survivor-ladder bucket for ``n`` phase-0 gate survivors: next
     power of two >= max(n, MIN_SURVIVORS)."""
     return _next_pow2(max(n, MIN_SURVIVORS))
+
+
+def bucket_queries(q: int, cap: int = MAX_Q_BUCKET) -> int:
+    """Q-axis ladder bucket for a batch of ``q`` queries: the next power
+    of two >= q.  A bucket above ``cap`` raises: an admission controller
+    chunks batches at ``cap`` first, so the leading-Q shapes are exactly
+    {1, 2, 4, ..., cap}."""
+    if q < 1:
+        raise ValueError(f"batch of {q} queries")
+    b = _next_pow2(q)
+    if b > cap:
+        raise ValueError(
+            f"Q={q} exceeds the bucket cap {cap}; chunk the batch first"
+        )
+    return b
 
 
 @dataclass(frozen=True)
@@ -341,8 +357,8 @@ class CoalescedBucket:
     queries from (possibly) many callers that share an estimator
     signature.  ``chunk`` holds caller-supplied query ids in
     priority-then-arrival order; ``priority`` is the best (lowest)
-    priority rank present; ``q_bucket`` is the chunk's size (Q is not
-    padded in the port)."""
+    priority rank present; ``q_bucket`` is the chunk's rung on the Q
+    ladder (:func:`bucket_queries`)."""
 
     signature: tuple
     chunk: tuple
@@ -351,10 +367,10 @@ class CoalescedBucket:
 
 
 def coalesce_queries(entries, cap: int = MAX_Q_BUCKET) -> list[CoalescedBucket]:
-    """Pack ``(query_id, signature, priority)`` entries into buckets of at
-    most ``cap`` queries — the coalescing core of both the service's
-    admission (one caller, priority 0 throughout) and the micro-batch
-    scheduler (many callers, interactive before batch).
+    """Pack ``(query_id, signature, priority)`` entries into pow-2 Q
+    buckets of at most ``cap`` queries — the coalescing core of both the
+    service's admission (one caller, priority 0 throughout) and the
+    micro-batch scheduler (many callers, interactive before batch).
 
     Grouping is by signature in first-seen order; within a group,
     members sort by (priority, arrival), so interactive queries fill the
@@ -376,7 +392,7 @@ def coalesce_queries(entries, cap: int = MAX_Q_BUCKET) -> list[CoalescedBucket]:
                 signature=sig,
                 chunk=tuple(qid for _, _, qid in part),
                 priority=min(pr for pr, _, _ in part),
-                q_bucket=len(part),
+                q_bucket=bucket_queries(len(part), cap),
             ))
     buckets.sort(key=lambda b: b.priority)  # stable: arrival order kept
     return buckets
@@ -384,7 +400,7 @@ def coalesce_queries(entries, cap: int = MAX_Q_BUCKET) -> list[CoalescedBucket]:
 
 @dataclass(frozen=True)
 class ServicePlan:
-    """One admitted batch layout: a corpus plan, its Q (chunk size) and
+    """One admitted batch layout: a corpus plan, its Q bucket and
     signature, and for two-phase batches the shortlist signature."""
 
     plan: QueryPlan
@@ -395,7 +411,7 @@ class ServicePlan:
 
 class PlanCache:
     """Admission-control plan cache keyed on (corpus version, target
-    dtype, Q[, shortlist signature]), insertion-order LRU.
+    dtype, Q bucket[, shortlist signature]), insertion-order LRU.
 
     It counts hits and misses so tests and ``DiscoveryService.stats()``
     can show that steady-state traffic replans nothing; ``coalesced``

@@ -9,17 +9,18 @@ with ingest; ``submit`` runs admission control over it:
   1. **Split** — queries are partitioned by target dtype, and so by
      estimator signature (:func:`~.planner.plan_signature`), so every
      admitted bucket is homogeneous.
-  2. **Chunk** — each signature's queries are cut into buckets of at
-     most ``max_q_bucket`` (:func:`~.planner.coalesce_queries`).  The
-     reference also pads each bucket up a pow-2 Q ladder to bound its
-     compiled programs; eager PyTorch compiles nothing, so the port does
-     not pad (``padded_lanes`` stays 0, ``q_buckets`` records the chunk
-     sizes).
+  2. **Chunk + Q-bucket** — each signature's queries are cut into
+     chunks of at most ``max_q_bucket`` (a power of two) and each chunk
+     is padded up the pow-2 Q ladder (:func:`~.planner.coalesce_queries`,
+     :func:`~.planner.bucket_queries`; ``padded_lanes``, ``q_buckets``),
+     so any traffic builds at most |signatures| x |Q buckets| x |widths|
+     compiled programs (``stats()["compiled_programs"]``).
   3. **Schedule** — every bucket is dispatched before any result is
      transferred (the executors' ``dispatch`` / ``collect`` split).
 
 Results come back in arrival order and equal looping
-:meth:`SketchIndex.query` over the same queue.  With ``min_join`` > 0
+:meth:`SketchIndex.query` over the same queue: padded lanes repeat a
+live lane and are sliced off on the device.  With ``min_join`` > 0
 each bucket runs two-phase retrieval, by default as one fused device
 pipeline whose only host sync is its collect (``host_syncs``,
 ``fused_windows``); a compaction overflow falls back to the host
@@ -35,7 +36,10 @@ service's :class:`~.resilience.RetryPolicy`, then served by the
 reference per-query loop; non-finite MI lanes are recomputed through
 the materialized estimators (the ``pairwise_cheb`` kernel on the card).
 Arrival counters commit at admission; delivery counters are staged per
-bucket and committed only after its collect.
+bucket and committed only after its collect.  The fault sites sit at
+the executors' entry points and collects, outside every captured
+program, so the ladder is the same with programs on or under
+:func:`~repro_torch.compile.eager`.
 
 Not in this slice: ``mesh=`` (the distributed rung) raises
 ``NotImplementedError``.
@@ -48,6 +52,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.compile import compile_count
 from repro_torch.core.discovery import executors as _ex
 from repro_torch.core.discovery import resilience
 from repro_torch.core.discovery.index import _MESH_SLICE, SketchIndex
@@ -83,7 +88,7 @@ class AdmissionStats:
     quarantined: int = 0     # queries rejected at admission validation
     batches: int = 0         # buckets that delivered
     split_batches: int = 0   # extra chunks forced by the max_q_bucket cap
-    padded_lanes: int = 0    # dead query lanes (0: the port never pads Q)
+    padded_lanes: int = 0    # dead query lanes paid to ride the Q ladder
     prefiltered: int = 0     # queries served via two-phase retrieval
     cands_considered: int = 0   # (query, candidate) pairs seen by phase 1
     cands_shortlisted: int = 0  # pairs that reached phase-2 scoring
@@ -155,10 +160,11 @@ class _BucketJob:
         "staged",
     )
 
-    def __init__(self, chunk: list[int], y_disc: bool, sketches: list):
+    def __init__(self, chunk: list[int], y_disc: bool, sketches: list,
+                 q_bucket: int):
         self.chunk = chunk
         self.y_disc = y_disc
-        self.q_bucket = len(chunk)
+        self.q_bucket = q_bucket
         self.sp = None
         self.sketches = sketches
         self.trains = None
@@ -236,8 +242,14 @@ class DiscoveryService:
         if mesh is not None:
             raise NotImplementedError(_MESH_SLICE)
         max_q_bucket = int(max_q_bucket)
-        if max_q_bucket < 1:
-            raise ValueError(f"max_q_bucket must be >= 1, got {max_q_bucket}")
+        # The chunker cuts queues to max_q_bucket and the ladder pads up
+        # to the next power of two, so a non-pow-2 cap would make a full
+        # chunk unbucketable.
+        if max_q_bucket < 1 or max_q_bucket & (max_q_bucket - 1):
+            raise ValueError(
+                f"max_q_bucket must be a power of two >= 1 (the Q-axis "
+                f"bucket ladder is pow-2), got {max_q_bucket}"
+            )
         self.index = index if index is not None else SketchIndex(
             n=n, method=method, agg=agg, sig_width=sig_width
         )
@@ -486,7 +498,7 @@ class DiscoveryService:
             st.split_batches += n_chunks - 1
         jobs = win.jobs = [
             _BucketJob(list(b.chunk), b.signature[0],
-                       [queries[i] for i in b.chunk])
+                       [queries[i] for i in b.chunk], b.q_bucket)
             for b in buckets
         ]
 
@@ -502,6 +514,7 @@ class DiscoveryService:
                 )
                 job.staged = {
                     "batches": 1,
+                    "padded_lanes": job.q_bucket - len(job.chunk),
                     "q_buckets": {job.q_bucket},
                     "host_syncs": 1,
                 }
@@ -514,10 +527,12 @@ class DiscoveryService:
                     job.handle = self._fused_dispatch(job, min_join, C, version)
                 elif use_pref:
                     job.pend1 = self._batched.prefilter_dispatch(
-                        job.sp.plan, job.trains
+                        job.sp.plan, job.trains, q_bucket=job.q_bucket
                     )
                 else:
-                    job.handle = self._batched.dispatch(job.sp.plan, job.trains)
+                    job.handle = self._batched.dispatch(
+                        job.sp.plan, job.trains, q_bucket=job.q_bucket
+                    )
             except Exception as e:  # noqa: BLE001 — bucket-isolated
                 job.error = e
                 if not isolate:
@@ -598,7 +613,7 @@ class DiscoveryService:
         )
         job.staged["s_buckets"] = {b for _, b in s_key}
         return self._batched.shortlist_dispatch(
-            job.sp.plan, job.trains, shortlists
+            job.sp.plan, job.trains, shortlists, q_bucket=job.q_bucket
         )
 
     def _fused_dispatch(self, job: _BucketJob, min_join: int, C: int,
@@ -616,7 +631,8 @@ class DiscoveryService:
         job.staged["cands_considered"] = len(job.chunk) * C
         job.staged["s_buckets"] = set(spec.s_buckets)
         job.staged["fused_windows"] = 1
-        return self._batched.fused_dispatch(plan, job.trains, spec, min_join)
+        return self._batched.fused_dispatch(plan, job.trains, spec, min_join,
+                                            q_bucket=job.q_bucket)
 
     def _tiered_dispatch(self, job: _BucketJob, min_join: int,
                          min_containment: float, C: int, version: int):
@@ -645,6 +661,7 @@ class DiscoveryService:
             self.index.ingest_stats["signature_bytes"]
         return self._batched.tiered_dispatch(
             plan, job.trains, tspec, spec, min_join, min_containment,
+            q_bucket=job.q_bucket,
         )
 
     def _collect_triples(self, job: _BucketJob, C: int, min_join: int,
@@ -753,6 +770,7 @@ class DiscoveryService:
                 )
         staged = job.staged
         st.batches += staged.get("batches", 0)
+        st.padded_lanes += staged.get("padded_lanes", 0)
         st.prefiltered += staged.get("prefiltered", 0)
         st.cands_considered += staged.get("cands_considered", 0)
         st.cands_shortlisted += staged.get("cands_shortlisted", 0)
@@ -819,6 +837,8 @@ class DiscoveryService:
         what this run did)."""
         job.staged = {
             "batches": 1,
+            "padded_lanes": (job.q_bucket - len(job.chunk)
+                             if rung != "reference" else 0),
             "q_buckets": {job.q_bucket} if rung != "reference" else set(),
             "host_syncs": 1,
         }
@@ -832,10 +852,14 @@ class DiscoveryService:
             return triples
         job.trains = _ex.stack_trains_host(job.sketches, self.index.device)
         if use_pref:
-            job.pend1 = self._batched.prefilter_dispatch(job.sp.plan, job.trains)
+            job.pend1 = self._batched.prefilter_dispatch(
+                job.sp.plan, job.trains, q_bucket=job.q_bucket
+            )
             job.handle = self._shortlist_phase(job, min_join, C, version)
         else:
-            job.handle = self._batched.dispatch(job.sp.plan, job.trains)
+            job.handle = self._batched.dispatch(
+                job.sp.plan, job.trains, q_bucket=job.q_bucket
+            )
         return self._collect_triples(job, C, min_join, version)
 
     # ------------------------------------------------------------------
@@ -844,16 +868,17 @@ class DiscoveryService:
 
     def stats(self) -> dict:
         """Serving counters: admission decisions, resilience traffic
-        (quarantine / retry / fallback / fence), plan-cache traffic,
-        ingest transfer accounting, the device bytes of each tier (full
+        (quarantine / retry / fallback / fence), plan-cache traffic, the
+        compiled programs built so far
+        (:func:`~repro_torch.compile.compile_count`), ingest transfer
+        accounting, the device bytes of each tier (full
         sketches; phase-0 signatures, and the signature width) and, once
-        ``submit_async`` attached it, the scheduler's telemetry.  The
-        reference also reports ``compiled_programs`` (its jit cache
-        size); eager PyTorch compiles no programs."""
+        ``submit_async`` attached it, the scheduler's telemetry."""
         ingest = self.index.ingest_stats
         return {
             "admission": self.admission.as_dict(),
             "plan_cache": self.plan_cache.stats,
+            "compiled_programs": compile_count(),
             "ingest": ingest,
             "tiers": {
                 "sketch_bytes": ingest["sketch_bytes"],

@@ -144,7 +144,9 @@ def _digamma(v: torch.Tensor) -> torch.Tensor:
 
 
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    # A fill on the device, not a host-to-device copy: a copy from host
+    # memory cannot be captured into a CUDA graph.
+    return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
 def _check_impl(impl: str) -> None:
@@ -255,7 +257,7 @@ def _dc_stats(codes, y, mask, kk):
     n_x = _count(same)  # includes self
     k_eff = torch.clamp(n_x - 1, max=kk)
     _, dy, _ = pairwise_cheb(y, y, mask)  # DY with +inf at invalid pairs
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=y.device)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=y.device)
     dy_sorted = torch.sort(torch.where(same & off, dy, inf), dim=-1).values
     idx = torch.clamp(k_eff - 1, 0, P - 1).long()
     d_i = dy_sorted.gather(-1, idx[..., None])

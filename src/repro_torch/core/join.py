@@ -53,8 +53,8 @@ def effective_keys(keys: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     unconditionally; the device store applies it once at ingest.
     """
     return torch.where(
-        mask, keys.to(torch.int64), torch.tensor(KEY_MAX, dtype=torch.int64,
-                                                 device=keys.device)
+        mask, keys.to(torch.int64), torch.full((), KEY_MAX, dtype=torch.int64,
+                                               device=keys.device)
     )
 
 

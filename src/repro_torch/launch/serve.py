@@ -3,6 +3,10 @@
 Prefill each admitted prompt (causal attention through the flash
 kernel on the card), then run the single-token decode step over a fixed
 set of slots; finished sequences release their slot to queued requests.
+The decode step is a compiled program (:mod:`repro_torch.compile`, the
+reference's ``jax.jit`` of it): on the card it is captured once as a
+CUDA graph over the batched caches and the weights cast once to the
+activation dtype, and replayed every step.  The prefill runs eager.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --smoke \
       --requests 12 --slots 4 --prompt-len 32 --gen-len 16 [--device cpu]
@@ -19,9 +23,22 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.compile import program
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.models.common import cast_params, dtype_of
+
+
+def _decode_step(tokens, pos, *, cfg, params, caches):
+    """The batched decode step's body: logits (B, 1, V); ``caches``
+    updated in place at the device position ``pos``."""
+    logits, _ = T.decode_step(cfg, params, caches, tokens, pos)
+    return logits
+
+
+_decode_program = program(_decode_step, static=("cfg",),
+                          resident=("params", "caches"))
 
 
 class ContinuousBatcher:
@@ -36,6 +53,10 @@ class ContinuousBatcher:
     largest position among the active slots, so a slot admitted with a
     shorter history attends over zero rows between its own end and the
     frontier.  Per-slot positions would be a feature the reference lacks.
+    The decode step reads the weights as :func:`cast_params` gives them
+    (cast to the activation dtype once per parameter version), so a
+    parameter updated in place is cast anew and the step is captured
+    anew.
     """
 
     def __init__(self, cfg, params, slots: int, max_len: int):
@@ -50,7 +71,13 @@ class ContinuousBatcher:
         self.slot_req = [-1] * slots
 
     def _decode(self, toks: torch.Tensor, pos: int):
-        return T.decode_step(self.cfg, self.params, self.caches, toks, pos)
+        """One compiled decode step at the shared frontier ``pos``;
+        returns (logits, caches)."""
+        weights = cast_params(self.params, dtype_of(self.cfg.dtype))
+        pos_t = torch.full((), pos, dtype=torch.int32, device=self.device)
+        logits = _decode_program(toks, pos_t, cfg=self.cfg, params=weights,
+                                 caches=self.caches)
+        return logits, self.caches
 
     def admit(self, req_id: int, prompt: np.ndarray) -> bool:
         free = np.flatnonzero(~self.active)

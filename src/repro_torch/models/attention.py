@@ -10,8 +10,10 @@ token against a KV cache, with the reference's layouts: activations
 prefill runs the hand-written flash kernel (the reference used the
 Pallas kernel only on a TPU).  The (B, H, S, Dh) operands are transposed
 views; the kernel reads their strides, nothing is copied.  ``decode``
-writes the new K/V row into the cache in place (the reference returns a
-new cache with ``dynamic_update_slice``) and returns the same dict.
+writes the new K/V row into the cache in place with ``index_copy_`` at
+a device position (the reference returns a new cache with
+``dynamic_update_slice``), so a captured step reads no host integer,
+and returns the same dict.
 """
 
 from __future__ import annotations
@@ -82,14 +84,16 @@ class gqa:
 
     @staticmethod
     def decode(cfg: ModelConfig, p: nn.ModuleDict, x: torch.Tensor,
-               cache: dict, pos: int) -> tuple[torch.Tensor, dict]:
+               cache: dict, pos: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """x (B, 1, D); cache k/v (B, Smax, Hkv, Dh), updated in place at
-        ``pos``; returns (out, cache)."""
+        ``pos`` (a 0-dim integer tensor on x's device); returns (out,
+        cache)."""
         B = x.shape[0]
-        positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
         q, k_new, v_new = gqa._qkv(cfg, p, x, positions)
-        cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+        row = pos.reshape(1).to(torch.int64)
+        cache["k"].index_copy_(1, row, k_new.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, row, v_new.to(cache["v"].dtype))
         out = decode_attention(q[:, 0], cache["k"], cache["v"], pos,
                                scale=1.0 / math.sqrt(cfg.head_dim))
         out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)

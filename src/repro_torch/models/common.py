@@ -7,6 +7,14 @@ The port's counterpart of ``repro/models/common.py``.  Parameters are
 onto them name for name.  Parameters are made with ``requires_grad``
 off: this slice serves, and training comes in a later one.  ``shard``
 is the identity: the port has no mesh yet.
+
+Layers compute in the activation dtype and read each weight through
+:func:`cast`, which keeps one copy of a parameter in that dtype per
+version of the parameter (``Tensor._version``, bumped by every in-place
+update): the cast is made once, not on every call, and is the same
+deterministic cast, so the outputs are bit-identical to casting on the
+fly.  :func:`cast_params` gives a model's whole parameter tree in that
+form, the stable buffers a captured decode step reads.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ __all__ = [
     "param",
     "normal",
     "dense_init",
+    "cast",
+    "cast_params",
     "linear",
     "rmsnorm_init",
     "norm_apply",
@@ -61,11 +71,34 @@ def dense_init(gen: torch.Generator | None, in_dim: int, out_dim: int, *,
     return p
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t.to(dtype)``, made once per version of ``t`` and kept on it."""
+    if t.dtype == dtype:
+        return t
+    hit = getattr(t, "_cast_copy", None)
+    if hit is not None and hit[0] == t._version and hit[1] == dtype:
+        return hit[2]
+    out = t.detach().to(dtype)
+    t._cast_copy = (t._version, dtype, out)
+    return out
+
+
+def cast_params(params, dtype: torch.dtype):
+    """A parameter tree (``nn.ModuleDict`` / ``ParameterDict`` /
+    ``ModuleList``) as nested dicts and lists of :func:`cast` copies of
+    its floating leaves; the layer functions read either form."""
+    if isinstance(params, torch.Tensor):
+        return cast(params, dtype) if params.is_floating_point() else params
+    if isinstance(params, (nn.ModuleList, list, tuple)):
+        return [cast_params(p, dtype) for p in params]
+    return {k: cast_params(v, dtype) for k, v in params.items()}
+
+
 def linear(p: nn.ParameterDict, x: torch.Tensor) -> torch.Tensor:
-    """x @ w (+ b), computing in x.dtype (params cast on the fly)."""
-    y = x @ p["w"].to(x.dtype)
+    """x @ w (+ b), computing in x.dtype (params through :func:`cast`)."""
+    y = x @ cast(p["w"], x.dtype)
     if "b" in p:
-        y = y + p["b"].to(x.dtype)
+        y = y + cast(p["b"], x.dtype)
     return y
 
 
@@ -86,7 +119,7 @@ def norm_apply(p: nn.ParameterDict, x: torch.Tensor,
     var = (xf * xf).sum(dim=-1, keepdim=True) / x.shape[-1]
     y = x * torch.rsqrt(var + eps).to(x.dtype)
     if "scale" in p:
-        y = y * p["scale"].to(x.dtype)
+        y = y * cast(p["scale"], x.dtype)
     return y
 
 

@@ -3,10 +3,13 @@ KV-cache decode, for the ``attn`` + ``dense`` text configurations.
 
 The port's counterpart of ``repro/models/transformer.py``.  The
 reference factors the layers into ``prefix + group × G`` and
-``lax.scan``s the stacked group; eager PyTorch compiles nothing, so the
-port keeps one ``nn.ModuleList`` of layers (``params["layers"]``) and a
-Python loop over it.  Decode caches are a list with one ``{"k", "v"}``
-dict per layer.  ``decode_step`` updates them in place.
+``lax.scan``s the stacked group; the port keeps one ``nn.ModuleList`` of
+layers (``params["layers"]``) and a Python loop over it, which a CUDA
+graph of the decode step (``launch/serve.py``) flattens as ``jax.jit``
+flattens the scan.  Decode caches are a list with one ``{"k", "v"}``
+dict per layer.  ``decode_step`` updates them in place at a position
+that may be a device scalar.  Every function also takes the parameters
+as :func:`~repro_torch.models.common.cast_params` gives them.
 
 Only layouts whose every layer is ``attn`` + ``dense`` in text modality
 are ported (internlm2-1.8b, olmo-1b, mistral-nemo-12b, qwen1.5-110b).
@@ -23,7 +26,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, layer_layout
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import gqa, mla
-from repro_torch.models.common import (dense_init, dtype_of, linear,
+from repro_torch.models.common import (cast, dense_init, dtype_of, linear,
                                        norm_apply, normal, param,
                                        rmsnorm_init, shard)
 from repro_torch.models.ffn import dense_ffn, moe_ffn
@@ -109,7 +112,7 @@ def _embed_inputs(cfg: ModelConfig, params: nn.ModuleDict,
 def _head(cfg: ModelConfig, params: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
     x = norm_apply(params["final_norm"], x)
     if cfg.tie_embeddings:
-        logits = x @ params["embedding"]["table"].to(x.dtype).T
+        logits = x @ cast(params["embedding"]["table"], x.dtype).T
     else:
         logits = linear(params["lm_head"], x)
     return shard(logits, "batch", "seq", "vocab")
@@ -155,9 +158,13 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(cfg: ModelConfig, params: nn.ModuleDict, caches: list[dict],
-                tokens: torch.Tensor, pos: int) -> tuple[torch.Tensor, list[dict]]:
-    """One decoding step.  tokens (B, 1); ``pos`` the index being written.
-    Returns (logits (B, 1, V), caches), the caches updated in place."""
+                tokens: torch.Tensor,
+                pos: int | torch.Tensor) -> tuple[torch.Tensor, list[dict]]:
+    """One decoding step.  tokens (B, 1); ``pos`` the index being written,
+    an int or a 0-dim integer tensor on the tokens' device.  Returns
+    (logits (B, 1, V), caches), the caches updated in place."""
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.int32, device=tokens.device)
     x = _embed_inputs(cfg, params, tokens)
     for p, cache in zip(params["layers"], caches):
         mix, _ = gqa.decode(cfg, p["mixer"], norm_apply(p["pre_norm"], x),

@@ -17,10 +17,11 @@ _NEG_INF = -1e30
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int, *,
+                     v_cache: torch.Tensor, pos: int | torch.Tensor, *,
                      scale: float) -> torch.Tensor:
     """q (B, H, Dh); caches (B, S, Hkv, Dh); ``pos`` the last valid
-    index.  Returns (B, H, Dh) in q's dtype; softmax in float32."""
+    index, an int or a 0-dim tensor on q's device (a captured decode
+    step's).  Returns (B, H, Dh) in q's dtype; softmax in float32."""
     B, S, Hkv, Dh = k_cache.shape
     H = q.shape[1]
     qf = q.reshape(B, Hkv, H // Hkv, Dh).float()

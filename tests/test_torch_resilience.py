@@ -61,11 +61,11 @@ Y = np.random.default_rng(1000).normal(size=N_ROWS)
 FAST_RETRY = RetryPolicy(max_retries=2, sleep=lambda s: None)
 J_FAST_RETRY = JRetryPolicy(max_retries=2, sleep=lambda s: None)
 
-# The counters both packages must agree on (padding-free: the port never
-# pads Q, so padded_lanes and q_buckets differ by design).
+# The counters both packages must agree on, the Q ladder's included.
 STAT_KEYS = ("submitted", "quarantined", "batches", "split_batches",
              "retries", "fallbacks", "nonfinite_lanes", "lost_queries",
-             "host_syncs", "fused_windows", "failed_buckets")
+             "host_syncs", "fused_windows", "failed_buckets", "padded_lanes",
+             "q_buckets")
 
 
 def _rows():
@@ -561,8 +561,8 @@ class TestStatsConsistency:
         # A clean retry delivers and commits exactly one bucket.
         svc.submit(queue, top_k=5, min_join=4)
         assert st.batches == 1
-        assert st.padded_lanes == 0  # the port never pads Q
-        assert st.q_buckets == {3}
+        assert st.padded_lanes == 1  # Q=3 rides rung 4, as in the reference
+        assert st.q_buckets == {4}
         assert st.prefiltered == 3
 
     def test_plan_cache_counts_build_failures(self):

@@ -8,12 +8,11 @@ candidates, join sizes and rank order wherever score gaps exceed the
 tolerance, plan signatures, bucket chunking, and the admission counters
 ``submitted``, ``quarantined``, ``batches``, ``split_batches``,
 ``retries``, ``fallbacks``, ``nonfinite_lanes``, ``lost_queries``,
-``host_syncs`` and ``fused_windows``.  MI within rtol/atol 1e-5
-(torch's digamma differs from jax's by ~2e-6).  Within the port (CPU),
-``submit`` is held equal to looped ``SketchIndex.query`` value for
-value.  The reference pads Q up a pow-2 ladder; the port does not, so
-``padded_lanes`` and ``q_buckets`` differ by design and are checked on
-the port's own terms.
+``host_syncs``, ``fused_windows``, and the Q ladder's ``padded_lanes``
+and ``q_buckets`` (both packages pad each bucket up the pow-2 ladder).
+MI within rtol/atol 1e-5 (torch's digamma differs from jax's by
+~2e-6).  Within the port (CPU), ``submit`` is held equal to looped
+``SketchIndex.query`` value for value.
 """
 
 import numpy as np
@@ -48,7 +47,7 @@ PATHS = {
 }
 STAT_KEYS = ("submitted", "quarantined", "batches", "split_batches",
              "retries", "fallbacks", "nonfinite_lanes", "lost_queries",
-             "host_syncs", "fused_windows")
+             "host_syncs", "fused_windows", "padded_lanes", "q_buckets")
 
 KEYS = hashing.murmur3_32_np(np.arange(ROWS, dtype=np.uint32), seed=np.uint32(3))
 
@@ -143,12 +142,16 @@ class TestChunkingAndPlans:
         rng = np.random.default_rng(cap)
         entries = [(i, ("sig", int(rng.integers(0, 3))), int(rng.integers(0, 2)))
                    for i in range(20)]
+        if cap & (cap - 1):  # a full chunk has no rung on the pow-2 ladder
+            for coalesce in (coalesce_queries, j_coalesce):
+                with pytest.raises(ValueError, match="bucket cap"):
+                    coalesce(entries, cap=cap)
+            return
         got = coalesce_queries(entries, cap=cap)
-        want = j_coalesce(entries, cap=1 << (cap - 1).bit_length())
-        if cap & (cap - 1) == 0:  # a pow-2 cap chunks like the reference
-            assert [(b.signature, b.chunk, b.priority) for b in got] == \
-                [(b.signature, b.chunk, b.priority) for b in want]
-        assert all(b.q_bucket == len(b.chunk) <= cap for b in got)  # no padding
+        want = j_coalesce(entries, cap=cap)
+        assert [(b.signature, b.chunk, b.priority, b.q_bucket) for b in got] == \
+            [(b.signature, b.chunk, b.priority, b.q_bucket) for b in want]
+        assert all(len(b.chunk) <= b.q_bucket <= cap for b in got)
         assert sorted(q for b in got for q in b.chunk) == list(range(20))
 
     def test_coalesce_priority_order(self):
@@ -200,8 +203,8 @@ class TestSubmitMatchesReference:
         adm = t_svc.stats()["admission"]
         assert adm["signatures"] == 2  # one per target dtype
         assert adm["split_batches"] == 2 * 1  # 6 continuous > cap of 4, per submit
-        assert adm["padded_lanes"] == 0
-        assert adm["q_buckets"] == [2, 3, 4]  # chunk sizes: 4 + 2 and 3
+        assert adm["padded_lanes"] == 2 * 1  # the 3 discrete ride rung 4
+        assert adm["q_buckets"] == [2, 4]  # chunks 4 + 2 and 3 -> 4
         assert any(len(r) > 3 for r in got)
 
     def test_submit_safe_matches_reference(self, index, j_index):
@@ -251,14 +254,18 @@ class TestSubmitMatchesReference:
 
 
 class TestSubmitContracts:
-    def test_q_cap_validation_and_non_pow2_chunks(self, index):
-        with pytest.raises(ValueError, match="max_q_bucket"):
-            DiscoveryService(index=index, max_q_bucket=0)
-        svc = DiscoveryService(index=index, max_q_bucket=5)  # Q is not padded
-        sks = _queue(13, disc_every=0)
+    def test_q_cap_validation_and_non_pow2_chunks(self, index, j_index):
+        for cap in (0, 5):  # the cap is a rung of the pow-2 ladder
+            with pytest.raises(ValueError, match="max_q_bucket"):
+                DiscoveryService(index=index, max_q_bucket=cap)
+            with pytest.raises(ValueError, match="max_q_bucket"):
+                JService(index=j_index, max_q_bucket=cap)
+        svc = DiscoveryService(index=index, max_q_bucket=4)
+        sks = _queue(11, disc_every=0)  # chunks of 4, 4 and 3
         got = svc.submit(sks, top_k=6, min_join=MIN_JOIN)
-        assert svc.admission.q_buckets == {5, 3}
+        assert svc.admission.q_buckets == {4}
         assert svc.admission.split_batches == 2
+        assert svc.admission.padded_lanes == 1
         loop = [index.query(sk, top_k=6, min_join=MIN_JOIN) for sk in sks]
         assert [_flat(g) for g in got] == [_flat(w) for w in loop]
         assert DiscoveryService(index=index).max_q_bucket == MAX_Q_BUCKET
@@ -309,8 +316,9 @@ class TestSubmitContracts:
         svc = DiscoveryService(index=index)
         svc.submit(_queue(3), top_k=3, min_join=MIN_JOIN)
         st = svc.stats()
-        assert set(st) == {"admission", "plan_cache", "ingest", "tiers",
-                           "scheduler"}
+        assert set(st) == {"admission", "plan_cache", "compiled_programs",
+                           "ingest", "tiers", "scheduler"}
+        assert st["compiled_programs"] >= 1
         assert st["scheduler"] is None
         assert st["admission"]["cands_filtered_out"] >= 0
         assert st["ingest"]["pending_rows"] == 0
