@@ -47,10 +47,12 @@ it fails:
      summation order only) and 16-bit within one spacing of the plain
      version's output plus 2e-5 (both accumulate in float32 and round
      once, and near zero the float32 difference spans several
-     spacings); knn_smallest in both modes at P = 1/2/31/255/256/257/512
-     and kb = 1/3/8/128, and ball_counts with both ``which`` at r = 0,
-     +inf and an existing distance, with all-invalid samples, ties and
-     +-inf values, bit-equal; hash_keys on the words 0, 1, 0x7FFFFFFF,
+     spacings); knn_smallest in both modes at P = 1/2/31/255/256/257/512/
+     1024/1025 and kb = 1/3/8/16/128, and ball_counts with both ``which``
+     at r = 0, +inf, NaN and an existing distance, with all-invalid
+     samples, ties and +-inf values, bit-equal, each case required to
+     reach the body ``kernel.takes_staged_two_op`` names and all four
+     bodies reached; hash_keys on the words 0, 1, 0x7FFFFFFF,
      0x80000000, 0xFFFFFFFF and random ones, n = 0/1/127/32769, scalar
      and per-element seeds, Fibonacci on and off, bit-equal to the plain
      version and to the host's numpy hashes;
@@ -115,12 +117,20 @@ it fails:
      as in (b), every window delivered gated, its warm median beside the
      ungated one and the synchronising calls of one gated window
      dispatch beside an ungated one's;
- 12. the two-op kNN API on phase 5's captured launches: ``knn_with_counts``
-     with the radius rule ``radius_counts`` fuses (2 kernel launches per
-     call, counted), its radius, class count and five counts bit-equal to
-     the captured ``radius_counts`` outputs; ``knn_smallest`` and
-     ``ball_counts`` each bit-equal to its plain version on the whole
-     batch, timed beside it, its bound and the fused kernel;
+ 12. the two-op kNN API on phase 5's captured launches: (a)
+     ``knn_with_counts`` with the radius rule ``radius_counts`` fuses (2
+     kernel launches per call, counted, each of the staged body), its
+     radius, class count and five counts bit-equal to the captured
+     ``radius_counts`` outputs; ``knn_smallest`` and ``ball_counts`` each
+     bit-equal to its plain version on the whole batch, its tiled body
+     held bit-equal on the same inputs, and timed: the staged body (which
+     must beat the tiled one on every launch), the tiled body, the plain
+     version, the sorted route's bound and share (KNN_NEED_*, BC_NEED_*;
+     the kernels' line carries it), the direct algorithm's bound
+     (KNN_OPS, BC_OPS) as a ratio, and the fused kernel; (b) the same
+     calls on the samples padded with invalid columns to P = 1280: each
+     of the 2 launches per call of the tiled body, outputs equal to (a)'s
+     on the real columns;
  13. the lake's keys hashed on the card: all C x 384 key words of phase
      3's corpus through ``hash_keys`` (the key hash, the TUPSK tuple-key
      re-hash with the key hashes as per-element seeds, and its Fibonacci
@@ -238,8 +248,9 @@ RC_NEED_BAND, RC_NEED_SAME, RC_NEED_TIE = (6, 0), (3, 0), (3, 1)
 RC_NEED_SEARCHES, RC_NEED_STEP = 4, (2, 0)
 # Bytes per sample row: x, y f32 + mask u8 in; r f32 + cnt i32 + 5 i32 out.
 RC_BYTES_PER_ROW = 9 + 28
-# The two-op kernels, counted from the code as RC_OPS is.  knn_smallest,
-# as (float, int) per valid (i, j != i) pair and per same-class pair:
+# The two-op kernels' direct algorithm (their tiled bodies), counted from
+# the code as RC_OPS is.  knn_smallest, as (float, int) per valid
+# (i, j != i) pair and per same-class pair:
 #   joint: 2 subtractions, 2 abs, max, the compare against the running
 #          W-th smallest;
 #   class: the class test per pair; per same-class pair 1 subtraction,
@@ -249,6 +260,21 @@ RC_BYTES_PER_ROW = 9 + 28
 #   y:   1 subtraction, 1 abs, |dy|<r; 1 add.
 KNN_OPS = {"joint": ((6, 0), (0, 0)), "class": ((1, 0), (3, 1))}
 BC_OPS = {"all": (8, 6), "y": (3, 1)}
+# What the two ops need once a sample is sorted (the bound the kernels
+# line reports, as RC_NEED_* is for radius_counts), as (float, int):
+#   the sort: log2(n!) compares a sample and order (knn_smallest sorts
+#     by x, or by (code, y); ball_counts by y, and with which == all by x);
+#   knn_smallest, joint: the band |dx| < r of each row, r its kb-th
+#     smallest distance, the only columns it could select (2
+#     subtractions, 2 abs, max, the select compare per band pair); class:
+#     the run read off the sorted codes (a compare a column, an add a row
+#     for cnt) and one merge step (1 subtraction, 1 abs, the compare) per
+#     selected same-class neighbour, min(kb, cnt) a row;
+#   ball_counts: binary searches a row of ceil(log2(n+1)) steps (a
+#     subtraction and a compare each): |dy| < r takes 2, and which == all
+#     adds 2 for dy == 0, 4 for the x counts and 2 for j_eq.
+KNN_NEED_BAND, KNN_NEED_MERGE = (6, 0), (3, 0)
+BC_NEED_SEARCHES, BC_NEED_STEP = {"all": 10, "y": 2}, (2, 0)
 # Bytes per sample row: knn_smallest reads x, y f32 + mask u8 and writes
 # kb f32 + cnt i32; ball_counts reads y, r f32 + mask u8 (and x f32 for
 # "all") and writes 5 i32.
@@ -604,8 +630,11 @@ def check_flash_attention(dev) -> dict:
     return worst
 
 
-TWO_OP_P = (1, 2, 31, 255, 256, 257, 512)  # 512: the LV2SK/PRISK 2n capacity
-TWO_OP_KB = (1, 3, 8, 128)
+# 512: the LV2SK/PRISK 2n capacity; 1024: the staged bodies' widest
+# sample; 1025 the tiled bodies'.  kb = 16 is the staged knn_smallest's
+# widest buffer, 128 (K_MAX) the tiled one's.
+TWO_OP_P = (1, 2, 31, 255, 256, 257, 512, 1024, 1025)
+TWO_OP_KB = (1, 3, 8, 16, 128)
 HASH_N = (0, 1, 127, 32769)
 HASH_EDGE = (0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF)
 
@@ -634,22 +663,42 @@ def bit_equal(name: str, got, want) -> float:
     return err
 
 
+def two_op_body(name: str, P: int, kb: int = 1) -> str:
+    """The body of knn_smallest / ball_counts that the rule names."""
+    from repro_torch.kernels.knn_stats import kernel
+
+    return f"{name}_{'staged' if kernel.takes_staged_two_op(P, kb) else 'tiled'}"
+
+
 def check_knn_two_op(dev) -> float:
     """knn_smallest (joint and class, every P and kb) and ball_counts
-    (both ``which``, r = 0, +inf, an existing distance) against their
-    plain versions, bit-equal."""
+    (both ``which``, r = 0, +inf, NaN, an existing distance) against their
+    plain versions, bit-equal, each case through the dispatching wrapper
+    and required to reach the body the rule names; every body reached."""
     from repro_torch.kernels.knn_stats import kernel, ref
 
     gen = torch.Generator().manual_seed(SEED + 3)
     worst, n = 0.0, 0
+    reached = {f"{op}_{b}": 0 for op in ("knn_smallest", "ball_counts")
+               for b in ("staged", "tiled")}
+
+    def hold(name, body, fn, want):
+        reset_launches()
+        got = fn()
+        if read_launches()[body] != 1:
+            raise AssertionError(f"{name} did not reach {body}: {read_launches()}")
+        reached[body] += 1
+        return bit_equal(name, got, want)
+
     for mode in ("joint", "class"):
         for P in TWO_OP_P:
-            B = 64 if P > 256 else 256
+            B = 16 if P > 512 else 64 if P > 256 else 256
             x, y, m = (t.to(dev) for t in two_op_inputs(B, P, mode, gen))
             for kb in TWO_OP_KB:
-                worst = max(worst, bit_equal(
+                worst = max(worst, hold(
                     f"knn_smallest {mode} P={P} kb={kb}",
-                    kernel.knn_smallest(x, y, m, kb=kb, mode=mode),
+                    two_op_body("knn_smallest", P, kb),
+                    lambda: kernel.knn_smallest(x, y, m, kb=kb, mode=mode),
                     ref.knn_smallest(x, y, m, kb=kb, mode=mode)))
                 n += 1
             if mode == "class":
@@ -657,18 +706,22 @@ def check_knn_two_op(dev) -> float:
             knn, _ = ref.knn_smallest(x, y, m, kb=3, mode="joint")
             radii = {"zero": torch.zeros_like(x),
                      "inf": torch.full_like(x, float("inf")),
+                     "nan": torch.full_like(x, float("nan")),
                      "distance": knn[..., 2].contiguous()}
             for rname, r in radii.items():
                 for which in ("all", "y"):
-                    worst = max(worst, bit_equal(
+                    worst = max(worst, hold(
                         f"ball_counts {which} P={P} r={rname}",
-                        kernel.ball_counts(x, y, m, r, which=which),
+                        two_op_body("ball_counts", P),
+                        lambda: kernel.ball_counts(x, y, m, r, which=which),
                         ref.ball_counts(x, y, m, r, which=which)))
                     n += 1
+    if not all(reached.values()):
+        raise AssertionError(f"a two-op body was not reached: {reached}")
     log(f"[compare] knn_smallest / ball_counts: {n} cases (P {TWO_OP_P}, kb "
-        f"{TWO_OP_KB}, joint and class; r = 0, +inf, an existing distance; "
-        f"which all and y; all-invalid samples, ties, +-inf values): "
-        f"max_abs_err={worst}")
+        f"{TWO_OP_KB}, joint and class; r = 0, +inf, NaN, an existing "
+        f"distance; which all and y; all-invalid samples, ties, +-inf values), "
+        f"each through the body the rule names {reached}: max_abs_err={worst}")
     return worst
 
 
@@ -1064,7 +1117,11 @@ def wrappers() -> dict:
             "radius_counts_staged": rc_kernel.radius_counts_staged,
             "radius_counts_tiled": rc_kernel.radius_counts_tiled,
             "knn_smallest": rc_kernel.knn_smallest,
+            "knn_smallest_staged": rc_kernel.knn_smallest_staged,
+            "knn_smallest_tiled": rc_kernel.knn_smallest_tiled,
             "ball_counts": rc_kernel.ball_counts,
+            "ball_counts_staged": rc_kernel.ball_counts_staged,
+            "ball_counts_tiled": rc_kernel.ball_counts_tiled,
             "pairwise_cheb": pc_kernel.pairwise_cheb,
             "murmur3_fib": mm_kernel.murmur3_fib,
             "flash_attention": fa_kernel.flash_attention_simt,
@@ -1717,37 +1774,126 @@ def radius_rule(args: dict, mask: torch.Tensor):
     return clipped
 
 
-def knn_bound(mask, mode, kb, cnt) -> dict:
+def sort_ops(n: torch.Tensor) -> float:
+    """log2(n!) summed over the samples: the compares of a sort."""
+    return float((torch.lgamma(n + 1) / np.log(2)).sum())
+
+
+def search_steps(n: torch.Tensor) -> float:
+    """ceil(log2(n+1)) binary-search steps for each of n rows, summed."""
+    return float((n * torch.ceil(torch.log2(n + 1))).sum())
+
+
+def with_direct(need: dict, direct: dict) -> dict:
+    """The sorted route's bound with the direct algorithm's beside it."""
+    return {**need, "direct_bound_ms": direct["bound_ms"],
+            "direct_float_ops": direct["float_ops"],
+            "direct_int_ops": direct["int_ops"]}
+
+
+def knn_bound(x, mask, mode, kb, knn, cnt) -> dict:
+    """Least time for knn_smallest on these inputs: the sorted route's
+    operations (KNN_NEED_*) or its bytes; the direct algorithm's count
+    (KNN_OPS) beside it."""
     pairs, same = pair_counts(mask, mode, cnt)
     (pf, pi), (sf, si) = KNN_OPS[mode]
-    return bound(pairs * pf + same * sf, pairs * pi + same * si,
-                 mask.numel() * (KNN_BYTES_IN + 4 * kb + 4))
+    nbytes = mask.numel() * (KNN_BYTES_IN + 4 * kb + 4)
+    direct = bound(pairs * pf + same * sf, pairs * pi + same * si, nbytes)
+    n = mask.sum(-1, dtype=torch.float64)
+    f, i = sort_ops(n), 0.0
+    if mode == "joint":
+        band = band_pairs(x, mask, knn[..., kb - 1].contiguous())
+        f, i = f + band * KNN_NEED_BAND[0], i + band * KNN_NEED_BAND[1]
+        steps = 0.0
+    else:
+        band = 0.0
+        steps = float(cnt[mask].clamp(max=kb).sum(dtype=torch.float64))
+        rows = float(n.sum())
+        f = f + rows + steps * KNN_NEED_MERGE[0]
+        i = i + rows + steps * KNN_NEED_MERGE[1]
+    return {**with_direct(bound(f, i, nbytes), direct), "band_pairs": band,
+            "merge_steps": steps}
 
 
 def bc_bound(mask, which) -> dict:
+    """Least time for ball_counts on these inputs: the sorted route's
+    operations (BC_NEED_*) or its bytes; the direct algorithm's count
+    (BC_OPS) beside it."""
     pairs, _ = pair_counts(mask, "joint", None)
     pf, pi = BC_OPS[which]
-    return bound(pairs * pf, pairs * pi, mask.numel() * BC_BYTES[which])
+    nbytes = mask.numel() * BC_BYTES[which]
+    direct = bound(pairs * pf, pairs * pi, nbytes)
+    n = mask.sum(-1, dtype=torch.float64)
+    sorts = 2 if which == "all" else 1
+    steps = BC_NEED_SEARCHES[which] * search_steps(n)
+    f = sorts * sort_ops(n) + steps * BC_NEED_STEP[0]
+    i = steps * BC_NEED_STEP[1]
+    return with_direct(bound(f, i, nbytes), direct)
+
+
+def direct_words(row: dict) -> str:
+    """The direct algorithm's bound against the measured time: how many
+    times under it the kernel runs, or its share when above."""
+    ratio = row["direct_bound_ms"] / row["ms"]
+    if ratio >= 1.0:
+        return f"{ratio:.2f}x under the direct bound {row['direct_bound_ms']:.4f} ms"
+    return (f"{100 * ratio:.1f}% of the direct bound "
+            f"{row['direct_bound_ms']:.4f} ms")
+
+
+# Phase 12 (b): the captured samples padded with invalid columns to this
+# width, past the staged bodies' range, so that knn_with_counts takes both
+# tiled bodies.
+TWO_OP_PAD_P = 1280
+
+
+def pad_columns(t: torch.Tensor, P: int, fill) -> torch.Tensor:
+    out = torch.full((t.shape[0], P), fill, dtype=t.dtype, device=t.device)
+    out[:, :t.shape[1]] = t
+    return out
+
+
+def time_op(kernel_fn, plain_fn, want, name: str, bnd: dict, body: str,
+            tiled_fn) -> dict:
+    """One op on one captured launch: the staged body's ms, the tiled
+    body's on the same inputs (held bit-equal), the plain version's, the
+    sorted route's bound and share, and the direct algorithm's ratio."""
+    tiled_err = bit_equal(f"{name} (the tiled body)", tiled_fn(), want)
+    row = {**bnd, "body": body, "tiled_max_abs_err": tiled_err,
+           "ms": time_cuda(kernel_fn, 20), "tiled_ms": time_cuda(tiled_fn, 10),
+           "plain_ms": time_cuda(plain_fn, 2)}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["direct_ratio"] = row["direct_bound_ms"] / row["ms"]
+    return row
 
 
 def run_two_op(seen: list, card: str) -> dict:
-    """Phase 12: ``knn_with_counts`` on each launch phase 5 captured, with
-    the radius rule ``radius_counts`` uses; 2 kernel launches per call;
-    r, cnt and all five counts bit-equal to the captured outputs.  Then
-    each kernel against its plain version on the same (whole) batch, and
-    timed beside it, its bound and the fused kernel."""
+    """Phase 12: (a) ``knn_with_counts`` on each launch phase 5 captured,
+    with the radius rule ``radius_counts`` uses; 2 kernel launches per
+    call, each of the staged body; r, cnt and all five counts bit-equal to
+    the captured outputs.  Then each op against its plain version on the
+    same (whole) batch, and timed: its staged body, its tiled body on the
+    same inputs, the plain version, the sorted route's bound (KNN_NEED_*,
+    BC_NEED_*) and the direct algorithm's (KNN_OPS, BC_OPS), and the fused
+    kernel.  (b) the same calls on the samples padded with invalid columns
+    to TWO_OP_PAD_P: 2 launches per call, each of the tiled body, outputs
+    equal to (a)'s on the real columns."""
     from repro_torch.kernels.knn_stats import kernel, ops, ref
 
+    def two_op(x, y, m, args):
+        return ops.knn_with_counts(x, y, m, k=args["k"], k_max=args["kb"],
+                                   mode=args["mode"], which=args["which"],
+                                   radius=radius_rule(args, m))
+
     reset_launches()
-    outs = [ops.knn_with_counts(x, y, m, k=args["k"], k_max=args["kb"],
-                                mode=args["mode"], which=args["which"],
-                                radius=radius_rule(args, m))
-            for x, y, m, args, _ in seen]
+    outs = [two_op(x, y, m, args) for x, y, m, args, _ in seen]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"knn_smallest": len(seen), "ball_counts": len(seen)}
+    n = len(seen)
+    want = {"knn_smallest": n, "knn_smallest_staged": n, "ball_counts": n,
+            "ball_counts_staged": n}
     if {k: v for k, v in launches.items() if v} != want:
-        raise AssertionError(f"knn_with_counts over {len(seen)} captured launches "
+        raise AssertionError(f"knn_with_counts over {n} captured launches "
                              f"made {launches}; expected {want}")
     rows = []
     for (x, y, m, args, fused), (knn, cnt, counts) in zip(seen, outs):
@@ -1759,39 +1905,81 @@ def run_two_op(seen: list, card: str) -> dict:
                                (r, cnt, counts), fused)
         mode, which, kb = args["mode"], args["which"], args["kb"]
         rr = r.contiguous()
-        knn_err = bit_equal(f"knn_smallest {name}", (knn, cnt),
-                            ref.knn_smallest(x, y, m, kb=kb, mode=mode))
-        bc_err = bit_equal(f"ball_counts {name}", counts,
-                           ref.ball_counts(x, y, m, rr, which=which))
+        knn_want = ref.knn_smallest(x, y, m, kb=kb, mode=mode)
+        knn_err = bit_equal(f"knn_smallest {name}", (knn, cnt), knn_want)
+        bc_want = ref.ball_counts(x, y, m, rr, which=which)
+        bc_err = bit_equal(f"ball_counts {name}", counts, bc_want)
         kw = dict(k=args["k"], k_max=kb, mode=mode, which=which, radius=rule)
         row = {
             "mode": mode, "which": which, "k": args["k"], "kb": kb, "kk": args["kk"],
             "B": B, "P": P, "plain_batch": B, "two_op_vs_fused_err": two_op_err,
-            "knn_smallest": {
-                "max_abs_err": knn_err,
-                "ms": time_cuda(lambda: kernel.knn_smallest(x, y, m, kb=kb, mode=mode), 20),
-                "plain_ms": time_cuda(lambda: ref.knn_smallest(x, y, m, kb=kb, mode=mode), 2),
-                **knn_bound(m, mode, kb, cnt)},
-            "ball_counts": {
-                "max_abs_err": bc_err,
-                "ms": time_cuda(lambda: kernel.ball_counts(x, y, m, rr, which=which), 20),
-                "plain_ms": time_cuda(lambda: ref.ball_counts(x, y, m, rr, which=which), 2),
-                **bc_bound(m, which)},
+            "knn_smallest": {"max_abs_err": knn_err, **time_op(
+                lambda: kernel.knn_smallest(x, y, m, kb=kb, mode=mode),
+                lambda: ref.knn_smallest(x, y, m, kb=kb, mode=mode), knn_want,
+                f"knn_smallest {name}", knn_bound(x, m, mode, kb, knn, cnt),
+                two_op_body("knn_smallest", P, kb),
+                lambda: kernel.knn_smallest_tiled(x, y, m, kb=kb, mode=mode))},
+            "ball_counts": {"max_abs_err": bc_err, **time_op(
+                lambda: kernel.ball_counts(x, y, m, rr, which=which),
+                lambda: ref.ball_counts(x, y, m, rr, which=which), bc_want,
+                f"ball_counts {name}", bc_bound(m, which),
+                two_op_body("ball_counts", P),
+                lambda: kernel.ball_counts_tiled(x, y, m, rr, which=which))},
             "knn_with_counts_ms": time_cuda(lambda: ops.knn_with_counts(x, y, m, **kw), 20),
             "radius_counts_ms": time_cuda(lambda: kernel.radius_counts(x, y, m, **args), 20),
         }
+        for op in ("knn_smallest", "ball_counts"):
+            o = row[op]
+            log(f"[two-op] {op} {name} ({o['body']}): {o['ms']:.4f} ms, the tiled "
+                f"body {o['tiled_ms']:.4f} ms ({o['tiled_ms'] / o['ms']:.2f}x), plain "
+                f"{o['plain_ms']:.4f} ms; sorted-route bound {o['bound_ms']:.4f} ms "
+                f"({o['bound_by']}, {100 * o['bound_share']:.1f}%), "
+                f"{direct_words(o)}; card {card}")
+            if o["tiled_ms"] <= o["ms"]:
+                raise AssertionError(f"{op} {name}: the staged body ({o['ms']:.4f} ms) "
+                                     f"is not faster than the tiled one "
+                                     f"({o['tiled_ms']:.4f} ms)")
         log(f"[two-op] {name}: knn_with_counts == radius_counts (r, cnt, 5 counts), "
-            f"each kernel == its plain version on the whole batch; knn_smallest "
-            f"{row['knn_smallest']['ms']:.4f} ms (plain {row['knn_smallest']['plain_ms']:.4f}, "
-            f"bound {row['knn_smallest']['bound_ms']:.4f} {row['knn_smallest']['bound_by']}), "
-            f"ball_counts {row['ball_counts']['ms']:.4f} ms (plain "
-            f"{row['ball_counts']['plain_ms']:.4f}, bound {row['ball_counts']['bound_ms']:.4f} "
-            f"{row['ball_counts']['bound_by']}); knn_with_counts "
-            f"{row['knn_with_counts_ms']:.4f} ms against radius_counts "
-            f"{row['radius_counts_ms']:.4f} ms; card {card}")
+            f"each op and each body == its plain version on the whole batch; "
+            f"knn_with_counts {row['knn_with_counts_ms']:.4f} ms against "
+            f"radius_counts {row['radius_counts_ms']:.4f} ms "
+            f"({row['knn_with_counts_ms'] / row['radius_counts_ms']:.2f}x); card {card}")
         rows.append(row)
-    del outs
-    return {"launches": launches, "rows": rows}
+
+    # (b) The tiled bodies through knn_with_counts: the same samples, padded.
+    reset_launches()
+    padded = []
+    for x, y, m, args, _ in seen:
+        xp, yp = (pad_columns(t, TWO_OP_PAD_P, 0.0) for t in (x, y))
+        mp = pad_columns(m, TWO_OP_PAD_P, False)
+        padded.append(two_op(xp, yp, mp, args))
+    torch.cuda.synchronize()
+    tiled_launches = read_launches()
+    want = {"knn_smallest": n, "knn_smallest_tiled": n, "ball_counts": n,
+            "ball_counts_tiled": n}
+    if {k: v for k, v in tiled_launches.items() if v} != want:
+        raise AssertionError(f"knn_with_counts at P={TWO_OP_PAD_P} made "
+                             f"{tiled_launches}; expected {want}")
+    tiled_err = 0.0
+    for (x, y, m, args, _), out, pout in zip(seen, outs, padded):
+        P = x.shape[1]
+        name = f"{args['mode']}/{args['which']} padded to P={TWO_OP_PAD_P}"
+        (knn, cnt, counts), (pk, pc, pcounts) = out, pout
+        pcounts = torch.stack(tuple(pcounts))
+        tiled_err = max(tiled_err, bit_equal(
+            f"knn_with_counts {name}",
+            (pk[:, :P], pc[:, :P], pcounts[:, :, :P]),
+            (knn, cnt, torch.stack(tuple(counts)))))
+        if not (torch.isinf(pk[:, P:]).all() and not pc[:, P:].any()
+                and not pcounts[:, :, P:].any()):
+            raise AssertionError(f"knn_with_counts {name}: a padded column "
+                                 "is not +inf / 0")
+    log(f"[two-op] (b) knn_with_counts on the {n} captured launches padded to "
+        f"P={TWO_OP_PAD_P}: {tiled_launches['knn_smallest_tiled']} launches of "
+        f"each tiled body, outputs == (a) on the real columns; card {card}")
+    del outs, padded
+    return {"launches": launches, "tiled_launches": tiled_launches,
+            "tiled_err": tiled_err, "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -2586,6 +2774,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     knn_rows = [r["knn_smallest"] for r in two_op["rows"]]
     bc_rows = [r["ball_counts"] for r in two_op["rows"]]
+    for op, op_rows in (("knn_smallest", knn_rows), ("ball_counts", bc_rows)):
+        tot = {k: sum(r[k] for r in op_rows)
+               for k in ("ms", "tiled_ms", "plain_ms", "bound_ms", "direct_bound_ms")}
+        log(f"[time] {op}, phase 12's {len(op_rows)} launches: staged "
+            f"{tot['ms']:.4f} ms, the tiled body on the same inputs "
+            f"{tot['tiled_ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms; "
+            f"sorted-route bound {tot['bound_ms']:.4f} ms ({bound_by(op_rows)}, "
+            f"{100 * tot['bound_ms'] / tot['ms']:.1f}%), {direct_words(tot)}; "
+            f"card {card}")
 
     # Phase 11: the model serving path, with the discovery state freed.
     serving = run_serving(card, dev)
@@ -2673,31 +2870,34 @@ def main() -> int:
         "bound_ms": serving["flash"]["bound_ms"],
         "bound_by": serving["flash"]["bound_by"],
         "library_ms": serving["flash"]["library_ms"],
-    }, {
-        "name": "knn_smallest",
+    }, *[{
+        "name": name,
         "route": "cuda",
         "source": "src/repro_torch/kernels/knn_stats/csrc/knn_two_op.cu",
-        "replaces": "src/repro/kernels/knn_stats/kernel.py:381",
-        "launches": two_op["launches"]["knn_smallest"],
-        "max_abs_err": max([two_op_err] + [r["max_abs_err"] for r in knn_rows]),
-        "ms": sum(r["ms"] for r in knn_rows),
-        "plain_ms": sum(r["plain_ms"] for r in knn_rows),
-        "bound_ms": sum(r["bound_ms"] for r in knn_rows),
-        "bound_by": bound_by(knn_rows),
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max([two_op_err, two_op["tiled_err"]]
+                           + [r[err] for r in op_rows]),
+        "ms": sum(r[ms] for r in op_rows),
+        "plain_ms": sum(r["plain_ms"] for r in op_rows),
+        "bound_ms": sum(r["bound_ms"] for r in op_rows),
+        "bound_by": bound_by(op_rows),
         "library_ms": None,
-    }, {
-        "name": "ball_counts",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/knn_stats/csrc/knn_two_op.cu",
-        "replaces": "src/repro/kernels/knn_stats/kernel.py:426",
-        "launches": two_op["launches"]["ball_counts"],
-        "max_abs_err": max([two_op_err] + [r["max_abs_err"] for r in bc_rows]),
-        "ms": sum(r["ms"] for r in bc_rows),
-        "plain_ms": sum(r["plain_ms"] for r in bc_rows),
-        "bound_ms": sum(r["bound_ms"] for r in bc_rows),
-        "bound_by": bound_by(bc_rows),
-        "library_ms": None,
-    }, {
+    } for name, replaces, op_rows, launches, ms, err in (
+        # The staged bodies: phase 12 (a)'s launches; the tiled bodies:
+        # phase 12 (b)'s, timed on (a)'s inputs (the same function, the
+        # same bound).
+        ("knn_smallest", "src/repro/kernels/knn_stats/kernel.py:381", knn_rows,
+         two_op["launches"]["knn_smallest_staged"], "ms", "max_abs_err"),
+        ("knn_smallest_tiled", "src/repro/kernels/knn_stats/kernel.py:381",
+         knn_rows, two_op["tiled_launches"]["knn_smallest_tiled"], "tiled_ms",
+         "tiled_max_abs_err"),
+        ("ball_counts", "src/repro/kernels/knn_stats/kernel.py:426", bc_rows,
+         two_op["launches"]["ball_counts_staged"], "ms", "max_abs_err"),
+        ("ball_counts_tiled", "src/repro/kernels/knn_stats/kernel.py:426",
+         bc_rows, two_op["tiled_launches"]["ball_counts_tiled"], "tiled_ms",
+         "tiled_max_abs_err"))],
+    {
         "name": "murmur3_fib",
         "route": "cuda",
         "source": "src/repro_torch/kernels/murmur3/csrc/murmur3_fib.cu",

@@ -76,8 +76,10 @@ def launch_counters() -> tuple:
     from repro_torch.kernels.pairwise_cheb import kernel as pc
 
     return (rc.radius_counts, rc.radius_counts_staged, rc.radius_counts_tiled,
-            rc.knn_smallest, rc.ball_counts, pc.pairwise_cheb, mm.murmur3_fib,
-            fa.flash_attention_simt, fa.flash_attention_wgmma)
+            rc.knn_smallest, rc.knn_smallest_staged, rc.knn_smallest_tiled,
+            rc.ball_counts, rc.ball_counts_staged, rc.ball_counts_tiled,
+            pc.pairwise_cheb, mm.murmur3_fib, fa.flash_attention_simt,
+            fa.flash_attention_wgmma)
 
 
 @contextlib.contextmanager

@@ -305,7 +305,9 @@ def test_program_drops_programs_of_freed_buffers_and_checks_arguments():
 def test_launch_counters_are_every_kernel_wrapper():
     names = [f.__name__ for f in tc.launch_counters()]
     assert names == ["radius_counts", "radius_counts_staged",
-                     "radius_counts_tiled", "knn_smallest", "ball_counts",
+                     "radius_counts_tiled", "knn_smallest",
+                     "knn_smallest_staged", "knn_smallest_tiled",
+                     "ball_counts", "ball_counts_staged", "ball_counts_tiled",
                      "pairwise_cheb", "murmur3_fib", "flash_attention_simt",
                      "flash_attention_wgmma"]
     assert all(isinstance(f.launches, int) for f in tc.launch_counters())

@@ -280,52 +280,90 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The card-side cases: KNN_CASES plus the edges of the staged bodies'
+# range (P = 1024, kb = 16) and past them (P = 1025, kb = 17 and 128), so
+# that each body of each op is reached.
+CUDA_KNN_CASES = KNN_CASES + [
+    (1024, "joint", 16, None),
+    (1024, "class", 3, 16),
+    (1025, "joint", 3, None),
+    (1025, "class", 3, None),
+    (256, "joint", 17, None),
+    (256, "class", 3, j_ops.K_MAX),
+]
+
+
+def _bodies(name):
+    """The dispatching wrapper and its two bodies."""
+    return [getattr(kernel, name + s) for s in ("", "_staged", "_tiled")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,mode,k,k_max", KNN_CASES)
+@pytest.mark.parametrize("P,mode,k,k_max", CUDA_KNN_CASES)
 def test_cuda_knn_smallest_matches_plain(cuda_device, P, mode, k, k_max):
-    """On the card: the CUDA kernel bit-equal to the plain version."""
+    """On the card: the dispatching kernel reaches the body the rule
+    names, and it and every body that takes the shape are bit-equal to
+    the plain version."""
     x, y, mask = _samples(P, mode, seed=P + k)
     kb = k if k_max is None else k_max
     T = [t.to(cuda_device) for t in _t(x, y, mask)]
-    before = kernel.knn_smallest.launches
-    got = kernel.knn_smallest(*T, kb=kb, mode=mode)
+    staged = kernel.takes_staged_two_op(P, kb)
+    wrapper, st, ti = _bodies("knn_smallest")
+    body = st if staged else ti
+    before = (wrapper.launches, body.launches)
+    got = wrapper(*T, kb=kb, mode=mode)
     want = ref.knn_smallest(*T, kb=kb, mode=mode)
     torch.cuda.synchronize()
-    assert kernel.knn_smallest.launches == before + 1
+    assert (wrapper.launches, body.launches) == (before[0] + 1, before[1] + 1)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    for g, w in zip(ti(*T, kb=kb, mode=mode), want):  # the tiled body takes all
+        assert torch.equal(g, w)
+    if not staged:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            st(*T, kb=kb, mode=mode)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P", [300, 1024, 1025])
 @pytest.mark.parametrize("which", ["all", "y"])
 @pytest.mark.parametrize("kind", ["random", "zero", "inf", "distance"])
-def test_cuda_ball_counts_match_plain(cuda_device, kind, which):
-    x, y, mask = _samples(300, "joint", seed=9)
+def test_cuda_ball_counts_match_plain(cuda_device, kind, which, P):
+    x, y, mask = _samples(P, "joint", seed=9)
     r = _radii(kind, x, y, mask, np.random.default_rng(10))
     T = [t.to(cuda_device) for t in _t(x, y, mask, r)]
-    before = kernel.ball_counts.launches
-    got = kernel.ball_counts(*T, which=which)
+    staged = kernel.takes_staged_two_op(P)
+    wrapper, st, ti = _bodies("ball_counts")
+    body = st if staged else ti
+    before = (wrapper.launches, body.launches)
+    got = wrapper(*T, which=which)
     want = ref.ball_counts(*T, which=which)
     torch.cuda.synchronize()
-    assert kernel.ball_counts.launches == before + 1
+    assert (wrapper.launches, body.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(got, want)
+    assert torch.equal(ti(*T, which=which), want)
+    if not staged:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            st(*T, which=which)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P,mode,which,k,k_max,kk", KWC_CASES)
 def test_cuda_knn_with_counts_two_launches(cuda_device, P, mode, which, k,
                                            k_max, kk):
-    """Through ops on the card: one launch of each kernel, and the
-    radius and counts of the fused kernel."""
+    """Through ops on the card: one launch of each kernel, each of its
+    staged body (P <= 1024, kb <= 16), and the radius and counts of the
+    fused kernel."""
     x, y, mask = _samples(P, mode, seed=P + 3 * k)
     kb = k if k_max is None else k_max
     xt, yt, mt = (t.to(cuda_device) for t in _t(x, y, mask))
     radius = None if kk is None else _dc_radius(kk, kb, mt)
-    n0 = (kernel.knn_smallest.launches, kernel.ball_counts.launches)
+    counters = (kernel.knn_smallest, kernel.ball_counts,
+                kernel.knn_smallest_staged, kernel.ball_counts_staged)
+    n0 = [f.launches for f in counters]
     knn, cnt, counts = t_ops.knn_with_counts(
         xt, yt, mt, k=k, k_max=k_max, mode=mode, which=which, radius=radius)
-    assert (kernel.knn_smallest.launches, kernel.ball_counts.launches) \
-        == (n0[0] + 1, n0[1] + 1)
+    assert [f.launches for f in counters] == [n + 1 for n in n0]
     r = knn[..., k - 1] if radius is None else radius(knn, cnt)
     fr, fcnt, fcounts = t_ops.knn_radius_counts(
         xt, yt, mt, k=k, k_max=k_max, mode=mode, which=which, kk=kk)
