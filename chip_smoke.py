@@ -17,7 +17,8 @@ it fails:
      the six kernel sources (``radius_counts.cu`` holds both bodies),
      ``knn_stats/csrc/radius_counts.cu``,
      ``knn_stats/csrc/knn_two_op.cu``, ``pairwise_cheb/csrc/pairwise_cheb.cu``,
-     ``flash_attention/csrc/flash_attention.cu`` (the CUDA-core kernel),
+     ``flash_attention/csrc/flash_attention.cu`` (the CUDA-core kernel,
+     both bodies),
      ``flash_attention/csrc/flash_wgmma.cu`` (the Hopper kernel) and
      ``murmur3/csrc/murmur3_fib.cu``, one ``nvcc`` each, started together
      (seconds and ``ptxas`` register/spill/shared-memory reports);
@@ -47,7 +48,11 @@ it fails:
      summation order only) and 16-bit within one spacing of the plain
      version's output plus 2e-5 (both accumulate in float32 and round
      once, and near zero the float32 difference spans several
-     spacings); knn_smallest in both modes at P = 1/2/31/255/256/257/512/
+     spacings), each case also required to reach the body
+     ``kernel.takes_regtile`` names (float32 at Dk, Dv <= 128 the
+     register-tiled body, held within atol 2e-5 of the basic body on the
+     same inputs too; the rest the basic body), both bodies reached;
+     knn_smallest in both modes at P = 1/2/31/255/256/257/512/
      1024/1025 and kb = 1/3/8/16/128, and ball_counts with both ``which``
      at r = 0, +inf, NaN and an existing distance, with all-invalid
      samples, ties and +-inf values, bit-equal, each case required to
@@ -156,9 +161,13 @@ it fails:
      ``SERVED_RTOL``; a forward whose attention drops the causal mask
      must fall outside it; (c) the float32 ``forward`` of the same
      tokens through the kernels (the CUDA-core kernel's path: 24
-     launches, none of the Hopper one), its logits within 1e-3 relative
-     RMS of the plain float32 forward, each of its 24 launches held
-     within atol 2e-5 of the plain version and timed as in (a).
+     launches, all of its register-tiled body, none of the Hopper
+     kernel), its logits within 1e-3 relative RMS of the plain float32
+     forward; the same forward through the basic body (24 launches, the
+     same tolerance); then each of the 24 launches held within atol 2e-5
+     of both plain versions and of the basic body on the same inputs and
+     timed as in (a), the basic body timed beside it, with the
+     register-tiled body's ptxas registers, spills and shared memory.
 
  16. compiled programs against ``compile.eager()``, on the phase-3 index
      and the phase-11 model: (a) warm ``query_many`` per target dtype,
@@ -571,16 +580,21 @@ def fa_within_p(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor,
 def check_flash_attention(dev) -> dict:
     """Both kernels against their plain versions on synthetic cases, each
     case through the dispatching ``kernel.flash_attention`` and required
-    to reach the kernel the rule names.  Returns the worst errors by
-    kernel name."""
+    to reach the kernel (and, for the CUDA-core kernel, the body) the rules
+    name; a case of the register-tiled body is also held within atol
+    FA_F32_ATOL of the basic body on the same inputs.  Returns the worst
+    errors by wrapper name."""
     from functools import partial
 
     from repro_torch.kernels.flash_attention import kernel, ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    worst = {"flash_attention": 0.0, "flash_attention_wgmma": 0.0}
-    units = {"flash_attention": 0.0, "flash_attention_wgmma": 0.0}
-    n = {"flash_attention": 0, "flash_attention_wgmma": 0}
+    names = ("flash_attention_simt_regtile", "flash_attention_simt_basic",
+             "flash_attention_wgmma")
+    worst = dict.fromkeys(names, 0.0)
+    units = dict.fromkeys(names, 0.0)
+    n = dict.fromkeys(names, 0)
+    body_gap = 0.0
     for dtype, dk, dv, S, group, causal in FA_CASES:
         hq = FA_HKV * group
         q = torch.randn(1, hq, S, dk, generator=gen, device=dev).to(dtype)
@@ -588,12 +602,17 @@ def check_flash_attention(dev) -> dict:
         v = torch.randn(1, FA_HKV, S, dv, generator=gen, device=dev).to(dtype)
         scale = 1.0 / dk ** 0.5
         hopper = dtype != torch.float32 and (dk, dv) in kernel.WGMMA_HEAD_DIMS
-        name = "flash_attention_wgmma" if hopper else "flash_attention"
+        if hopper:
+            name, want_launches = "flash_attention_wgmma", {"flash_attention_wgmma": 1}
+        else:
+            name = ("flash_attention_simt_regtile" if kernel.takes_regtile(q, k, v)
+                    else "flash_attention_simt_basic")
+            want_launches = {"flash_attention": 1, name: 1}
         reset_launches()
         got = kernel.flash_attention(q, k, v, scale=scale, causal=causal)
         case = (f"{str(dtype)[6:]} Dk={dk} Dv={dv} S={S} group={group} "
                 f"causal={causal}")
-        if read_launches() != {**{k_: 0 for k_ in wrappers()}, name: 1}:
+        if read_launches() != {**{k_: 0 for k_ in wrappers()}, **want_launches}:
             raise AssertionError(f"flash_attention {case} did not reach "
                                  f"{name}: {read_launches()}")
         if hopper:
@@ -614,19 +633,35 @@ def check_flash_attention(dev) -> dict:
             worst[name] = max(worst[name], err)
             if u == u:
                 units[name] = max(units[name], u)
+        if name == "flash_attention_simt_regtile":
+            basic = kernel.flash_attention_simt_basic(q, k, v, scale=scale,
+                                                      causal=causal)
+            ok, err, _ = fa_within(got, basic)
+            if not ok:
+                raise AssertionError(f"{name} {case} differs from the basic "
+                                     f"body: max_abs_err={err}")
+            body_gap = max(body_gap, err)
         n[name] += 1
         del got, want
+    if not all(n.values()):
+        raise AssertionError(f"a flash body was never reached: {n}")
     log(f"[compare] flash_attention_wgmma: {n['flash_attention_wgmma']} cases "
         f"(bf16/fp16 at (Dk, Dv) in {sorted(kernel.WGMMA_HEAD_DIMS)}) within 1 "
         f"spacing + {FA_P_VREL} max|v| + {FA_F32_ATOL} of mha_reference and of "
         f"chunked_attention(p_dtype): max_abs_err="
         f"{worst['flash_attention_wgmma']}, worst error in units of the bound="
         f"{units['flash_attention_wgmma']}")
-    log(f"[compare] flash_attention (CUDA cores): {n['flash_attention']} cases "
-        f"(float32 within atol {FA_F32_ATOL}, 16-bit within {FA_BF16_ULPS} "
-        f"spacing + {FA_F32_ATOL}) against chunked_attention and mha_reference: "
-        f"max_abs_err={worst['flash_attention']}, worst 16-bit error in "
-        f"spacings={units['flash_attention']}")
+    log(f"[compare] flash_attention (CUDA cores), register-tiled body: "
+        f"{n['flash_attention_simt_regtile']} cases (float32, Dk and Dv <= 128) "
+        f"within atol {FA_F32_ATOL} of chunked_attention, mha_reference and the "
+        f"basic body: max_abs_err={worst['flash_attention_simt_regtile']}, "
+        f"against the basic body {body_gap}")
+    log(f"[compare] flash_attention (CUDA cores), basic body: "
+        f"{n['flash_attention_simt_basic']} cases (float32 above 128, 16-bit "
+        f"at other head dims; float32 within atol {FA_F32_ATOL}, 16-bit within "
+        f"{FA_BF16_ULPS} spacing + {FA_F32_ATOL}) against chunked_attention and "
+        f"mha_reference: max_abs_err={worst['flash_attention_simt_basic']}, "
+        f"worst 16-bit error in spacings={units['flash_attention_simt_basic']}")
     return worst
 
 
@@ -1125,6 +1160,8 @@ def wrappers() -> dict:
             "pairwise_cheb": pc_kernel.pairwise_cheb,
             "murmur3_fib": mm_kernel.murmur3_fib,
             "flash_attention": fa_kernel.flash_attention_simt,
+            "flash_attention_simt_regtile": fa_kernel.flash_attention_simt_regtile,
+            "flash_attention_simt_basic": fa_kernel.flash_attention_simt_basic,
             "flash_attention_wgmma": fa_kernel.flash_attention_wgmma}
 
 
@@ -2125,11 +2162,32 @@ def device_ms_per_call(calls: list, reps: int = 5) -> float:
                          f"{PROFILE_TRIES} windows")
 
 
+def regtile_build_report() -> list[str]:
+    """ptxas's registers, spills and stack for each instantiation of the
+    register-tiled body (from this run's build), one line each."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    lines = fa_kernel.load_library().ptxas.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "flash_regtile_kernel" in line:
+            args = line.split("flash_regtile_kernelILi")[1].split("EEEv")[0]
+            dk, nch = args.split("ELi")
+            tail = " ".join(x.strip().replace("ptxas info    : ", "")
+                            for x in lines[i + 1:i + 4]
+                            if "Compiling" not in x and "properties" not in x)
+            out.append(f"Dk={'runtime' if dk == '0' else dk}, {nch} output "
+                       f"chunks a lane: {tail}")
+    return out
+
+
 def hold_flash_launches(seen: list, card: str, name: str) -> dict:
     """Each captured launch of kernel ``name`` held against both plain
     versions on its own inputs (the kernel's tolerance), then timed there
     beside its plain version, its bound, ``scaled_dot_product_attention``
-    and, for the Hopper kernel, the CUDA-core kernel on the same inputs."""
+    and the kernel or body it replaced on the same inputs: for the Hopper
+    kernel the CUDA-core kernel, for the register-tiled body the basic body
+    (held within FA_F32_ATOL of it too, and timed as the body is)."""
     from functools import partial
 
     import torch.nn.functional as F
@@ -2138,7 +2196,9 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
     hopper = name == "flash_attention_wgmma"
+    regtile = name == "flash_attention_simt_regtile"
     launch = wrappers()[name]
+    basic = fa_kernel.flash_attention_simt_basic
     rows = []
     for layer, (q, k, v, scale, causal, got) in enumerate(seen):
         group = q.shape[1] // k.shape[1]
@@ -2146,7 +2206,14 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
             plain = partial(fa_ref.chunked_attention, p_dtype=q.dtype)
         else:
             plain = fa_ref.chunked_attention
-        units = []
+        if regtile:
+            out = launch(q, k, v, scale=scale, causal=causal)
+            ok, err, _ = fa_within(out, got)
+            if not ok:  # the captured launch went through the dispatch
+                raise AssertionError(f"{name} launch of layer {layer} differs "
+                                     f"from the dispatched one: {err}")
+            got_basic = basic(q, k, v, scale=scale, causal=causal)
+        units, basic_units = [], []
         for ref_fn in (plain, fa_ref.mha_reference):
             want = ref_fn(q, k, v, scale=scale, causal=causal)
             torch.cuda.synchronize()
@@ -2157,6 +2224,13 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
                                      f"from its plain version: {u} units, "
                                      f"max_abs_err {err}")
             units.append((err, u))
+            if regtile:
+                ok, err, _ = fa_within(got_basic, want)
+                if not ok:
+                    raise AssertionError(f"the basic body on layer {layer}'s "
+                                         f"inputs differs from its plain "
+                                         f"version: max_abs_err {err}")
+                basic_units.append(err)
         lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                              enable_gqa=True, scale=scale)
         lib_err = _max_abs_err(lib, want)
@@ -2176,9 +2250,18 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
         if hopper:
             row["simt_ms"] = time_cuda(lambda: fa_kernel.flash_attention_simt(
                 q, k, v, scale=scale, causal=causal), 3)
+        if regtile:
+            row["basic_max_abs_err"] = max(basic_units)
+            row["basic_gap"] = fa_within(got, got_basic)[1]
+            if not fa_within(got, got_basic)[0]:
+                raise AssertionError(f"{name} launch of layer {layer} differs "
+                                     f"from the basic body: {row['basic_gap']}")
+            row["basic_event_ms"] = time_cuda(lambda: basic(
+                q, k, v, scale=scale, causal=causal), 5)
         rows.append(row)
     keys = (("event_ms", "plain_ms", "library_event_ms", "bound_ms")
-            + (("simt_ms",) if hopper else ()))
+            + (("simt_ms",) if hopper else ())
+            + (("basic_event_ms",) if regtile else ()))
     fa = {k: float(np.mean([r[k] for r in rows])) for k in keys}
     # CUDA events around back-to-back launches measure the host instead
     # once its time per call exceeds the kernel's (the Hopper kernel's
@@ -2193,6 +2276,11 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
                  for q, k, v, sc, c, _ in seen]
     fa["ms"] = device_ms_per_call(calls)
     fa["library_ms"] = device_ms_per_call(lib_calls)
+    if regtile:
+        fa["basic_ms"] = device_ms_per_call(
+            [lambda q=q, k=k, v=v, sc=sc, c=c: basic(q, k, v, scale=sc, causal=c)
+             for q, k, v, sc, c, _ in seen])
+        fa["ms_again"] = device_ms_per_call(calls)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for fn in calls:
@@ -2206,17 +2294,36 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
     unit = ("units of 1 spacing + 2^-8 max|v| + 2e-5" if hopper else
             ("bfloat16 spacings" if rows[0]["dtype"] != "torch.float32"
              else f"(float32, atol {FA_F32_ATOL})"))
-    simt = f", the CUDA-core kernel {fa['simt_ms']:.4f} ms" if hopper else ""
+    beside = ""
+    if hopper:
+        beside = f", the CUDA-core kernel {fa['simt_ms']:.4f} ms"
+    if regtile:
+        fa["basic_max_abs_err"] = max(r["basic_max_abs_err"] for r in rows)
+        fa["basic_gap"] = max(r["basic_gap"] for r in rows)
+        fa["bound_share"] = fa["bound_ms"] / fa["ms"]
+        Dk, Dv = seen[0][0].shape[-1], seen[0][2].shape[-1]
+        fa["smem_bytes"] = int(fa_kernel.load_library().lib
+                               .flash_attention_regtile_smem(Dk, Dv))
+        fa["ptxas"] = regtile_build_report()
+        beside = (f", the basic body on the same inputs {fa['basic_ms']:.4f} "
+                  f"ms device time (events {fa['basic_event_ms']:.4f} ms; within "
+                  f"{fa['basic_gap']} of the register-tiled body)")
+        for line in fa["ptxas"]:
+            log(f"[build] flash_attention_simt_regtile {line}")
+        log(f"[build] flash_attention_simt_regtile shared memory at (Dk, Dv) = "
+            f"({Dk}, {Dv}): {fa['smem_bytes']} bytes a block")
     log(f"[time] {name} at q {rows[0]['shape_q']}, k {rows[0]['shape_k']}, "
         f"{rows[0]['dtype']}, causal={seen[0][4]}, mean over the {len(rows)} "
-        f"launches: {fa['ms']:.4f} ms device time under the profiler (CUDA "
-        f"events around {FA_TIME_REPS} launches {fa['event_ms']:.4f} ms; host "
+        f"launches: {fa['ms']:.4f} ms device time under the profiler"
+        + (f" ({fa['ms_again']:.4f} ms in a second window; "
+           f"{100 * fa['bound_share']:.1f}% of the bound)" if regtile else "")
+        + f" (CUDA events around {FA_TIME_REPS} launches {fa['event_ms']:.4f} ms; host "
         f"time per call {fa['host_ms']:.4f} ms), plain {fa['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention {fa['library_ms']:.4f} ms (events "
         f"{fa['library_event_ms']:.4f})"
-        f"{simt}, bound {fa['bound_ms']:.4f} ms ({fa['bound_by']}); all within tolerance of "
-        f"both plain versions (worst {fa['units']} {unit}, max_abs_err "
-        f"{fa['max_abs_err']}); card {card}")
+        f"{beside}, bound {fa['bound_ms']:.4f} ms ({fa['bound_by']}); all within "
+        f"tolerance of both plain versions (worst {fa['units']} {unit}, "
+        f"max_abs_err {fa['max_abs_err']}); card {card}")
     return fa
 
 
@@ -2399,28 +2506,49 @@ def run_serving(card: str, dev: torch.device) -> dict:
                              "see an unmasked causal edge")
 
     # (c) The float32 forward through the kernels: the CUDA-core kernel's
-    # path (float32 is not the Hopper kernel's), then its 24 launches.
+    # path (float32 is not the Hopper kernel's), all of it through the
+    # register-tiled body; then the same forward through the basic body,
+    # and the 24 launches held and timed.
     reset_launches()
     f32 = forward_tail(cfg32, fa_kernel.flash_attention)
     launches_f32 = read_launches()
     if launches_f32 != {**{k: 0 for k in launches_f32},
-                        "flash_attention": cfg.num_layers}:
+                        "flash_attention": cfg.num_layers,
+                        "flash_attention_simt_regtile": cfg.num_layers}:
         raise AssertionError(f"the float32 forward made launches {launches_f32}; "
-                             f"expected {cfg.num_layers} of flash_attention")
+                             f"expected {cfg.num_layers} of flash_attention, all "
+                             "of the register-tiled body")
     f32_err = float(rel_rms(f32, want).max())
     log(f"[serve] float32 forward through the CUDA-core flash kernel "
-        f"({launches_f32['flash_attention']} launches): logits within relative "
-        f"RMS {f32_err:.3e} of the plain float32 forward (tolerance {F32_FWD_RTOL})")
+        f"({launches_f32['flash_attention_simt_regtile']} launches of the "
+        f"register-tiled body): logits within relative RMS {f32_err:.3e} of the "
+        f"plain float32 forward (tolerance {F32_FWD_RTOL})")
     if not f32_err <= F32_FWD_RTOL:
         raise AssertionError(f"float32 forward through the kernel differs: "
                              f"relative RMS {f32_err} > {F32_FWD_RTOL}")
+    reset_launches()
+    f32_basic = forward_tail(cfg32, fa_kernel.flash_attention_simt_basic)
+    launches_basic = read_launches()
+    if launches_basic != {**{k: 0 for k in launches_basic},
+                          "flash_attention_simt_basic": cfg.num_layers}:
+        raise AssertionError(f"the float32 forward through the basic body made "
+                             f"launches {launches_basic}")
+    basic_err = float(rel_rms(f32_basic, want).max())
+    log(f"[serve] the same forward through the basic body ({cfg.num_layers} "
+        f"launches): logits within relative RMS {basic_err:.3e} of the plain "
+        f"float32 forward")
+    if not basic_err <= F32_FWD_RTOL:
+        raise AssertionError(f"float32 forward through the basic body differs: "
+                             f"relative RMS {basic_err} > {F32_FWD_RTOL}")
     seen = capture_flash(lambda: T.forward(cfg32, params, {"tokens": toks}),
                          cfg.num_layers)
-    fa32 = hold_flash_launches(seen, card, "flash_attention")
+    fa32 = hold_flash_launches(seen, card, "flash_attention_simt_regtile")
     del seen, params, batcher
     torch.cuda.empty_cache()
     return {**rec, "flash": fa, "flash_f32": fa32,
             "flash_f32_launches": launches_f32, "f32_forward_rel_rms": f32_err,
+            "flash_f32_basic_launches": launches_basic,
+            "f32_basic_forward_rel_rms": basic_err,
             "served_logits": rec_b, "profile": prof, "programs": decode16}
 
 
@@ -2786,8 +2914,11 @@ def main() -> int:
 
     # Phase 11: the model serving path, with the discovery state freed.
     serving = run_serving(card, dev)
-    fa_err = {"flash_attention": max(fa_err["flash_attention"],
-                                     serving["flash_f32"]["max_abs_err"]),
+    fa32 = serving["flash_f32"]
+    fa_err = {"flash_attention_simt_regtile": max(
+                  fa_err["flash_attention_simt_regtile"], fa32["max_abs_err"]),
+              "flash_attention_simt_basic": max(
+                  fa_err["flash_attention_simt_basic"], fa32["basic_max_abs_err"]),
               "flash_attention_wgmma": max(fa_err["flash_attention_wgmma"],
                                            serving["flash"]["max_abs_err"])}
 
@@ -2846,19 +2977,33 @@ def main() -> int:
         "bound_ms": pc_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
-    }, {
-        "name": "flash_attention",
+    }, *[{
+        # flash_attention: the CUDA-core entry (flash_attention_simt), whose
+        # launches on the main path all reach the register-tiled body; the
+        # basic body's launches are its own forward's in phase 11 (c), and
+        # its times are on the same 24 inputs.
+        "name": name,
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
-        "launches": serving["flash_f32_launches"]["flash_attention"],
-        "max_abs_err": fa_err["flash_attention"],
-        "ms": serving["flash_f32"]["ms"],
-        "plain_ms": serving["flash_f32"]["plain_ms"],
-        "bound_ms": serving["flash_f32"]["bound_ms"],
-        "bound_by": serving["flash_f32"]["bound_by"],
-        "library_ms": serving["flash_f32"]["library_ms"],
-    }, {
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": fa32[ms],
+        "plain_ms": fa32["plain_ms"],
+        "bound_ms": fa32["bound_ms"],
+        "bound_by": fa32["bound_by"],
+        "library_ms": fa32["library_ms"],
+    } for name, launches, err, ms in (
+        ("flash_attention", serving["flash_f32_launches"]["flash_attention"],
+         max(fa_err["flash_attention_simt_regtile"],
+             fa_err["flash_attention_simt_basic"]), "ms"),
+        ("flash_attention_simt_regtile",
+         serving["flash_f32_launches"]["flash_attention_simt_regtile"],
+         fa_err["flash_attention_simt_regtile"], "ms"),
+        ("flash_attention_simt_basic",
+         serving["flash_f32_basic_launches"]["flash_attention_simt_basic"],
+         fa_err["flash_attention_simt_basic"], "basic_ms"))],
+    {
         "name": "flash_attention_wgmma",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_wgmma.cu",

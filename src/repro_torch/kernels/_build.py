@@ -39,7 +39,8 @@ class BuiltLibrary:
     lib: ctypes.CDLL
     path: Path
     seconds: float  # wall time of the nvcc call (0.0 when reused)
-    ptxas: str  # nvcc's -Xptxas -v report (registers, spills, shared memory)
+    ptxas: str  # nvcc's -Xptxas -v report (registers, spills, shared memory),
+    # also for a reused build
 
 
 def find_nvcc() -> str:
@@ -64,7 +65,9 @@ def build(source: Path) -> BuiltLibrary:
         src = source.read_bytes()
         tag = hashlib.sha1(src).hexdigest()[:12]
         out = BUILD_DIR / f"{source.stem}-{tag}.so"
-        seconds, report = 0.0, ""
+        log = out.with_suffix(".ptxas.txt")  # the report, kept for reuse
+        seconds = 0.0
+        report = log.read_text() if log.exists() else ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -79,8 +82,9 @@ def build(source: Path) -> BuiltLibrary:
                     f"nvcc failed ({proc.returncode}) building {source.name}:\n"
                     f"{proc.stdout}\n{proc.stderr}"
                 )
-            os.replace(tmp, out)
             report = proc.stderr
+            log.write_text(report)
+            os.replace(tmp, out)
         built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, report)
         _BUILT[source] = built
         return built

@@ -6,13 +6,21 @@
   weight to the input dtype before P·V, the rule of
   ``ref.chunked_attention(p_dtype=...)``.
 * ``csrc/flash_attention.cu`` (:func:`flash_attention_simt`): float32
-  products and sums on the CUDA cores, for every other input.
+  products and sums on the CUDA cores, for every other input.  It has two
+  bodies with one contract, picked by :func:`takes_regtile`: the
+  register-tiled body (:func:`flash_attention_simt_regtile`; float32 at
+  Dk, Dv <= ``REGTILE_MAX_D``, 16-byte aligned rows: ``REGTILE_ROWS``
+  packed query rows of all the KV head's query heads a block, K/V tiles of
+  ``REGTILE_KEYS`` keys copied asynchronously, 16-byte operand reads) and
+  the basic body (:func:`flash_attention_simt_basic`; the rest, among them
+  16-bit inputs and head dims above 128).
 
 :func:`flash_attention` sends each call to one of them by a fixed rule on
 its inputs (see there).  Each source is built at first use by
 :mod:`repro_torch.kernels._build` (``nvcc`` for ``sm_90a`` into
 ``build/kernels/``, loaded with ``ctypes``).  A failed build or launch
-raises; nothing falls back to another kernel or to the plain version.
+raises; nothing falls back to another kernel, another body or the plain
+version.
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ import torch
 from repro_torch.kernels._build import BuiltLibrary, build
 
 __all__ = ["SOURCE", "WGMMA_SOURCE", "MAX_HEAD_DIM", "WGMMA_HEAD_DIMS",
-           "load_library", "load_wgmma_library",
-           "takes_wgmma", "flash_attention", "flash_attention_simt",
+           "REGTILE_ROWS", "REGTILE_KEYS", "REGTILE_MAX_D",
+           "load_library", "load_wgmma_library", "takes_wgmma",
+           "takes_regtile", "flash_attention", "flash_attention_simt",
+           "flash_attention_simt_regtile", "flash_attention_simt_basic",
            "flash_attention_wgmma"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -37,24 +47,36 @@ MAX_HEAD_DIM = 256
 # (Dk, Dv) instantiated in flash_wgmma.cu: the serving path's 128, 64, and
 # MLA's 192/128.
 WGMMA_HEAD_DIMS = frozenset({(128, 128), (64, 64), (192, 128)})
+# The register-tiled body (flash_attention.cu, namespace rt): packed query
+# rows a block (the G = Hq/Hkv heads of one KV head, REGTILE_ROWS // G rows
+# each), keys a K/V tile, and the widest Dk and Dv it takes.
+REGTILE_ROWS = 128
+REGTILE_KEYS = 64
+REGTILE_MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _WGMMA_DTYPES = (torch.float16, torch.bfloat16)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-def _load(source: Path, entry: str) -> BuiltLibrary:
+def _load(source: Path, *entries: str) -> BuiltLibrary:
     built = build(source)
-    fn = getattr(built.lib, entry)
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    for entry in entries:
+        fn = getattr(built.lib, entry)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
     return built
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> BuiltLibrary:
-    """Build (once per source version) and load the CUDA-core kernel."""
-    return _load(SOURCE, "flash_attention_launch")
+    """Build (once per source version) and load the CUDA-core kernel (both
+    bodies)."""
+    built = _load(SOURCE, "flash_attention_regtile_launch",
+                  "flash_attention_basic_launch")
+    built.lib.flash_attention_regtile_smem.argtypes = [ctypes.c_int] * 2
+    built.lib.flash_attention_regtile_smem.restype = ctypes.c_longlong
+    return built
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,14 +85,15 @@ def load_wgmma_library() -> BuiltLibrary:
     return _load(WGMMA_SOURCE, "flash_wgmma_launch")
 
 
-def _tma_addressable(t: torch.Tensor) -> bool:
-    """TMA's rules for a (B, H, S, D) tensor: a 16-byte aligned base and
-    strides in multiples of 16 bytes (8 elements of a 16-bit type) on
-    every axis longer than 1."""
+def _aligned16(t: torch.Tensor) -> bool:
+    """A (B, H, S, D) tensor that 16-byte copies can address: a 16-byte
+    aligned base and strides in multiples of 16 bytes on every axis longer
+    than 1 (TMA's rules; cp.async's too)."""
     B, H, S, _ = t.shape
     sb, sh, ss, _ = t.stride()
-    return (t.data_ptr() % 16 == 0 and (B == 1 or sb % 8 == 0)
-            and (H == 1 or sh % 8 == 0) and (S == 1 or ss % 8 == 0))
+    n = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and (B == 1 or sb % n == 0)
+            and (H == 1 or sh % n == 0) and (S == 1 or ss % n == 0))
 
 
 def takes_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -79,8 +102,21 @@ def takes_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     aligned, strides in multiples of 8 elements)."""
     return (q.dtype in _WGMMA_DTYPES and q.dim() == k.dim() == v.dim() == 4
             and (q.shape[-1], v.shape[-1]) in WGMMA_HEAD_DIMS
-            and _tma_addressable(q) and _tma_addressable(k)
-            and _tma_addressable(v))
+            and _aligned16(q) and _aligned16(k) and _aligned16(v))
+
+
+def takes_regtile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """The body rule of :func:`flash_attention_simt`: the register-tiled
+    body for float32 q, k, v with Dk and Dv up to ``REGTILE_MAX_D``, at most
+    ``REGTILE_ROWS`` query heads a KV head, and 16-byte aligned rows (base
+    and every stride of more than one element a multiple of 4 elements);
+    the basic body for the rest (16-bit inputs, Dk or Dv above 128)."""
+    return (q.dtype == k.dtype == v.dtype == torch.float32
+            and q.dim() == k.dim() == v.dim() == 4
+            and q.shape[-1] <= REGTILE_MAX_D and v.shape[-1] <= REGTILE_MAX_D
+            and k.shape[1] > 0 and q.shape[1] % k.shape[1] == 0
+            and q.shape[1] // k.shape[1] <= REGTILE_ROWS
+            and _aligned16(q) and _aligned16(k) and _aligned16(v))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dtypes) -> None:
@@ -149,16 +185,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention_simt(q, k, v, scale=scale, causal=causal)
 
 
-def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         scale: float, causal: bool = True) -> torch.Tensor:
-    """The CUDA-core kernel: the contract of ``ref.chunked_attention``.
-
-    q (B, Hq, S, Dk), k (B, Hkv, S, Dk), v (B, Hkv, S, Dv), one CUDA
-    device, one dtype (float32, float16 or bfloat16), Hq a multiple of
-    Hkv, Dk and Dv multiples of 8 up to 256, the last axis contiguous
-    (any strides elsewhere).  Returns a contiguous (B, Hq, S, Dv) tensor
-    in q's dtype.  ``flash_attention_simt.launches`` counts the launches.
-    """
+def _check_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     _check(q, k, v, _DTYPES)
     B, Hq, S, Dk = q.shape
     Dv = v.shape[-1]
@@ -168,9 +195,58 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"up to {MAX_HEAD_DIM}")
     if B > 65535 or Hq > 65535 or S >= 2**31:
         raise ValueError(f"B={B}, Hq={Hq}, S={S} exceed the kernel's grid")
-    out = _launch(load_library(), "flash_attention_launch", q, k, v, scale,
-                  causal)
+
+
+def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         scale: float, causal: bool = True) -> torch.Tensor:
+    """The CUDA-core kernel: the contract of ``ref.chunked_attention``.
+
+    q (B, Hq, S, Dk), k (B, Hkv, S, Dk), v (B, Hkv, S, Dv), one CUDA
+    device, one dtype (float32, float16 or bfloat16), Hq a multiple of
+    Hkv, Dk and Dv multiples of 8 up to 256, the last axis contiguous
+    (any strides elsewhere).  Returns a contiguous (B, Hq, S, Dv) tensor
+    in q's dtype.  The body is the one :func:`takes_regtile` names;
+    ``flash_attention_simt.launches`` counts the launches of both, each
+    body's own ``launches`` its own (each body checks the inputs).
+    """
+    body = (flash_attention_simt_regtile if takes_regtile(q, k, v)
+            else flash_attention_simt_basic)
+    out = body(q, k, v, scale=scale, causal=causal)
     flash_attention_simt.launches += 1
+    return out
+
+
+def flash_attention_simt_regtile(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, *, scale: float,
+                                 causal: bool = True) -> torch.Tensor:
+    """The register-tiled body (``flash_attention_regtile_launch``): the
+    contract of :func:`flash_attention_simt` within :func:`takes_regtile`'s
+    range; outside it this raises.
+    ``flash_attention_simt_regtile.launches`` counts its launches."""
+    _check_simt(q, k, v)
+    if not takes_regtile(q, k, v):
+        raise ValueError(
+            f"the register-tiled body takes float32 with Dk, Dv <= "
+            f"{REGTILE_MAX_D}, at most {REGTILE_ROWS} query heads a KV head "
+            f"and 16-byte aligned rows: {q.dtype}, q {tuple(q.shape)} "
+            f"{q.stride()}, k {tuple(k.shape)} {k.stride()}, v "
+            f"{tuple(v.shape)} {v.stride()}")
+    out = _launch(load_library(), "flash_attention_regtile_launch", q, k, v,
+                  scale, causal)
+    flash_attention_simt_regtile.launches += 1
+    return out
+
+
+def flash_attention_simt_basic(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, scale: float,
+                               causal: bool = True) -> torch.Tensor:
+    """The basic body (``flash_attention_basic_launch``, the first design):
+    the whole contract of :func:`flash_attention_simt`.
+    ``flash_attention_simt_basic.launches`` counts its launches."""
+    _check_simt(q, k, v)
+    out = _launch(load_library(), "flash_attention_basic_launch", q, k, v,
+                  scale, causal)
+    flash_attention_simt_basic.launches += 1
     return out
 
 
@@ -191,7 +267,7 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dims not in WGMMA_HEAD_DIMS:
         raise ValueError(f"(Dk, Dv)={dims}: the wgmma kernel is built for "
                          f"{sorted(WGMMA_HEAD_DIMS)}")
-    if not all(_tma_addressable(t) for t in (q, k, v)):
+    if not all(_aligned16(t) for t in (q, k, v)):
         raise ValueError("q, k, v must be 16-byte aligned with strides in "
                          "multiples of 8 elements (TMA)")
     if q.shape[2] >= 2**31:
@@ -203,4 +279,6 @@ def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention_simt.launches = 0
+flash_attention_simt_regtile.launches = 0
+flash_attention_simt_basic.launches = 0
 flash_attention_wgmma.launches = 0

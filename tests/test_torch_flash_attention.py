@@ -13,9 +13,12 @@ both sides accumulate in float32 and round once at the end, so an output
 may differ by one bfloat16 ulp (a relative spacing of at most 2^-7).
 
 The ``cuda``-marked tests hold the CUDA-core kernel against the plain
-versions on the card (the same tolerances) and skip without one; the
-Hopper kernel and the p_dtype plain version are held in
-``tests/test_torch_flash_wgmma.py``.
+versions on the card (the same tolerances) and skip without one: both of
+its bodies, the register-tiled one also against the basic one on the same
+inputs (atol 2e-5), and the rule ``kernel.takes_regtile`` that picks
+between them; the CPU replay of the register-tiled route is
+``tests/test_torch_flash_f32_design.py``.  The Hopper kernel and the
+p_dtype plain version are held in ``tests/test_torch_flash_wgmma.py``.
 """
 
 import numpy as np
@@ -248,3 +251,101 @@ def test_cuda_kernel_refuses_unsupported_shapes(cuda_device):
     q, k, v = _torch(_inputs(1, 2, 2, 8, 12, 12, seed=15), device=cuda_device)
     with pytest.raises(ValueError, match="multiples of 8"):
         kernel.flash_attention(q, k, v, scale=0.25)
+
+
+# (b, hq, hkv, s, dk, dv): S = 1, S not a multiple of the 64-key tile, S
+# over several 128-row packed tiles, groups 1/2/4/8, Dk != Dv, the serving
+# head dims.
+REGTILE_CASES = [
+    (1, 2, 2, 1, 128, 128),
+    (2, 4, 2, 100, 128, 128),
+    (1, 8, 2, 300, 64, 64),
+    (1, 4, 4, 257, 32, 32),
+    (1, 8, 2, 200, 24, 16),
+    (1, 16, 8, 2079, 128, 128),
+    (1, 32, 4, 70, 32, 96),
+]
+
+
+def _bodies(q, k, v, scale, causal):
+    regtile0 = kernel.flash_attention_simt_regtile.launches
+    basic0 = kernel.flash_attention_simt_basic.launches
+    got = kernel.flash_attention_simt_regtile(q, k, v, scale=scale, causal=causal)
+    basic = kernel.flash_attention_simt_basic(q, k, v, scale=scale, causal=causal)
+    assert kernel.flash_attention_simt_regtile.launches == regtile0 + 1
+    assert kernel.flash_attention_simt_basic.launches == basic0 + 1
+    return got, basic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", REGTILE_CASES)
+def test_cuda_regtile_matches_plain_and_basic(cuda_device, case, causal):
+    arrs = _inputs(*case, seed=case[3] + 1)
+    q, k, v = _torch(arrs, device=cuda_device)
+    scale = 1.0 / case[4] ** 0.5
+    assert kernel.takes_regtile(q, k, v)
+    got, basic = _bodies(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    for want in (ref.chunked_attention(q, k, v, scale=scale, causal=causal),
+                 ref.mha_reference(q, k, v, scale=scale, causal=causal), basic):
+        np.testing.assert_allclose(_np(got), _np(want), atol=F32_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_regtile_strided_views(cuda_device):
+    """(B, S, H, D) tensors viewed as (B, H, S, D): strides of 16 bytes."""
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 33, h, 16)).astype(np.float32))
+               .to(cuda_device).transpose(1, 2) for h in (4, 2, 2))
+    assert not q.is_contiguous() and kernel.takes_regtile(q, k, v)
+    for causal in (True, False):
+        got, basic = _bodies(q, k, v, 0.25, causal)
+        want = ref.mha_reference(q, k, v, scale=0.25, causal=causal)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_np(got), _np(want), atol=F32_ATOL)
+        np.testing.assert_allclose(_np(got), _np(basic), atol=F32_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dk,dv", [
+    (torch.float32, 256, 256),
+    (torch.float32, 192, 128),
+    (torch.bfloat16, 16, 16),
+])
+def test_cuda_rest_reaches_the_basic_body(cuda_device, dtype, dk, dv):
+    """Dk or Dv above 128 and 16-bit inputs take the basic body, through
+    the dispatch, and the register-tiled wrapper refuses them."""
+    q, k, v = _torch(_inputs(1, 4, 2, 70, dk, dv, seed=17), dtype=dtype,
+                     device=cuda_device)
+    assert not kernel.takes_regtile(q, k, v)
+    before = {f: f.launches for f in (kernel.flash_attention_simt,
+                                      kernel.flash_attention_simt_regtile,
+                                      kernel.flash_attention_simt_basic)}
+    got = kernel.flash_attention(q, k, v, scale=0.1, causal=True)
+    after = {f: f.launches - n for f, n in before.items()}
+    assert after == {kernel.flash_attention_simt: 1,
+                     kernel.flash_attention_simt_regtile: 0,
+                     kernel.flash_attention_simt_basic: 1}
+    want = ref.chunked_attention(q, k, v, scale=0.1, causal=True)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(_np(got), _np(want), atol=F32_ATOL)
+    else:
+        np.testing.assert_allclose(_np(got), _np(want), rtol=BF16_RTOL, atol=1e-6)
+    with pytest.raises(ValueError, match="register-tiled"):
+        kernel.flash_attention_simt_regtile(q, k, v, scale=0.1)
+
+
+@pytest.mark.cuda
+def test_cuda_float32_dispatch_reaches_the_register_tiled_body(cuda_device):
+    q, k, v = _torch(_inputs(1, 16, 8, 513, 128, 128, seed=18),
+                     device=cuda_device)
+    regtile0 = kernel.flash_attention_simt_regtile.launches
+    simt0 = kernel.flash_attention_simt.launches
+    got = ops.attention(q, k, v, causal=True)
+    assert kernel.flash_attention_simt_regtile.launches == regtile0 + 1
+    assert kernel.flash_attention_simt.launches == simt0 + 1
+    want = ref.mha_reference(q, k, v, scale=1.0 / 128 ** 0.5, causal=True)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(got), _np(want), atol=F32_ATOL)
