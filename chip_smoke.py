@@ -183,9 +183,40 @@ it fails:
      the caches: logits and caches bit-equal, medians of 10 alternated
      and a profile of each.
 
-Phases 14, 15, 16 (a)-(c), 12 and 13 run after phase 10 and before
+ 17. the paper's application: (a) on the phase-3 index, ``stacked()`` and
+     ``score_batch`` for the first continuous- and discrete-target query
+     (all four estimator ids): its top 40 at ``min_join=24`` equal to
+     phase 3's warm ``query_many`` (MI within 1e-6), and
+     ``score_batch_partitioned``, the batched executor's dense scores and
+     ``query_many(executor="batched", prefilter=False)`` bit-equal to
+     it; ``radius_counts`` launched; warm medians of 5 (``[adhoc]``
+     lines); (b) ``score_batch_reference`` on the same lake (the
+     materialized estimators: ``pairwise_cheb`` launched, join sizes equal
+     to (a)'s, MI within 1e-5), its time beside (a)'s (a first call over
+     60 s would cut it to the first 8192 columns, on a line of its own);
+     (c) the phase-4 sub-corpus: both scorers on the card against the
+     CPU path (join sizes equal, MI within 1e-5) and an
+     ``AugmentedTabularPipeline`` (top_k=8, min_join=24): features equal
+     and in order, ranking MI within 1e-5, feature matrices bit-equal;
+     (d) the paper's synthetic data at its size (``[synthetic]`` lines):
+     the quickstart (Trinomial m=512, 20,000 rows, KeyDep, MLE) through
+     ``examples/quickstart_torch.main``, then CDUnif m=64 (DC-KSG) and
+     Trinomial m=512 perturbed by 1e-3 on both sides (MixedKSG), KeyInd
+     at 10,000 rows, 8 trials each, estimated on the TUPSK n=256 sketch
+     join (the staged body) and on the full join (P = 10,000, the tiled
+     body): trial 0 of each on the card within 1e-5 of the CPU path, its
+     two launches bit-equal to the plain version on the bodies
+     ``kernel.takes_staged`` names and timed with their bounds, a tiled
+     launch counted per full join; true MI, estimates, errors and RMSE
+     printed beside the paper's V-B1 claim, not held; (e) the taxi
+     example (``examples/taxi_demand_augmentation_torch.main("cuda")``,
+     400 days x 60 zones, 14 tables, n=512): ``demographics.population``
+     and a weather column discovered, the augmented test MAE below the
+     baseline (``[augment]`` lines).
+
+Phases 14, 15, 16 (a)-(c), 17, 12 and 13 run after phase 10 and before
 phase 11, so that the serving path starts with the discovery state
-freed.  Each of phases 3, 7-9 and 11-16 sets every kernel's launch
+freed.  Each of phases 3, 7-9 and 11-17 sets every kernel's launch
 count to 0 just before it drives its path and reads the counts just
 after.
 
@@ -316,6 +347,16 @@ WIDE_K = 32  # phase 14: a k past the staged body's buffer
 GATE_MC = 0.1
 HANDLE_TIMEOUT_S = 120.0
 MI_TOL = 1e-6
+# Phase 17: warm calls per median of the ad-hoc scorers; the seed path's
+# cut (a first call slower than ADHOC_REF_SLOW_S runs on the first
+# ADHOC_REF_CUT columns); the synthetic cases (paper Section V-A/V-B:
+# 10,000-row full joins) and trials per case; the paper's tie-breaking
+# perturbation of a discrete side (benchmarks/common.py, _PERTURB).
+ADHOC_REPS = 5
+ADHOC_REF_SLOW_S, ADHOC_REF_CUT = 60.0, 8192
+SYN_CASES = ("cdunif-dcksg", "trinomial-mixedksg")
+SYN_TRIALS, SYN_ROWS = 8, 10_000
+SYN_PERTURB = 1e-3
 
 # flash_attention tolerances (see fa_within): float32 sums differ in
 # order only; in bfloat16 both sides accumulate in float32 and round once.
@@ -2623,6 +2664,428 @@ def compare_decode(batcher, card: str) -> dict:
 # Phase 6: end-to-end timing
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 17: the paper's application (the ad-hoc scoring API, synthetic
+# data with a known MI, AugmentedTabularPipeline and the taxi example)
+# ---------------------------------------------------------------------------
+
+def median_call_s(fn, reps: int = ADHOC_REPS) -> tuple[float, list]:
+    """Median wall seconds of ``reps`` warm calls of ``fn``, each ended
+    by a synchronize (after one call that is not timed)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)), times
+
+
+def spy_radius_counts(fn) -> tuple[object, list]:
+    """``fn()`` with ``radius_counts``' Python call wrapped, as in
+    ``capture_launches``, to keep each launch's inputs, arguments and
+    outputs; returns (fn's result, the launches)."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.knn_stats import kernel, ops
+
+    seen = []
+
+    def spy(x, y, mask, **args):
+        out = kernel.radius_counts(x, y, mask, **args)
+        seen.append((x.clone(), y.clone(), mask.clone(), args,
+                     tuple(o.clone() for o in out)))
+        return out
+
+    ops.kernel = SimpleNamespace(radius_counts=spy)
+    try:
+        out = fn()
+    finally:
+        ops.kernel = kernel
+    torch.cuda.synchronize()
+    return out, seen
+
+
+def launch_words(launches: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in launches.items() if v) or "none"
+
+
+def run_adhoc(index, sks, warm_first, card: str) -> dict:
+    """Phase 17 (a): ``stacked`` and ``score_batch`` over the whole lake for
+    the first continuous- and discrete-target query; the top ``TOP_K`` at
+    ``MIN_JOIN`` as phase 3's warm ``query_many`` (MI within 1e-6);
+    ``score_batch_partitioned``, the batched executor's dense scores and
+    ``query_many(executor="batched", prefilter=False)`` bit-equal to
+    ``score_batch``; medians of ``ADHOC_REPS`` warm calls each."""
+    from repro_torch.core.discovery import (
+        BatchedExecutor,
+        score_batch,
+        score_batch_partitioned,
+    )
+
+    C = len(index)
+    t0 = time.perf_counter()
+    stacked = {y_disc: index.stacked(y_disc) for y_disc in (False, True)}
+    torch.cuda.synchronize()
+    t_stack = time.perf_counter() - t0
+    log(f"[adhoc] stacked() of C={C} candidates x 2 target dtypes (the stacked "
+        f"store's first flush): {t_stack:.3f} s; ingest {index.ingest_stats}")
+    out = {"stacked_s": t_stack, "dtypes": {}}
+    for sk, warm_res in zip(sks, warm_first):
+        y_disc = bool(sk.value_is_discrete)
+        name = "discrete" if y_disc else "continuous"
+        train, cands = index.train_arrays(sk), stacked[y_disc]
+        est = sorted(set(cands["est_id"].tolist()))
+        reset_launches()
+        mi, js = score_batch(train, cands)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches["radius_counts"] == 0:
+            raise AssertionError(f"score_batch ({name}) launched no radius_counts")
+        mi_h, js_h = mi.cpu().numpy(), js.cpu().numpy()
+        if not np.isfinite(mi_h).all():
+            raise AssertionError(f"score_batch ({name}) gave a non-finite MI")
+        ranked = index._rank(mi_h, np.arange(C), js_h, TOP_K, MIN_JOIN)
+        same_rankings([ranked], [warm_res], tol=MI_TOL)
+        part = score_batch_partitioned(train, cands)
+        dense = BatchedExecutor().execute(index.plan(y_disc), train)
+        qm = index.query_many([sk], top_k=TOP_K, min_join=MIN_JOIN,
+                              executor="batched", prefilter=False)[0]
+        if not (torch.equal(part[0], mi) and torch.equal(part[1], js)):
+            raise AssertionError(f"score_batch_partitioned ({name}) differs from "
+                                 "score_batch")
+        if not (np.array_equal(dense[0][0], mi_h) and np.array_equal(dense[1][0], js_h)):
+            raise AssertionError(f"the batched executor's dense scores ({name}) "
+                                 "differ from score_batch")
+        if flat_results([qm]) != flat_results([ranked]):
+            raise AssertionError(f"query_many(executor='batched') ({name}) differs "
+                                 "from score_batch")
+        times = {
+            "score_batch": median_call_s(lambda: score_batch(train, cands)),
+            "score_batch_partitioned": median_call_s(
+                lambda: score_batch_partitioned(train, cands)),
+            "query_many_executor_batched": median_call_s(
+                lambda: index.query_many([sk], top_k=TOP_K, min_join=MIN_JOIN,
+                                         executor="batched", prefilter=False)),
+        }
+        log(f"[adhoc] {name} q0 over C={C} (est_id {est}): score_batch's top "
+            f"{TOP_K} at min_join={MIN_JOIN} == phase 3's warm query_many (MI within "
+            f"{MI_TOL}); score_batch_partitioned, the batched executor and "
+            f"query_many(executor='batched', prefilter=False) bit-equal to "
+            f"score_batch; launches: {launch_words(launches)}")
+        log(f"[adhoc] {name} warm medians of {ADHOC_REPS}: "
+            + ", ".join(f"{k} {1e3 * v[0]:.2f} ms" for k, v in times.items())
+            + f"; card {card}")
+        prof = profile_call(lambda: score_batch(train, cands))
+        log(f"[adhoc] profiled {name} score_batch: wall {prof['wall_ms']:.2f} ms, "
+            f"device {prof['device_ms']:.2f} ms (busy {prof['busy_share'] or 0:.2f}), "
+            f"{prof['launches']} kernels; by family: "
+            + ", ".join(f"{k} {v['ms']:.2f}" for k, v in prof["kinds"].items()))
+        out["dtypes"][name] = {"est_ids": est, "launches": launches,
+                               "median_s": {k: v[0] for k, v in times.items()},
+                               "times_s": {k: v[1] for k, v in times.items()},
+                               "profile": prof, "mi": mi, "js": js}
+    return out
+
+
+def run_adhoc_reference(index, sks, adhoc: dict, card: str) -> dict:
+    """Phase 17 (b): ``score_batch_reference`` (the materialized estimators)
+    on the same stacked lake: join sizes equal to (a)'s, MI within 1e-5,
+    ``pairwise_cheb`` launched; its time beside (a)'s.  A first call over
+    ``ADHOC_REF_SLOW_S`` cuts the lake to its first ``ADHOC_REF_CUT``
+    columns."""
+    from repro_torch.core.discovery import score_batch_reference
+
+    out = {}
+    for sk in sks:
+        y_disc = bool(sk.value_is_discrete)
+        name = "discrete" if y_disc else "continuous"
+        a = adhoc["dtypes"][name]
+        train, cands = index.train_arrays(sk), index.stacked(y_disc)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_launches()
+        t0 = time.perf_counter()
+        mi, js = score_batch_reference(train, cands)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_launches()
+        C = len(index)
+        if first_s > ADHOC_REF_SLOW_S:
+            C = ADHOC_REF_CUT
+            log(f"[adhoc] cut: score_batch_reference took {first_s:.1f} s over the "
+                f"whole lake; held and timed on its first {C} columns")
+            cands = {k: v[:C] for k, v in cands.items()}
+            reset_launches()
+            mi, js = score_batch_reference(train, cands)
+            torch.cuda.synchronize()
+            launches = read_launches()
+        if launches["pairwise_cheb"] == 0:
+            raise AssertionError(f"score_batch_reference ({name}) launched no "
+                                 "pairwise_cheb")
+        if not torch.equal(js, a["js"][:C]):
+            raise AssertionError(f"score_batch_reference ({name}) join sizes differ "
+                                 "from score_batch")
+        err = float((mi - a["mi"][:C]).abs().max())
+        if not torch.allclose(mi, a["mi"][:C], rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"score_batch_reference ({name}) MI differs from "
+                                 f"score_batch by {err}")
+        med, times = median_call_s(lambda: score_batch_reference(train, cands), 3)
+        fused = a["median_s"]["score_batch"]
+        log(f"[adhoc] {name} score_batch_reference over C={C}: join sizes == (a), "
+            f"MI within 1e-5 (max |diff| {err:.3g}); launches: "
+            f"{launch_words(launches)}; first call {first_s:.3f} s, warm median of 3 "
+            f"{1e3 * med:.2f} ms against score_batch's {1e3 * fused:.2f} ms over "
+            f"C={len(index)} (the seed path's time / the fused path's: "
+            f"{med / fused:.2f}x, reported, not claimed); card {card}")
+        out[name] = {"C": C, "launches": launches, "first_s": first_s,
+                     "median_s": med, "times_s": times, "max_abs_diff": err}
+    return out
+
+
+def run_adhoc_subcorpus(gpu_sub, cpu_sub, sks, rows, keys, y, card: str) -> dict:
+    """Phase 17 (c): the phase-4 sub-corpus on the card against the port's
+    CPU path: ``score_batch`` and ``score_batch_reference`` (join sizes
+    equal, MI within rtol/atol 1e-5), then ``AugmentedTabularPipeline``
+    (top_k=8, min_join=24): feature names (table and column) equal and in
+    order, the ranking MI within 1e-5, feature matrices bit-equal."""
+    from repro_torch.core.discovery import score_batch, score_batch_reference
+    from repro_torch.core.sketch import build_sketch
+    from repro_torch.data.pipeline import AugmentedTabularPipeline
+
+    reset_launches()
+    for sk in sks:
+        name = "discrete" if sk.value_is_discrete else "continuous"
+        for fn in (score_batch, score_batch_reference):
+            got, want = (fn(ix.train_arrays(sk), ix.stacked(sk.value_is_discrete))
+                         for ix in (gpu_sub, cpu_sub))
+            if not torch.equal(got[1].cpu(), want[1]):
+                raise AssertionError(f"{fn.__name__} ({name}): card join sizes "
+                                     "differ from the CPU path")
+            if not torch.allclose(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{fn.__name__} ({name}): card MI differs "
+                                     "from the CPU path")
+    tables = {(r[0], r[2]): (r[3], r[4]) for r in rows[:len(cpu_sub)]}
+    t0 = time.perf_counter()
+    built = {}
+    for dev, ix in (("cuda", gpu_sub), ("cpu", cpu_sub)):
+        pipe = AugmentedTabularPipeline(index=ix, tables=tables, top_k=8,
+                                        min_join=MIN_JOIN)
+        built[dev] = pipe.build(keys, y)
+    t_pipe = time.perf_counter() - t0
+    launches = read_launches()
+    (xg, ng), (xc, nc) = built["cuda"], built["cpu"]
+    cols_g = [n.split("|mi=")[0] for n in ng]
+    if cols_g != [n.split("|mi=")[0] for n in nc] or not cols_g:
+        raise AssertionError(f"pipeline features differ: {ng} vs {nc}")
+    sk = build_sketch(keys, y, n=N_SKETCH, side="train", value_is_discrete=False)
+    same_rankings([gpu_sub.query(sk, top_k=8, min_join=MIN_JOIN)],
+                  [cpu_sub.query(sk, top_k=8, min_join=MIN_JOIN)])
+    if not np.array_equal(xg, xc):
+        raise AssertionError("pipeline feature matrices differ between the card "
+                             "and the CPU path")
+    log(f"[augment] C={len(cpu_sub)} sub-corpus: score_batch and "
+        f"score_batch_reference, card == CPU path (join sizes; MI within 1e-5); "
+        f"AugmentedTabularPipeline(top_k=8, min_join={MIN_JOIN}) features "
+        f"{cols_g} equal, ranking MI within 1e-5, feature matrix {xg.shape} "
+        f"bit-equal; both builds {t_pipe:.3f} s; launches: "
+        f"{launch_words(launches)}; card {card}")
+    return {"features": ng, "launches": launches, "pipeline_s": t_pipe}
+
+
+def quiet(fn, *args, **kwargs):
+    """``fn``'s result and its printed lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue().splitlines()
+
+
+def synthetic_case(case: str, trial: int):
+    """One generated pair of phase 17 (d), decomposed: (true MI, train
+    dict, candidate dict, x discrete, y discrete)."""
+    from repro_torch.core import synthetic
+
+    rng = np.random.default_rng([SEED, SYN_CASES.index(case), trial])
+    if case == "cdunif-dcksg":
+        pair = synthetic.gen_cdunif(SYN_ROWS, 64, rng)
+        train, cand = synthetic.decompose(pair, "keyind", rng)
+        return pair.true_mi, train, cand, True, False
+    pair = synthetic.gen_trinomial(SYN_ROWS, 512, rng.uniform(0.5, 2.5), rng)
+    train, cand = synthetic.decompose(pair, "keyind", rng)
+    # The paper's tie-breaking perturbation of both discrete sides
+    # (benchmarks/common.py, _PERTURB = 1e-3), so MixedKSG applies.
+    for d in (train, cand):
+        d["values"] = (d["values"] + rng.normal(scale=SYN_PERTURB, size=SYN_ROWS)
+                       ).astype(np.float32)
+    return pair.true_mi, train, cand, False, False
+
+
+def synthetic_estimates(case: str, trial: int, dev) -> dict:
+    """The TUPSK n=256 sketch join's and the full join's estimate of one
+    generated pair on ``dev``."""
+    from repro_torch.core.estimators import estimate_mi
+    from repro_torch.core.join import full_left_join, sketch_join
+    from repro_torch.core.sketch import build_sketch
+
+    true_mi, train, cand, x_disc, y_disc = synthetic_case(case, trial)
+    st = build_sketch(train["key_hashes"], train["values"], n=N_SKETCH,
+                      side="train", value_is_discrete=y_disc)
+    sc = build_sketch(cand["key_hashes"], cand["values"], n=N_SKETCH,
+                      side="cand", value_is_discrete=x_disc)
+    out = {"true_mi": true_mi}
+    for name, j in (("sketch", sketch_join(st, sc)),
+                    ("full", full_left_join(train["key_hashes"], train["values"],
+                                            cand["key_hashes"], cand["values"]))):
+        args = [torch.as_tensor(a, device=dev)[None] for a in (j.x, j.y, j.mask)]
+        out[name] = float(estimate_mi(*args, x_discrete=x_disc,
+                                      y_discrete=y_disc)[0])
+        out[f"{name}_P"] = int(args[0].shape[-1])
+        out[f"{name}_size"] = j.size
+    return out
+
+
+def run_synthetic(card: str, dev) -> dict:
+    """Phase 17 (d): the paper's synthetic data at its size.  The
+    quickstart scenario (Trinomial m=512, 20,000 rows, KeyDep; MLE on the
+    sketch and the full join) through ``examples/quickstart_torch.main``;
+    CDUnif m=64 (KeyInd; DC-KSG) and Trinomial m=512 with both sides
+    perturbed (KeyInd; MixedKSG) at 10,000 rows, ``SYN_TRIALS`` trials
+    each, on the TUPSK n=256 sketch join (the staged body) and on the full
+    join (P = 10,000: the tiled body).  Held: trial 0 of each case on the
+    card within rtol/atol 1e-5 of the port's CPU path, the tiled body
+    reached and each launch of trial 0 bit-equal to the plain version (and
+    timed there with its bound).  Printed, not held: true MI, estimates,
+    errors and RMSE beside the paper's V-B1 claim."""
+    import quickstart_torch
+
+    t0 = time.perf_counter()
+    reset_launches()
+    qs, lines = quiet(quickstart_torch.main, str(dev), seed=SEED)
+    qs_cpu, _ = quiet(quickstart_torch.main, "cpu", seed=SEED)
+    for line in lines:
+        log(f"[synthetic] quickstart: {line}")
+    if qs["true_mi"] != qs_cpu["true_mi"] or \
+            (qs["sketch_join_size"], qs["full_join_size"]) != \
+            (qs_cpu["sketch_join_size"], qs_cpu["full_join_size"]):
+        raise AssertionError(f"quickstart: card {qs} vs CPU {qs_cpu}")
+    for key in ("sketch_mi", "full_mi"):
+        if not np.isclose(qs[key], qs_cpu[key], rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"quickstart {key}: card {qs[key]} vs CPU "
+                                 f"{qs_cpu[key]}")
+    out = {"quickstart": qs, "cases": {}}
+    captured = {}
+    for case in SYN_CASES:
+        trials = []
+        for trial in range(SYN_TRIALS):
+            if trial == 0:
+                est, captured[case] = spy_radius_counts(
+                    lambda: synthetic_estimates(case, 0, dev))
+                cpu = synthetic_estimates(case, 0, "cpu")
+                for key in ("sketch", "full"):
+                    if not np.isclose(est[key], cpu[key], rtol=1e-5, atol=1e-5):
+                        raise AssertionError(f"{case} {key} join: card {est[key]} "
+                                             f"vs CPU {cpu[key]}")
+            else:
+                est = synthetic_estimates(case, trial, dev)
+            trials.append(est)
+        out["cases"][case] = {"trials": trials}
+    launches = read_launches()
+    n_joins = len(SYN_CASES) * SYN_TRIALS
+    if (launches["radius_counts_staged"], launches["radius_counts_tiled"]) != \
+            (n_joins, n_joins):
+        raise AssertionError(f"phase 17 (d) launched {launches}; expected one "
+                             f"staged (sketch join) and one tiled (full join) "
+                             f"launch for each of the {n_joins} pairs")
+    log(f"[synthetic] quickstart card == CPU path within 1e-5; phase 17 (d) "
+        f"launches: {launch_words(launches)}; {time.perf_counter() - t0:.2f} s")
+    for case, res in out["cases"].items():
+        trials = res["trials"]
+        # check_main_launches names each launch's body by kernel.takes_staged.
+        rows = check_main_launches(captured[case], card)
+        bodies = [(r["P"], r["body"]) for r in rows]
+        if bodies != [(N_SKETCH, "staged"), (SYN_ROWS, "tiled")]:
+            raise AssertionError(f"{case} trial 0 launched {bodies}; expected the "
+                                 "sketch join on the staged body and the full "
+                                 "join on the tiled one")
+        rmse = {key: float(np.sqrt(np.mean([(t[key] - t["true_mi"]) ** 2
+                                            for t in trials])))
+                for key in ("sketch", "full")}
+        for i, t in enumerate(trials):
+            log(f"[synthetic] {case} trial {i}: true MI {t['true_mi']:.4f}; sketch "
+                f"join ({t['sketch_size']} rows) {t['sketch']:.4f} (error "
+                f"{t['sketch'] - t['true_mi']:+.4f}); full join ({t['full_size']} "
+                f"rows) {t['full']:.4f} (error {t['full'] - t['true_mi']:+.4f})")
+        log(f"[synthetic] {case}: RMSE over {SYN_TRIALS} trials, sketch join "
+            f"{rmse['sketch']:.4f}, full join {rmse['full']:.4f} (paper V-B1: full "
+            f"join RMSE < 0.07; reported, not held); trial 0 card == CPU path "
+            f"within 1e-5")
+        res.update(rmse=rmse, launches=rows)
+    tiled = [r for c in out["cases"].values() for r in c["launches"]
+             if r["body"] == "tiled"]
+    log(f"[time] radius_counts_tiled at P={tiled[0]['P']} (the full joins, "
+        f"{len(tiled)} captured launches): "
+        + "; ".join(f"{r['mode']}/{r['which']} {r['ms']:.4f} ms events, "
+                    f"{r['device_ms']:.4f} ms device, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}, {100 * r['bound_share']:.1f}%), plain "
+                    f"{r['plain_ms']:.4f} ms" for r in tiled)
+        + f"; card {card}")
+    out["launches"] = launches
+    out["tiled_rows"] = tiled
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def run_taxi(card: str, dev) -> dict:
+    """Phase 17 (e): ``examples/taxi_demand_augmentation_torch.main("cuda")``
+    at the example's own size (400 days x 60 zones, 14 tables, n=512,
+    agg="avg"): ``demographics.population`` and a weather column among the
+    discovered features, and a lower test MAE with the augmentation."""
+    import taxi_demand_augmentation_torch as taxi
+
+    t0 = time.perf_counter()
+    reset_launches()
+    res, lines = quiet(taxi.main, str(dev))
+    launches = read_launches()
+    seconds = time.perf_counter() - t0
+    for line in lines:
+        if line.strip():
+            log(f"[augment] taxi: {line.strip()}")
+    cols = [n.split("|mi=")[0] for n in res["names"]]
+    if "demographics.population" not in cols or not any(
+            c.startswith("weather.") for c in cols):
+        raise AssertionError(f"taxi example discovered {cols}")
+    if launches["radius_counts"] == 0:
+        raise AssertionError("the taxi example launched no radius_counts")
+    log(f"[augment] taxi example on the card: features {cols}, test MAE "
+        f"{res['mae_base']:.4f} without augmentation, {res['mae_aug']:.4f} with; "
+        f"{seconds:.2f} s; launches: {launch_words(launches)}; card {card}")
+    return {**res, "launches": launches, "seconds": seconds}
+
+
+def run_application(index, sks, warm_first, gpu_sub, cpu_sub, rows, keys, y,
+                    card: str, dev) -> dict:
+    """Phase 17 (a)-(e), each with its own launch counts."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    t0 = time.perf_counter()
+    adhoc = run_adhoc(index, sks, warm_first, card)
+    ref = run_adhoc_reference(index, sks, adhoc, card)
+    sub = run_adhoc_subcorpus(gpu_sub, cpu_sub, sks, rows, keys, y, card)
+    syn = run_synthetic(card, dev)
+    taxi = run_taxi(card, dev)
+    for d in adhoc["dtypes"].values():  # the score tensors stay here
+        del d["mi"], d["js"]
+    seconds = time.perf_counter() - t0
+    log(f"[adhoc] phase 17 (a)-(e): {seconds:.2f} s; card {card}")
+    return {"adhoc": adhoc, "adhoc_reference": ref, "subcorpus": sub,
+            "synthetic": syn, "taxi": taxi, "seconds": seconds}
+
+
 def profile_call(fn) -> dict:
     """Device time by kernel name over one call of ``fn`` under
     ``torch.profiler``, and the device's busy share of that window.  The
@@ -2890,6 +3353,11 @@ def main() -> int:
         f"{prog['compile']['build_s']:.2f} s of warm-up and capture; peak device "
         f"memory {prog['discovery_peak_mem_bytes'] / 2**30:.2f} GiB; card {card}")
 
+    # Phase 17: the paper's application over the same index and the
+    # phase-4 sub-corpus, then its synthetic data and the taxi example.
+    app = run_application(index, [cont[0], disc[0]], [warm[0][0], warm[1][0]],
+                          gpu_sub, cpu_sub, rows, keys, y, card, dev)
+
     # Phase 12: the two-op kNN API on phase 5's samples; phase 13: the
     # lake's keys hashed on the card.  Both run before phase 11, so that
     # the serving path starts with the discovery state freed.
@@ -2936,7 +3404,7 @@ def main() -> int:
         "radius_counts": rc, "radius_counts_wide": wide, "gated": gated,
         "submit": submit, "submit_safe": safe,
         "scheduler": sched, "materialized": mat, "two_op": two_op,
-        "lake_hash": lake_hash, "serving": serving,
+        "lake_hash": lake_hash, "serving": serving, "application": app,
         "compile_end": programs.compile_stats(),
         "total_s": time.perf_counter() - t_start,
     }

@@ -1,7 +1,9 @@
 """State carry: build the port's state from the reference's, held as numpy.
 
 :func:`index_from_numpy` carries the discovery engine's state, the sketch
-corpus; :func:`model_params_from_numpy` carries a model's weights.
+corpus; :func:`stacked_from_numpy` carries the ad-hoc scorers' inputs, a
+stacked candidate dict or a train dict; :func:`model_params_from_numpy`
+carries a model's weights.
 
 :func:`index_from_numpy` takes the per-candidate host arrays a
 ``SketchIndex`` of either package keeps — keys, the two value views,
@@ -20,7 +22,7 @@ from repro_torch.core.discovery.index import CandidateMeta, SketchIndex
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 
-__all__ = ["index_from_numpy", "model_params_from_numpy"]
+__all__ = ["index_from_numpy", "model_params_from_numpy", "stacked_from_numpy"]
 
 
 def index_from_numpy(state: dict, device=None) -> SketchIndex:
@@ -61,6 +63,31 @@ def index_from_numpy(state: dict, device=None) -> SketchIndex:
             keys[c], vals_f[c], vals_u[c], masks[c],
         )
     return index
+
+
+def stacked_from_numpy(d: dict, device=None) -> dict:
+    """The port's tensors for a reference stacked candidate dict or train
+    dict, read as numpy (any leading shape).
+
+    ``keys`` and ``vals_u`` (uint32) become zero-extended int64,
+    ``vals_f`` float32, ``mask`` bool and ``est_id``, when present,
+    int32; ``y_discrete``, when present, passes as a bool.  No key order
+    is assumed or checked, so hand-made and unsorted dicts carry as they
+    are.
+    """
+    dev = resolve_device(device)
+    out = {
+        "keys": np.asarray(d["keys"]).astype(np.int64) & 0xFFFFFFFF,
+        "vals_f": np.asarray(d["vals_f"], dtype=np.float32),
+        "vals_u": np.asarray(d["vals_u"]).astype(np.int64) & 0xFFFFFFFF,
+        "mask": np.asarray(d["mask"], dtype=bool),
+    }
+    if "est_id" in d:
+        out["est_id"] = np.asarray(d["est_id"], dtype=np.int32)
+    tensors = {name: torch.tensor(a, device=dev) for name, a in out.items()}
+    if "y_discrete" in d:
+        tensors["y_discrete"] = bool(d["y_discrete"])
+    return tensors
 
 
 def _leaves(tree) -> int:

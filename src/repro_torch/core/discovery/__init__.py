@@ -16,6 +16,11 @@ compute layers, and the serving front end on top:
   * :mod:`.resilience` — validation, outcomes, retry policy, fences and
     the fault-injection harness;
   * :mod:`.scheduler` — the micro-batch tier behind ``submit_async``.
+
+The functional entry points :func:`score_batch`,
+:func:`score_batch_reference` and :func:`score_batch_partitioned` score
+a raw stacked candidate dict (``SketchIndex.stacked``) against one train
+sketch, with no plan kept between calls.
 """
 
 from repro_torch.compile import compile_count
@@ -23,7 +28,12 @@ from repro_torch.core.discovery.executors import (
     BatchedExecutor,
     Executor,
     PartitionedLocalExecutor,
+    get_executor,
     pad_trains_q,
+    score_batch,
+    score_batch_partitioned,
+    score_batch_reference,
+    stack_trains,
     stack_trains_host,
     stage_trains_host,
     upload_trains,
@@ -52,9 +62,12 @@ from repro_torch.core.discovery.planner import (
     coalesce_queries,
     estimator_id,
     fused_shortlist_spec,
+    make_plan,
+    pack_group,
     partition_by_estimator,
     plan_signature,
     shortlist_signature,
+    stage_min_containment,
     tier_spec,
 )
 from repro_torch.core.discovery.resilience import (
@@ -104,6 +117,9 @@ __all__ = [
     "build_shortlists",
     "fused_shortlist_spec",
     "shortlist_signature",
+    "stage_min_containment",
+    "make_plan",
+    "pack_group",
     "partition_by_estimator",
     "estimator_id",
     "plan_signature",
@@ -117,7 +133,12 @@ __all__ = [
     "Executor",
     "PartitionedLocalExecutor",
     "BatchedExecutor",
+    "get_executor",
+    "stack_trains",
     "compile_count",
+    "score_batch",
+    "score_batch_partitioned",
+    "score_batch_reference",
     "pad_trains_q",
     "stack_trains_host",
     "stage_trains_host",

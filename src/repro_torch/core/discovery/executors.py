@@ -31,6 +31,20 @@ programs a bursty queue builds; the handles return the live lanes only.
 The host-boundary two-phase path (``prefilter_dispatch`` /
 ``shortlist_dispatch``, the fused path's overflow fallback) runs eager.
 
+The ad-hoc entry points take raw stacked candidate dicts (carrying
+``est_id``) instead of an index: :func:`score_batch` (lexsort join, then
+each candidate's estimator), :func:`score_batch_reference` (the same
+with the materialized estimators) and :func:`score_batch_partitioned`
+(planned through :func:`~repro_torch.core.discovery.planner.make_plan`,
+scored by the partitioned executor); :func:`get_executor` resolves an
+executor by name.  Where the reference's switch scorer runs all four
+estimator branches under ``vmap`` and selects, :func:`score_batch`
+scores each ``est_id`` group on its own, padded up the group ladder
+exactly as the plan pads it, so that every estimator call sees the
+batch shape the partitioned path gives it and the two agree bit for
+bit on the card as on the CPU (the order in which the card reduces a
+float32 row sum can depend on the batch shape).
+
 The estimator-id -> estimator mapping lives in :func:`_estimate` only.
 
 Fault-injection sites (:func:`~repro_torch.core.discovery.resilience.maybe_fault`)
@@ -49,22 +63,32 @@ import torch
 from repro_torch.compile import program
 from repro_torch.core import estimators
 from repro_torch.core.discovery.planner import (
+    _MESH_SLICE,
     EST_DC_XD,
     EST_MIXED,
     EST_MLE,
     QueryPlan,
     ShortlistOverflow,
     SurvivorOverflow,
+    group_rows,
+    make_plan,
+    pack_group,
+    partition_by_estimator,
     stage_min_containment,
 )
 from repro_torch.core.discovery.resilience import maybe_fault
 from repro_torch.core.join import (
     presorted_join_size,
     signature_join_size,
+    sketch_join_lexsort,
     sketch_join_presorted,
 )
 
 __all__ = [
+    "score_batch",
+    "score_batch_reference",
+    "score_batch_partitioned",
+    "stack_trains",
     "stack_trains_host",
     "stage_trains_host",
     "upload_trains",
@@ -73,6 +97,7 @@ __all__ = [
     "Executor",
     "PartitionedLocalExecutor",
     "BatchedExecutor",
+    "get_executor",
 ]
 
 _TRAIN_FIELDS = ("keys", "vals_f", "vals_u", "mask")
@@ -754,3 +779,124 @@ class BatchedExecutor(Executor):
             )
             blocks.append((gp, int(s_surv), sb, mi, gidx, jsz, c0, c1))
         return _PendingTiered(blocks, Q)
+
+
+def get_executor(spec, mesh=None, k: int = 3) -> Executor:
+    """Resolve an executor: an instance passes through; ``None`` picks
+    the distributed backend when a mesh is given, else the partitioned
+    one.  The distributed backend raises without a mesh, as in the
+    reference, and with one (a later slice of the port)."""
+    if isinstance(spec, Executor):
+        return spec
+    if spec is None:
+        spec = "distributed" if mesh is not None else "partitioned"
+    if spec == "partitioned":
+        return PartitionedLocalExecutor(k=k)
+    if spec == "batched":
+        return BatchedExecutor(k=k)
+    if spec == "distributed":
+        if mesh is None:
+            raise ValueError("distributed executor requires a mesh")
+        raise NotImplementedError(_MESH_SLICE)
+    raise ValueError(f"unknown executor {spec!r}")
+
+
+# ---------------------------------------------------------------------------
+# The ad-hoc functional entry points (raw stacked arrays, no index).
+# ---------------------------------------------------------------------------
+
+
+def _one_train(train: dict) -> dict:
+    """The tensor fields of one train sketch as (n,) rows: the
+    reference's unstacked form passes, the port's Q=1 form is unstacked,
+    a wider stack raises."""
+    if train["keys"].dim() == 1:
+        return {f: train[f] for f in _TRAIN_FIELDS}
+    if train["keys"].shape[0] != 1:
+        raise ValueError(
+            f"the ad-hoc scorers take one train sketch; got a stack of "
+            f"{train['keys'].shape[0]} (use query_many or an executor)"
+        )
+    return {f: train[f][0] for f in _TRAIN_FIELDS}
+
+
+def stack_trains(trains: list[dict]) -> dict:
+    """Stack single-query train dicts, each (n,) or Q=1, into one
+    leading-Q dict."""
+    if not trains:
+        raise ValueError("no train sketches")
+    y_disc = {bool(t.get("y_discrete", False)) for t in trains}
+    if len(y_disc) != 1:
+        raise ValueError(
+            "query_many requires all train targets to share one dtype "
+            "(got both discrete and continuous); split the batch"
+        )
+    rows = [_one_train(t) for t in trains]
+    out = {f: torch.stack([r[f] for r in rows]) for f in _TRAIN_FIELDS}
+    out["y_discrete"] = y_disc.pop()
+    return out
+
+
+def _score_by_estimator(train: dict, cands: dict, k: int, impl: str):
+    """Join every candidate row with the lexsort join, then score each
+    ``est_id`` group with its estimator, padded up the group ladder by
+    :func:`~repro_torch.core.discovery.planner.group_rows` as a plan
+    pads it (the padding rows repeat the group's first candidate with an
+    all-False mask).  Returns (mi (C,) float32, js (C,) int32) on the
+    inputs' device."""
+    t = _one_train(train)
+    ck, cm = cands["keys"], cands["mask"]
+    xf, y_f, mask = sketch_join_lexsort(t["keys"], t["vals_f"], t["mask"],
+                                        ck, cands["vals_f"], cm)
+    xu, y_u, _ = sketch_join_lexsort(t["keys"], t["vals_u"], t["mask"],
+                                     ck, cands["vals_u"], cm)
+    est = torch.as_tensor(cands["est_id"]).cpu().numpy()
+    mi = torch.zeros(len(est), dtype=torch.float32, device=ck.device)
+    for eid, idx in partition_by_estimator(est):
+        g = len(idx)
+        rows, live = group_rows(idx, ck.device)
+        m = mask[rows] & live[:, None]
+        mi_g = _estimate(eid, xf[rows], xu[rows], y_f[rows], y_u[rows], m, k,
+                         impl)
+        mi[rows[:g]] = mi_g[:g]
+    return mi, mask.sum(-1, dtype=torch.int32)
+
+
+def score_batch(train: dict, cands: dict, k: int = 3):
+    """MI of every candidate of a stacked dict against one train sketch.
+
+    ``cands`` holds (C, cap) ``keys`` / ``vals_f`` / ``vals_u`` /
+    ``mask`` tensors in any key order and ``est_id`` (C,), the estimator
+    of each candidate; ``train`` one train sketch, (n,) or Q=1.  Returns
+    (mi (C,) float32, join sizes (C,) int32) on the inputs' device.
+    """
+    return _score_by_estimator(train, cands, k, "fused")
+
+
+def score_batch_reference(train: dict, cands: dict, k: int = 3):
+    """:func:`score_batch` through the materialized (P×P) estimators: the
+    seed's scoring path, kept for comparison.  Same inputs and outputs."""
+    return _score_by_estimator(train, cands, k, "materialized")
+
+
+def score_batch_partitioned(train: dict, cands: dict, k: int = 3,
+                            groups: list[tuple] | None = None):
+    """Estimator-partitioned scoring of a raw stacked dict: planned ad hoc
+    by :func:`~repro_torch.core.discovery.planner.make_plan` (``groups``,
+    ``(est_id, indices)`` entries, overrides the partition) and run by
+    the partitioned executor.  Candidate keys must be sorted at ingest
+    (as the index stores them).  Equal to :func:`score_batch`, bit for
+    bit.  Returns (mi (C,) float32, join sizes (C,) int32) on the
+    inputs' device."""
+    device = cands["keys"].device
+    C = int(torch.as_tensor(cands["est_id"]).shape[0])
+    y_disc = bool(train.get("y_discrete", False))
+    if groups is None:
+        plan = make_plan(cands, y_discrete=y_disc)
+    else:
+        plan = QueryPlan(y_disc, C, [
+            pack_group(cands, int(entry[0]), np.asarray(entry[1]), C)
+            for entry in groups
+        ], device)
+    mi, js = PartitionedLocalExecutor(k=k).execute(plan, _one_train(train))
+    return torch.from_numpy(mi[0]).to(device), torch.from_numpy(js[0]).to(device)

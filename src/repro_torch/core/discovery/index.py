@@ -8,6 +8,11 @@ capacity along a power-of-two ladder when full.  Keys are stored in
 *effective* form (masked slots fenced to 0xFFFFFFFF) as zero-extended
 int64, so the hot join is one ``searchsorted`` per (query, candidate).
 
+:meth:`SketchIndex.stacked` gives the corpus as dense device tensors in
+candidate order with each candidate's ``est_id`` (its own store,
+flushed incrementally), the input of the ad-hoc scorers
+(``executors.score_batch`` and its siblings).
+
 ``query`` / ``query_many`` run two-phase retrieval by default: a
 join-size prefilter shortlists the candidates that can pass
 ``min_join`` and only those are gathered and scored — fused on the
@@ -39,6 +44,8 @@ import torch
 
 from repro_torch.core.discovery import executors as _ex
 from repro_torch.core.discovery.planner import (
+    _MESH_SLICE,
+    EST_MLE,
     MIN_BUCKET,
     GroupPlan,
     QueryPlan,
@@ -68,11 +75,6 @@ _DTYPES = {
     "mask": torch.bool,
 }
 _FILL = {"keys": KEY_MAX, "vals_f": 0, "vals_u": 0, "mask": False}
-
-_MESH_SLICE = (
-    "mesh= needs the multi-GPU executors, a later slice of the port "
-    "(ROADMAP.md: multi-GPU)"
-)
 
 
 def _signature_block(block: dict[str, np.ndarray], w: int) -> np.ndarray:
@@ -225,7 +227,9 @@ class SketchIndex:
         self._discrete: list[bool] = []
         self._cap_cols: int | None = None
         self._version = 0
+        self._store: _DeviceStore | None = None
         self._groups: dict[bool, _GroupState] = {}
+        self._stacked_cache: dict[tuple[bool, int], tuple[int, dict]] = {}
         self._plan_cache: dict[bool, tuple[int, QueryPlan]] = {}
         # Adaptive compaction-width rungs of the fused two-phase path.
         self.shortlist_hints = ShortlistHints()
@@ -319,16 +323,21 @@ class SketchIndex:
     @property
     def ingest_stats(self) -> dict:
         """Host->device transfer accounting: rows ever uploaded into the
-        group stores (equal to the candidates per cached dtype when
-        ingest is incremental), capacity doublings, rows not yet on the
-        device, and the allocated device bytes of each tier (full
-        sketches; phase-0 signatures)."""
-        stores = [st for state in self._groups.values()
+        stacked store and into the group stores (each equal to the
+        candidates, per cached dtype for the groups, when ingest is
+        incremental), capacity doublings, rows on no device store yet,
+        and the allocated device bytes of each tier (full sketches;
+        phase-0 signatures)."""
+        groups = [st for state in self._groups.values()
                   for st in state.stores.values()]
-        flushed = max([0] + [s.flushed for s in self._groups.values()])
+        stores = groups + ([self._store] if self._store else [])
+        flushed = max([self._store.rows if self._store else 0]
+                      + [s.flushed for s in self._groups.values()])
         return {
-            "group_h2d_rows": sum(st.h2d_rows for st in stores),
-            "group_store_grows": sum(st.grows for st in stores),
+            "h2d_rows": self._store.h2d_rows if self._store else 0,
+            "store_grows": self._store.grows if self._store else 0,
+            "group_h2d_rows": sum(st.h2d_rows for st in groups),
+            "group_store_grows": sum(st.grows for st in groups),
             "pending_rows": len(self.meta) - flushed,
             "sketch_bytes": sum(st.device_bytes["sketch"] for st in stores),
             "signature_bytes": sum(st.device_bytes["signature"]
@@ -381,6 +390,53 @@ class SketchIndex:
                 state.index.setdefault(eid, []).extend(idx)
             state.flushed = C
         return state
+
+    def _flush_store(self) -> _DeviceStore:
+        """The stacked store (every candidate in candidate order, no
+        signature tier) with the pending rows flushed into it."""
+        if self._store is None:
+            self._store = _DeviceStore(self._cap_cols, self.device)
+        pending = list(range(self._store.rows, len(self.meta)))
+        if pending:
+            self._store.append_block(self._host_block(pending))
+        return self._store
+
+    def stacked(self, y_is_discrete: bool, pad_to_multiple: int = 1) -> dict:
+        """The corpus as dense device tensors in candidate order: the
+        stacked store's ``keys`` (effective form), ``vals_f``, ``vals_u``
+        and ``mask`` rows, and ``est_id`` (C,) int32, each candidate's
+        estimator against a target of this dtype.
+
+        The candidate axis pads to a multiple of ``pad_to_multiple`` with
+        all-False-mask rows scored by MLE.  Cached per (target dtype,
+        padding) until the next ``add``; an ``add`` after ``stacked()``
+        uploads only the new rows on the next call.  The rows returned
+        are never written again: an ``add`` appends after them, a grow
+        allocates new tensors, and padding rows are tensors of their own.
+        """
+        C = len(self.meta)
+        if C == 0:
+            raise ValueError("empty index")
+        cache_key = (bool(y_is_discrete), int(pad_to_multiple))
+        hit = self._stacked_cache.get(cache_key)
+        if hit is not None and hit[0] == self._version:
+            return hit[1]
+        store = self._flush_store()
+        pad = -(-C // pad_to_multiple) * pad_to_multiple - C
+        out = {}
+        for name, dt in _DTYPES.items():
+            rows = store.arrays[name][:C]
+            if pad:
+                rows = torch.cat([rows, torch.full(
+                    (pad, store.cap_cols), _FILL[name], dtype=dt,
+                    device=self.device)])
+            out[name] = rows
+        est_ids = np.array(
+            [estimator_id(d, y_is_discrete) for d in self._discrete]
+            + [EST_MLE] * pad, dtype=np.int32)
+        out["est_id"] = torch.from_numpy(est_ids).to(self.device)
+        self._stacked_cache[cache_key] = (self._version, out)
+        return out
 
     def plan(self, y_is_discrete: bool) -> QueryPlan:
         """The executor-ready plan for this corpus and target dtype,
@@ -573,12 +629,33 @@ class SketchIndex:
         return self._rank(mi[0], np.arange(C), jsz[0], top_k, min_join)
 
     def query_many(self, train_sketches: list[Sketch], top_k: int = 10,
-                   min_join: int = 8, mesh=None, k: int = 3,
+                   min_join: int = 8, mesh=None, executor=None, k: int = 3,
                    prefilter: bool | None = None, fused: bool | None = None,
                    min_containment: float = 0.0):
         """Answer Q concurrent discovery queries of one target dtype in
-        one executor pass; one result list per train sketch."""
-        self._check_options(mesh, min_containment, prefilter, min_join)
+        one executor pass; one result list per train sketch.
+
+        ``executor=`` (a name for :func:`~repro_torch.core.discovery
+        .executors.get_executor`, or an instance) keeps the dense path
+        through that executor; with ``prefilter=True`` or with
+        ``min_containment > 0`` it raises, since the two-phase path picks
+        its own backend."""
+        if mesh is not None:
+            raise NotImplementedError(_MESH_SLICE)
+        if executor is not None and prefilter:
+            raise ValueError(
+                "prefilter=True is incompatible with executor=: the "
+                "two-phase path picks its own backend (drop executor=, "
+                "or pass prefilter=False/None for dense scoring)"
+            )
+        if float(min_containment) > 0.0 and (
+            executor is not None
+            or not self._use_prefilter(prefilter, min_join)
+        ):
+            raise ValueError(
+                "min_containment > 0 requires the two-phase path "
+                "(incompatible with executor= and with prefilter=False)"
+            )
         if not train_sketches:
             return []
         y_disc = {bool(sk.value_is_discrete) for sk in train_sketches}
@@ -590,10 +667,12 @@ class SketchIndex:
         trains = _ex.stack_trains_host(train_sketches, self.device)
         plan = self.plan(y_disc.pop())
         C = len(self.meta)
-        if self._use_prefilter(prefilter, min_join):
+        if self._use_prefilter(prefilter, min_join) and executor is None:
             return self._two_phase(plan, trains, top_k, min_join, k, fused,
                                    min_containment)
-        mi, js = _ex.BatchedExecutor(k=k).execute(plan, trains)
+        ex = (_ex.BatchedExecutor(k=k) if executor is None
+              else _ex.get_executor(executor, k=k))
+        mi, js = ex.execute(plan, trains)
         return [
             self._rank(mi[q], np.arange(C), js[q], top_k, min_join)
             for q in range(mi.shape[0])

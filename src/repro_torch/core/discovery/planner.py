@@ -15,6 +15,9 @@ containment gate sizes its survivor buffer up a third pow-2 ladder
 (:func:`bucket_survivors`, :func:`tier_spec`), with
 :class:`SurvivorOverflow` as its fallback signal.
 
+:func:`make_plan` / :func:`pack_group` lay out a raw stacked candidate
+dict (the ad-hoc scorers' input) the way the index lays out its stores.
+
 For the service: :func:`plan_signature` / :func:`shortlist_signature`
 (what a batch's layout is keyed on), :func:`coalesce_queries` (split a
 queue by signature, chunk it at ``max_q_bucket`` and bucket each chunk
@@ -30,6 +33,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from repro_torch.core.join import effective_keys
 
 __all__ = [
     "EST_MLE",
@@ -64,6 +69,9 @@ __all__ = [
     "coalesce_queries",
     "ServicePlan",
     "PlanCache",
+    "group_rows",
+    "pack_group",
+    "make_plan",
 ]
 
 # Estimator ids (stable across the repo and equal to the reference's).
@@ -77,6 +85,12 @@ MIN_SHORTLIST = 8
 
 # Smallest bucket on the phase-0 survivor ladder (tiered retrieval).
 MIN_SURVIVORS = 8
+
+# What an entry point that needs the multi-GPU executors raises.
+_MESH_SLICE = (
+    "mesh= needs the multi-GPU executors, a later slice of the port "
+    "(ROADMAP.md: multi-GPU)"
+)
 
 # Largest rung of the Q-axis ladder: the most queries an admission
 # controller hands to one executor pass; larger queues are chunked.
@@ -474,3 +488,64 @@ class PlanCache:
             "coalesced_hits": self.coalesced_hits,
             "coalesced_misses": self.coalesced_misses,
         }
+
+
+def group_rows(idx: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A group's candidate rows padded up the group ladder: (rows
+    (bucket,) int64, the first ``len(idx)`` ``idx`` and the rest
+    ``idx[0]`` again; live (bucket,) bool), on ``device``.  The ad-hoc
+    scorers pad every group this way, so each estimator call sees the
+    shapes a plan gives it."""
+    g = len(idx)
+    bucket = bucket_rows(g)
+    rows = np.concatenate([idx, np.full(bucket - g, idx[0], idx.dtype)])
+    return (torch.from_numpy(rows.astype(np.int64)).to(device),
+            torch.from_numpy(np.arange(bucket) < g).to(device))
+
+
+def pack_group(cands: dict, eid: int, idx: np.ndarray, n_candidates: int,
+               pad_multiple: int = 1) -> GroupPlan:
+    """Gather one estimator group from a raw stacked candidate dict into
+    its group-major bucket (the ad-hoc path; the index keeps its group
+    stores itself).
+
+    ``cands`` holds (C, cap) tensors on one device.  Rows [g, bucket)
+    repeat candidate ``idx[0]`` with an all-False mask (they join empty
+    and score 0.0) and map to the sentinel ``n_candidates``; keys are
+    returned in effective form.  ``pad_multiple`` is the reference's
+    mesh rounding: only 1 is served.
+    """
+    if pad_multiple != 1:
+        raise NotImplementedError(_MESH_SLICE)
+    g = len(idx)
+    device = cands["keys"].device
+    gathered, live = group_rows(idx, device)
+    mask = cands["mask"][gathered] & live[:, None]
+    arrays = {
+        "keys": effective_keys(cands["keys"][gathered], mask),
+        "vals_f": cands["vals_f"][gathered],
+        "vals_u": cands["vals_u"][gathered],
+        "mask": mask,
+    }
+    index = np.concatenate([idx.astype(np.int32), np.full(
+        len(live) - g, n_candidates, np.int32)])
+    return GroupPlan(eid, arrays, index, live, g,
+                     torch.from_numpy(index).to(device))
+
+
+def make_plan(cands: dict, y_discrete: bool, pad_multiple: int = 1,
+              n_candidates: int | None = None) -> QueryPlan:
+    """Plan from a raw stacked candidate dict (it must carry ``est_id``).
+
+    Candidates whose mask is all False (stack padding) still join empty
+    and score 0.0, in their original place, so executors reproduce the
+    ad-hoc scorers' output shapes.  ``pad_multiple`` must be 1 (see
+    :func:`pack_group`).
+    """
+    est = torch.as_tensor(cands["est_id"]).cpu().numpy()
+    C = int(est.shape[0]) if n_candidates is None else int(n_candidates)
+    groups = [
+        pack_group(cands, eid, idx, C, pad_multiple)
+        for eid, idx in partition_by_estimator(est[:C])
+    ]
+    return QueryPlan(bool(y_discrete), C, groups, cands["keys"].device)

@@ -24,7 +24,7 @@ MI agrees bit for bit on the CPU.
 
 Integer and selection outputs (ranks, radii, counts) equal the
 reference's exactly.  The tails use ``torch.special.digamma``, which
-differs from jax's by up to ~2e-6, so MI agrees to float tolerance, not
+differs from JAX's by up to ~2e-6, so MI agrees to float tolerance, not
 bit for bit.
 """
 

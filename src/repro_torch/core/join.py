@@ -6,6 +6,9 @@ The sketch join recovers a sample of the left-outer join
 (values = feature X, keys unique after aggregation).
 
   * :func:`sketch_join` — host numpy, used by tests and benchmarks.
+  * :func:`sketch_join_lexsort` — the ad-hoc scorers' join, batched over
+    leading dimensions: it sorts the candidate keys on every call, so it
+    takes candidate rows in ANY key order.
   * :func:`sketch_join_presorted` — the discovery hot path, batched over
     leading dimensions.  It relies on the sorted-at-ingest invariant
     (``build_sketch(side="cand")`` emits valid keys ascending, padding
@@ -37,6 +40,7 @@ __all__ = [
     "JoinSample",
     "effective_keys",
     "sketch_join",
+    "sketch_join_lexsort",
     "sketch_join_presorted",
     "presorted_join_size",
     "signature_join_size",
@@ -100,6 +104,51 @@ def sketch_join(train: Sketch, cand: Sketch) -> JoinSample:
 def _lead(a: torch.Tensor, shape: torch.Size) -> torch.Tensor:
     """``a`` broadcast over the leading dims ``shape`` (last dim kept)."""
     return a.expand(*shape, a.shape[-1])
+
+
+def sketch_join_lexsort(
+    train_keys: torch.Tensor,
+    train_values: torch.Tensor,
+    train_mask: torch.Tensor,
+    cand_keys: torch.Tensor,
+    cand_values: torch.Tensor,
+    cand_mask: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Join that sorts the candidate keys first; any key order.
+
+    Shapes are ``(..., n_train)`` and ``(..., n_cand)`` with broadcasting
+    leading dims, as in :func:`sketch_join_presorted`.  Each candidate
+    row is sorted by (key, invalid-last) — one stable sort of
+    ``2 * key + invalid`` (keys are below 2^32, so the int64 holds it) —
+    so that for a key present both as padding and as a valid entry,
+    ``searchsorted``'s left position lands on the valid one; the
+    gathered mask then rejects matches that landed on padding.  Between
+    equal valid keys the first in row order wins, as in the reference's
+    stable ``lexsort``.
+
+    Returns (x, y, matched) of the broadcast shape ``(..., n_train)``:
+    the gathered candidate value (0 where unmatched), the train value (0
+    where masked) and the match mask.
+    """
+    lead = torch.broadcast_shapes(train_keys.shape[:-1], cand_keys.shape[:-1])
+    tk = _lead(train_keys.to(torch.int64), lead).contiguous()
+    tm = _lead(train_mask, lead)
+    ck = cand_keys.to(torch.int64)
+    order = torch.sort(ck * 2 + (~cand_mask).to(torch.int64), dim=-1,
+                       stable=True).indices
+    ck_sorted = _lead(ck.gather(-1, order), lead).contiguous()
+    cv_sorted = _lead(cand_values.gather(-1, order), lead)
+    cm_sorted = _lead(cand_mask.gather(-1, order), lead)
+    pos = torch.searchsorted(ck_sorted, tk)
+    pos_c = pos.clamp_(0, ck_sorted.shape[-1] - 1)
+    matched = tm & (ck_sorted.gather(-1, pos_c) == tk) \
+        & cm_sorted.gather(-1, pos_c)
+    zero = torch.zeros((), dtype=cand_values.dtype, device=cand_values.device)
+    x = torch.where(matched, cv_sorted.gather(-1, pos_c), zero)
+    y = torch.where(tm, _lead(train_values, lead),
+                    torch.zeros((), dtype=train_values.dtype,
+                                device=train_values.device))
+    return x, y, matched
 
 
 def sketch_join_presorted(
