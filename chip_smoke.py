@@ -21,7 +21,8 @@ it fails:
      both bodies),
      ``flash_attention/csrc/flash_wgmma.cu`` (the Hopper kernel) and
      ``murmur3/csrc/murmur3_fib.cu``, one ``nvcc`` each, started together
-     (seconds and ``ptxas`` register/spill/shared-memory reports);
+     (seconds and ``ptxas`` register/spill/shared-memory reports); whether
+     ``torch._grouped_mm`` (the MoE layers' grouped GEMM) is present;
   2. every kernel against its plain PyTorch version on the card, on the
      same inputs, required bit-equal (tolerance 0, NaN positions equal):
      radius_counts' radii, class counts and ball/tie counts, at
@@ -51,7 +52,12 @@ it fails:
      spacings), each case also required to reach the body
      ``kernel.takes_regtile`` names (float32 at Dk, Dv <= 128 the
      register-tiled body, held within atol 2e-5 of the basic body on the
-     same inputs too; the rest the basic body), both bodies reached;
+     same inputs too; the rest the basic body), both bodies reached; then
+     the Hopper kernel at the MoE serving path's operand layouts (GQA
+     group 8: Hq 32 / Hkv 4 at head dim 128; MLA's (192, 128) with k the
+     expanded rope concatenation and v a strided slice of the ``kv_up``
+     output), bf16 and fp16, S = 100/2048, causal and not, each one launch
+     of the Hopper kernel within its tolerance;
      knn_smallest in both modes at P = 1/2/31/255/256/257/512/
      1024/1025 and kb = 1/3/8/16/128, and ball_counts with both ``which``
      at r = 0, +inf, NaN and an existing distance, with all-invalid
@@ -214,11 +220,39 @@ it fails:
      and a weather column discovered, the augmented test MAE below the
      baseline (``[augment]`` lines).
 
+ 18. the MoE and MLA serving path, after phase 11 with its model freed,
+     for ``qwen3-moe-30b-a3b`` (``[moe]`` lines) then
+     ``deepseek-v2-lite-16b`` (``[mla]``), one at a time: (a) the
+     configuration at full width cut to 4 / 3 layers (every layer kind),
+     float32 parameters from a seeded generator, one request (a
+     2048-token prompt, 32 tokens) served through ``ContinuousBatcher``
+     (bfloat16, the Hopper flash kernel, ``torch._grouped_mm``): its
+     served logits against the float32 ``forward`` with the plain
+     attention and the plain grouped SwiGLU (the loop over experts)
+     within its tolerance (``MOE_SERVE``), a forward without the causal mask outside
+     it; (b) the first MoE layer of that model on bfloat16 inputs at 2048
+     and 4 tokens: the route equal to the plain router (float64 on the
+     host) wherever the k-th / (k+1)-th probability gap exceeds
+     ``ROUTE_GAP_TOL``, the grouped GEMM within ``GROUPED_RTOL`` of the
+     loop on the same sorted rows (the loop over groups shifted by one
+     expert outside it), timed beside the loop and its bound; (c) the
+     full-depth configuration (48 / 27 layers) in bfloat16 parameters
+     with phase 11's traffic: prefill and decode times, tokens/s, peak
+     memory beside the predicted one, exactly one Hopper flash launch
+     per layer per request, one grouped SwiGLU per MoE layer per prefill
+     and decode step (counted through the replays) and nothing else, the
+     first two flash launches of a request held and timed as in phase
+     11 (a), a profiled prefill and decode step (device time by kernel
+     family), the captured decode step against ``eager()`` from
+     identical cache copies (logits and caches bit-equal), and request
+     0's served logits against a bfloat16 ``forward`` of the same tokens
+     within its tolerance (``MOE_SERVE``; an unmasked forward outside it).
+
 Phases 14, 15, 16 (a)-(c), 17, 12 and 13 run after phase 10 and before
 phase 11, so that the serving path starts with the discovery state
-freed.  Each of phases 3, 7-9 and 11-17 sets every kernel's launch
-count to 0 just before it drives its path and reads the counts just
-after.
+freed; phase 18 runs after phase 11.  Each of phases 3, 7-9 and 11-18
+sets every kernel's launch count to 0 just before it drives its path and
+reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
 (``{"record": ...}``), then the kernels' JSON line, the card's name and
@@ -383,6 +417,7 @@ PROFILE_TRIES = 5  # profiler windows device_ms_per_call tries
 # rows never count as a sort).
 PROFILE_KINDS = {
     "radius_counts": ("radius_counts",),
+    "grouped_mm": ("GroupProblemShape", "grouped", "Grouped"),
     "searchsorted": ("searchsorted",),
     "gather": ("index", "gather"),
     "sort": ("sort", "Sort"),
@@ -406,6 +441,41 @@ SERVED_RTOL = 0.10
 # summation order only (within FA_F32_ATOL), which 24 layers carry into
 # the logits at a relative RMS far below this.
 F32_FWD_RTOL = 1e-3
+
+
+# Phase 18: the MoE and MLA serving path.  Each configuration, its tag,
+# the depth of its float32 check model (as few layers as show every layer
+# kind; deepseek: its dense layer 0 and two MoE layers), and the
+# tolerances (relative RMS, as SERVED_RTOL) on (a)'s served logits
+# against the float32 forward and on (c)'s against the bfloat16 forward.
+# Each must lie above what the dtype policy costs and below what a
+# forward without the causal mask moves the logits.  For qwen3
+# SERVED_RTOL does both: on an H100 the policy comes to 0.052 in (a) and
+# 0.017 in (c), an unmasked forward to 1.13 and 1.31.  deepseek's random
+# MLA scores spread nearly evenly over the 2048-key prompt, so the 31
+# keys an unmasked tail row also sees move its logits little: in (a)
+# 0.037-0.056 against a policy error of 0.019 (the bfloat16 forward) and
+# 0.021 (served); in (c) 0.104 against 0.065 (26 MoE layers of routing
+# flips and the absorbed decode's own roundings; (a) shows the decode
+# rows no further from float32 than the bfloat16 forward is).  Its
+# tolerances sit between the two, a factor 1.3 from each; the runs are
+# seeded and the kernels deterministic, so these errors repeat.
+MOE_SERVE = (("qwen3-moe-30b-a3b", "[moe]", 4, SERVED_RTOL, SERVED_RTOL),
+             ("deepseek-v2-lite-16b", "[mla]", 3, 0.028, 0.082))
+# (b): the card's route (float32 logits and softmax) is held against the
+# plain router in float64 wherever the k-th and (k+1)-th probabilities
+# differ by more than this.  The card's float32 logits carry an error of
+# about 2^-24 of a sum of 2048 products (some 1e-7 absolute), which moves
+# a probability of about 1/E by some 1e-9: a gap over 1e-6 cannot flip.
+ROUTE_GAP_TOL = 1e-6
+# (b): torch._grouped_mm against the loop on the same bfloat16 rows, as
+# the largest per-row relative RMS.  Both accumulate in float32 and round
+# each GEMM's output to bfloat16 once (2^-9 relative an element); where
+# the two float32 sums straddle a rounding boundary an element of the
+# gate or up product moves by one spacing (2^-8), which the down GEMM
+# averages over d_ff products.  2^-6 is four times the worst single
+# element's 2^-8; the loop over the wrong experts lands near 1.
+GROUPED_RTOL = 2.0 ** -6
 
 
 def log(msg: str) -> None:
@@ -703,6 +773,78 @@ def check_flash_attention(dev) -> dict:
         f"{FA_BF16_ULPS} spacing + {FA_F32_ATOL}) against chunked_attention and "
         f"mha_reference: max_abs_err={worst['flash_attention_simt_basic']}, "
         f"worst 16-bit error in spacings={units['flash_attention_simt_basic']}")
+    return worst
+
+
+def serving_layouts(dtype, S: int, gen: torch.Generator, dev) -> dict:
+    """The Hopper kernel's operands as the MoE serving path makes them:
+    ``qwen3-moe``'s GQA group 8 (Hq 32 / Hkv 4, head dim 128) as
+    transposed views of (B, S, H, D) projections, and MLA's exact layout
+    (``mla.apply``): q the nope/rope concatenation, k the expanded
+    latent's nope part concatenated with the broadcast rope key, v a
+    strided slice of the ``kv_up`` output (row stride H * 256)."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    h = 16
+    kv = rand(1, S, h, 128 + 128)  # kv_up's output, (B, S, h, dn + dv)
+    k_rope = rand(1, S, 64)
+    k = torch.cat([kv[..., :128], k_rope[:, :, None, :].expand(1, S, h, 64)],
+                  dim=-1)
+    return {
+        "gqa_group8": (rand(1, S, 32, 128).transpose(1, 2),
+                       rand(1, S, 4, 128).transpose(1, 2),
+                       rand(1, S, 4, 128).transpose(1, 2)),
+        "mla": (rand(1, S, h, 192).transpose(1, 2), k.transpose(1, 2),
+                kv[..., 128:].transpose(1, 2)),
+    }
+
+
+def check_flash_serving_layouts(dev) -> float:
+    """Phase 2, the Hopper kernel at the MoE serving path's operand
+    layouts (``serving_layouts``), bf16 and fp16, causal and not: each
+    case through ``kernel.flash_attention``, required to reach the Hopper
+    kernel (one launch, nothing else), within its tolerance of both plain
+    versions.  Returns the worst max_abs_err."""
+    from functools import partial
+
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    worst, units, n = 0.0, 0.0, 0
+    for dtype in (torch.bfloat16, torch.float16):
+        for S in (100, 2048):
+            for name, (q, k, v) in serving_layouts(dtype, S, gen, dev).items():
+                for causal in (True, False):
+                    case = f"{name} {str(dtype)[6:]} S={S} causal={causal}"
+                    if not kernel.takes_wgmma(q, k, v):
+                        raise AssertionError(f"takes_wgmma refuses {case}: q "
+                                             f"{q.stride()}, k {k.stride()}, v "
+                                             f"{v.stride()}")
+                    scale = 1.0 / q.shape[-1] ** 0.5
+                    reset_launches()
+                    got = kernel.flash_attention(q, k, v, scale=scale,
+                                                 causal=causal)
+                    if read_launches() != {**{k_: 0 for k_ in wrappers()},
+                                           "flash_attention_wgmma": 1}:
+                        raise AssertionError(f"{case} did not reach the Hopper "
+                                             f"kernel alone: {read_launches()}")
+                    for plain in (partial(ref.chunked_attention, p_dtype=dtype),
+                                  ref.mha_reference):
+                        want = plain(q, k, v, scale=scale, causal=causal)
+                        ok, err, u = fa_within_p(got, want, v,
+                                                 q.shape[1] // k.shape[1])
+                        if not ok:
+                            raise AssertionError(f"flash_attention_wgmma {case} "
+                                                 f"differs from its plain version: "
+                                                 f"max_abs_err={err}, units={u}")
+                        worst, units = max(worst, err), max(units, u)
+                    n += 1
+    log(f"[compare] flash_attention_wgmma at the MoE serving layouts (GQA group "
+        f"8 at head dim 128; MLA (192, 128) with v a strided slice of kv_up's "
+        f"output): {n} cases, each one launch of the Hopper kernel, within 1 "
+        f"spacing + {FA_P_VREL} max|v| + {FA_F32_ATOL} of both plain versions: "
+        f"max_abs_err={worst}, worst error in units of the bound={units}")
     return worst
 
 
@@ -1188,6 +1330,7 @@ def wrappers() -> dict:
     from repro_torch.kernels.knn_stats import kernel as rc_kernel
     from repro_torch.kernels.murmur3 import kernel as mm_kernel
     from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
+    from repro_torch.models import ffn
 
     return {"radius_counts": rc_kernel.radius_counts,
             "radius_counts_staged": rc_kernel.radius_counts_staged,
@@ -1203,7 +1346,10 @@ def wrappers() -> dict:
             "flash_attention": fa_kernel.flash_attention_simt,
             "flash_attention_simt_regtile": fa_kernel.flash_attention_simt_regtile,
             "flash_attention_simt_basic": fa_kernel.flash_attention_simt_basic,
-            "flash_attention_wgmma": fa_kernel.flash_attention_wgmma}
+            "flash_attention_wgmma": fa_kernel.flash_attention_wgmma,
+            # The MoE layers' grouped GEMM (torch._grouped_mm, a library
+            # call): counted as the kernels are, through replays too.
+            "grouped_swiglu_mm": ffn.grouped_swiglu_mm}
 
 
 def reset_launches() -> None:
@@ -2368,15 +2514,118 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
     return fa
 
 
+def serve_traffic(cfg, params, prompts: list, card: str, tag: str = "[serve]",
+                  slots: int = SERVE_SLOTS, gen_len: int = SERVE_GEN,
+                  max_len: int = SERVE_MAX):
+    """``ContinuousBatcher`` over ``prompts`` until every request has
+    ``gen_len`` tokens, with every launch count set to 0 just before and
+    read just after; prefill and decode times on the host clock around a
+    synchronize.  Request 0's served logits (its prefill, then each decode
+    step while it is active) are kept on the card (device copies, no sync).
+    Returns (record, served logits, batcher)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    served = []
+    prefill_fn = T.prefill
+
+    def prefill_capture(*args, **kw):
+        logits, caches = prefill_fn(*args, **kw)
+        if not served:
+            served.append(logits[0, -1].clone())
+        return logits, caches
+
+    start_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batcher = serve.ContinuousBatcher(cfg, params, slots, max_len)
+    decode_fn = batcher._decode
+
+    def decode_capture(toks, pos):
+        logits, caches = decode_fn(toks, pos)
+        if batcher.active[0] and batcher.slot_req[0] == 0:
+            served.append(logits[0, 0].clone())
+        return logits, caches
+
+    batcher._decode = decode_capture
+    n = len(prompts)
+    queue, finished, prefill_s, decode_s = list(range(n)), [], [], []
+    reset_launches()
+    T.prefill = prefill_capture
+    try:
+        t_run = time.perf_counter()
+        while len(finished) < n:
+            while queue:
+                t0 = time.perf_counter()
+                if not batcher.admit(queue[0], prompts[queue[0]]):
+                    break
+                torch.cuda.synchronize()
+                prefill_s.append(time.perf_counter() - t0)
+                queue.pop(0)
+            t0 = time.perf_counter()
+            batcher.step()
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t0)
+            finished += batcher.retire(gen_len)
+        wall = time.perf_counter() - t_run
+    finally:
+        T.prefill = prefill_fn
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    outs = [batcher.outputs[r] for r in range(n)]
+    if any(len(o) != gen_len for o in outs) or sorted(finished) != list(range(n)):
+        raise AssertionError("not every request finished with its tokens")
+    if len(served) != gen_len:
+        raise AssertionError(f"captured {len(served)} served logit vectors")
+    generated = sum(len(o) for o in outs)
+    rec = {
+        "requests": n, "slots": slots, "prompt_len": len(prompts[0]),
+        "gen_len": gen_len, "max_len": max_len, "launches": launches,
+        "prefill_ms": [1e3 * t for t in prefill_s],
+        "prefill_ms_median": 1e3 * float(np.median(prefill_s)),
+        "decode_steps": len(decode_s), "decode_ms": [1e3 * t for t in decode_s],
+        "decode_ms_median": 1e3 * float(np.median(decode_s)),
+        "wall_s": wall, "generated_tokens": generated,
+        "generated_tok_s": generated / wall,
+        "slot_tok_s": len(decode_s) * slots / wall,
+        "peak_mem_bytes": peak, "start_mem_bytes": start_mem,
+    }
+    log(f"{tag} {n} requests x {len(prompts[0])}-token prompts over "
+        f"{slots} slots, {gen_len} tokens each: prefill median "
+        f"{rec['prefill_ms_median']:.2f} ms/request (min {min(rec['prefill_ms']):.2f},"
+        f" max {max(rec['prefill_ms']):.2f}), decode median "
+        f"{rec['decode_ms_median']:.2f} ms/step over {len(decode_s)} steps (min "
+        f"{min(rec['decode_ms']):.2f}, max {max(rec['decode_ms']):.2f}); "
+        f"{generated} tokens in {wall:.3f} s = {rec['generated_tok_s']:.1f} "
+        f"generated tok/s ({rec['slot_tok_s']:.1f} slot-steps/s); peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; card {card}")
+    return rec, served, batcher
+
+
+def profile_serving(batcher, prompts: list, tag: str) -> dict:
+    """Where the time goes: one more admit (a prefill) and one decode step
+    of the then full slots, each under the profiler."""
+    for r in range(batcher.slots - 1):
+        batcher.admit(100 + r, prompts[r + 1])
+    prof = {"prefill": profile_call(lambda: batcher.admit(99, prompts[0])),
+            "decode": profile_call(batcher.step)}
+    for name, pr in prof.items():
+        log(f"{tag} profiled {name}: wall {pr['wall_ms']:.2f} ms, device "
+            f"{pr['device_ms']:.2f} ms (busy {pr['busy_share'] or 0:.2f}), "
+            f"{pr['launches']} kernel launches, {pr['launch_api_calls']} host "
+            f"launch calls; by family: "
+            + ", ".join(f"{k} {v['ms']:.3f} ms x{v['count']}"
+                        for k, v in pr["kinds"].items() if v["count"]))
+        for row in pr["top"][:8]:
+            log(f"{tag}   {row['ms']:9.3f} ms x{row['count']:<5d} {row['name']}")
+    return prof
+
+
 def run_serving(card: str, dev: torch.device) -> dict:
     """Phase 11: ``ContinuousBatcher`` over ``internlm2-1.8b`` at full
     width, then checks (a)-(c)."""
-    from types import SimpleNamespace
-
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
 
@@ -2395,84 +2644,15 @@ def run_serving(card: str, dev: torch.device) -> dict:
         f"{cfg.d_ff}, vocab {cfg.padded_vocab_size}; {n_params} {cfg.param_dtype} "
         f"parameters made on the card in {t_init:.2f} s")
 
-    # The served logits of request 0 (slot 0): its prefill, then each
-    # decode step while it is active.  Kept on the card (a device copy,
-    # no sync) and read back after the timed loop.
-    served = []
-    prefill_fn = T.prefill
-
-    def prefill_capture(*args, **kw):
-        logits, caches = prefill_fn(*args, **kw)
-        if not served:
-            served.append(logits[0, -1].clone())
-        return logits, caches
-
-    start_mem = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    batcher = serve.ContinuousBatcher(cfg, params, SERVE_SLOTS, SERVE_MAX)
-    decode_fn = batcher._decode
-
-    def decode_capture(toks, pos):
-        logits, caches = decode_fn(toks, pos)
-        if batcher.active[0] and batcher.slot_req[0] == 0:
-            served.append(logits[0, 0].clone())
-        return logits, caches
-
-    batcher._decode = decode_capture
-    queue, finished, prefill_s, decode_s = list(range(SERVE_REQUESTS)), [], [], []
-    reset_launches()
-    T.prefill = prefill_capture
-    try:
-        t_run = time.perf_counter()
-        while len(finished) < SERVE_REQUESTS:
-            while queue:
-                t0 = time.perf_counter()
-                if not batcher.admit(queue[0], prompts[queue[0]]):
-                    break
-                torch.cuda.synchronize()
-                prefill_s.append(time.perf_counter() - t0)
-                queue.pop(0)
-            t0 = time.perf_counter()
-            batcher.step()
-            torch.cuda.synchronize()
-            decode_s.append(time.perf_counter() - t0)
-            finished += batcher.retire(SERVE_GEN)
-        wall = time.perf_counter() - t_run
-    finally:
-        T.prefill = prefill_fn
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
+    run, served, batcher = serve_traffic(cfg, params, prompts, card)
+    launches = run["launches"]
     expect = cfg.num_layers * SERVE_REQUESTS
     if launches != {**{k: 0 for k in launches}, "flash_attention_wgmma": expect}:
         raise AssertionError(f"serving made launches {launches}; expected "
                              f"{cfg.num_layers} of flash_attention_wgmma per "
                              f"request, {expect} in all, and nothing else")
     outs = [batcher.outputs[r] for r in range(SERVE_REQUESTS)]
-    if any(len(o) != SERVE_GEN for o in outs) or sorted(finished) != list(range(SERVE_REQUESTS)):
-        raise AssertionError("not every request finished with its tokens")
-    generated = sum(len(o) for o in outs)
-    rec = {
-        "arch": SERVE_ARCH, "params": n_params, "init_s": t_init,
-        "requests": SERVE_REQUESTS, "slots": SERVE_SLOTS, "prompt_len": SERVE_PROMPT,
-        "gen_len": SERVE_GEN, "max_len": SERVE_MAX, "launches": launches,
-        "prefill_ms": [1e3 * t for t in prefill_s],
-        "prefill_ms_median": 1e3 * float(np.median(prefill_s)),
-        "decode_steps": len(decode_s), "decode_ms": [1e3 * t for t in decode_s],
-        "decode_ms_median": 1e3 * float(np.median(decode_s)),
-        "wall_s": wall, "generated_tokens": generated,
-        "generated_tok_s": generated / wall,
-        "slot_tok_s": len(decode_s) * SERVE_SLOTS / wall,
-        "peak_mem_bytes": peak, "start_mem_bytes": start_mem,
-    }
-    log(f"[serve] {SERVE_REQUESTS} requests x {SERVE_PROMPT}-token prompts over "
-        f"{SERVE_SLOTS} slots, {SERVE_GEN} tokens each: prefill median "
-        f"{rec['prefill_ms_median']:.2f} ms/request (min {min(rec['prefill_ms']):.2f},"
-        f" max {max(rec['prefill_ms']):.2f}), decode median "
-        f"{rec['decode_ms_median']:.2f} ms/step over {len(decode_s)} steps (min "
-        f"{min(rec['decode_ms']):.2f}, max {max(rec['decode_ms']):.2f}); "
-        f"{generated} tokens in {wall:.3f} s = {rec['generated_tok_s']:.1f} "
-        f"generated tok/s ({rec['slot_tok_s']:.1f} slot-steps/s); peak device "
-        f"memory {peak / 2**30:.2f} GiB; launches {launches}; card {card}")
+    rec = {"arch": SERVE_ARCH, "params": n_params, "init_s": t_init, **run}
 
     # (a) One request's 24 launches, captured with their inputs.
     tok0 = torch.as_tensor(prompts[0][None, :], device=dev)
@@ -2481,45 +2661,21 @@ def run_serving(card: str, dev: torch.device) -> dict:
     fa = hold_flash_launches(seen, card, "flash_attention_wgmma")
     del seen
 
-    # Where the time goes: one more admit (a prefill) and one decode step
-    # of the four then active slots, each under the profiler.
-    for r in range(SERVE_SLOTS - 1):
-        batcher.admit(100 + r, prompts[r + 1])
-    prof = {"prefill": profile_call(lambda: batcher.admit(99, prompts[0])),
-            "decode": profile_call(batcher.step)}
-    for name, pr in prof.items():
-        log(f"[serve] profiled {name}: wall {pr['wall_ms']:.2f} ms, device "
-            f"{pr['device_ms']:.2f} ms (busy {pr['busy_share'] or 0:.2f}), "
-            f"{pr['launches']} kernel launches, {pr['launch_api_calls']} host "
-            f"launch calls")
-        for row in pr["top"][:8]:
-            log(f"[serve]   {row['ms']:9.3f} ms x{row['count']:<5d} {row['name']}")
+    prof = profile_serving(batcher, prompts, "[serve]")
     decode16 = compare_decode(batcher, card)
 
     # (b) The served logits against the float32 forward with the plain
     # attention, over the prompt and the tokens fed back.
-    toks = np.concatenate([prompts[0], np.asarray(outs[0][:-1], np.int32)])
-    toks = torch.as_tensor(toks[None, :], device=dev)
+    toks = served_tokens(prompts[0], outs[0], dev)
     cfg32 = cfg.with_overrides(dtype="float32")
     got = torch.stack(served).float().cpu()
-    if got.shape[0] != SERVE_GEN:
-        raise AssertionError(f"captured {got.shape[0]} served logit vectors")
 
     def forward_tail(c, attention) -> torch.Tensor:
-        fa_ops.kernel = SimpleNamespace(flash_attention=attention)
-        try:
-            logits, _ = T.forward(c, params, {"tokens": toks})
-        finally:
-            fa_ops.kernel = fa_kernel
-        return logits[0, SERVE_PROMPT - 1:].float().cpu()
+        return forward_logits(c, params, toks, attention)
 
     want = forward_tail(cfg32, fa_ref.mha_reference)
     err = rel_rms(got, want)
-
-    def unmasked(q, k, v, *, scale, causal):
-        return fa_kernel.flash_attention(q, k, v, scale=scale, causal=False)
-
-    leak = rel_rms(forward_tail(cfg, unmasked), want)
+    leak = rel_rms(forward_tail(cfg, unmasked_attention), want)
     fwd_bf16 = rel_rms(forward_tail(cfg, fa_kernel.flash_attention), want)
     same_argmax = int((got.argmax(-1) == want.argmax(-1)).sum())
     rec_b = {"served_rel_rms_max": float(err.max()),
@@ -2593,7 +2749,7 @@ def run_serving(card: str, dev: torch.device) -> dict:
             "served_logits": rec_b, "profile": prof, "programs": decode16}
 
 
-def compare_decode(batcher, card: str) -> dict:
+def compare_decode(batcher, card: str, tag: str = "[programs]") -> dict:
     """Phase 16 (d): the batcher's captured decode step against its eager
     step, from identical copies of the caches at the same tokens and
     position: logits and caches bit-equal; then both timed at that
@@ -2647,7 +2803,7 @@ def compare_decode(batcher, card: str) -> dict:
         times["eager"].append(timed(eager_step))
     prof = {"programs": profile_call(step), "eager": profile_call(eager_step)}
     med = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
-    log(f"[programs] decode step ({batcher.slots} slots, pos {pos}): captured "
+    log(f"{tag} decode step ({batcher.slots} slots, pos {pos}): captured "
         f"== eager bit for bit (logits and caches); median of {WARM_REPS}, "
         f"alternated: programs {med['programs']:.2f} ms, eager "
         f"{med['eager']:.2f} ms; profiled: "
@@ -2658,6 +2814,350 @@ def compare_decode(batcher, card: str) -> dict:
     return {"bit_equal": True, "pos": pos,
             "times_ms": {k: [1e3 * t for t in v] for k, v in times.items()},
             "median_ms": med, "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the MoE and MLA serving path at full width
+# ---------------------------------------------------------------------------
+
+def first_moe_layer(cfg) -> int:
+    from repro_torch.configs.base import layer_layout
+
+    return next(i for i, s in enumerate(layer_layout(cfg)) if s.ffn == "moe")
+
+
+def moe_layers(cfg) -> int:
+    from repro_torch.configs.base import layer_layout
+
+    return sum(s.ffn == "moe" for s in layer_layout(cfg))
+
+
+def grouped_bound(x_sorted: torch.Tensor, sizes: torch.Tensor,
+                  w_gate: torch.Tensor, w_down: torch.Tensor) -> dict:
+    """Least time for one grouped SwiGLU: its FLOP (three GEMMs of
+    2·M·D·F) at the tensor-core rate of the operand type, or its bytes
+    (the sorted rows and offsets read once, the weights of every expert
+    this run's routing gives a row read once, the output written once)
+    over the HBM rate."""
+    M, D = x_sorted.shape
+    F = w_gate.shape[-1]
+    used = int((sizes > 0).sum())
+    esize = x_sorted.element_size()
+    flop = 3 * 2.0 * M * D * F
+    nbytes = (2 * M * D * esize + sizes.numel() * 4
+              + used * (3 * D * F) * w_down.element_size())
+    t_ops = 1e3 * flop / PEAK_FLOP_S[x_sorted.dtype]
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flop, "bytes": nbytes, "ops_ms": t_ops,
+            "bytes_ms": t_bytes, "experts_used": used, "rows": M}
+
+
+def forward_logits(cfg, params, toks, attention, grouped=None) -> torch.Tensor:
+    """``T.forward``'s logits from the prompt's last position on, with the
+    attention's implementation substituted (and the grouped SwiGLU's, when
+    ``grouped`` is given)."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import ffn
+    from repro_torch.models import transformer as T
+
+    own = ffn.grouped_swiglu
+    fa_ops.kernel = SimpleNamespace(flash_attention=attention)
+    ffn.grouped_swiglu = grouped or own
+    try:
+        logits, _ = T.forward(cfg, params, {"tokens": toks})
+    finally:
+        fa_ops.kernel = fa_kernel
+        ffn.grouped_swiglu = own
+    return logits[0, SERVE_PROMPT - 1:].float().cpu()
+
+
+def unmasked_attention(q, k, v, *, scale, causal):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    return fa_kernel.flash_attention(q, k, v, scale=scale, causal=False)
+
+
+def served_tokens(prompt, outs, dev) -> torch.Tensor:
+    toks = np.concatenate([prompt, np.asarray(outs[:-1], np.int32)])
+    return torch.as_tensor(toks[None, :], device=dev)
+
+
+def expect_serving_launches(launches: dict, cfg, requests: int, steps: int,
+                            what: str) -> None:
+    """Exactly one Hopper flash launch per layer per prefill, one grouped
+    SwiGLU per MoE layer per prefill and decode step (counted through the
+    replays), and nothing else: no CUDA-core flash body, no loop."""
+    want = {**{k: 0 for k in launches},
+            "flash_attention_wgmma": cfg.num_layers * requests,
+            "grouped_swiglu_mm": moe_layers(cfg) * (requests + steps)}
+    if launches != want:
+        raise AssertionError(f"{what} made launches "
+                             f"{ {k: v for k, v in launches.items() if v} }; "
+                             f"expected { {k: v for k, v in want.items() if v} }")
+
+
+def moe_check_model(arch: str, tag: str, layers: int, tol: float, card: str,
+                    dev) -> tuple:
+    """Phase 18 (a): ``arch`` at full width cut to ``layers`` layers,
+    float32 parameters from a seeded generator, one request (2048-token
+    prompt, 32 tokens) served through ``ContinuousBatcher`` (bfloat16,
+    the Hopper flash kernel, the grouped GEMM), its served logits held
+    against the float32 ``forward`` with the plain attention and the
+    plain grouped SwiGLU (the loop) within ``tol``; a forward without the
+    causal mask must fall outside it.  Returns (record, cfg, params)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import ffn
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg = M.get_config(arch).with_overrides(num_layers=layers)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+    prompt = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, size=SERVE_PROMPT).astype(np.int32)
+    run, served, batcher = serve_traffic(cfg, params, [prompt], card,
+                                         f"{tag} (a)", slots=1,
+                                         max_len=SERVE_PROMPT + SERVE_GEN)
+    expect_serving_launches(run["launches"], cfg, 1, run["decode_steps"],
+                            f"{tag} (a) serving")
+    toks = served_tokens(prompt, batcher.outputs[0], dev)
+    del batcher
+    got = torch.stack(served).float().cpu()
+    cfg32 = cfg.with_overrides(dtype="float32")
+    want = forward_logits(cfg32, params, toks, fa_ref.mha_reference,
+                          ffn.grouped_swiglu_loop)
+    err = rel_rms(got, want)
+    fwd_bf16 = rel_rms(forward_logits(cfg, params, toks,
+                                      fa_kernel.flash_attention), want)
+    leak = rel_rms(forward_logits(cfg, params, toks, unmasked_attention), want)
+    rec = {"layers": layers, "serve": run,
+           "served_rel_rms_max": float(err.max()), "served_rel_rms": err.tolist(),
+           "served_max_abs": float((got - want).abs().max()),
+           "ref_logit_rms": float(want.pow(2).mean().sqrt()),
+           "bf16_forward_rel_rms_max": float(fwd_bf16.max()),
+           "unmasked_rel_rms_min": float(leak.min()),
+           "unmasked_rel_rms_max": float(leak.max()),
+           "argmax_agree": int((got.argmax(-1) == want.argmax(-1)).sum()),
+           "tol": tol}
+    log(f"{tag} (a) {arch} cut to {layers} layers, float32 parameters: served "
+        f"logits (prefill + {SERVE_GEN - 1} decode steps) against the float32 "
+        f"forward with the plain attention and the plain grouped SwiGLU: "
+        f"relative RMS error max {rec['served_rel_rms_max']:.5f} (tolerance "
+        f"{tol}), max abs {rec['served_max_abs']:.5f} at logit RMS "
+        f"{rec['ref_logit_rms']:.4f}, argmax agrees at {rec['argmax_agree']}/"
+        f"{SERVE_GEN}; the bfloat16 forward through the kernels: "
+        f"{rec['bf16_forward_rel_rms_max']:.5f}; with the causal mask dropped: "
+        f"{rec['unmasked_rel_rms_min']:.5f}-{rec['unmasked_rel_rms_max']:.5f}; "
+        f"card {card}")
+    if not rec["served_rel_rms_max"] <= tol:
+        raise AssertionError(f"{tag} served logits differ from the float32 "
+                             f"forward: relative RMS {rec['served_rel_rms_max']} > "
+                             f"{tol}")
+    if not rec["unmasked_rel_rms_max"] > tol:
+        raise AssertionError(f"{tag} a forward without the causal mask stays "
+                             f"within the tolerance: the check cannot see it")
+    return rec, cfg, params
+
+
+def moe_layer_check(cfg, params, tag: str, card: str, dev) -> dict:
+    """Phase 18 (b): the first MoE layer of the check model, bfloat16
+    inputs at the prefill's and the decode step's token counts: the card's
+    route against the plain router (float64 on the host) wherever the
+    k-th / (k+1)-th probability gap exceeds ROUTE_GAP_TOL; the grouped
+    GEMM against the loop on the same sorted rows within GROUPED_RTOL
+    (the loop with its groups shifted by one expert must fall outside);
+    both timed, with the grouped GEMM's bound."""
+    from repro_torch.models import ffn
+    from repro_torch.models.common import cast_params
+    from repro_torch.models.ffn import moe_ffn
+
+    L = first_moe_layer(cfg)
+    p = cast_params(params["layers"][L]["ffn"], torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    k = cfg.top_k
+    out = {"layer": L}
+    for shape, tokens in (("prefill", SERVE_PROMPT), ("decode", SERVE_SLOTS)):
+        x = torch.randn(tokens, cfg.d_model, generator=gen,
+                        device=dev).to(torch.bfloat16)
+        top_p, top_i, _ = moe_ffn.route(cfg, p, x)
+        probs = torch.softmax(x.double().cpu() @ p["router"]["w"].double().cpu(),
+                              dim=-1)
+        sp, si = torch.sort(probs, dim=-1, descending=True, stable=True)
+        clear = (sp[:, k - 1] - sp[:, k]) > ROUTE_GAP_TOL
+        same = (top_i.cpu().sort(-1).values == si[:, :k].sort(-1).values).all(-1)
+        if not bool(same[clear].all()):
+            raise AssertionError(f"{tag} (b) {shape}: the card's route differs "
+                                 f"from the plain router on "
+                                 f"{int((~same & clear).sum())} tokens")
+        seen = {}
+
+        def spy(*args):
+            seen["args"] = args
+            return ffn.grouped_swiglu_mm(*args)
+
+        own = ffn.grouped_swiglu
+        ffn.grouped_swiglu = spy
+        try:
+            moe_ffn._dropless(cfg, p["experts"], x, top_p, top_i)
+        finally:
+            ffn.grouped_swiglu = own
+        args = seen["args"]
+        x_sorted, sizes, offs, w_gate, w_up, w_down = args
+        reset_launches()
+        got = ffn.grouped_swiglu_mm(*args)
+        launches = read_launches()["grouped_swiglu_mm"]
+        want = ffn.grouped_swiglu_loop(*args)
+        err = rel_rms(got, want)
+        shifted = torch.roll(sizes, 1)
+        wrong = rel_rms(ffn.grouped_swiglu_loop(
+            x_sorted, shifted, torch.cumsum(shifted, 0).to(torch.int32),
+            w_gate, w_up, w_down), want)
+        if not float(err.max()) <= GROUPED_RTOL:
+            raise AssertionError(f"{tag} (b) {shape}: the grouped GEMM differs "
+                                 f"from the loop: relative RMS {float(err.max())}")
+        moved = float((wrong > GROUPED_RTOL).float().mean())
+        if not float(wrong.max()) > GROUPED_RTOL:
+            raise AssertionError(f"{tag} (b) {shape}: shifted groups stay within "
+                                 f"the tolerance: the check cannot see them")
+        ms = device_ms_per_call([lambda: ffn.grouped_swiglu_mm(*args)])
+        event_ms = time_cuda(lambda: ffn.grouped_swiglu_mm(*args), 20)
+        loop_ms = time_cuda(lambda: ffn.grouped_swiglu_loop(*args), 3)
+        layer_ms = time_cuda(lambda: moe_ffn.apply(cfg, p, x[None]), 10)
+        bnd = grouped_bound(x_sorted, sizes, w_gate, w_down)
+        out[shape] = {"tokens": tokens, "launches": launches,
+                      "route_clear": int(clear.sum()),
+                      "route_tied": int((~clear).sum()),
+                      "rel_rms_max": float(err.max()),
+                      "shifted_rel_rms_max": float(wrong.max()),
+                      "shifted_rows_outside": moved,
+                      "ms": ms, "event_ms": event_ms, "plain_ms": loop_ms,
+                      "layer_event_ms": layer_ms, **bnd}
+        log(f"{tag} (b) one MoE layer (layer {L}) at the {shape}'s {tokens} "
+            f"tokens ({bnd['rows']} sorted rows, {bnd['experts_used']} of "
+            f"{cfg.num_experts} experts used): route == the plain router on "
+            f"{int(clear.sum())} tokens with a k/k+1 gap over {ROUTE_GAP_TOL} "
+            f"({int((~clear).sum())} within it); grouped GEMM against the loop: "
+            f"relative RMS {float(err.max()):.2e} (tolerance {GROUPED_RTOL}; the "
+            f"groups shifted by one expert: up to {float(wrong.max()):.3f}, "
+            f"{100 * moved:.1f}% of the rows outside it); "
+            f"torch._grouped_mm x3 {ms:.4f} ms device time (events {event_ms:.4f}),"
+            f" the loop {loop_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}; {bnd['flop'] / 1e9:.2f} GFLOP, "
+            f"{bnd['bytes'] / 1e6:.1f} MB), the whole layer {layer_ms:.4f} ms; "
+            f"card {card}")
+    return out
+
+
+def cache_bytes(cfg, slots: int, max_len: int) -> int:
+    from repro_torch.models import transformer as T
+
+    caches = T.init_decode_caches(cfg, slots, max_len, device="meta")
+    return sum(t.numel() * t.element_size() for c in caches for t in c.values())
+
+
+def moe_full_model(arch: str, tag: str, tol: float, card: str, dev) -> dict:
+    """Phase 18 (c): ``arch`` at published widths and full depth,
+    bfloat16 parameters from a seeded generator, phase 11's traffic;
+    launches, the first two flash launches of request 0 held and timed,
+    profiles, the captured decode step against ``eager()``, and request
+    0's served logits against a bfloat16 ``forward`` of the same tokens
+    within ``tol`` (an unmasked forward must fall outside it)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg = M.get_config(arch).with_overrides(param_dtype="bfloat16")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    param_bytes = M.count_params_analytic(cfg) * 2
+    kv = cache_bytes(cfg, SERVE_SLOTS, SERVE_MAX)
+    predicted = param_bytes + kv + cache_bytes(cfg, 1, SERVE_MAX)
+    log(f"{tag} (c) {arch}: predicted peak {predicted / 2**30:.2f} GiB (bfloat16 "
+        f"parameters {param_bytes / 2**30:.2f} GiB, {SERVE_SLOTS}-slot caches "
+        f"{kv / 2**30:.2f} GiB, one prefill's cache, before temporaries) of the "
+        f"card's {total / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_REQUESTS)]
+    log(f"{tag} (c) {arch}: {cfg.num_layers} layers ({moe_layers(cfg)} MoE: "
+        f"{cfg.num_experts} experts top-{cfg.top_k}, {cfg.num_shared_experts} "
+        f"shared, d_ff {cfg.moe_d_ff}), d_model {cfg.d_model}, vocab "
+        f"{cfg.padded_vocab_size}; {n_params} bfloat16 parameters made on the "
+        f"card in {t_init:.2f} s")
+    run, served, batcher = serve_traffic(cfg, params, prompts, card, f"{tag} (c)")
+    expect_serving_launches(run["launches"], cfg, SERVE_REQUESTS,
+                            run["decode_steps"], f"{tag} (c) serving")
+    toks = served_tokens(prompts[0], batcher.outputs[0], dev)
+    tok0 = torch.as_tensor(prompts[0][None, :], device=dev)
+    seen = capture_flash(lambda: T.prefill(cfg, params, {"tokens": tok0},
+                                           max_len=SERVE_MAX), cfg.num_layers)
+    fa = hold_flash_launches(seen[:2], card, "flash_attention_wgmma")
+    del seen
+    prof = profile_serving(batcher, prompts, f"{tag} (c)")
+    programs16 = compare_decode(batcher, card, f"{tag} (c)")
+    del batcher
+    got = torch.stack(served).float().cpu()
+    want = forward_logits(cfg, params, toks, fa_kernel.flash_attention)
+    err = rel_rms(got, want)
+    leak = rel_rms(forward_logits(cfg, params, toks, unmasked_attention), want)
+    rec = {"arch": arch, "params": n_params, "init_s": t_init,
+           "predicted_peak_bytes": predicted, "card_bytes": total, **run,
+           "flash": fa, "profile": prof, "programs": programs16,
+           "served_vs_forward_rel_rms_max": float(err.max()),
+           "served_vs_forward_rel_rms": err.tolist(),
+           "unmasked_rel_rms_max": float(leak.max()),
+           "argmax_agree": int((got.argmax(-1) == want.argmax(-1)).sum()),
+           "tol": tol}
+    log(f"{tag} (c) served logits of request 0 (prefill + {SERVE_GEN - 1} decode "
+        f"steps) against the bfloat16 forward of the same tokens: relative RMS "
+        f"max {rec['served_vs_forward_rel_rms_max']:.5f} (tolerance "
+        f"{tol}), argmax agrees at {rec['argmax_agree']}/{SERVE_GEN}; "
+        f"with the causal mask dropped: {rec['unmasked_rel_rms_max']:.5f}; peak "
+        f"{run['peak_mem_bytes'] / 2**30:.2f} GiB against the predicted "
+        f"{predicted / 2**30:.2f}; card {card}")
+    if not rec["served_vs_forward_rel_rms_max"] <= tol:
+        raise AssertionError(f"{tag} served logits differ from the bfloat16 "
+                             f"forward: {rec['served_vs_forward_rel_rms_max']}")
+    if not rec["unmasked_rel_rms_max"] > tol:
+        raise AssertionError(f"{tag} a forward without the causal mask stays "
+                             f"within the tolerance: the check cannot see it")
+    del params
+    return rec
+
+
+def run_moe_serving(card: str, dev) -> dict:
+    """Phase 18, for each MoE configuration in turn, the card freed
+    between them: (a) the depth-cut float32 check model, (b) one MoE
+    layer against its plain version, (c) the full-depth model."""
+    out = {}
+    t_phase = time.perf_counter()
+    for arch, tag, check_layers, check_tol, serve_tol in MOE_SERVE:
+        t0 = time.perf_counter()
+        check, cfg, params = moe_check_model(arch, tag, check_layers, check_tol,
+                                             card, dev)
+        layer = moe_layer_check(cfg, params, tag, card, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = moe_full_model(arch, tag, serve_tol, card, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = {"check": check, "layer": layer, "serve": full,
+                     "seconds": time.perf_counter() - t0}
+        log(f"{tag} {arch}: phase 18 in {out[arch]['seconds']:.2f} s; card {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3169,6 +3669,8 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[-1]
     log(f"[env] card: {card}")
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc}")
+    log(f"[env] torch._grouped_mm (the MoE layers' grouped GEMM): "
+        f"{'present' if hasattr(torch, '_grouped_mm') else 'missing'}")
     # One nvcc per source, started together.
     loaders = {"radius_counts": kernel.load_library,
                "knn_two_op": kernel.load_two_op_library,
@@ -3193,6 +3695,8 @@ def main() -> int:
     max_err = check_radius_counts(dev)
     pc_max_err = check_pairwise_cheb(dev)
     fa_err = check_flash_attention(dev)
+    fa_err["flash_attention_wgmma"] = max(fa_err["flash_attention_wgmma"],
+                                          check_flash_serving_layouts(dev))
     two_op_err = check_knn_two_op(dev)
     hash_err = check_hash_keys(dev)
 
@@ -3382,13 +3886,19 @@ def main() -> int:
 
     # Phase 11: the model serving path, with the discovery state freed.
     serving = run_serving(card, dev)
+    gc.collect()  # the batcher's capture hooks sit in reference cycles
+    torch.cuda.empty_cache()
+    # Phase 18: the MoE and MLA serving path, with phase 11's model freed.
+    moe = run_moe_serving(card, dev)
+    moe_full = [moe[arch]["serve"] for arch, *_ in MOE_SERVE]
     fa32 = serving["flash_f32"]
     fa_err = {"flash_attention_simt_regtile": max(
                   fa_err["flash_attention_simt_regtile"], fa32["max_abs_err"]),
               "flash_attention_simt_basic": max(
                   fa_err["flash_attention_simt_basic"], fa32["basic_max_abs_err"]),
-              "flash_attention_wgmma": max(fa_err["flash_attention_wgmma"],
-                                           serving["flash"]["max_abs_err"])}
+              "flash_attention_wgmma": max(
+                  [fa_err["flash_attention_wgmma"], serving["flash"]["max_abs_err"]]
+                  + [r["flash"]["max_abs_err"] for r in moe_full])}
 
     record = {
         "card": card, "torch": torch.__version__, "nvcc": nvcc,
@@ -3404,7 +3914,8 @@ def main() -> int:
         "radius_counts": rc, "radius_counts_wide": wide, "gated": gated,
         "submit": submit, "submit_safe": safe,
         "scheduler": sched, "materialized": mat, "two_op": two_op,
-        "lake_hash": lake_hash, "serving": serving, "application": app,
+        "lake_hash": lake_hash, "serving": serving, "moe_serving": moe,
+        "application": app,
         "compile_end": programs.compile_stats(),
         "total_s": time.perf_counter() - t_start,
     }
@@ -3476,7 +3987,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
-        "launches": serving["launches"]["flash_attention_wgmma"],
+        # The serving runs of phase 11 and phase 18 (c); the times are
+        # phase 11's launches, at the internlm2 shape.
+        "launches": serving["launches"]["flash_attention_wgmma"] + sum(
+            r["launches"]["flash_attention_wgmma"] for r in moe_full),
         "max_abs_err": fa_err["flash_attention_wgmma"],
         "ms": serving["flash"]["ms"],
         "plain_ms": serving["flash"]["plain_ms"],

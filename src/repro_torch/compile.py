@@ -69,17 +69,19 @@ _POOLS: dict[tuple, object] = {}
 
 @functools.cache
 def launch_counters() -> tuple:
-    """Every kernel wrapper that counts its launches (``.launches``)."""
+    """Every kernel wrapper that counts its launches (``.launches``), and
+    the MoE layers' grouped GEMM (a library call, counted the same way)."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.knn_stats import kernel as rc
     from repro_torch.kernels.murmur3 import kernel as mm
     from repro_torch.kernels.pairwise_cheb import kernel as pc
+    from repro_torch.models import ffn
 
     return (rc.radius_counts, rc.radius_counts_staged, rc.radius_counts_tiled,
             rc.knn_smallest, rc.knn_smallest_staged, rc.knn_smallest_tiled,
             rc.ball_counts, rc.ball_counts_staged, rc.ball_counts_tiled,
             pc.pairwise_cheb, mm.murmur3_fib, fa.flash_attention_simt,
-            fa.flash_attention_wgmma)
+            fa.flash_attention_wgmma, ffn.grouped_swiglu_mm)
 
 
 @contextlib.contextmanager

@@ -30,14 +30,15 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import cast_params, dtype_of
 
 
-def _decode_step(tokens, pos, *, cfg, params, caches):
+def _decode_step(tokens, pos, *, cfg, moe_impl, params, caches):
     """The batched decode step's body: logits (B, 1, V); ``caches``
     updated in place at the device position ``pos``."""
-    logits, _ = T.decode_step(cfg, params, caches, tokens, pos)
+    logits, _ = T.decode_step(cfg, params, caches, tokens, pos,
+                              moe_impl=moe_impl)
     return logits
 
 
-_decode_program = program(_decode_step, static=("cfg",),
+_decode_program = program(_decode_step, static=("cfg", "moe_impl"),
                           resident=("params", "caches"))
 
 
@@ -59,8 +60,10 @@ class ContinuousBatcher:
     anew.
     """
 
-    def __init__(self, cfg, params, slots: int, max_len: int):
+    def __init__(self, cfg, params, slots: int, max_len: int,
+                 moe_impl: str = "gspmd"):
         self.cfg, self.params = cfg, params
+        self.moe_impl = moe_impl
         self.device = params["embedding"]["table"].device
         self.slots = slots
         self.max_len = max_len
@@ -75,7 +78,8 @@ class ContinuousBatcher:
         returns (logits, caches)."""
         weights = cast_params(self.params, dtype_of(self.cfg.dtype))
         pos_t = torch.full((), pos, dtype=torch.int32, device=self.device)
-        logits = _decode_program(toks, pos_t, cfg=self.cfg, params=weights,
+        logits = _decode_program(toks, pos_t, cfg=self.cfg,
+                                 moe_impl=self.moe_impl, params=weights,
                                  caches=self.caches)
         return logits, self.caches
 
@@ -86,7 +90,7 @@ class ContinuousBatcher:
         slot = int(free[0])
         tokens = torch.as_tensor(np.asarray(prompt)[None, :], device=self.device)
         logits, cache1 = T.prefill(self.cfg, self.params, {"tokens": tokens},
-                                   max_len=self.max_len)
+                                   max_len=self.max_len, moe_impl=self.moe_impl)
         for batched, one in zip(self.caches, cache1):
             for name, buf in batched.items():
                 buf[slot].copy_(one[name][0])

@@ -86,12 +86,15 @@ def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 def cast_params(params, dtype: torch.dtype):
     """A parameter tree (``nn.ModuleDict`` / ``ParameterDict`` /
     ``ModuleList``) as nested dicts and lists of :func:`cast` copies of
-    its floating leaves; the layer functions read either form."""
+    its floating leaves; the layer functions read either form.  An MoE
+    ``router`` subtree is kept as it is: the router computes in float32
+    (``moe_ffn.route``), as the reference's does."""
     if isinstance(params, torch.Tensor):
         return cast(params, dtype) if params.is_floating_point() else params
     if isinstance(params, (nn.ModuleList, list, tuple)):
         return [cast_params(p, dtype) for p in params]
-    return {k: cast_params(v, dtype) for k, v in params.items()}
+    return {k: dict(v.items()) if k == "router" else cast_params(v, dtype)
+            for k, v in params.items()}
 
 
 def linear(p: nn.ParameterDict, x: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,14 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameter count from the port's own parameter shapes (built on the
-    ``meta`` device, nothing allocated).  The ported layouts have no
-    routed experts, so ``active_only`` changes nothing yet."""
+    ``meta`` device, nothing allocated).  ``active_only`` scales the
+    routed-expert tensors by top_k / num_experts (MoE 6·N_active·D), as
+    the reference does."""
     params = transformer.init_params(cfg, None, device="meta")
-    return sum(p.numel() for p in params.parameters())
+    total = 0.0
+    for name, p in params.named_parameters():
+        size = p.numel()
+        if active_only and ".experts." in f".{name}.":
+            size *= cfg.top_k / cfg.num_experts
+        total += size
+    return int(total)

@@ -1,21 +1,25 @@
 """Decoder assembly: embeddings -> blocks -> head, with prefill and
-KV-cache decode, for the ``attn`` + ``dense`` text configurations.
+KV-cache decode, for the text configurations with GQA or MLA mixers and
+dense or MoE FFNs.
 
 The port's counterpart of ``repro/models/transformer.py``.  The
 reference factors the layers into ``prefix + group × G`` and
 ``lax.scan``s the stacked group; the port keeps one ``nn.ModuleList`` of
-layers (``params["layers"]``) and a Python loop over it, which a CUDA
-graph of the decode step (``launch/serve.py``) flattens as ``jax.jit``
-flattens the scan.  Decode caches are a list with one ``{"k", "v"}``
-dict per layer.  ``decode_step`` updates them in place at a position
-that may be a device scalar.  Every function also takes the parameters
-as :func:`~repro_torch.models.common.cast_params` gives them.
+layers (``params["layers"]``), each built from its ``LayerSpec``, and a
+Python loop over it, which a CUDA graph of the decode step
+(``launch/serve.py``) flattens as ``jax.jit`` flattens the scan.  Decode
+caches are a list with one dict per layer (``{"k", "v"}`` for GQA,
+``{"c_kv", "k_rope"}`` for MLA).  ``decode_step`` updates them in place
+at a position that may be a device scalar.  Every function also takes
+the parameters as :func:`~repro_torch.models.common.cast_params` gives
+them.  ``moe_impl`` is threaded to the MoE layers as in the reference.
 
-Only layouts whose every layer is ``attn`` + ``dense`` in text modality
-are ported (internlm2-1.8b, olmo-1b, mistral-nemo-12b, qwen1.5-110b).
-MLA, MoE, Mamba2 and the vision/audio stubs raise ``NotImplementedError``
-naming the slice that brings them; ``lm_loss`` and training wait for the
-training slice.
+Ported layouts: every text configuration whose layers are ``attn`` or
+``mla`` with ``dense`` or ``moe`` (internlm2-1.8b, olmo-1b,
+mistral-nemo-12b, qwen1.5-110b, qwen3-moe-30b-a3b,
+deepseek-v2-lite-16b).  Mamba2 and the vision/audio stubs raise
+``NotImplementedError`` naming the slice that brings them; ``lm_loss``
+and training wait for the training slice.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig, layer_layout
+from repro_torch.configs.base import LayerSpec, ModelConfig, layer_layout
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import gqa, mla
 from repro_torch.models.common import (cast, dense_init, dtype_of, linear,
@@ -41,9 +45,12 @@ __all__ = [
 ]
 
 
+_MIXERS = {"attn": gqa, "mla": mla}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer of ``cfg`` is
-    ``attn`` + ``dense`` in text modality."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a text configuration
+    whose every layer has a GQA or MLA mixer."""
     if cfg.modality != "text":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.modality} frontend is not ported yet; it "
@@ -53,24 +60,22 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: Mamba2 layers are not ported yet; they come with "
                 "the Mamba2 SSD slice of the model stack")
-        if spec.mixer == "mla":
-            raise NotImplementedError(f"{cfg.name}: {mla.NOT_PORTED}")
-        if spec.ffn == "moe":
-            raise NotImplementedError(f"{cfg.name}: {moe_ffn.NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_layer(cfg: ModelConfig, gen, device) -> nn.ModuleDict:
+def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen,
+                device) -> nn.ModuleDict:
     parametric = cfg.norm != "nonparametric_ln"
     dt = dtype_of(cfg.param_dtype)
+    ffn = moe_ffn if spec.ffn == "moe" else dense_ffn
     return nn.ModuleDict({
         "pre_norm": rmsnorm_init(cfg.d_model, parametric, dt, device),
-        "mixer": gqa.init(cfg, gen, device),
+        "mixer": _MIXERS[spec.mixer].init(cfg, gen, device),
         "post_norm": rmsnorm_init(cfg.d_model, parametric, dt, device),
-        "ffn": dense_ffn.init(cfg, gen, device),
+        "ffn": ffn.init(cfg, gen, device),
     })
 
 
@@ -93,7 +98,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab_size,
                                        dtype=dt, device=device)
     params["layers"] = nn.ModuleList(
-        _init_layer(cfg, gen, device) for _ in layer_layout(cfg))
+        _init_layer(cfg, spec, gen, device) for spec in layer_layout(cfg))
     return params
 
 
@@ -118,28 +123,37 @@ def _head(cfg: ModelConfig, params: nn.ModuleDict, x: torch.Tensor) -> torch.Ten
     return shard(logits, "batch", "seq", "vocab")
 
 
-def _ffn(cfg: ModelConfig, p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, spec: LayerSpec, p: nn.ModuleDict, x: torch.Tensor,
+         moe_impl: str) -> tuple[torch.Tensor, torch.Tensor | float]:
+    """The layer's FFN with its residual; returns (x, aux loss)."""
     h = norm_apply(p["post_norm"], x)
-    return x + dense_ffn.apply(cfg, p["ffn"], h)
+    if spec.ffn == "dense":
+        f, aux = dense_ffn.apply(cfg, p["ffn"], h), 0.0
+    else:
+        f, aux = moe_ffn.apply(cfg, p["ffn"], h, impl=moe_impl)
+    return shard(x + f, "batch", "seq", "embed"), aux
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
-def forward(cfg: ModelConfig, params: nn.ModuleDict,
-            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits, aux_loss); aux_loss is 0
-    for the dense layouts of this slice."""
+def forward(cfg: ModelConfig, params: nn.ModuleDict, batch: dict,
+            moe_impl: str = "gspmd") -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits, aux_loss): the MoE layers'
+    aux losses summed in float32 (0 without MoE layers)."""
     x = _embed_inputs(cfg, params, batch["tokens"])
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
-    for p in params["layers"]:
-        mix, _ = gqa.apply(cfg, p["mixer"], norm_apply(p["pre_norm"], x),
-                           positions)
-        x = _ffn(cfg, p, shard(x + mix, "batch", "seq", "embed"))
-    return _head(cfg, params, x), torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, p in zip(layer_layout(cfg), params["layers"]):
+        mix, _ = _MIXERS[spec.mixer].apply(cfg, p["mixer"],
+                                           norm_apply(p["pre_norm"], x),
+                                           positions)
+        x, aux = _ffn(cfg, spec, p, shard(x + mix, "batch", "seq", "embed"),
+                      moe_impl)
+        aux_total = aux_total + aux
+    return _head(cfg, params, x), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -148,38 +162,42 @@ def forward(cfg: ModelConfig, params: nn.ModuleDict,
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
                        device=None) -> list[dict]:
-    """One zeroed ``{"k", "v"}`` cache of (batch, max_len, Hkv, Dh) in the
-    activation dtype per layer, on ``device`` (the card by default)."""
+    """One zeroed cache per layer in the activation dtype, on ``device``
+    (the card by default): ``{"k", "v"}`` of (batch, max_len, Hkv, Dh) for
+    GQA, ``{"c_kv", "k_rope"}`` of (batch, max_len, kv_lora_rank / rope)
+    for MLA."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
-    return [gqa.init_cache(cfg, batch, max_len, dtype, device)
-            for _ in layer_layout(cfg)]
+    return [_MIXERS[spec.mixer].init_cache(cfg, batch, max_len, dtype, device)
+            for spec in layer_layout(cfg)]
 
 
 def decode_step(cfg: ModelConfig, params: nn.ModuleDict, caches: list[dict],
-                tokens: torch.Tensor,
-                pos: int | torch.Tensor) -> tuple[torch.Tensor, list[dict]]:
+                tokens: torch.Tensor, pos: int | torch.Tensor,
+                moe_impl: str = "gspmd") -> tuple[torch.Tensor, list[dict]]:
     """One decoding step.  tokens (B, 1); ``pos`` the index being written,
     an int or a 0-dim integer tensor on the tokens' device.  Returns
     (logits (B, 1, V), caches), the caches updated in place."""
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), pos, dtype=torch.int32, device=tokens.device)
     x = _embed_inputs(cfg, params, tokens)
-    for p, cache in zip(params["layers"], caches):
-        mix, _ = gqa.decode(cfg, p["mixer"], norm_apply(p["pre_norm"], x),
-                            cache, pos)
-        x = _ffn(cfg, p, x + mix)
+    for spec, p, cache in zip(layer_layout(cfg), params["layers"], caches):
+        mix, _ = _MIXERS[spec.mixer].decode(cfg, p["mixer"],
+                                            norm_apply(p["pre_norm"], x),
+                                            cache, pos)
+        x, _ = _ffn(cfg, spec, p, x + mix, moe_impl)
     return _head(cfg, params, x), caches
 
 
 def prefill(cfg: ModelConfig, params: nn.ModuleDict, batch: dict,
-            max_len: int) -> tuple[torch.Tensor, list[dict]]:
+            max_len: int,
+            moe_impl: str = "gspmd") -> tuple[torch.Tensor, list[dict]]:
     """Run the prompt through the model, filling decode caches.
 
-    Returns (last-position logits (B, 1, V), caches): each layer's prompt
-    K/V written into a zeroed (B, max_len, Hkv, Dh) cache, as the
-    reference does.
+    Returns (last-position logits (B, 1, V), caches): each layer's cache
+    contribution (GQA's K/V, MLA's latent and rope key) written into a
+    zeroed (B, max_len, ...) cache, as the reference does.
     """
     x = _embed_inputs(cfg, params, batch["tokens"])
     B, S, _ = x.shape
@@ -188,9 +206,9 @@ def prefill(cfg: ModelConfig, params: nn.ModuleDict, batch: dict,
     positions = _positions(B, S, x.device)
     dtype = dtype_of(cfg.dtype)
     caches = []
-    for p in params["layers"]:
-        mix, contrib = gqa.apply(cfg, p["mixer"], norm_apply(p["pre_norm"], x),
-                                 positions)
+    for spec, p in zip(layer_layout(cfg), params["layers"]):
+        mix, contrib = _MIXERS[spec.mixer].apply(
+            cfg, p["mixer"], norm_apply(p["pre_norm"], x), positions)
         cache = {}
         for name, t in contrib.items():
             buf = torch.zeros((B, max_len) + tuple(t.shape[2:]), dtype=dtype,
@@ -198,5 +216,5 @@ def prefill(cfg: ModelConfig, params: nn.ModuleDict, batch: dict,
             buf[:, :S] = t
             cache[name] = buf
         caches.append(cache)
-        x = _ffn(cfg, p, x + mix)
+        x, _ = _ffn(cfg, spec, p, x + mix, moe_impl)
     return _head(cfg, params, x[:, -1:, :]), caches

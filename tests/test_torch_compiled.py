@@ -309,7 +309,7 @@ def test_launch_counters_are_every_kernel_wrapper():
                      "knn_smallest_staged", "knn_smallest_tiled",
                      "ball_counts", "ball_counts_staged", "ball_counts_tiled",
                      "pairwise_cheb", "murmur3_fib", "flash_attention_simt",
-                     "flash_attention_wgmma"]
+                     "flash_attention_wgmma", "grouped_swiglu_mm"]
     assert all(isinstance(f.launches, int) for f in tc.launch_counters())
 
 
@@ -365,11 +365,13 @@ def _int_pos_decode(cfg, params, caches, tokens, pos: int):
     """``transformer.decode_step`` as it was with an integer position:
     ``torch.full`` positions, a slice-assigned cache row, a mask against
     the integer."""
+    from repro_torch.configs.base import LayerSpec
     from repro_torch.models import attention as A
     from repro_torch.models.common import norm_apply
     from repro_torch.parallel import decode_attention as D
 
     x = T._embed_inputs(cfg, params, tokens)
+    dense = LayerSpec("attn", "dense")
     for p, cache in zip(params["layers"], caches):
         h = norm_apply(p["pre_norm"], x)
         B = h.shape[0]
@@ -380,7 +382,8 @@ def _int_pos_decode(cfg, params, caches, tokens, pos: int):
         out = D.decode_attention(q[:, 0], cache["k"], cache["v"], pos,
                                  scale=1.0 / np.sqrt(cfg.head_dim))
         out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
-        x = T._ffn(cfg, p, x + A.linear(p["mixer"]["wo"], out))
+        x, _ = T._ffn(cfg, dense, p, x + A.linear(p["mixer"]["wo"], out),
+                      "gspmd")
     return T._head(cfg, params, x)
 
 

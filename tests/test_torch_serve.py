@@ -7,7 +7,11 @@ reference's, so each step's logits compare like with like.  The prefill
 logits of every admitted request and the logits of every decode step
 are held within atol 1e-4 (float32 smoke configs; see
 ``tests/test_torch_models.py``), and so are the caches at the end.  The
-CLI is run as ``tests/test_launchers.py`` runs the reference's.
+MoE configurations (``qwen3-moe-30b-a3b``, ``deepseek-v2-lite-16b``) run
+the same way, their caches found by ``scan_grouping`` in the reference's
+tree (deepseek's dense layer 0 is a prefix layer).  The CLI is run as
+``tests/test_launchers.py`` runs the reference's, for a dense and both
+MoE configurations.
 """
 
 import os
@@ -22,12 +26,14 @@ import jax
 
 from repro.launch import serve as jserve
 from repro.models import transformer as JT
+from repro_torch.configs.base import scan_grouping
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models import model as M
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE_ARCHS = ["internlm2-1.8b", "olmo-1b", "mistral-nemo-12b", "qwen1.5-110b"]
+MOE_ARCHS = ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"]
 ATOL = 1e-4
 REQUESTS, SLOTS, PROMPT, GEN, MAX = 3, 2, 8, 4, 32
 
@@ -44,7 +50,16 @@ def _capture_prefill(module, seen):
     return prefill
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def jax_layer_cache(cfg, jcaches, L):
+    """Layer L's cache dict from the reference's cache tree."""
+    prefix, _, group = scan_grouping(cfg)
+    if L < len(prefix):
+        return jcaches[f"prefix{L}"]
+    g, i = divmod(L - len(prefix), len(group))
+    return {n: a[g] for n, a in jcaches["groups"][f"layer{i}"].items()}
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
 def test_batcher_teacher_forced_logits_equal_reference(arch, monkeypatch):
     cfg = M.get_config(arch, smoke=True)
     jparams = JT.init_params(cfg, jax.random.key(0))
@@ -94,9 +109,11 @@ def test_batcher_teacher_forced_logits_equal_reference(arch, monkeypatch):
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, atol=ATOL)
     for L, cache in enumerate(tb.caches):
+        want_cache = jax_layer_cache(cfg, jb.caches, L)
+        assert set(cache) == set(want_cache)
         for name, buf in cache.items():
-            want = np.asarray(jb.caches["groups"]["layer0"][name][L])
-            np.testing.assert_allclose(buf.numpy(), want, atol=ATOL)
+            np.testing.assert_allclose(buf.numpy(), np.asarray(want_cache[name]),
+                                       atol=ATOL)
 
 
 def test_batcher_refuses_position_past_max_len():
@@ -111,18 +128,27 @@ def test_batcher_refuses_position_past_max_len():
         b.step()
 
 
-def test_serve_cli_on_cpu():
-    """The reference's CLI test (``tests/test_launchers.py``), on the
-    port with ``--device cpu``."""
+def run_cli(arch: str) -> None:
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmo-1b",
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
          "--smoke", "--requests", "3", "--slots", "2", "--prompt-len", "8",
          "--gen-len", "4", "--max-len", "32", "--device", "cpu"],
         capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
     assert out.returncode == 0, out.stdout[-800:] + out.stderr[-1500:]
     assert "finished request" in out.stdout
     assert "3 requests" in out.stdout
+
+
+def test_serve_cli_on_cpu():
+    """The reference's CLI test (``tests/test_launchers.py``), on the
+    port with ``--device cpu``."""
+    run_cli("olmo-1b")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_serve_cli_moe_on_cpu(arch):
+    run_cli(arch)
 
 
 def test_serve_default_device_raises_without_card():
