@@ -247,12 +247,44 @@ it fails:
      identical cache copies (logits and caches bit-equal), and request
      0's served logits against a bfloat16 ``forward`` of the same tokens
      within its tolerance (``MOE_SERVE``; an unmasked forward outside it).
+ 19. the SSM and hybrid serving path, after phase 18 with its models
+     freed, for ``mamba2-370m`` (``[ssm]`` lines, whole) then
+     ``jamba-1.5-large-398b`` (``[hybrid]``, its first 5 layers: 4
+     Mamba2, GQA at offset 4, MoE at layers 1 and 3), one at a time:
+     (a) float32 parameters from a seeded generator (jamba's check model
+     with 4 of its 16 experts), one request (a 2048-token prompt, 32
+     tokens) served in bfloat16 through ``ContinuousBatcher``: its logits
+     against the float32 ``forward`` (tokens padded to the SSD's chunk;
+     the plain attention and grouped SwiGLU) within ``SSM_SERVE``'s
+     tolerance; then the same tokens served with float32 activations
+     (eager, the plain grouped SwiGLU): logits against that forward and
+     slot 0's SSM states against the float32 chunked prefill's within
+     ``SSM_F32_RTOL``, and outside it the same served with the prompt's
+     SSM states zeroed before the first decode step and jamba's float32
+     forward without the causal mask (in bfloat16 both controls stay
+     within the dtype policy's error, reported); (b) the first Mamba2 layer
+     alone on bfloat16 inputs: the chunked SSD at 2048 tokens against the
+     float64 sequential recurrence on the card within ``SSD_RTOL`` (the
+     chunks run apart outside it), timed (CUDA events, profiler device
+     time, kernels a call) beside its float32 FLOP bound; at 4 slots the
+     recurrent update (``_ssd_step``) against one float64 step, it and
+     the layer's decode timed against their byte bounds; (c) phase 11's
+     traffic: mamba2 with float32 parameters (no kernel launched at all),
+     jamba in bfloat16 parameters with all 16 experts (one Hopper flash
+     launch per prefill, one grouped SwiGLU per MoE layer per prefill and
+     decode step, nothing else; the first flash launch held and timed
+     beside SDPA at GQA group 8, Hq 64); prefill and decode times,
+     tokens/s, peak memory beside the prediction, profiles with an
+     ``ssd`` family (the kernels inside ``_ssd_chunked`` / ``_ssd_step``),
+     the captured decode step against ``eager()`` (logits, conv, ssm, k,
+     v bit-equal), request 0's served logits against a bfloat16
+     ``forward`` within the tolerance.
 
 Phases 14, 15, 16 (a)-(c), 17, 12 and 13 run after phase 10 and before
 phase 11, so that the serving path starts with the discovery state
-freed; phase 18 runs after phase 11.  Each of phases 3, 7-9 and 11-18
-sets every kernel's launch count to 0 just before it drives its path and
-reads the counts just after.
+freed; phases 18 and 19 run after phase 11.  Each of phases 3, 7-9 and
+11-19 sets every kernel's launch count to 0 just before it drives its
+path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
 (``{"record": ...}``), then the kernels' JSON line, the card's name and
@@ -261,6 +293,7 @@ power limit, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -411,6 +444,7 @@ FA_CASES = [  # (Dk, Dv) x S x group x causal, for each dtype
 ]
 FA_HKV = 2
 FA_TIME_REPS = 50  # launches per CUDA-event timing of a captured flash launch
+FA_PROFILE_LAUNCHES = 24  # least launches a profiled window of them holds
 PROFILE_TRIES = 5  # profiler windows device_ms_per_call tries
 # Kernel families a profiled pass's device time is summed by (a kernel
 # name containing one of the words; radius_counts first, so that its
@@ -476,6 +510,48 @@ ROUTE_GAP_TOL = 1e-6
 # averages over d_ff products.  2^-6 is four times the worst single
 # element's 2^-8; the loop over the wrong experts lands near 1.
 GROUPED_RTOL = 2.0 ** -6
+
+# Phase 19: the SSM and hybrid serving path.  Each configuration, its tag,
+# the cut of its float32 check model (a), the cut and parameter dtype of
+# the model it serves with phase 11's traffic (c), and the tolerances
+# (relative RMS, as SERVED_RTOL) on (a)'s served logits against the
+# float32 forward and on (c)'s against the bfloat16 forward.  mamba2 runs
+# whole; jamba keeps the first 5 of its 72 layers (4 Mamba2, GQA at
+# offset 4, MoE at layers 1 and 3), the check model 4 of its 16 experts
+# (top-2 kept: all 16 in float32 would need 89.3 GiB).  Each tolerance
+# lies above what the bfloat16 dtype policy costs: on an H100, (a) 0.073
+# (mamba2; its bfloat16 forward 0.070) and 0.036 (jamba); (c) 0.035 and
+# 0.111 (jamba: bfloat16 weights, 16 experts, and the decode's batch of 4
+# rounding its GEMMs otherwise than the forward does, flipping routes).
+# In bfloat16 neither negative control clears the policy's error in these
+# random-weight models: zeroing the prompt's SSM states moves the logits
+# by 0.049-0.067 (mamba2) and 0.025-0.037 (jamba), dropping the causal
+# mask of jamba's one attention layer in five by 0.026-0.047 ((c): 0.039).
+# The D skip and the projections outweigh the decayed history, and the
+# random scores spread nearly evenly over 2048 keys.  So both controls are
+# held in float32 (SSM_F32_RTOL), where the policy costs nothing.
+SSM_SERVE = (
+    ("mamba2-370m", "[ssm]", {}, {}, SERVED_RTOL, SERVED_RTOL),
+    ("jamba-1.5-large-398b", "[hybrid]", {"num_layers": 5, "num_experts": 4},
+     {"num_layers": 5, "param_dtype": "bfloat16"}, SERVED_RTOL, 0.15),
+)
+# (a): in float32 activations (eager, the plain grouped SwiGLU): the served
+# logits against the float32 forward and slot 0's SSM states after the
+# served tokens against the float32 chunked prefill's over them, which
+# differ in summation order only (on an H100 1.0e-5 / 1.4e-5 for mamba2,
+# 1.3e-5 / 1.1e-5 for jamba); the same with the prompt's SSM states zeroed
+# before the first decode step (logits up to 5.4e-4 / 7.6e-3, states
+# 0.28 / 0.14) and jamba's forward without the causal mask land above it.
+SSM_F32_RTOL = 5e-5
+# (b): the chunked SSD's float32 sums against the sequential recurrence in
+# float64, relative RMS of y and of the final state (on an H100 at most
+# 2.1e-6), and the recurrent step against one float64 step (7.5e-8); the
+# chunks run apart (each chunk's history dropped) land at 0.16-0.20.
+SSD_RTOL = 1e-5
+# The record_function range the profiles of phase 19 put around the SSD
+# (``ssm._ssd_chunked`` in a prefill, ``ssm._ssd_step`` in a decode step):
+# its kernels are the "ssd" family.
+SSD_SPAN = "ssd"
 
 
 def log(msg: str) -> None:
@@ -2461,8 +2537,11 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
     lib_calls = [lambda q=q, k=k, v=v, sc=sc, c=c: F.scaled_dot_product_attention(
                      q, k, v, is_causal=c, enable_gqa=True, scale=sc)
                  for q, k, v, sc, c, _ in seen]
-    fa["ms"] = device_ms_per_call(calls)
-    fa["library_ms"] = device_ms_per_call(lib_calls)
+    # At least FA_PROFILE_LAUNCHES launches a profiled window: a window of
+    # one or two launches has read SDPA below its own bound.
+    reps = max(5, -(-FA_PROFILE_LAUNCHES // len(calls)))
+    fa["ms"] = device_ms_per_call(calls, reps)
+    fa["library_ms"] = device_ms_per_call(lib_calls, reps)
     if regtile:
         fa["basic_ms"] = device_ms_per_call(
             [lambda q=q, k=k, v=v, sc=sc, c=c: basic(q, k, v, scale=sc, causal=c)
@@ -2602,13 +2681,15 @@ def serve_traffic(cfg, params, prompts: list, card: str, tag: str = "[serve]",
     return rec, served, batcher
 
 
-def profile_serving(batcher, prompts: list, tag: str) -> dict:
+def profile_serving(batcher, prompts: list, tag: str, spans=()) -> dict:
     """Where the time goes: one more admit (a prefill) and one decode step
-    of the then full slots, each under the profiler."""
+    of the then full slots, each under the profiler (``spans`` as
+    ``profile_call``'s)."""
     for r in range(batcher.slots - 1):
         batcher.admit(100 + r, prompts[r + 1])
-    prof = {"prefill": profile_call(lambda: batcher.admit(99, prompts[0])),
-            "decode": profile_call(batcher.step)}
+    prof = {"prefill": profile_call(lambda: batcher.admit(99, prompts[0]),
+                                    spans),
+            "decode": profile_call(batcher.step, spans)}
     for name, pr in prof.items():
         log(f"{tag} profiled {name}: wall {pr['wall_ms']:.2f} ms, device "
             f"{pr['device_ms']:.2f} ms (busy {pr['busy_share'] or 0:.2f}), "
@@ -2749,12 +2830,14 @@ def run_serving(card: str, dev: torch.device) -> dict:
             "served_logits": rec_b, "profile": prof, "programs": decode16}
 
 
-def compare_decode(batcher, card: str, tag: str = "[programs]") -> dict:
+def compare_decode(batcher, card: str, tag: str = "[programs]",
+                   spans=()) -> dict:
     """Phase 16 (d): the batcher's captured decode step against its eager
     step, from identical copies of the caches at the same tokens and
     position: logits and caches bit-equal; then both timed at that
     position (host clock around a synchronize, alternated, median of
-    10; each call rewrites the same cache row) and profiled once."""
+    10; each call rewrites the same cache row) and profiled once
+    (``spans`` as ``profile_call``'s)."""
     from repro_torch import compile as programs
 
     active = np.flatnonzero(batcher.active)
@@ -2801,7 +2884,8 @@ def compare_decode(batcher, card: str, tag: str = "[programs]") -> dict:
     for _ in range(WARM_REPS):
         times["programs"].append(timed(step))
         times["eager"].append(timed(eager_step))
-    prof = {"programs": profile_call(step), "eager": profile_call(eager_step)}
+    prof = {"programs": profile_call(step, spans),
+            "eager": profile_call(eager_step, spans)}
     med = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
     log(f"{tag} decode step ({batcher.slots} slots, pos {pos}): captured "
         f"== eager bit for bit (logits and caches); median of {WARM_REPS}, "
@@ -2810,7 +2894,10 @@ def compare_decode(batcher, card: str, tag: str = "[programs]") -> dict:
         + "; ".join(f"{k} wall {p['wall_ms']:.2f} device {p['device_ms']:.2f} ms "
                     f"(busy {p['busy_share'] or 0:.2f}), {p['launches']} kernels, "
                     f"{p['launch_api_calls']} host launch calls"
-                    for k, p in prof.items()) + f"; card {card}")
+                    for k, p in prof.items())
+        + "".join(f"; {k}'s {s} family {p['kinds'][s]['ms']:.3f} ms "
+                  f"x{p['kinds'][s]['count']}" for k, p in prof.items()
+                  for s in spans) + f"; card {card}")
     return {"bit_equal": True, "pos": pos,
             "times_ms": {k: [1e3 * t for t in v] for k, v in times.items()},
             "median_ms": med, "profile": prof}
@@ -2830,6 +2917,18 @@ def moe_layers(cfg) -> int:
     from repro_torch.configs.base import layer_layout
 
     return sum(s.ffn == "moe" for s in layer_layout(cfg))
+
+
+def attention_layers(cfg) -> int:
+    from repro_torch.configs.base import layer_layout
+
+    return sum(s.mixer in ("attn", "mla") for s in layer_layout(cfg))
+
+
+def mamba_layers(cfg) -> list[int]:
+    from repro_torch.configs.base import layer_layout
+
+    return [i for i, s in enumerate(layer_layout(cfg)) if s.mixer == "mamba"]
 
 
 def grouped_bound(x_sorted: torch.Tensor, sizes: torch.Tensor,
@@ -2857,7 +2956,9 @@ def grouped_bound(x_sorted: torch.Tensor, sizes: torch.Tensor,
 def forward_logits(cfg, params, toks, attention, grouped=None) -> torch.Tensor:
     """``T.forward``'s logits from the prompt's last position on, with the
     attention's implementation substituted (and the grouped SwiGLU's, when
-    ``grouped`` is given)."""
+    ``grouped`` is given).  With Mamba2 layers the tokens are padded to a
+    multiple of the SSD's chunk, as it requires; every layer is causal,
+    so the rows kept do not change."""
     from types import SimpleNamespace
 
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -2865,6 +2966,9 @@ def forward_logits(cfg, params, toks, attention, grouped=None) -> torch.Tensor:
     from repro_torch.models import ffn
     from repro_torch.models import transformer as T
 
+    n = toks.shape[1]
+    if mamba_layers(cfg):
+        toks = torch.nn.functional.pad(toks, (0, -n % cfg.ssm_chunk))
     own = ffn.grouped_swiglu
     fa_ops.kernel = SimpleNamespace(flash_attention=attention)
     ffn.grouped_swiglu = grouped or own
@@ -2873,7 +2977,7 @@ def forward_logits(cfg, params, toks, attention, grouped=None) -> torch.Tensor:
     finally:
         fa_ops.kernel = fa_kernel
         ffn.grouped_swiglu = own
-    return logits[0, SERVE_PROMPT - 1:].float().cpu()
+    return logits[0, SERVE_PROMPT - 1:n].float().cpu()
 
 
 def unmasked_attention(q, k, v, *, scale, causal):
@@ -2889,11 +2993,12 @@ def served_tokens(prompt, outs, dev) -> torch.Tensor:
 
 def expect_serving_launches(launches: dict, cfg, requests: int, steps: int,
                             what: str) -> None:
-    """Exactly one Hopper flash launch per layer per prefill, one grouped
-    SwiGLU per MoE layer per prefill and decode step (counted through the
-    replays), and nothing else: no CUDA-core flash body, no loop."""
+    """Exactly one Hopper flash launch per attention layer per prefill, one
+    grouped SwiGLU per MoE layer per prefill and decode step (counted
+    through the replays), and nothing else: no CUDA-core flash body, no
+    loop."""
     want = {**{k: 0 for k in launches},
-            "flash_attention_wgmma": cfg.num_layers * requests,
+            "flash_attention_wgmma": attention_layers(cfg) * requests,
             "grouped_swiglu_mm": moe_layers(cfg) * (requests + steps)}
     if launches != want:
         raise AssertionError(f"{what} made launches "
@@ -3061,26 +3166,40 @@ def cache_bytes(cfg, slots: int, max_len: int) -> int:
     return sum(t.numel() * t.element_size() for c in caches for t in c.values())
 
 
-def moe_full_model(arch: str, tag: str, tol: float, card: str, dev) -> dict:
-    """Phase 18 (c): ``arch`` at published widths and full depth,
-    bfloat16 parameters from a seeded generator, phase 11's traffic;
-    launches, the first two flash launches of request 0 held and timed,
-    profiles, the captured decode step against ``eager()``, and request
-    0's served logits against a bfloat16 ``forward`` of the same tokens
-    within ``tol`` (an unmasked forward must fall outside it)."""
+def serve_full_model(arch: str, tag: str, over: dict, tol: float, card: str,
+                     dev, hold_unmasked: bool = True) -> dict:
+    """Phase 18 (c) and 19 (c): ``arch`` at published widths, cut and
+    typed by ``over``, parameters from a seeded generator, phase 11's
+    traffic: launches (exactly one Hopper flash launch per attention layer
+    per prefill, one grouped SwiGLU per MoE layer per prefill and decode
+    step, nothing else), the first (up to two) flash launches of request 0
+    held and timed, profiles (with the SSD's family where there are Mamba2
+    layers), the captured decode step against ``eager()`` (logits and
+    every cache bit-equal), and request 0's served logits against a
+    bfloat16 ``forward`` of the same tokens within ``tol``; a forward
+    without the causal mask must fall outside it if ``hold_unmasked``
+    (else it is reported), and peak memory is reported beside the
+    prediction."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
+    from repro_torch.models.common import cast_params, dtype_of
 
-    cfg = M.get_config(arch).with_overrides(param_dtype="bfloat16")
+    cfg = M.get_config(arch).with_overrides(**over)
     total = torch.cuda.get_device_properties(dev).total_memory
-    param_bytes = M.count_params_analytic(cfg) * 2
+    shapes = T.init_params(cfg, None, device="meta")
+    own = {id(t) for t in shapes.parameters()}
+    param_bytes = tensor_bytes(list(shapes.parameters()))
+    cast_bytes = tensor_bytes([t for t in tree_leaves(cast_params(
+        shapes, dtype_of(cfg.dtype))) if id(t) not in own])
     kv = cache_bytes(cfg, SERVE_SLOTS, SERVE_MAX)
-    predicted = param_bytes + kv + cache_bytes(cfg, 1, SERVE_MAX)
-    log(f"{tag} (c) {arch}: predicted peak {predicted / 2**30:.2f} GiB (bfloat16 "
-        f"parameters {param_bytes / 2**30:.2f} GiB, {SERVE_SLOTS}-slot caches "
-        f"{kv / 2**30:.2f} GiB, one prefill's cache, before temporaries) of the "
-        f"card's {total / 2**30:.2f} GiB")
+    predicted = param_bytes + cast_bytes + kv + cache_bytes(cfg, 1, SERVE_MAX)
+    del shapes
+    log(f"{tag} (c) {arch}: predicted peak {predicted / 2**30:.2f} GiB "
+        f"({cfg.param_dtype} parameters {param_bytes / 2**30:.2f} GiB, their "
+        f"{cfg.dtype} copies {cast_bytes / 2**30:.2f} GiB, {SERVE_SLOTS}-slot "
+        f"caches {kv / 2**30:.3f} GiB, one prefill's cache, before "
+        f"temporaries) of the card's {total / 2**30:.2f} GiB")
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                            device=dev)
@@ -3090,46 +3209,55 @@ def moe_full_model(arch: str, tag: str, tol: float, card: str, dev) -> dict:
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, size=SERVE_PROMPT).astype(np.int32)
                for _ in range(SERVE_REQUESTS)]
-    log(f"{tag} (c) {arch}: {cfg.num_layers} layers ({moe_layers(cfg)} MoE: "
+    log(f"{tag} (c) {arch}: {cfg.num_layers} layers ({attention_layers(cfg)} "
+        f"attention, {len(mamba_layers(cfg))} Mamba2, {moe_layers(cfg)} MoE: "
         f"{cfg.num_experts} experts top-{cfg.top_k}, {cfg.num_shared_experts} "
         f"shared, d_ff {cfg.moe_d_ff}), d_model {cfg.d_model}, vocab "
-        f"{cfg.padded_vocab_size}; {n_params} bfloat16 parameters made on the "
-        f"card in {t_init:.2f} s")
+        f"{cfg.padded_vocab_size}; {n_params} {cfg.param_dtype} parameters "
+        f"made on the card in {t_init:.2f} s")
     run, served, batcher = serve_traffic(cfg, params, prompts, card, f"{tag} (c)")
     expect_serving_launches(run["launches"], cfg, SERVE_REQUESTS,
                             run["decode_steps"], f"{tag} (c) serving")
     toks = served_tokens(prompts[0], batcher.outputs[0], dev)
-    tok0 = torch.as_tensor(prompts[0][None, :], device=dev)
-    seen = capture_flash(lambda: T.prefill(cfg, params, {"tokens": tok0},
-                                           max_len=SERVE_MAX), cfg.num_layers)
-    fa = hold_flash_launches(seen[:2], card, "flash_attention_wgmma")
-    del seen
-    prof = profile_serving(batcher, prompts, f"{tag} (c)")
-    programs16 = compare_decode(batcher, card, f"{tag} (c)")
+    fa = None
+    if attention_layers(cfg):
+        tok0 = torch.as_tensor(prompts[0][None, :], device=dev)
+        seen = capture_flash(lambda: T.prefill(cfg, params, {"tokens": tok0},
+                                               max_len=SERVE_MAX),
+                             attention_layers(cfg))
+        fa = hold_flash_launches(seen[:2], card, "flash_attention_wgmma")
+        del seen
+    spans = (SSD_SPAN,) if mamba_layers(cfg) else ()
+    with ssd_spans():
+        prof = profile_serving(batcher, prompts, f"{tag} (c)", spans)
+        programs = compare_decode(batcher, card, f"{tag} (c)", spans)
     del batcher
     got = torch.stack(served).float().cpu()
     want = forward_logits(cfg, params, toks, fa_kernel.flash_attention)
     err = rel_rms(got, want)
-    leak = rel_rms(forward_logits(cfg, params, toks, unmasked_attention), want)
-    rec = {"arch": arch, "params": n_params, "init_s": t_init,
-           "predicted_peak_bytes": predicted, "card_bytes": total, **run,
-           "flash": fa, "profile": prof, "programs": programs16,
+    leak = (rel_rms(forward_logits(cfg, params, toks, unmasked_attention), want)
+            if attention_layers(cfg) else None)
+    rec = {"arch": arch, "layers": cfg.num_layers, "params": n_params,
+           "init_s": t_init, "predicted_peak_bytes": predicted,
+           "card_bytes": total, **run, "flash": fa, "profile": prof,
+           "programs": programs,
            "served_vs_forward_rel_rms_max": float(err.max()),
            "served_vs_forward_rel_rms": err.tolist(),
-           "unmasked_rel_rms_max": float(leak.max()),
+           "unmasked_rel_rms_max": None if leak is None else float(leak.max()),
            "argmax_agree": int((got.argmax(-1) == want.argmax(-1)).sum()),
            "tol": tol}
     log(f"{tag} (c) served logits of request 0 (prefill + {SERVE_GEN - 1} decode "
         f"steps) against the bfloat16 forward of the same tokens: relative RMS "
-        f"max {rec['served_vs_forward_rel_rms_max']:.5f} (tolerance "
-        f"{tol}), argmax agrees at {rec['argmax_agree']}/{SERVE_GEN}; "
-        f"with the causal mask dropped: {rec['unmasked_rel_rms_max']:.5f}; peak "
-        f"{run['peak_mem_bytes'] / 2**30:.2f} GiB against the predicted "
+        f"max {rec['served_vs_forward_rel_rms_max']:.5f} (tolerance {tol}), "
+        f"argmax agrees at {rec['argmax_agree']}/{SERVE_GEN}"
+        + ("" if leak is None else
+           f"; with the causal mask dropped: {rec['unmasked_rel_rms_max']:.5f}")
+        + f"; peak {run['peak_mem_bytes'] / 2**30:.2f} GiB against the predicted "
         f"{predicted / 2**30:.2f}; card {card}")
     if not rec["served_vs_forward_rel_rms_max"] <= tol:
         raise AssertionError(f"{tag} served logits differ from the bfloat16 "
                              f"forward: {rec['served_vs_forward_rel_rms_max']}")
-    if not rec["unmasked_rel_rms_max"] > tol:
+    if hold_unmasked and not rec["unmasked_rel_rms_max"] > tol:
         raise AssertionError(f"{tag} a forward without the causal mask stays "
                              f"within the tolerance: the check cannot see it")
     del params
@@ -3150,12 +3278,470 @@ def run_moe_serving(card: str, dev) -> dict:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        full = moe_full_model(arch, tag, serve_tol, card, dev)
+        full = serve_full_model(arch, tag, {"param_dtype": "bfloat16"},
+                                serve_tol, card, dev)
         gc.collect()
         torch.cuda.empty_cache()
         out[arch] = {"check": check, "layer": layer, "serve": full,
                      "seconds": time.perf_counter() - t0}
         log(f"{tag} {arch}: phase 18 in {out[arch]['seconds']:.2f} s; card {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the SSM and hybrid serving path
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def ssd_spans():
+    """While entered, ``ssm._ssd_chunked`` and ``ssm._ssd_step`` run inside
+    a ``record_function(SSD_SPAN)`` range (for ``profile_call``'s
+    ``spans``).  Only eager calls see it; a graph replay runs no Python."""
+    from repro_torch.models import ssm
+
+    own = {name: getattr(ssm, name) for name in ("_ssd_chunked", "_ssd_step")}
+
+    def spanned(fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(SSD_SPAN):
+                return fn(*args, **kw)
+        return call
+
+    for name, fn in own.items():
+        setattr(ssm, name, spanned(fn))
+    try:
+        yield
+    finally:
+        for name, fn in own.items():
+            setattr(ssm, name, fn)
+
+
+def naive_ssd(x, dt, A, B, C):
+    """The sequential recurrence (``tests/test_ssm.py::_naive_ssd``) in
+    float64 on the tensors' device: state_t = exp(dt_t A) state_{t-1} +
+    dt_t B_t x_t, y_t = C_t · state_t.  Returns (y, final state)."""
+    b, s, h, p = x.shape
+    rep = h // B.shape[2]
+    x, dt, A = x.double(), dt.double(), A.double()
+    Bh = B.double().repeat_interleave(rep, dim=2)
+    Ch = C.double().repeat_interleave(rep, dim=2)
+    state = torch.zeros((b, h, p, B.shape[3]), dtype=torch.float64,
+                        device=x.device)
+    ys = torch.empty((b, s, h, p), dtype=torch.float64, device=x.device)
+    for t in range(s):
+        da = torch.exp(dt[:, t] * A)
+        bx = (x[:, t] * dt[:, t, :, None])[..., None] * Bh[:, t, :, None, :]
+        state = state * da[..., None, None] + bx
+        ys[:, t] = torch.einsum("bhpn,bhn->bhp", state, Ch[:, t])
+    return ys, state
+
+
+def flat_rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    """rel_rms over all elements at once."""
+    return float(rel_rms(a.reshape(1, -1), b.reshape(1, -1))[0])
+
+
+def ssd_bound(x, B, chunk: int) -> dict:
+    """Least time for one chunked SSD: the FLOP of its four contractions
+    as the function computes them, per head (C·Bᵀ over n, that times X over
+    s, the chunk-end states, the inter-chunk output; 2 FLOP a
+    multiply-add), at the float32 CUDA-core rate; or its bytes (x, dt, A,
+    B, C read once, y and the final state written once) over the HBM rate."""
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    cl = min(chunk, s)
+    nc = s // cl
+    flop = 2.0 * b * nc * h * (cl * cl * n + cl * cl * p + 2 * cl * p * n)
+    nbytes = (2 * x.numel() * x.element_size() + b * s * h * 4 + h * 4
+              + 2 * B.numel() * B.element_size() + b * h * p * n * 4)
+    t_ops = 1e3 * flop / PEAK_FLOP_S[torch.float32]
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flop, "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes}
+
+
+def bytes_bound(nbytes: float) -> dict:
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": t_bytes, "bound_by": "bytes", "bytes": nbytes}
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict / list tree (a parameter tree too)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    values = tree.values() if hasattr(tree, "values") else tree
+    return [t for v in values for t in tree_leaves(v)]
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict / list tree."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def teacher_forced(cfg, params, prompt, outs, dev, drop_history=False):
+    """Request 0 through a one-slot ``ContinuousBatcher`` fed the served
+    tokens ``outs`` (teacher forcing), as it is configured and compiled at
+    the call.  Returns (its prefill's logit row, then each decode step's,
+    on the host; the batcher's caches at the end).  ``drop_history``
+    zeroes every Mamba2 layer's SSM state after the prefill, before the
+    first decode step."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    rows, prefill_fn = [], T.prefill
+
+    def prefill_capture(*args, **kw):
+        logits, caches = prefill_fn(*args, **kw)
+        rows.append(logits[0, -1].float().cpu())
+        return logits, caches
+
+    T.prefill = prefill_capture
+    try:
+        batcher = serve.ContinuousBatcher(cfg, params, 1,
+                                          SERVE_PROMPT + SERVE_GEN)
+        batcher.admit(0, prompt)
+    finally:
+        T.prefill = prefill_fn
+    if drop_history:
+        for L in mamba_layers(cfg):
+            batcher.caches[L]["ssm"].zero_()
+    decode_fn = batcher._decode
+
+    def decode_capture(toks, pos):
+        logits, caches = decode_fn(toks, pos)
+        rows.append(logits[0, 0].float().cpu())
+        return logits, caches
+
+    batcher._decode = decode_capture
+    for i in range(SERVE_GEN - 1):
+        batcher.outputs[0] = list(outs[:i + 1])
+        batcher.step()
+    return torch.stack(rows), batcher.caches
+
+
+def state_rel_rms(cfg, caches, want) -> float:
+    """The largest relative RMS over the Mamba2 layers of slot 0's SSM
+    state in ``caches`` against ``want``'s."""
+    return max(flat_rel_rms(caches[L]["ssm"][:1], want[L]["ssm"][:1])
+               for L in mamba_layers(cfg))
+
+
+def ssm_check_model(arch: str, tag: str, over: dict, tol: float, card: str,
+                    dev) -> tuple:
+    """Phase 19 (a): ``arch`` at full width, cut by ``over``, float32
+    parameters from a seeded generator, one request (2048-token prompt, 32
+    tokens) served through ``ContinuousBatcher`` in bfloat16: its served
+    logits against the float32 ``forward`` (the plain attention and the
+    plain grouped SwiGLU), and a forward without the causal mask (jamba);
+    then the same tokens served (teacher-forced, eager, the plain grouped
+    SwiGLU) with float32 activations, and again with the prompt's SSM
+    states zeroed before the first decode step; slot 0's SSM states after
+    each run against the float32 chunked prefill's over the same tokens.
+    ``hold_ssm_check`` holds the result.  Returns (record, cfg, params)."""
+    from repro_torch import compile as programs
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import ffn
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg = M.get_config(arch).with_overrides(**over)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    prompt = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, size=SERVE_PROMPT).astype(np.int32)
+    run, served, batcher = serve_traffic(cfg, params, [prompt], card,
+                                         f"{tag} (a)", slots=1,
+                                         max_len=SERVE_PROMPT + SERVE_GEN)
+    expect_serving_launches(run["launches"], cfg, 1, run["decode_steps"],
+                            f"{tag} (a) serving")
+    outs = list(batcher.outputs[0])
+    toks = served_tokens(prompt, outs, dev)
+    served_caches = batcher.caches
+    del batcher
+    got = torch.stack(served).float().cpu()
+    cfg32 = cfg.with_overrides(dtype="float32")
+    want = forward_logits(cfg32, params, toks, fa_ref.mha_reference,
+                          ffn.grouped_swiglu_loop)
+    err = rel_rms(got, want)
+    fwd_bf16 = rel_rms(forward_logits(cfg, params, toks,
+                                      fa_kernel.flash_attention), want)
+    dropped = rel_rms(teacher_forced(cfg, params, prompt, outs, dev,
+                                     drop_history=True)[0], want)
+    leak = leak32 = None
+    if attention_layers(cfg):
+        leak = rel_rms(forward_logits(cfg, params, toks, unmasked_attention),
+                       want)
+        leak32 = rel_rms(forward_logits(cfg32, params, toks, unmasked_attention,
+                                        ffn.grouped_swiglu_loop), want)
+    own = ffn.grouped_swiglu
+    ffn.grouped_swiglu = ffn.grouped_swiglu_loop
+    reset_launches()
+    try:
+        with programs.eager():
+            rows32, caches32 = teacher_forced(cfg32, params, prompt, outs, dev)
+            rows0, caches0 = teacher_forced(cfg32, params, prompt, outs, dev,
+                                            drop_history=True)
+            # The SSM states after the served tokens, from the float32
+            # chunked prefill over all of them (a chunk that divides their
+            # count: the SSD does not depend on it).
+            n = toks.shape[1]
+            chunk = max(d for d in range(1, cfg.ssm_chunk + 1) if n % d == 0)
+            _, want_states = T.prefill(cfg32.with_overrides(ssm_chunk=chunk),
+                                       params, {"tokens": toks}, max_len=n)
+    finally:
+        ffn.grouped_swiglu = own
+    launches32 = read_launches()
+    err32, dropped32 = rel_rms(rows32, want), rel_rms(rows0, want)
+    states = {"bf16_served": state_rel_rms(cfg, served_caches, want_states),
+              "f32_served": state_rel_rms(cfg, caches32, want_states),
+              "f32_history_dropped": state_rel_rms(cfg, caches0, want_states),
+              "reference_chunk": chunk}
+    del served_caches, caches32, caches0, want_states
+    rec = {"layers": cfg.num_layers, "experts": cfg.num_experts,
+           "params": n_params, "serve": run,
+           "served_rel_rms_max": float(err.max()), "served_rel_rms": err.tolist(),
+           "served_max_abs": float((got - want).abs().max()),
+           "ref_logit_rms": float(want.pow(2).mean().sqrt()),
+           "bf16_forward_rel_rms_max": float(fwd_bf16.max()),
+           "history_dropped_bf16_rel_rms": dropped.tolist(),
+           "unmasked_rel_rms_min": None if leak is None else float(leak.min()),
+           "unmasked_rel_rms_max": None if leak is None else float(leak.max()),
+           "f32_unmasked_rel_rms_max": (None if leak32 is None
+                                        else float(leak32.max())),
+           "argmax_agree": int((got.argmax(-1) == want.argmax(-1)).sum()),
+           "f32_served_rel_rms": err32.tolist(),
+           "f32_served_rel_rms_max": float(err32.max()),
+           "f32_history_dropped_rel_rms": dropped32.tolist(),
+           "f32_history_dropped_rel_rms_max": float(dropped32.max()),
+           "ssm_state_rel_rms": states,
+           "f32_launches": launches32, "tol": tol, "f32_tol": SSM_F32_RTOL}
+    log(f"{tag} (a) {arch} at full width, {cfg.num_layers} layers, "
+        f"{cfg.num_experts} experts, {n_params} float32 parameters: served "
+        f"logits (bfloat16; prefill + {SERVE_GEN - 1} decode steps) against "
+        f"the float32 forward: relative RMS error max "
+        f"{rec['served_rel_rms_max']:.5f} (tolerance {tol}), max abs "
+        f"{rec['served_max_abs']:.5f} at logit RMS {rec['ref_logit_rms']:.4f}, "
+        f"argmax agrees at {rec['argmax_agree']}/{SERVE_GEN}; the bfloat16 "
+        f"forward: {rec['bf16_forward_rel_rms_max']:.5f}; the prompt's SSM "
+        f"states zeroed: {float(dropped[1:].min()):.5f}-{float(dropped.max()):.5f}"
+        + ("" if leak is None else
+           f"; with the causal mask dropped: {rec['unmasked_rel_rms_min']:.5f}-"
+           f"{rec['unmasked_rel_rms_max']:.5f}") + f"; card {card}")
+    log(f"{tag} (a) the same tokens served with float32 activations (eager, "
+        f"the plain grouped SwiGLU): relative RMS error max "
+        f"{rec['f32_served_rel_rms_max']:.3e} (tolerance {SSM_F32_RTOL}); the "
+        f"prompt's SSM states zeroed before the first decode step: decode rows "
+        f"{float(dropped32[1:].min()):.3e}-{rec['f32_history_dropped_rel_rms_max']:.3e}"
+        + ("" if leak32 is None else
+           f"; the float32 forward without the causal mask: "
+           f"{rec['f32_unmasked_rel_rms_max']:.3e}")
+        + f"; launches {launch_words(launches32)}")
+    log(f"{tag} (a) slot 0's SSM states after the {n} tokens against the "
+        f"float32 chunked prefill over them (chunk {chunk}), largest relative "
+        f"RMS over the Mamba2 layers: bfloat16 served {states['bf16_served']:.3e}"
+        f", float32 served {states['f32_served']:.3e}, float32 with the prompt's "
+        f"states zeroed {states['f32_history_dropped']:.3e}")
+    return rec, cfg, params
+
+
+def hold_ssm_check(rec: dict, tag: str) -> None:
+    """Phase 19 (a)'s holds: the bfloat16-served logits within their
+    tolerance; in float32 the served logits and SSM states within
+    SSM_F32_RTOL, and outside it the logits and states served with the
+    prompt's SSM states zeroed and jamba's forward without the causal
+    mask."""
+    tol, st = rec["tol"], rec["ssm_state_rel_rms"]
+    if not rec["served_rel_rms_max"] <= tol:
+        raise AssertionError(f"{tag} served logits differ from the float32 "
+                             f"forward: relative RMS {rec['served_rel_rms_max']} > "
+                             f"{tol}")
+    within = {"float32-served logits": rec["f32_served_rel_rms_max"],
+              "float32-served SSM states": st["f32_served"]}
+    outside = {"logits served with the prompt's SSM states zeroed":
+               rec["f32_history_dropped_rel_rms_max"],
+               "SSM states served with the prompt's SSM states zeroed":
+               st["f32_history_dropped"]}
+    if rec["f32_unmasked_rel_rms_max"] is not None:
+        outside["the forward without the causal mask"] = (
+            rec["f32_unmasked_rel_rms_max"])
+    for what, err in within.items():
+        if not err <= SSM_F32_RTOL:
+            raise AssertionError(f"{tag} {what} differ from the float32 "
+                                 f"reference: {err} > {SSM_F32_RTOL}")
+    for what, err in outside.items():
+        if not err > SSM_F32_RTOL:
+            raise AssertionError(f"{tag} {what} stay within {SSM_F32_RTOL} "
+                                 f"({err}): the check cannot see it")
+
+
+def ssm_layer_check(cfg, params, tag: str, card: str, dev) -> dict:
+    """Phase 19 (b): the check model's first Mamba2 layer alone, cast to
+    bfloat16, on bfloat16 inputs.  Prefill (2048 tokens): the chunked SSD on
+    the inputs the layer gives it, its bfloat16 output the float32 sums
+    rounded once, held against the float64 sequential recurrence within
+    SSD_RTOL (y and the final state; the chunks run apart outside it),
+    timed with CUDA events and profiler device time beside its bound and
+    the recurrence.  Decode at SERVE_SLOTS slots: the recurrent update
+    (``_ssd_step``) held against one float64 step, and it and the whole
+    layer's ``mamba.decode`` timed against their byte bounds."""
+    from repro_torch.models import ssm
+    from repro_torch.models.common import cast_params
+
+    L = mamba_layers(cfg)[0]
+    p = cast_params(params["layers"][L]["mixer"], torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.randn(1, SERVE_PROMPT, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    seen = {}
+    own_chunked, own_step = ssm._ssd_chunked, ssm._ssd_step
+
+    def spy_chunked(*args, **kw):
+        seen["chunked"] = args
+        return own_chunked(*args, **kw)
+
+    def spy_step(*args):
+        seen["step"] = tuple(a.clone() for a in args)
+        return own_step(*args)
+
+    ssm._ssd_chunked, ssm._ssd_step = spy_chunked, spy_step
+    try:
+        _, states = ssm.mamba.apply(cfg, p, x, None)
+        cache = ssm.mamba.init_cache(cfg, SERVE_SLOTS, torch.bfloat16, dev)
+        cache["ssm"].copy_(torch.randn(cache["ssm"].shape, generator=gen,
+                                       device=dev) * 0.1)
+        x4 = torch.randn(SERVE_SLOTS, 1, cfg.d_model, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        ssm.mamba.decode(cfg, p, x4, cache, SERVE_PROMPT)
+    finally:
+        ssm._ssd_chunked, ssm._ssd_step = own_chunked, own_step
+    xs, dt, A, Bm, Cm, chunk = seen["chunked"]
+    y, final = own_chunked(xs, dt, A, Bm, Cm, chunk)
+    y32, final32 = own_chunked(xs.float(), dt, A, Bm, Cm, chunk)
+    if not (torch.equal(y, y32.to(y.dtype)) and torch.equal(final, final32)
+            and torch.equal(final, states["ssm"])):
+        raise AssertionError(f"{tag} (b) the bfloat16 SSD is not its float32 "
+                             "sums rounded once")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y64, st64 = naive_ssd(xs, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    naive_ms = 1e3 * (time.perf_counter() - t0)
+    err_y, err_st = flat_rel_rms(y32, y64), flat_rel_rms(final32, st64)
+    b, s, h, hp = xs.shape
+    cl = min(chunk, s)
+    nc = s // cl
+    apart, _ = own_chunked(
+        xs.float().reshape(b * nc, cl, h, hp), dt.reshape(b * nc, cl, h), A,
+        Bm.reshape(b * nc, cl, *Bm.shape[2:]), Cm.reshape(b * nc, cl, *Cm.shape[2:]),
+        chunk)
+    err_apart = flat_rel_rms(apart.reshape(y32.shape), y64)
+
+    def ssd():
+        own_chunked(xs, dt, A, Bm, Cm, chunk)
+
+    ms = device_ms_per_call([ssd])
+    event_ms = time_cuda(ssd, 10)
+    prof = profile_call(ssd)
+    bnd = ssd_bound(xs, Bm, chunk)
+    prefill = {"tokens": SERVE_PROMPT, "chunk": cl, "chunks": nc,
+               "y_rel_rms": err_y, "state_rel_rms": err_st,
+               "chunks_apart_rel_rms": err_apart, "ms": ms, "event_ms": event_ms,
+               "plain_ms": naive_ms, "launches_per_call": prof["launches"],
+               "launch_api_calls": prof["launch_api_calls"],
+               "wall_ms": prof["wall_ms"], "top": prof["top"][:8], **bnd}
+    log(f"{tag} (b) one Mamba2 layer (layer {L}; h {h}, p {hp}, n "
+        f"{Bm.shape[3]}) at the prefill's {SERVE_PROMPT} tokens: the chunked "
+        f"SSD ({nc} chunks of {cl}) against the float64 sequential recurrence: "
+        f"relative RMS y {err_y:.2e}, final state {err_st:.2e} (tolerance "
+        f"{SSD_RTOL}; the chunks run apart: {err_apart:.3f}); {ms:.4f} ms device "
+        f"time (events {event_ms:.4f}), {prof['launches']} kernels and "
+        f"{prof['launch_api_calls']} host launch calls a call, profiled wall "
+        f"{prof['wall_ms']:.2f} ms; bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}; {bnd['flop'] / 1e9:.2f} GFLOP at the float32 "
+        f"CUDA-core rate); the float64 recurrence {naive_ms:.1f} ms; card {card}")
+    for row in prof["top"][:6]:
+        log(f"{tag} (b)   {row['ms']:9.4f} ms x{row['count']:<4d} {row['name']}")
+
+    state, xd, dtd, Ad, Bd, Cd, Dd = seen["step"]
+    got_y, got_state = own_step(state, xd, dtd, Ad, Bd, Cd, Dd)
+    da = torch.exp(dtd.double() * Ad.double()[None, :])
+    want_state = (state.double() * da[..., None, None]
+                  + (xd.double() * dtd.double()[..., None])[..., None]
+                  * Bd.double()[:, :, None, :])
+    want_y = (torch.einsum("bhpn,bhn->bhp", want_state, Cd.double())
+              + Dd.double()[None, :, None] * xd.double())
+    step_err = max(flat_rel_rms(got_y, want_y), flat_rel_rms(got_state, want_state))
+    step_bytes = 2 * tensor_bytes(state) + tensor_bytes([xd, dtd, Ad, Bd, Cd, Dd,
+                                                         got_y])
+    weights = tensor_bytes(p)
+    layer_bytes = (step_bytes + weights + 2 * tensor_bytes(cache["conv"])
+                   + 2 * tensor_bytes(x4))
+
+    def step():
+        own_step(state, xd, dtd, Ad, Bd, Cd, Dd)
+
+    def layer():
+        ssm.mamba.decode(cfg, p, x4, cache, SERVE_PROMPT)
+
+    decode = {"slots": SERVE_SLOTS, "step_rel_rms": step_err,
+              "step_ms": device_ms_per_call([step]),
+              "step_event_ms": time_cuda(step, 20),
+              "layer_ms": device_ms_per_call([layer]),
+              "layer_event_ms": time_cuda(layer, 20),
+              "layer_launches_per_call": profile_call(layer)["launches"],
+              "step_bound": bytes_bound(step_bytes),
+              "layer_bound": bytes_bound(layer_bytes), "weight_bytes": weights}
+    log(f"{tag} (b) decode at {SERVE_SLOTS} slots: the recurrent update "
+        f"(_ssd_step) within {step_err:.2e} of one float64 step; "
+        f"{decode['step_ms']:.4f} ms device time (events "
+        f"{decode['step_event_ms']:.4f}) against a byte bound of "
+        f"{decode['step_bound']['bound_ms']:.4f} ms (the float32 state "
+        f"{tensor_bytes(state) / 1e6:.2f} MB read and written); the whole "
+        f"layer's decode {decode['layer_ms']:.4f} ms (events "
+        f"{decode['layer_event_ms']:.4f}, {decode['layer_launches_per_call']} "
+        f"kernels) against {decode['layer_bound']['bound_ms']:.4f} ms (its "
+        f"{weights / 1e6:.1f} MB of weights too); card {card}")
+    if not max(err_y, err_st) <= SSD_RTOL:
+        raise AssertionError(f"{tag} (b) the SSD differs from the float64 "
+                             f"recurrence: y {err_y}, state {err_st}")
+    if not err_apart > SSD_RTOL:
+        raise AssertionError(f"{tag} (b) the chunks run apart stay within the "
+                             "tolerance: the check cannot see a dropped history")
+    if not step_err <= SSD_RTOL:
+        raise AssertionError(f"{tag} (b) the recurrent step differs from float64: "
+                             f"{step_err}")
+    return {"layer": L, "prefill": prefill, "decode": decode}
+
+
+def run_ssm_serving(card: str, dev) -> dict:
+    """Phase 19, for each SSM configuration in turn, the card freed
+    between them: (a) the float32 check model, (b) one Mamba2 layer
+    against its plain version, (c) the served model with phase 11's
+    traffic."""
+    out = {}
+    t_phase = time.perf_counter()
+    for arch, tag, check_over, serve_over, check_tol, serve_tol in SSM_SERVE:
+        t0 = time.perf_counter()
+        check, cfg, params = ssm_check_model(arch, tag, check_over, check_tol,
+                                             card, dev)
+        hold_ssm_check(check, tag)
+        layer = ssm_layer_check(cfg, params, tag, card, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        # In bfloat16 the unmasked forward stays within the policy's error
+        # here (SSM_SERVE): reported; (a) holds it in float32.
+        full = serve_full_model(arch, tag, serve_over, serve_tol, card, dev,
+                                hold_unmasked=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = {"check": check, "layer": layer, "serve": full,
+                     "seconds": time.perf_counter() - t0}
+        log(f"{tag} {arch}: phase 19 in {out[arch]['seconds']:.2f} s; card {card}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -3397,7 +3983,6 @@ def run_adhoc_subcorpus(gpu_sub, cpu_sub, sks, rows, keys, y, card: str) -> dict
 
 def quiet(fn, *args, **kwargs):
     """``fn``'s result and its printed lines."""
-    import contextlib
     import io
 
     buf = io.StringIO()
@@ -3586,11 +4171,22 @@ def run_application(index, sks, warm_first, gpu_sub, cpu_sub, rows, keys, y,
             "synthetic": syn, "taxi": taxi, "seconds": seconds}
 
 
-def profile_call(fn) -> dict:
+def _subtree_kernels(evt) -> list:
+    """The kernels a profiled host event launched, its children's too."""
+    out = list(evt.kernels)
+    for child in evt.cpu_children:
+        out += _subtree_kernels(child)
+    return out
+
+
+def profile_call(fn, spans=()) -> dict:
     """Device time by kernel name over one call of ``fn`` under
     ``torch.profiler``, and the device's busy share of that window.  The
     profiler's own overhead lengthens the window, so the busy share is a
-    lower bound; unprofiled wall times are measured separately."""
+    lower bound; unprofiled wall times are measured separately.  Each name
+    in ``spans`` is a ``record_function`` range: the kernels launched
+    inside it make a family of that name, taken out of the families their
+    kernel names give."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3600,10 +4196,13 @@ def profile_call(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Kernel rows only: an operator's row repeats its kernels' time.
+    # Kernel rows only: an operator's row repeats its kernels' time, and a
+    # span's device-side annotation row spans its kernels.
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key not in spans
+            and not getattr(e, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     # The host's launch calls (kernel and graph launches, the `cuda*` and
@@ -3611,12 +4210,23 @@ def profile_call(fn) -> dict:
     api = {e.key: e.count for e in prof.key_averages()
            if e.device_type == DeviceType.CPU and e.key.startswith("cu")
            and "Launch" in e.key}
-    kinds = {kind: {"ms": 0.0, "count": 0} for kind in (*PROFILE_KINDS, "other")}
-    for name, ms, count in rows:
-        kind = next((k for k, words in PROFILE_KINDS.items()
+    kinds = {kind: {"ms": 0.0, "count": 0}
+             for kind in (*spans, *PROFILE_KINDS, "other")}
+
+    def family(name: str) -> str:
+        return next((k for k, words in PROFILE_KINDS.items()
                      if any(w in name for w in words)), "other")
-        kinds[kind]["ms"] += ms
-        kinds[kind]["count"] += count
+
+    for name, ms, count in rows:
+        kinds[family(name)]["ms"] += ms
+        kinds[family(name)]["count"] += count
+    for e in prof.events():
+        if e.name in spans and e.device_type == DeviceType.CPU:
+            for k in _subtree_kernels(e):
+                kinds[family(k.name)]["ms"] -= k.duration / 1e3
+                kinds[family(k.name)]["count"] -= 1
+                kinds[e.name]["ms"] += k.duration / 1e3
+                kinds[e.name]["count"] += 1
     return {
         "wall_ms": wall_ms,
         "device_ms": device_ms,
@@ -3890,7 +4500,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Phase 18: the MoE and MLA serving path, with phase 11's model freed.
     moe = run_moe_serving(card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Phase 19: the SSM and hybrid serving path, with phase 18's freed.
+    ssm_serving = run_ssm_serving(card, dev)
     moe_full = [moe[arch]["serve"] for arch, *_ in MOE_SERVE]
+    ssm_full = [ssm_serving[arch]["serve"] for arch, *_ in SSM_SERVE]
+    hybrid_flash = [r["flash"] for r in ssm_full if r["flash"]]
     fa32 = serving["flash_f32"]
     fa_err = {"flash_attention_simt_regtile": max(
                   fa_err["flash_attention_simt_regtile"], fa32["max_abs_err"]),
@@ -3898,7 +4514,8 @@ def main() -> int:
                   fa_err["flash_attention_simt_basic"], fa32["basic_max_abs_err"]),
               "flash_attention_wgmma": max(
                   [fa_err["flash_attention_wgmma"], serving["flash"]["max_abs_err"]]
-                  + [r["flash"]["max_abs_err"] for r in moe_full])}
+                  + [r["flash"]["max_abs_err"] for r in moe_full]
+                  + [f["max_abs_err"] for f in hybrid_flash])}
 
     record = {
         "card": card, "torch": torch.__version__, "nvcc": nvcc,
@@ -3915,6 +4532,7 @@ def main() -> int:
         "submit": submit, "submit_safe": safe,
         "scheduler": sched, "materialized": mat, "two_op": two_op,
         "lake_hash": lake_hash, "serving": serving, "moe_serving": moe,
+        "ssm_serving": ssm_serving,
         "application": app,
         "compile_end": programs.compile_stats(),
         "total_s": time.perf_counter() - t_start,
@@ -3987,10 +4605,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
-        # The serving runs of phase 11 and phase 18 (c); the times are
-        # phase 11's launches, at the internlm2 shape.
+        # The serving runs of phase 11, phase 18 (c) and phase 19 (c); the
+        # times are phase 11's launches, at the internlm2 shape.
         "launches": serving["launches"]["flash_attention_wgmma"] + sum(
-            r["launches"]["flash_attention_wgmma"] for r in moe_full),
+            r["launches"]["flash_attention_wgmma"] for r in moe_full + ssm_full),
         "max_abs_err": fa_err["flash_attention_wgmma"],
         "ms": serving["flash"]["ms"],
         "plain_ms": serving["flash"]["plain_ms"],

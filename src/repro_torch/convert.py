@@ -105,7 +105,9 @@ def model_params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
     tied), ``prefix{i}`` layers and ``groups/layer{i}`` stacked on a
     leading axis of ``num_groups``.  Layer ``L`` of the port is prefix
     layer ``L`` or, after the prefix, group ``g``'s ``layer{i}`` with
-    ``g, i = divmod(L - len(prefix), len(group))``.  Weights keep the
+    ``g, i = divmod(L - len(prefix), len(group))``.  Leaves map name for
+    name, a Mamba2 mixer's bare ``A_log`` / ``dt_bias`` / ``D`` beside its
+    ``in_proj`` / ``conv`` / ``ssm_norm`` / ``out_proj``.  Weights keep the
     reference's (in, out) layout, so every leaf is a copy, never a
     transpose.  Shapes are checked, and every leaf must be used.
     """

@@ -1,8 +1,11 @@
 """Serving launcher (PyTorch port): continuous-batching decode loop.
 
 Prefill each admitted prompt (causal attention through the flash
-kernel on the card), then run the single-token decode step over a fixed
-set of slots; finished sequences release their slot to queued requests.
+kernel on the card, Mamba2 layers through the chunked SSD), then run the
+single-token decode step over a fixed set of slots; finished sequences
+release their slot to queued requests.  A Mamba2 prompt's length must be
+a multiple of ``min(ssm_chunk, length)`` (64 at the published configs),
+as the reference's SSD asserts; another length raises ``ValueError``.
 The decode step is a compiled program (:mod:`repro_torch.compile`, the
 reference's ``jax.jit`` of it): on the card it is captured once as a
 CUDA graph over the batched caches and the weights cast once to the
@@ -10,6 +13,8 @@ activation dtype, and replayed every step.  The prefill runs eager.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --smoke \
       --requests 12 --slots 4 --prompt-len 32 --gen-len 16 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+      --smoke --device cpu
 
 The default device is ``cuda``, which raises without a card.
 """
@@ -46,14 +51,17 @@ class ContinuousBatcher:
     """Slot-based scheduler: fixed decode batch, dynamic request swap-in.
 
     The counterpart of ``repro/launch/serve.py::ContinuousBatcher``.  Two
-    differences of mechanism, none of result: a prompt's cache rows are
-    spliced into the batched cache with an in-place ``copy_`` of that
-    slot's rows (the reference rebuilds the whole cache tree), and the
-    decode step updates the caches in place.  The reference's shared
-    ``pos`` frontier is kept exactly: every slot writes and attends at the
+    differences of mechanism, none of result: a prompt's cache is spliced
+    into the batched cache with an in-place ``copy_`` of that slot's entry
+    of every cache tensor (an attention layer's (max_len, ...) rows, a
+    Mamba2 layer's conv window and SSM state, which have no sequence
+    axis; the reference rebuilds the whole cache tree), and the decode
+    step updates the caches in place.  The reference's shared ``pos``
+    frontier is kept exactly: every slot writes and attends at the
     largest position among the active slots, so a slot admitted with a
     shorter history attends over zero rows between its own end and the
-    frontier.  Per-slot positions would be a feature the reference lacks.
+    frontier; Mamba2 layers ignore the position.  Per-slot positions
+    would be a feature the reference lacks.
     The decode step reads the weights as :func:`cast_params` gives them
     (cast to the activation dtype once per parameter version), so a
     parameter updated in place is cast anew and the step is captured

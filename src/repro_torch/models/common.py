@@ -58,7 +58,8 @@ def normal(shape, gen: torch.Generator | None, device, scale: float,
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
+    # In place: no second float32 temporary (an expert stack is 12.9 GB).
+    return w.mul_(scale).to(dtype)
 
 
 def dense_init(gen: torch.Generator | None, in_dim: int, out_dim: int, *,
@@ -83,17 +84,23 @@ def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out
 
 
+# Subtrees and leaves cast_params keeps as they are: the MoE router, which
+# computes in float32 (``moe_ffn.route``), and the Mamba mixer's float32
+# A_log, dt_bias and D (``ssm.mamba``), as in the reference.
+FLOAT32_KEYS = frozenset({"router", "A_log", "dt_bias", "D"})
+
+
 def cast_params(params, dtype: torch.dtype):
     """A parameter tree (``nn.ModuleDict`` / ``ParameterDict`` /
     ``ModuleList``) as nested dicts and lists of :func:`cast` copies of
-    its floating leaves; the layer functions read either form.  An MoE
-    ``router`` subtree is kept as it is: the router computes in float32
-    (``moe_ffn.route``), as the reference's does."""
+    its floating leaves; the layer functions read either form.  The
+    entries named in ``FLOAT32_KEYS`` are kept as they are."""
     if isinstance(params, torch.Tensor):
         return cast(params, dtype) if params.is_floating_point() else params
     if isinstance(params, (nn.ModuleList, list, tuple)):
         return [cast_params(p, dtype) for p in params]
-    return {k: dict(v.items()) if k == "router" else cast_params(v, dtype)
+    return {k: (v if isinstance(v, torch.Tensor) else dict(v.items()))
+            if k in FLOAT32_KEYS else cast_params(v, dtype)
             for k, v in params.items()}
 
 

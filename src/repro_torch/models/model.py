@@ -26,9 +26,11 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameter count from the port's own parameter shapes (built on the
-    ``meta`` device, nothing allocated).  ``active_only`` scales the
-    routed-expert tensors by top_k / num_experts (MoE 6·N_active·D), as
-    the reference does."""
+    ``meta`` device, nothing allocated), every leaf the reference has: a
+    Mamba2 mixer's float32 ``A_log`` / ``dt_bias`` / ``D`` included, no
+    ``post_norm`` / ``ffn`` on a layer without an FFN.  ``active_only``
+    scales the routed-expert tensors by top_k / num_experts (MoE
+    6·N_active·D), as the reference does."""
     params = transformer.init_params(cfg, None, device="meta")
     total = 0.0
     for name, p in params.named_parameters():

@@ -1,6 +1,6 @@
 """Decoder assembly: embeddings -> blocks -> head, with prefill and
-KV-cache decode, for the text configurations with GQA or MLA mixers and
-dense or MoE FFNs.
+cached decode, for the text configurations with GQA, MLA or Mamba2
+mixers and dense, MoE or no FFNs.
 
 The port's counterpart of ``repro/models/transformer.py``.  The
 reference factors the layers into ``prefix + group × G`` and
@@ -9,15 +9,18 @@ layers (``params["layers"]``), each built from its ``LayerSpec``, and a
 Python loop over it, which a CUDA graph of the decode step
 (``launch/serve.py``) flattens as ``jax.jit`` flattens the scan.  Decode
 caches are a list with one dict per layer (``{"k", "v"}`` for GQA,
-``{"c_kv", "k_rope"}`` for MLA).  ``decode_step`` updates them in place
-at a position that may be a device scalar.  Every function also takes
-the parameters as :func:`~repro_torch.models.common.cast_params` gives
-them.  ``moe_impl`` is threaded to the MoE layers as in the reference.
+``{"c_kv", "k_rope"}`` for MLA, both (B, max_len, ...); ``{"conv",
+"ssm"}`` for Mamba2, states with no sequence axis).  ``decode_step``
+updates them in place at a position that may be a device scalar (Mamba2
+layers ignore it).  A layer whose ``LayerSpec.ffn`` is ``"none"`` (the
+Mamba2 blocks) has no ``post_norm`` / ``ffn`` and no FFN residual, as in
+the reference.  Every function also takes the parameters as
+:func:`~repro_torch.models.common.cast_params` gives them.  ``moe_impl``
+is threaded to the MoE layers as in the reference.
 
-Ported layouts: every text configuration whose layers are ``attn`` or
-``mla`` with ``dense`` or ``moe`` (internlm2-1.8b, olmo-1b,
-mistral-nemo-12b, qwen1.5-110b, qwen3-moe-30b-a3b,
-deepseek-v2-lite-16b).  Mamba2 and the vision/audio stubs raise
+Ported layouts: every text configuration (internlm2-1.8b, olmo-1b,
+mistral-nemo-12b, qwen1.5-110b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b,
+mamba2-370m, jamba-1.5-large-398b).  The vision/audio stubs raise
 ``NotImplementedError`` naming the slice that brings them; ``lm_loss``
 and training wait for the training slice.
 """
@@ -34,6 +37,7 @@ from repro_torch.models.common import (cast, dense_init, dtype_of, linear,
                                        norm_apply, normal, param,
                                        rmsnorm_init, shard)
 from repro_torch.models.ffn import dense_ffn, moe_ffn
+from repro_torch.models.ssm import mamba
 
 __all__ = [
     "check_supported",
@@ -45,21 +49,16 @@ __all__ = [
 ]
 
 
-_MIXERS = {"attn": gqa, "mla": mla}
+_MIXERS = {"attn": gqa, "mla": mla, "mamba": mamba}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a text configuration
-    whose every layer has a GQA or MLA mixer."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a text
+    configuration."""
     if cfg.modality != "text":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.modality} frontend is not ported yet; it "
             "comes with the modality-stub slice of the model stack")
-    for spec in layer_layout(cfg):
-        if spec.mixer == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba2 layers are not ported yet; they come with "
-                "the Mamba2 SSD slice of the model stack")
 
 
 # ---------------------------------------------------------------------------
@@ -70,13 +69,15 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, gen,
                 device) -> nn.ModuleDict:
     parametric = cfg.norm != "nonparametric_ln"
     dt = dtype_of(cfg.param_dtype)
-    ffn = moe_ffn if spec.ffn == "moe" else dense_ffn
-    return nn.ModuleDict({
+    p = nn.ModuleDict({
         "pre_norm": rmsnorm_init(cfg.d_model, parametric, dt, device),
         "mixer": _MIXERS[spec.mixer].init(cfg, gen, device),
-        "post_norm": rmsnorm_init(cfg.d_model, parametric, dt, device),
-        "ffn": ffn.init(cfg, gen, device),
     })
+    if spec.ffn != "none":
+        ffn = moe_ffn if spec.ffn == "moe" else dense_ffn
+        p["post_norm"] = rmsnorm_init(cfg.d_model, parametric, dt, device)
+        p["ffn"] = ffn.init(cfg, gen, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator | None,
@@ -125,7 +126,10 @@ def _head(cfg: ModelConfig, params: nn.ModuleDict, x: torch.Tensor) -> torch.Ten
 
 def _ffn(cfg: ModelConfig, spec: LayerSpec, p: nn.ModuleDict, x: torch.Tensor,
          moe_impl: str) -> tuple[torch.Tensor, torch.Tensor | float]:
-    """The layer's FFN with its residual; returns (x, aux loss)."""
+    """The layer's FFN with its residual (none for ``"none"``); returns
+    (x, aux loss)."""
+    if spec.ffn == "none":
+        return x, 0.0
     h = norm_apply(p["post_norm"], x)
     if spec.ffn == "dense":
         f, aux = dense_ffn.apply(cfg, p["ffn"], h), 0.0
@@ -165,11 +169,14 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
     """One zeroed cache per layer in the activation dtype, on ``device``
     (the card by default): ``{"k", "v"}`` of (batch, max_len, Hkv, Dh) for
     GQA, ``{"c_kv", "k_rope"}`` of (batch, max_len, kv_lora_rank / rope)
-    for MLA."""
+    for MLA, ``mamba.init_cache``'s ``{"conv", "ssm"}`` for Mamba2 (the
+    SSM state float32)."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
-    return [_MIXERS[spec.mixer].init_cache(cfg, batch, max_len, dtype, device)
+    return [mamba.init_cache(cfg, batch, dtype, device) if spec.mixer == "mamba"
+            else _MIXERS[spec.mixer].init_cache(cfg, batch, max_len, dtype,
+                                                device)
             for spec in layer_layout(cfg)]
 
 
@@ -195,9 +202,11 @@ def prefill(cfg: ModelConfig, params: nn.ModuleDict, batch: dict,
             moe_impl: str = "gspmd") -> tuple[torch.Tensor, list[dict]]:
     """Run the prompt through the model, filling decode caches.
 
-    Returns (last-position logits (B, 1, V), caches): each layer's cache
-    contribution (GQA's K/V, MLA's latent and rope key) written into a
-    zeroed (B, max_len, ...) cache, as the reference does.
+    Returns (last-position logits (B, 1, V), caches): each attention
+    layer's cache contribution (GQA's K/V, MLA's latent and rope key)
+    written into a zeroed (B, max_len, ...) cache, each Mamba2 layer's
+    final ``{"conv", "ssm"}`` states kept as they are, as the reference
+    does.
     """
     x = _embed_inputs(cfg, params, batch["tokens"])
     B, S, _ = x.shape
@@ -209,12 +218,15 @@ def prefill(cfg: ModelConfig, params: nn.ModuleDict, batch: dict,
     for spec, p in zip(layer_layout(cfg), params["layers"]):
         mix, contrib = _MIXERS[spec.mixer].apply(
             cfg, p["mixer"], norm_apply(p["pre_norm"], x), positions)
-        cache = {}
-        for name, t in contrib.items():
-            buf = torch.zeros((B, max_len) + tuple(t.shape[2:]), dtype=dtype,
-                              device=t.device)
-            buf[:, :S] = t
-            cache[name] = buf
-        caches.append(cache)
+        if spec.mixer == "mamba":
+            caches.append(contrib)  # final states: conv in dtype, ssm float32
+        else:
+            cache = {}
+            for name, t in contrib.items():
+                buf = torch.zeros((B, max_len) + tuple(t.shape[2:]),
+                                  dtype=dtype, device=t.device)
+                buf[:, :S] = t
+                cache[name] = buf
+            caches.append(cache)
         x, _ = _ffn(cfg, spec, p, x + mix, moe_impl)
     return _head(cfg, params, x[:, -1:, :]), caches

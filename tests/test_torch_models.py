@@ -3,12 +3,15 @@
 Parameters come from the reference's ``init_params`` and are carried
 into the port with ``convert.model_params_from_numpy``; the same seeded
 token batches go through both.  For the four dense text architectures
-(every layer ``attn`` + ``dense``) and the two MoE ones
+(every layer ``attn`` + ``dense``), the two MoE ones
 (``qwen3-moe-30b-a3b``: GQA + MoE on every layer; ``deepseek-v2-lite-16b``:
-MLA, a dense layer 0, then MoE with shared experts) the port's
-``forward`` logits and aux loss, ``prefill`` logits and caches (GQA's
-K/V, MLA's ``c_kv`` / ``k_rope``), and one ``decode_step``'s logits and
-caches are held against JAX within atol 1e-4, the bound
+MLA, a dense layer 0, then MoE with shared experts) and the two SSM ones
+(``mamba2-370m``: Mamba2 layers with no FFN, one stacked group repeated;
+``jamba-1.5-large-398b``: Mamba2 and GQA at 7:1, dense and MoE FFNs
+alternating) the port's ``forward`` logits and aux loss, ``prefill``
+logits and caches (GQA's K/V, MLA's ``c_kv`` / ``k_rope``, Mamba2's
+``conv`` / ``ssm`` states), and one ``decode_step``'s logits and caches
+are held against JAX within atol 1e-4, the bound
 ``tests/test_models.py`` puts on decode against forward (float32 smoke
 configs; the two packages differ in summation order only), and the
 logits also within a relative RMS of ``LOGIT_RTOL`` (an MoE layer's
@@ -16,8 +19,8 @@ output is a few 1e-3 at smoke width, so atol alone says little; the
 layer itself is held relatively in ``tests/test_torch_moe.py``).  The
 aux loss is held within 1e-6.  The config registry, layer layouts and
 parameter counts (total and active) are compared with the reference for
-all ten configs, and the configs the port does not run yet must raise
-``NotImplementedError``.
+all ten configs, and the configs the port does not run yet (the two
+modality stubs) must raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -42,7 +45,9 @@ from repro_torch.models import transformer as T
 
 DENSE_ARCHS = ["internlm2-1.8b", "olmo-1b", "mistral-nemo-12b", "qwen1.5-110b"]
 MOE_ARCHS = ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"]
-OTHER_ARCHS = sorted(set(J_REGISTRY) - set(DENSE_ARCHS) - set(MOE_ARCHS))
+SSM_ARCHS = ["mamba2-370m", "jamba-1.5-large-398b"]
+PORTED = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS
+OTHER_ARCHS = sorted(set(J_REGISTRY) - set(PORTED))
 ATOL = 1e-4
 LOGIT_RTOL = 1e-5
 B, S, MAX = 2, 16, 32
@@ -73,12 +78,18 @@ def jax_layer_cache(cfg, jcaches, L):
 
 
 def cache_shapes(cfg):
-    """The port's per-layer cache shapes at (B, MAX)."""
-    return [{"c_kv": (B, MAX, cfg.kv_lora_rank),
-             "k_rope": (B, MAX, cfg.qk_rope_head_dim)} if s.mixer == "mla"
-            else {"k": (B, MAX, cfg.num_kv_heads, cfg.head_dim),
-                  "v": (B, MAX, cfg.num_kv_heads, cfg.head_dim)}
-            for s in layer_layout(cfg)]
+    """The port's per-layer cache shapes at (B, MAX); Mamba2's states
+    have no sequence axis."""
+    shapes = {
+        "mla": {"c_kv": (B, MAX, cfg.kv_lora_rank),
+                "k_rope": (B, MAX, cfg.qk_rope_head_dim)},
+        "attn": {"k": (B, MAX, cfg.num_kv_heads, cfg.head_dim),
+                 "v": (B, MAX, cfg.num_kv_heads, cfg.head_dim)},
+        "mamba": {"conv": (B, cfg.ssm_conv - 1,
+                           cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state),
+                  "ssm": (B, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)},
+    }
+    return [shapes[s.mixer] for s in layer_layout(cfg)]
 
 
 def rel_rms(got, want) -> float:
@@ -91,7 +102,7 @@ def assert_logits(got: torch.Tensor, want) -> None:
     assert rel_rms(got.numpy(), want) <= LOGIT_RTOL
 
 
-@pytest.fixture(scope="module", params=DENSE_ARCHS + MOE_ARCHS)
+@pytest.fixture(scope="module", params=PORTED)
 def arch_state(request):
     return carried(request.param)
 
@@ -169,7 +180,7 @@ def test_configs_layout_and_grouping_equal_reference(arch):
 
 
 @pytest.mark.parametrize("smoke", [True, False])
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_count_equals_reference(arch, smoke):
     cfg = M.get_config(arch, smoke=smoke)
     assert M.count_params_analytic(cfg) == JM.count_params_analytic(
@@ -178,7 +189,7 @@ def test_param_count_equals_reference(arch, smoke):
 
 
 @pytest.mark.parametrize("smoke", [True, False])
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", PORTED)
 def test_active_param_count_equals_reference(arch, smoke):
     """``active_only`` scales the routed experts by top_k / num_experts,
     as the reference does; without experts it changes nothing."""
@@ -206,6 +217,64 @@ def test_moe_full_size_counts(arch, total, active):
     cfg = M.get_config(arch)
     assert M.count_params_analytic(cfg) == total
     assert M.count_params_analytic(cfg, active_only=True) == active
+
+
+@pytest.mark.parametrize("arch, total, active, layers", [
+    ("mamba2-370m", 368_494_080, 368_494_080, 48),
+    ("jamba-1.5-large-398b", 397_530_179_040, 93_124_371_936, 72),
+    ("jamba-1.5-large-398b", 23_980_632_192, None, 5)])
+def test_ssm_full_size_counts(arch, total, active, layers):
+    """The SSM configurations the card serves: mamba2 whole, jamba whole
+    and cut to its first 5 layers (4 Mamba2, the attention layer at
+    offset 4, MoE at layers 1 and 3), the cut the card holds in bfloat16
+    parameters (44.7 GiB)."""
+    cfg = M.get_config(arch).with_overrides(num_layers=layers)
+    assert M.count_params_analytic(cfg) == total
+    if active is not None:
+        assert M.count_params_analytic(cfg, active_only=True) == active
+    if layers == 5:
+        assert [(s.mixer, s.ffn) for s in layer_layout(cfg)] == [
+            ("mamba", "dense"), ("mamba", "moe"), ("mamba", "dense"),
+            ("mamba", "moe"), ("attn", "dense")]
+
+
+def test_jamba_five_layer_cut_carries_and_equals_jax():
+    """The depth cut the card serves (jamba's first 5 layers) is one
+    reference group of 5 layers: every leaf carries, and the forward
+    equals JAX's."""
+    cfg = M.get_config("jamba-1.5-large-398b", smoke=True).with_overrides(
+        num_layers=5)
+    prefix, groups, group = j_scan_grouping(cfg)
+    assert (len(prefix), groups, len(group)) == (0, 1, 5)
+    jparams = JT.init_params(cfg, jax.random.key(3))
+    params = model_params_from_numpy(
+        cfg, jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    toks = tokens(cfg, (B, S), seed=4)
+    want, _ = JT.forward(cfg, jparams, {"tokens": jnp.asarray(toks)})
+    got, _ = T.forward(cfg, params, {"tokens": torch.from_numpy(toks)})
+    assert_logits(got, want)
+
+
+def test_ssm_init_layout():
+    """mamba2: no post_norm / FFN on any layer, the float32 A_log /
+    dt_bias / D under a bfloat16 ``param_dtype``; jamba: the caches by
+    mixer, the SSM state float32 in a bfloat16 model."""
+    cfg = M.get_config("mamba2-370m", smoke=True).with_overrides(
+        param_dtype="bfloat16", dtype="bfloat16")
+    names = dict(T.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu").named_parameters())
+    assert not any(".post_norm." in n or ".ffn." in n for n in names)
+    for leaf in ("A_log", "dt_bias", "D"):
+        assert names[f"layers.1.mixer.{leaf}"].dtype == torch.float32
+    assert names["layers.1.mixer.in_proj.w"].dtype == torch.bfloat16
+    jamba = M.get_config("jamba-1.5-large-398b", smoke=True).with_overrides(
+        dtype="bfloat16")
+    caches = T.init_decode_caches(jamba, 2, 8, device="cpu")
+    assert [sorted(c) for c in caches] == [
+        ["k", "v"] if s.mixer == "attn" else ["conv", "ssm"]
+        for s in layer_layout(jamba)]
+    assert caches[0]["conv"].dtype == torch.bfloat16
+    assert caches[0]["ssm"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("arch", OTHER_ARCHS)

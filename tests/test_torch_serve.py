@@ -7,11 +7,13 @@ reference's, so each step's logits compare like with like.  The prefill
 logits of every admitted request and the logits of every decode step
 are held within atol 1e-4 (float32 smoke configs; see
 ``tests/test_torch_models.py``), and so are the caches at the end.  The
-MoE configurations (``qwen3-moe-30b-a3b``, ``deepseek-v2-lite-16b``) run
-the same way, their caches found by ``scan_grouping`` in the reference's
-tree (deepseek's dense layer 0 is a prefix layer).  The CLI is run as
-``tests/test_launchers.py`` runs the reference's, for a dense and both
-MoE configurations.
+MoE configurations (``qwen3-moe-30b-a3b``, ``deepseek-v2-lite-16b``) and
+the SSM ones (``mamba2-370m``, ``jamba-1.5-large-398b``: conv and SSM
+states spliced per slot, with no sequence axis) run the same way, their
+caches found by ``scan_grouping`` in the reference's tree (deepseek's
+dense layer 0 is a prefix layer; mamba2's 2 layers are one group
+stacked twice).  The CLI is run as ``tests/test_launchers.py`` runs the
+reference's, for a dense, both MoE and both SSM configurations.
 """
 
 import os
@@ -34,6 +36,7 @@ from repro_torch.models import model as M
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE_ARCHS = ["internlm2-1.8b", "olmo-1b", "mistral-nemo-12b", "qwen1.5-110b"]
 MOE_ARCHS = ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"]
+SSM_ARCHS = ["mamba2-370m", "jamba-1.5-large-398b"]
 ATOL = 1e-4
 REQUESTS, SLOTS, PROMPT, GEN, MAX = 3, 2, 8, 4, 32
 
@@ -59,7 +62,7 @@ def jax_layer_cache(cfg, jcaches, L):
     return {n: a[g] for n, a in jcaches["groups"][f"layer{i}"].items()}
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS)
 def test_batcher_teacher_forced_logits_equal_reference(arch, monkeypatch):
     cfg = M.get_config(arch, smoke=True)
     jparams = JT.init_params(cfg, jax.random.key(0))
@@ -148,6 +151,12 @@ def test_serve_cli_on_cpu():
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_serve_cli_moe_on_cpu(arch):
+    run_cli(arch)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_serve_cli_ssm_on_cpu(arch):
+    """mamba2 and jamba at the CLI's 8-token prompts (a chunk of 8)."""
     run_cli(arch)
 
 
