@@ -280,11 +280,43 @@ it fails:
      v bit-equal), request 0's served logits against a bfloat16
      ``forward`` within the tolerance.
 
+ 20. the training path, after phase 19 with its models freed, for
+     ``musicgen-large`` (``[train-audio]``) and ``internvl2-26b``
+     (``[train-vision]``): (a) each at full width cut to 2 layers, float32
+     parameters and activations, one ``TokenPipeline`` batch of 2 x 512
+     (internvl2: 256 patches + 256 tokens): one train step (remat, int8
+     AdamW) on the card against the same step through the port on the
+     CPU (loss, every gradient leaf, the clipped norm, the update, the
+     int8 moments; ``TRAIN_*`` tolerances), 4 launches of the
+     register-tiled flash body (forward and remat) and nothing else;
+     outside the tolerances: internvl2's loss with ``loss_mask`` ignored,
+     ``patch_proj``'s gradient with the patches zeroed, and a step whose
+     attention output is detached; the flash autograd Function's q/k/v
+     gradients on a captured launch (float32, and bf16 through the
+     Hopper kernel) against autograd through ``ref.chunked_attention``;
+     ``prefill`` + one ``decode_step`` against ``forward``; (b) each at
+     full width (musicgen whole, 48 layers, 3.24 B parameters;
+     internvl2's first 8 of 48 layers, 4.30 B), float32 master
+     parameters, bf16 activations, remat, int8 AdamW, batches of 2 x
+     2048: 6 timed steps (median step ms on the host clock, tokens/s,
+     ``train_mfu``, peak memory against the reckoned one, every loss
+     finite), exactly 2 Hopper flash launches a layer a step, a profiled
+     step by family (``flash``, the backward's recompute
+     ``flash_backward_recompute``, ``gemm``, ``optimizer``, ``copy``),
+     and a forward's first flash launch held and timed beside SDPA;
+     (c) ``python -m repro_torch.launch.train`` on the 100M example's
+     model (``olmo-100m``), B = 8, S = 128, 60 steps, checkpoints every
+     20: two uninterrupted runs and one preempted at step 30 (exit 43)
+     then resumed, the pipeline state and the batch after the resume
+     bit-equal to an uninterrupted pipeline's, the loss falling by
+     ``LAUNCH_LOSS_FALL``, the final parameters beside the uninterrupted
+     run's with the two uninterrupted runs' spread.
+
 Phases 14, 15, 16 (a)-(c), 17, 12 and 13 run after phase 10 and before
 phase 11, so that the serving path starts with the discovery state
-freed; phases 18 and 19 run after phase 11.  Each of phases 3, 7-9 and
-11-19 sets every kernel's launch count to 0 just before it drives its
-path and reads the counts just after.
+freed; phases 18, 19 and 20 run after phase 11.  Each of phases 3, 7-9
+and 11-20 sets every kernel's launch count to 0 just before it drives
+its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
 (``{"record": ...}``), then the kernels' JSON line, the card's name and
@@ -457,6 +489,8 @@ PROFILE_KINDS = {
     "sort": ("sort", "Sort"),
     "scan": ("scan", "Scan"),
     "copy": ("copy", "Memcpy"),
+    "flash": ("flash",),
+    "gemm": ("gemm", "Gemm", "nvjet", "xmma"),
 }
 
 # Phase 11: the serving path at full width.
@@ -552,6 +586,74 @@ SSD_RTOL = 1e-5
 # (``ssm._ssd_chunked`` in a prefill, ``ssm._ssd_step`` in a decode step):
 # its kernels are the "ssd" family.
 SSD_SPAN = "ssd"
+
+# Phase 20: the training path.  The two stub configurations, their tags
+# and the depth of their full-width runs (b): musicgen-large whole (48
+# layers, 3.24 B parameters); internvl2-26b at full width cut to its
+# first 8 of 48 layers (4.30 B; 48 layers would be 19.9 B, 80 GB of
+# float32 parameters alone).
+TRAIN_ARCHS = (("musicgen-large", "[train-audio]", 48),
+               ("internvl2-26b", "[train-vision]", 8))
+# (a): the check models, full width cut to 2 layers, float32 parameters
+# and activations, one TokenPipeline batch of 2 x 512 (internvl2: 256
+# patches + 256 tokens), one step on the card beside the same step on the
+# CPU (which the CPU tests hold against the reference).
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 512
+TRAIN_CHECK_LR = 1e-3
+# (a)'s tolerances, card against CPU.  Both compute in float32 (TF32
+# off); the card's attention forward is the CUDA-core kernel (within
+# FA_F32_ATOL of the plain version), its GEMMs reduce in another order,
+# and the embedding gradient accumulates with atomics.  So: the loss, a
+# mean over 1024 positions, within TRAIN_LOSS_RTOL; each gradient leaf
+# within TRAIN_GRAD_RTOL relative RMS (the controls land at 1: a zero
+# gradient); the clipped norm within TRAIN_LOSS_RTOL.  The update (new -
+# old parameters) within TRAIN_UPDATE_RTOL relative RMS: Adam's first step
+# divides each element by |g| + eps, so where |g| is near eps a small
+# absolute error in g becomes a large one in the update (the CPU tests
+# measure up to 9.2e-4 between the two CPU packages).  The int8 moments:
+# codes equal but for TRAIN_CODE_MISMATCH of them, dequantized within
+# TRAIN_DEQ_RTOL.  A code flips where a moment's ratio to its row's
+# abs-max lies within its own error of a midpoint, and a small element of
+# a gradient carries a relative error far above the leaf's (1.5e-3 of
+# internvl2's final_norm.scale codes flipped on an H100, each flip moving
+# the element by 13%, its leaf 1.8e-3 relative RMS).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_UPDATE_RTOL = 1e-2
+TRAIN_CODE_MISMATCH = 1e-2
+TRAIN_DEQ_RTOL = 1e-2
+# (a): prefill + one decode step against the forward on the card (float32,
+# relative RMS of the logits; summation order only), and the flash
+# Function's q/k/v gradients against autograd through
+# ref.chunked_attention on the same inputs (the same computation: 0
+# expected).
+TRAIN_DECODE_RTOL = 1e-4
+TRAIN_FN_RTOL = 1e-6
+# (b): bf16 activations, float32 master parameters, remat, int8 AdamW,
+# TokenPipeline batches of 2 x 2048, TRAIN_STEPS timed steps (the first
+# warms up) and one profiled step.
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 6
+TRAIN_LR = 3e-4
+# The record_function range the profiled step puts around the optimizer
+# update (its kernels are the "optimizer" family).
+OPT_SPAN = "optimizer"
+# (c): the launcher on the 100M example's configuration, as subprocesses.
+LAUNCH_ARGS = ["--arch", "olmo-100m", "--steps", "60", "--batch", "8",
+               "--seq", "128", "--lr", "3e-4", "--save-every", "20",
+               "--log-every", "1", "--quantized-opt", "--device", "cuda"]
+LAUNCH_PREEMPT_AT = 30
+LAUNCH_TIMEOUT_S = 300
+# (c): the mean loss of the last LAUNCH_LOSS_WINDOW steps must lie at
+# least LAUNCH_LOSS_FALL nats below that of the first.  The stream's floor
+# is about (1/8) ln V (1.30 at V = 32,000), far below what 60 steps of
+# 1024 tokens reach: each of the 32,000 transitions is seen about twice.
+# What falls in 60 steps is the initial logits' spread (10.52 at step 0
+# against ln V = 10.37).  At lr 3e-4 an H100 run fell from 10.519 to
+# 10.429; at the launcher's default 3e-3, and at 1e-3, the loss rose
+# (10.519 -> 10.589 / 10.598): the lr is set here.  Single steps move by
+# 0.01-0.02, hence the windows.
+LAUNCH_LOSS_WINDOW = 5
+LAUNCH_LOSS_FALL = 0.04
 
 
 def log(msg: str) -> None:
@@ -4171,6 +4273,617 @@ def run_application(index, sks, warm_first, gpu_sub, cpu_sub, rows, keys, y,
             "synthetic": syn, "taxi": taxi, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the training path (the stubs, lm_loss, the flash kernel's
+# autograd Function, int8 AdamW, the train step, checkpoints, the
+# launcher)
+# ---------------------------------------------------------------------------
+
+def spanned_optimizer(opt):
+    """``opt`` with its ``update`` inside a ``record_function(OPT_SPAN)``
+    range (for ``profile_call``'s ``spans``)."""
+    from repro_torch.train import optimizer as O
+
+    def update(*args, **kw):
+        with torch.profiler.record_function(OPT_SPAN):
+            return opt.update(*args, **kw)
+
+    return O.Optimizer(init=opt.init, update=update)
+
+
+def leaf_rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative RMS of ``got`` against ``want`` over the whole tensor (the
+    absolute RMS where ``want`` is 0), in float64 on ``got``'s device."""
+    a = got.detach().double()
+    b = want.detach().to(a.device).double()
+    den = b.pow(2).mean().sqrt()
+    diff = (a - b).pow(2).mean().sqrt()
+    return float(diff / den) if float(den) > 0 else float(diff)
+
+
+def detached_attention():
+    """While entered, the models' attention output is detached: the bug
+    the flash Function fixes (a ctypes launch records nothing for
+    autograd), as a control."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import attention as attn
+
+    def cut(*args, **kw):
+        return fa_ops.attention(*args, **kw).detach()
+
+    return _patched(attn, "flash_attention", cut)
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    own = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, own)
+
+
+def check_function_grads(q, k, v, scale, causal, dtype) -> dict:
+    """The flash Function on the card (inputs cast to ``dtype``): its
+    forward through the kernel the dispatch rule names, and its q/k/v
+    gradients against autograd through ``ref.chunked_attention`` on the
+    same inputs and upstream gradient."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    leaves = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)]
+    before = read_launches()
+    out = fa_ops.attention(*leaves, scale=scale, causal=causal)
+    after = read_launches()
+    wgmma = fa_kernel.takes_wgmma(*leaves)
+    name = "flash_attention_wgmma" if wgmma else "flash_attention"
+    if after[name] - before[name] != 1 or type(out.grad_fn).__name__ != \
+            "FlashAttentionBackward":
+        raise AssertionError(f"ops.attention under grad at {dtype} did not "
+                             f"launch {name} through the Function")
+    g = torch.randn(out.shape, generator=torch.Generator(device=out.device)
+                    .manual_seed(SEED), device=out.device).to(dtype)
+    got = torch.autograd.grad(out, leaves, g)
+    want_out = fa_ref.chunked_attention(*leaves, scale=scale, causal=causal)
+    want = torch.autograd.grad(want_out, leaves, g)
+    torch.cuda.synchronize()
+    errs = [leaf_rel_rms(a, b) for a, b in zip(got, want)]
+    zero = [float(a.abs().max()) == 0.0 for a in got]
+    if max(errs) > TRAIN_FN_RTOL or any(zero):
+        raise AssertionError(f"the flash Function's q/k/v gradients at {dtype} "
+                             f"differ from autograd through the plain version "
+                             f"(relative RMS {errs}) or are zero ({zero})")
+    return {"dtype": str(dtype), "kernel": name, "grad_rel_rms": errs,
+            "bit_equal": all(torch.equal(a, b) for a, b in zip(got, want)),
+            "shape_q": list(q.shape), "shape_k": list(k.shape)}
+
+
+def decode_against_forward(cfg, params, batch: dict, dev) -> float:
+    """Prefill on all but the last position and one decode step of it,
+    against the forward over the whole batch (the logits of the two last
+    positions), on the card: the largest relative RMS."""
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        full, _ = T.forward(cfg, params, batch)
+        key = "frame_embeds" if cfg.modality == "audio_stub" else "tokens"
+        prompt = dict(batch, **{key: batch[key][:, :-1]})
+        S = full.shape[1]
+        pre, caches = T.prefill(cfg, params, prompt, max_len=S)
+        nxt, _ = T.decode_step(cfg, params, caches, batch[key][:, -1:], S - 1)
+    return max(leaf_rel_rms(pre[:, 0], full[:, S - 2]),
+               leaf_rel_rms(nxt[:, 0], full[:, S - 1]))
+
+
+def train_check_model(arch: str, tag: str, card: str, dev) -> dict:
+    """Phase 20 (a): one float32 train step of the 2-layer full-width
+    check model on the card against the same step through the port on
+    the CPU, with the controls, the flash Function's gradients and the
+    stub's decode against its forward."""
+    import copy
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    t_start = time.perf_counter()
+    cfg = M.get_config(arch).with_overrides(
+        num_layers=TRAIN_CHECK_LAYERS, dtype="float32", param_dtype="float32")
+    np_batch = TokenPipeline(cfg, batch=TRAIN_CHECK_B, seq=TRAIN_CHECK_S,
+                             seed=SEED).next_batch()
+    cpu_params = T.init_params(cfg, torch.Generator().manual_seed(SEED),
+                               device="cpu")
+    gpu_params = copy.deepcopy(cpu_params).to(dev)
+    opt = O.adamw(quantized=True)
+    step = TS.build_train_step(cfg, opt, O.warmup_cosine(TRAIN_CHECK_LR, 0, 10))
+    states, grads, mets, secs = {}, {}, {}, {}
+    for where, params in (("cpu", cpu_params), ("gpu", gpu_params)):
+        states[where] = TS.init_train_state(cfg, opt, None, params=params)
+        batch = TS.batch_to_device(np_batch, params["embedding"]["table"].device)
+        if where == "gpu":
+            gpu_batch = batch
+            reset_launches()
+        t0 = time.perf_counter()
+        grads[where], mets[where] = step.grads_and_metrics(params, batch)
+        if where == "gpu":
+            torch.cuda.synchronize()
+            launches = read_launches()
+        secs[where] = time.perf_counter() - t0
+    want_fa = {"flash_attention_simt_regtile": 2 * TRAIN_CHECK_LAYERS}
+    seen = {k: v for k, v in launches.items() if v}
+    if seen != dict(want_fa, flash_attention=2 * TRAIN_CHECK_LAYERS):
+        raise AssertionError(f"{tag} (a) the card's step launched {seen}; "
+                             f"expected {2 * TRAIN_CHECK_LAYERS} of the "
+                             "register-tiled flash body (forward and remat)")
+    loss = {w: float(m["loss"]) for w, m in mets.items()}
+    loss_err = abs(loss["gpu"] - loss["cpu"]) / abs(loss["cpu"])
+    grad_err = {n: leaf_rel_rms(grads["gpu"][n], grads["cpu"][n])
+                for n in grads["cpu"]}
+    worst = max(grad_err, key=grad_err.get)
+
+    controls = {}
+    with torch.no_grad():
+        logits, aux = T.forward(cfg, gpu_params, gpu_batch["batch"])
+        if cfg.modality == "vision_stub":
+            unmasked = T.lm_loss(cfg, logits, gpu_batch["labels"]) + aux
+            controls["loss_mask_ignored"] = abs(float(unmasked) - loss["gpu"]) \
+                / abs(loss["gpu"])
+    del logits
+    if cfg.modality == "vision_stub":
+        zeroed = dict(gpu_batch, batch=dict(
+            gpu_batch["batch"],
+            patch_embeds=torch.zeros_like(gpu_batch["batch"]["patch_embeds"])))
+        g0, _ = step.grads_and_metrics(gpu_params, zeroed)
+        controls["patch_proj_grad_patches_zeroed"] = leaf_rel_rms(
+            g0["patch_proj.w"], grads["gpu"]["patch_proj.w"])
+        del g0
+    with detached_attention():
+        gd, _ = step.grads_and_metrics(gpu_params, gpu_batch)
+    controls["attention_detached"] = leaf_rel_rms(
+        gd["layers.0.mixer.wq.w"], grads["gpu"]["layers.0.mixer.wq.w"])
+    del gd
+    inside = {k: v for k, v in controls.items()
+              if v <= (TRAIN_LOSS_RTOL if k == "loss_mask_ignored"
+                       else TRAIN_GRAD_RTOL)}
+    if (loss_err > TRAIN_LOSS_RTOL or grad_err[worst] > TRAIN_GRAD_RTOL
+            or inside):
+        raise AssertionError(
+            f"{tag} (a) card against CPU: loss {loss_err}, worst gradient "
+            f"{worst} {grad_err[worst]}; controls inside the tolerance: "
+            f"{inside}")
+
+    # The flash Function on a captured launch of this model, in float32
+    # (the CUDA-core kernel) and bfloat16 (the Hopper kernel at this GQA
+    # group and head dim).
+    with torch.no_grad():
+        captured = capture_flash(
+            lambda: T.forward(cfg, gpu_params, gpu_batch["batch"]),
+            TRAIN_CHECK_LAYERS)
+    q, k, v, scale, causal, _ = captured[0]
+    fn = [check_function_grads(q, k, v, scale, causal, dt)
+          for dt in (torch.float32, torch.bfloat16)]
+    del captured
+    decode_err = decode_against_forward(cfg, gpu_params, gpu_batch["batch"], dev)
+    if decode_err > TRAIN_DECODE_RTOL:
+        raise AssertionError(f"{tag} (a) prefill + decode against the forward "
+                             f"on the card: {decode_err}")
+
+    # The rest of the step: clip, schedule, int8 AdamW.
+    before = {w: {n: p.detach().clone() for n, p in s.params.named_parameters()}
+              for w, s in states.items()}
+    after = {}
+    for where in ("cpu", "gpu"):
+        t0 = time.perf_counter()
+        states[where], mets[where] = step.apply_gradients(
+            states[where], grads[where], mets[where])
+        if where == "gpu":
+            torch.cuda.synchronize()
+        secs[where + "_update"] = time.perf_counter() - t0
+        after[where] = dict(states[where].params.named_parameters())
+    del grads
+    norm_err = abs(float(mets["gpu"]["grad_norm"]) - float(mets["cpu"]["grad_norm"])) \
+        / float(mets["cpu"]["grad_norm"])
+    update_err, code_frac, deq_err = {}, {}, {}
+    for n, p in after["gpu"].items():
+        update_err[n] = leaf_rel_rms(p - before["gpu"][n],
+                                     after["cpu"][n] - before["cpu"][n])
+        for kind, deq in (("mu", O._dequantize_signed),
+                          ("nu", O._dequantize_log_unsigned)):
+            mine = getattr(states["gpu"].opt_state, kind)[n]
+            theirs = getattr(states["cpu"].opt_state, kind)[n]
+            code_frac[(n, kind)] = float(
+                (mine["q"].cpu() != theirs["q"]).double().mean())
+            deq_err[(n, kind)] = leaf_rel_rms(
+                deq(mine["q"], mine["s"], p.shape),
+                deq(theirs["q"], theirs["s"], p.shape))
+    worst_u = max(update_err, key=update_err.get)
+    worst_c = max(code_frac, key=code_frac.get)
+    worst_d = max(deq_err, key=deq_err.get)
+    if (norm_err > TRAIN_LOSS_RTOL or update_err[worst_u] > TRAIN_UPDATE_RTOL
+            or code_frac[worst_c] > TRAIN_CODE_MISMATCH
+            or deq_err[worst_d] > TRAIN_DEQ_RTOL):
+        raise AssertionError(
+            f"{tag} (a) after the update, card against CPU: clipped norm "
+            f"{norm_err}, update {worst_u} {update_err[worst_u]}, codes "
+            f"{worst_c} {code_frac[worst_c]}, dequantized {worst_d} "
+            f"{deq_err[worst_d]}")
+    rec = {"layers": TRAIN_CHECK_LAYERS, "batch": [TRAIN_CHECK_B, TRAIN_CHECK_S],
+           "loss": loss, "loss_rel_err": loss_err,
+           "grad_rel_rms_max": grad_err[worst], "grad_worst_leaf": worst,
+           "grad_rel_rms": grad_err, "grad_norm": {
+               w: float(m["grad_norm"]) for w, m in mets.items()},
+           "grad_norm_rel_err": norm_err,
+           "update_rel_rms_max": update_err[worst_u], "update_worst_leaf": worst_u,
+           "code_mismatch_max": code_frac[worst_c],
+           "code_worst": list(worst_c), "deq_rel_rms_max": deq_err[worst_d],
+           "controls": controls, "function": fn, "decode_rel_rms": decode_err,
+           "launches": launches, "step_s": secs,
+           "seconds": time.perf_counter() - t_start}
+    fn_words = "; ".join(
+        f"{f['dtype']} via {f['kernel']} {max(f['grad_rel_rms']):.2e}"
+        f"{' (bit-equal)' if f['bit_equal'] else ''}" for f in fn)
+    log(f"{tag} (a) {arch}, {TRAIN_CHECK_LAYERS} layers at full width, float32, "
+        f"batch {TRAIN_CHECK_B} x {TRAIN_CHECK_S}: card gradients "
+        f"{secs['gpu']:.2f} s + update {secs['gpu_update']:.2f} s (the CPU's "
+        f"{secs['cpu']:.2f} + {secs['cpu_update']:.2f} s); loss {loss['gpu']:.6f} / CPU "
+        f"{loss['cpu']:.6f} (rel {loss_err:.2e}, tol {TRAIN_LOSS_RTOL}); "
+        f"gradients worst {worst} {grad_err[worst]:.2e} (tol {TRAIN_GRAD_RTOL}); "
+        f"clipped norm rel {norm_err:.2e}; update worst {worst_u} "
+        f"{update_err[worst_u]:.2e} (tol {TRAIN_UPDATE_RTOL}); int8 codes "
+        f"differ at {code_frac[worst_c]:.2e} worst ({worst_c[0]} {worst_c[1]}), "
+        f"dequantized {deq_err[worst_d]:.2e}; {launches['flash_attention']} "
+        f"flash launches (forward + remat)")
+    log(f"{tag} (a) controls (must lie outside): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in controls.items())
+        + f"; the flash Function's q/k/v gradients against autograd through "
+        f"the plain version: {fn_words}; prefill + decode against the "
+        f"forward {decode_err:.2e} (tol {TRAIN_DECODE_RTOL}); card {card}")
+    return rec
+
+
+def matmul_params(cfg, params) -> int:
+    """Parameters that multiply activations (all but the token table: a
+    gather for the vision stub, unused by the audio stub)."""
+    return sum(p.numel() for n, p in params.named_parameters()
+               if n != "embedding.table")
+
+
+def train_flops(cfg, n_mm: int, tokens: int) -> float:
+    """FLOPs a training step needs: 6 N T for the matmuls' forward and
+    backward, 2 N T for remat's second forward, and the causal attention
+    (its QK^T and PV over the live pairs) four times (forward, remat's
+    forward, a backward of twice the forward)."""
+    S = TRAIN_S
+    pairs = S * (S + 1) / 2
+    attn = 2.0 * pairs * 2 * cfg.head_dim * cfg.num_heads * TRAIN_B
+    return 8.0 * n_mm * tokens + 4.0 * attn * cfg.num_layers
+
+
+def predicted_train_bytes(cfg, n_params: int) -> dict:
+    """The reckoned peak (PERF.md, §6): float32 parameters and
+    gradients, int8 moments with their float32 row scales, the logits in
+    bf16 and their float32 copy, the largest leaf's blocked update."""
+    V = cfg.padded_vocab_size * max(cfg.num_codebooks, 1)
+    logits = TRAIN_B * TRAIN_S * V * (2 + 4 + 4)
+    return {"params": 4 * n_params, "grads": 4 * n_params,
+            "moments": 2 * n_params, "logits": logits,
+            "total": 10 * n_params + logits}
+
+
+def train_full_model(arch: str, tag: str, layers: int, card: str, dev) -> dict:
+    """Phase 20 (b): the configuration at full width (``layers`` deep),
+    float32 master parameters, bf16 activations, remat, int8 AdamW,
+    TokenPipeline batches of TRAIN_B x TRAIN_S: TRAIN_STEPS timed steps,
+    one profiled step, the flash launches counted, the first launch of a
+    forward held and timed."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.flash_attention.ops import BACKWARD_SPAN
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    t_start = time.perf_counter()
+    cfg = M.get_config(arch).with_overrides(num_layers=layers,
+                                            param_dtype="float32")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    n_mm = matmul_params(cfg, params)
+    predicted = predicted_train_bytes(cfg, n_params)
+    log(f"{tag} (b) {arch}: {layers} layers at full width, {n_params:,} "
+        f"parameters ({n_mm:,} in matmuls); predicted peak "
+        f"{predicted['total'] / 2**30:.2f} GiB before activations (parameters "
+        f"{predicted['params'] / 2**30:.2f}, gradients "
+        f"{predicted['grads'] / 2**30:.2f}, int8 moments "
+        f"{predicted['moments'] / 2**30:.2f}, logits "
+        f"{predicted['logits'] / 2**30:.2f}) of {total_mem / 2**30:.2f}")
+    pipe = TokenPipeline(cfg, batch=TRAIN_B, seq=TRAIN_S, seed=SEED)
+    opt = spanned_optimizer(O.adamw(quantized=True))
+    step = TS.build_train_step(cfg, opt, O.warmup_cosine(TRAIN_LR, 0,
+                                                         TRAIN_STEPS + 1))
+    state = TS.init_train_state(cfg, opt, None, params=params)
+    del params
+    times, losses = [], []
+    reset_launches()
+    for _ in range(TRAIN_STEPS):
+        batch = TS.batch_to_device(pipe.next_batch(), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    launches = read_launches()
+    # One step in its two halves, each ending in a synchronize: the
+    # forward and backward, then clipping and the optimizer.
+    batch = TS.batch_to_device(pipe.next_batch(), dev)
+    t0 = time.perf_counter()
+    grads, met = step.grads_and_metrics(state.params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, met = step.apply_gradients(state, grads, met)
+    torch.cuda.synchronize()
+    halves = {"grads_s": t1 - t0, "update_s": time.perf_counter() - t1}
+    losses.append(float(met["loss"]))
+    del grads
+    holder = [state]
+    batch = TS.batch_to_device(pipe.next_batch(), dev)
+
+    def one_step():
+        holder[0], m = step(holder[0], batch)
+        losses.append(float(m["loss"]))
+
+    prof = profile_call(one_step, spans=(BACKWARD_SPAN, OPT_SPAN))
+    state = holder[0]
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention_wgmma": 2 * layers * TRAIN_STEPS}
+    seen = {k: v for k, v in launches.items() if v}
+    if seen != want:
+        raise AssertionError(f"{tag} (b) {TRAIN_STEPS} steps launched {seen}; "
+                             f"expected {want} (forward and remat, a layer a "
+                             "step, all of the Hopper kernel)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} (b) losses {losses}")
+    if peak >= total_mem:
+        raise AssertionError(f"{tag} (b) peak {peak} over the card's {total_mem}")
+    step_s = float(np.median(times[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    flops = train_flops(cfg, n_mm, tokens)
+    mfu = flops / step_s / PEAK_FLOP_S[torch.bfloat16]
+    # The first flash launch of a forward, held against both plain
+    # versions and timed beside SDPA and its bound.
+    with torch.no_grad():
+        seen_fa = capture_flash(lambda: T.forward(cfg, state.params,
+                                                  batch["batch"]), layers)
+    fa = hold_flash_launches(seen_fa[:1], card, "flash_attention_wgmma")
+    del seen_fa
+    kinds = prof["kinds"]
+    rec = {"layers": layers, "params": n_params, "matmul_params": n_mm,
+           "batch": [TRAIN_B, TRAIN_S], "steps": TRAIN_STEPS,
+           "step_s": times, "step_s_median": step_s, "halves": halves,
+           "tokens_per_s": tokens / step_s, "flops_per_step": flops,
+           "train_mfu": mfu, "losses": losses, "peak_bytes": peak,
+           "predicted_bytes": predicted, "card_bytes": total_mem,
+           "launches": launches, "profile": prof, "flash": fa,
+           "seconds": time.perf_counter() - t_start}
+    log(f"{tag} (b) {arch}: step {1e3 * step_s:.1f} ms (median of "
+        f"{TRAIN_STEPS - 1} after the first; host clock around a step ending "
+        f"in a synchronize; all {[round(1e3 * t, 1) for t in times]}; one "
+        f"more in halves: forward and backward {1e3 * halves['grads_s']:.1f} "
+        f"ms, clipping and the optimizer {1e3 * halves['update_s']:.1f} ms), "
+        f"{tokens / step_s:,.0f} tokens/s, train_mfu {100 * mfu:.1f}% "
+        f"({flops / 1e12:.1f} TFLOP a step at 989 TFLOP/s); peak "
+        f"{peak / 2**30:.2f} GiB (predicted {predicted['total'] / 2**30:.2f} "
+        f"before activations); losses (a fresh batch each step) "
+        f"{[round(l, 4) for l in losses]}; "
+        f"{launches['flash_attention_wgmma']} Hopper flash launches; card {card}")
+    log(f"{tag} (b) profiled step: wall {prof['wall_ms']:.1f} ms, device "
+        f"{prof['device_ms']:.1f} ms (busy {100 * (prof['busy_share'] or 0):.0f}%), "
+        f"{prof['launch_api_calls']} host launch calls; by family: "
+        + ", ".join(f"{k} {v['ms']:.1f} ({v['count']})"
+                    for k, v in kinds.items() if v["count"]))
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def launcher_losses(stdout: str) -> dict:
+    """{step: loss} from a launcher's ``[train] step=N loss=X`` lines."""
+    out = {}
+    for line in stdout.splitlines():
+        if line.startswith("[train] step="):
+            parts = dict(p.split("=") for p in line.split()[1:3])
+            out[int(parts["step"])] = float(parts["loss"])
+    return out
+
+
+def checkpoint_leaves(path: str, step: int) -> tuple[dict, dict]:
+    """(manifest, {leaf name: array}) of a launcher checkpoint."""
+    final = os.path.join(path, f"step_{step:08d}")
+    with open(os.path.join(final, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    return manifest, {e["name"]: np.load(os.path.join(final, e["file"]))
+                      for e in manifest["leaves"]}
+
+
+def param_spread(a: dict, b: dict) -> dict:
+    """Max |a - b| and the largest relative RMS over the parameter
+    leaves of two checkpoints."""
+    names = [n for n in a if n.startswith("params/")]
+    diff = max(float(np.abs(a[n].astype(np.float64) - b[n]).max()) for n in names)
+    rel = max(float(np.sqrt(((a[n].astype(np.float64) - b[n]) ** 2).mean()
+                            / max((b[n].astype(np.float64) ** 2).mean(), 1e-300)))
+              for n in names)
+    return {"max_abs": diff, "rel_rms_max": rel,
+            "bit_equal": all(np.array_equal(a[n], b[n]) for n in a)}
+
+
+def run_launcher(card: str) -> dict:
+    """Phase 20 (c): ``python -m repro_torch.launch.train`` on the card on
+    the 100M example's configuration: two uninterrupted runs, and one
+    preempted at LAUNCH_PREEMPT_AT (exit 43) and resumed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import get_config
+
+    t_start = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    steps = int(LAUNCH_ARGS[LAUNCH_ARGS.index("--steps") + 1])
+
+    def start(ckpt: str, *extra) -> subprocess.Popen:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH_ARGS,
+             "--ckpt-dir", os.path.join(work, ckpt), *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+            cwd=ROOT)
+
+    def finish(name: str, proc: subprocess.Popen, code: int, t0: float) -> str:
+        try:
+            out, err = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+        finally:
+            proc.kill()  # a no-op once it has exited
+        if proc.returncode != code:
+            raise AssertionError(f"[launch] {name} run exited {proc.returncode}, "
+                                 f"expected {code}: {out[-1500:]} {err[-1500:]}")
+        runs[name] = {"seconds": time.perf_counter() - t0,
+                      "losses": launcher_losses(out),
+                      "tail": out.splitlines()[-2:]}
+        log(f"[launch] {name} run: exit {code} in {runs[name]['seconds']:.1f} s")
+        return out
+
+    runs = {}
+    procs = []
+    try:
+        # The two uninterrupted runs and the preempted one are independent:
+        # they run together (one card, 2-3 GB each); the resume follows.
+        t0 = time.perf_counter()
+        procs = [("uninterrupted", start("a"), 0), ("again", start("b"), 0),
+                 ("preempted", start("c", "--simulate-preemption-at",
+                                     str(LAUNCH_PREEMPT_AT)), 43)]
+        for name, proc, code in procs:
+            finish(name, proc, code, t0)
+        manifest, _ = checkpoint_leaves(os.path.join(work, "c"),
+                                        LAUNCH_PREEMPT_AT)
+        runs["preempted"]["pipeline"] = manifest["extra"]["pipeline"]
+        t0 = time.perf_counter()
+        procs = [("resumed", start("c"), 0)]
+        out = finish("resumed", procs[0][1], 0, t0)
+        if (f"resumed from step {LAUNCH_PREEMPT_AT} (pipeline step "
+                f"{LAUNCH_PREEMPT_AT})") not in out:
+            raise AssertionError(f"[launch] no resume: {out[:600]}")
+        # The pipeline state of the preemption checkpoint, and the batch a
+        # resumed run draws first, against an uninterrupted pipeline's.
+        cfg = get_config("olmo-100m")
+        kw = dict(batch=int(LAUNCH_ARGS[LAUNCH_ARGS.index("--batch") + 1]),
+                  seq=int(LAUNCH_ARGS[LAUNCH_ARGS.index("--seq") + 1]), seed=0)
+        straight = TokenPipeline(cfg, **kw)
+        for _ in range(LAUNCH_PREEMPT_AT):
+            straight.next_batch()
+        resumed = TokenPipeline(cfg, **kw)
+        resumed.load_state_dict(runs["preempted"]["pipeline"])
+        a, b = straight.next_batch(), resumed.next_batch()
+        batch_equal = (resumed.step == straight.step and all(
+            np.array_equal(a[k] if k != "batch" else a[k]["tokens"],
+                           b[k] if k != "batch" else b[k]["tokens"])
+            for k in a))
+        if runs["preempted"]["pipeline"] != {"step": LAUNCH_PREEMPT_AT,
+                                             "seed": 0} or not batch_equal:
+            raise AssertionError(f"[launch] pipeline after resume: "
+                                 f"{runs['preempted']['pipeline']}, batch equal "
+                                 f"{batch_equal}")
+        finals = {n: checkpoint_leaves(os.path.join(work, d), steps)[1]
+                  for n, d in (("uninterrupted", "a"), ("again", "b"),
+                               ("resumed", "c"))}
+        spread = param_spread(finals["again"], finals["uninterrupted"])
+        resumed_gap = param_spread(finals["resumed"], finals["uninterrupted"])
+        del finals
+        losses = runs["uninterrupted"]["losses"]
+        w = LAUNCH_LOSS_WINDOW
+        fall = (np.mean([losses[s] for s in range(w)])
+                - np.mean([losses[s] for s in range(steps - w, steps)]))
+        joined = {**runs["preempted"]["losses"], **runs["resumed"]["losses"]}
+        loss_gap = max(abs(joined[s] - losses[s]) for s in losses)
+        if fall < LAUNCH_LOSS_FALL or set(joined) != set(losses):
+            raise AssertionError(f"[launch] loss {losses[0]} -> "
+                                 f"{losses[steps - 1]} (fall of the {w}-step "
+                                 f"means {fall}, at least {LAUNCH_LOSS_FALL}); "
+                                 f"steps logged "
+                                 f"{sorted(set(joined) ^ set(losses))} apart")
+    finally:
+        for _, proc, _ in procs:
+            proc.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    rec = {"runs": runs, "spread": spread, "resumed_gap": resumed_gap,
+           "loss_fall": fall, "loss_gap_max": loss_gap,
+           "batch_after_resume_equal": batch_equal,
+           "seconds": time.perf_counter() - t_start}
+    log(f"[launch] python -m repro_torch.launch.train {' '.join(LAUNCH_ARGS)}: "
+        f"uninterrupted {runs['uninterrupted']['seconds']:.1f} s, loss "
+        f"{losses[0]:.4f} -> {losses[steps - 1]:.4f} (the {LAUNCH_LOSS_WINDOW}-step "
+        f"means fall {fall:.4f}, at least {LAUNCH_LOSS_FALL}); preempted at {LAUNCH_PREEMPT_AT} (exit 43, "
+        f"{runs['preempted']['seconds']:.1f} s), resumed from its checkpoint "
+        f"(pipeline step {runs['preempted']['pipeline']['step']}, its next batch "
+        f"bit-equal to an uninterrupted pipeline's) in "
+        f"{runs['resumed']['seconds']:.1f} s; final parameters against the "
+        f"uninterrupted run's: resumed max|d| {resumed_gap['max_abs']:.3e} "
+        f"(rel RMS {resumed_gap['rel_rms_max']:.3e}, bit-equal "
+        f"{resumed_gap['bit_equal']}), a second uninterrupted run "
+        f"{spread['max_abs']:.3e} ({spread['rel_rms_max']:.3e}, bit-equal "
+        f"{spread['bit_equal']}); logged losses within {loss_gap:.3e}; card {card}")
+    return rec
+
+
+def grouped_mm_backward(dev) -> dict:
+    """Whether the card's ``torch._grouped_mm`` (the MoE layers' grouped
+    GEMM) has a backward: gradients of a small bf16 call against the
+    per-group products'."""
+    x = torch.randn(32, 64, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn(2, 64, 48, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    offs = torch.tensor([16, 32], dtype=torch.int32, device=dev)
+    try:
+        gx, gw = torch.autograd.grad(torch._grouped_mm(x, w, offs=offs).float()
+                                     .sum(), (x, w))
+    except (RuntimeError, NotImplementedError) as err:
+        return {"backward": False, "error": str(err)[:200]}
+    ref_x, ref_w = torch.autograd.grad(
+        torch.cat([x[:16] @ w[0], x[16:] @ w[1]]).float().sum(), (x, w))
+    return {"backward": True,
+            "max_abs_err": max(_max_abs_err(gx, ref_x), _max_abs_err(gw, ref_w))}
+
+
+def run_training(card: str, dev) -> dict:
+    """Phase 20: (a) the check models, (b) the full-width runs, (c) the
+    launcher, the card freed between them; and whether the grouped GEMM
+    of the MoE layers (not trained on the card here) has a backward."""
+    out = {"check": {}, "full": {}, "grouped_mm": grouped_mm_backward(dev)}
+    log(f"[train] torch._grouped_mm under autograd: {out['grouped_mm']}")
+    t_phase = time.perf_counter()
+    for arch, tag, _ in TRAIN_ARCHS:
+        out["check"][arch] = train_check_model(arch, tag, card, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, tag, layers in TRAIN_ARCHS:
+        out["full"][arch] = train_full_model(arch, tag, layers, card, dev)
+    out["launcher"] = run_launcher(card)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase 20 in {out['seconds']:.2f} s; card {card}")
+    return out
+
+
 def _subtree_kernels(evt) -> list:
     """The kernels a profiled host event launched, its children's too."""
     out = list(evt.kernels)
@@ -4504,6 +5217,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Phase 19: the SSM and hybrid serving path, with phase 18's freed.
     ssm_serving = run_ssm_serving(card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Phase 20: the training path, with phase 19's models freed.
+    training = run_training(card, dev)
+    train_checks = list(training["check"].values())
+    train_full = list(training["full"].values())
     moe_full = [moe[arch]["serve"] for arch, *_ in MOE_SERVE]
     ssm_full = [ssm_serving[arch]["serve"] for arch, *_ in SSM_SERVE]
     hybrid_flash = [r["flash"] for r in ssm_full if r["flash"]]
@@ -4515,7 +5234,8 @@ def main() -> int:
               "flash_attention_wgmma": max(
                   [fa_err["flash_attention_wgmma"], serving["flash"]["max_abs_err"]]
                   + [r["flash"]["max_abs_err"] for r in moe_full]
-                  + [f["max_abs_err"] for f in hybrid_flash])}
+                  + [f["max_abs_err"] for f in hybrid_flash]
+                  + [r["flash"]["max_abs_err"] for r in train_full])}
 
     record = {
         "card": card, "torch": torch.__version__, "nvcc": nvcc,
@@ -4532,7 +5252,7 @@ def main() -> int:
         "submit": submit, "submit_safe": safe,
         "scheduler": sched, "materialized": mat, "two_op": two_op,
         "lake_hash": lake_hash, "serving": serving, "moe_serving": moe,
-        "ssm_serving": ssm_serving,
+        "ssm_serving": ssm_serving, "training": training,
         "application": app,
         "compile_end": programs.compile_stats(),
         "total_s": time.perf_counter() - t_start,
@@ -4591,11 +5311,16 @@ def main() -> int:
         "bound_by": fa32["bound_by"],
         "library_ms": fa32["library_ms"],
     } for name, launches, err, ms in (
-        ("flash_attention", serving["flash_f32_launches"]["flash_attention"],
+        # Phase 11 (c)'s float32 forward and phase 20 (a)'s float32 train
+        # steps (forward and remat) on the card.
+        ("flash_attention", serving["flash_f32_launches"]["flash_attention"]
+         + sum(r["launches"]["flash_attention"] for r in train_checks),
          max(fa_err["flash_attention_simt_regtile"],
              fa_err["flash_attention_simt_basic"]), "ms"),
         ("flash_attention_simt_regtile",
-         serving["flash_f32_launches"]["flash_attention_simt_regtile"],
+         serving["flash_f32_launches"]["flash_attention_simt_regtile"]
+         + sum(r["launches"]["flash_attention_simt_regtile"]
+               for r in train_checks),
          fa_err["flash_attention_simt_regtile"], "ms"),
         ("flash_attention_simt_basic",
          serving["flash_f32_basic_launches"]["flash_attention_simt_basic"],
@@ -4605,10 +5330,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
-        # The serving runs of phase 11, phase 18 (c) and phase 19 (c); the
-        # times are phase 11's launches, at the internlm2 shape.
+        # The serving runs of phase 11, phase 18 (c) and phase 19 (c) and
+        # the training runs of phase 20 (b); the times are phase 11's
+        # launches, at the internlm2 shape.
         "launches": serving["launches"]["flash_attention_wgmma"] + sum(
-            r["launches"]["flash_attention_wgmma"] for r in moe_full + ssm_full),
+            r["launches"]["flash_attention_wgmma"]
+            for r in moe_full + ssm_full + train_full),
         "max_abs_err": fa_err["flash_attention_wgmma"],
         "ms": serving["flash"]["ms"],
         "plain_ms": serving["flash"]["plain_ms"],

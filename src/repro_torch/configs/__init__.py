@@ -1,8 +1,7 @@
 """Assigned-architecture registry: ``REGISTRY[arch_id] = (full, smoke)``.
 
 The port keeps its own copy of the reference's ten config modules, as
-data; the model stack of the port runs the ``attn`` + ``dense`` text
-configs and raises ``NotImplementedError`` for the others.
+data; the model stack of the port runs all ten.
 
 Full configs carry the exact published numbers (see each module's
 docstring for the source); smoke variants shrink every dimension for

@@ -3,7 +3,8 @@
 :func:`index_from_numpy` carries the discovery engine's state, the sketch
 corpus; :func:`stacked_from_numpy` carries the ad-hoc scorers' inputs, a
 stacked candidate dict or a train dict; :func:`model_params_from_numpy`
-carries a model's weights.
+carries a model's weights and :func:`train_state_from_numpy` its AdamW
+state.
 
 :func:`index_from_numpy` takes the per-candidate host arrays a
 ``SketchIndex`` of either package keeps — keys, the two value views,
@@ -22,7 +23,8 @@ from repro_torch.core.discovery.index import CandidateMeta, SketchIndex
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 
-__all__ = ["index_from_numpy", "model_params_from_numpy", "stacked_from_numpy"]
+__all__ = ["index_from_numpy", "model_params_from_numpy", "reference_leaf",
+           "stacked_from_numpy", "train_state_from_numpy"]
 
 
 def index_from_numpy(state: dict, device=None) -> SketchIndex:
@@ -96,43 +98,71 @@ def _leaves(tree) -> int:
     return 1
 
 
+def _reference_node(cfg: ModelConfig, tree: dict, name: str):
+    """(node, g): the subtree of the reference tree ``tree`` (parameters or
+    a moment tree of the same structure) that the port's parameter
+    ``name`` maps to, and the group index ``g`` to take from each of its
+    arrays (None outside the stacked groups); see
+    :func:`model_params_from_numpy`."""
+    prefix, _, group = scan_grouping(cfg)
+    parts = name.split(".")
+    sub, g = tree, None
+    if parts[0] == "layers":
+        L = int(parts[1])
+        if L < len(prefix):
+            sub = tree[f"prefix{L}"]
+        else:
+            g, i = divmod(L - len(prefix), len(group))
+            sub = tree["groups"][f"layer{i}"]
+        parts = parts[2:]
+    for key in parts:
+        sub = sub[key]
+    return sub, g
+
+
+def _array(a, g) -> np.ndarray:
+    a = np.asarray(a if g is None else np.asarray(a)[g])
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16; exact via f32
+        a = a.astype(np.float32)
+    return a
+
+
+def reference_leaf(cfg: ModelConfig, tree: dict, name: str):
+    """The numpy array (or dict of arrays: a quantized moment) of the
+    reference tree ``tree`` that the port's parameter ``name`` maps to,
+    its layer's slice of a stacked group taken."""
+    node, g = _reference_node(cfg, tree, name)
+
+    def take(n):
+        return {k: take(v) for k, v in n.items()} if isinstance(n, dict) \
+            else _array(n, g)
+    return take(node)
+
+
 def model_params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
     """The port's parameters (``transformer.init_params`` layout) holding
     the weights of a reference parameter pytree.
 
     ``tree`` is the reference's ``init_params`` output as nested dicts of
     numpy arrays: ``embedding/table``, ``final_norm``, ``lm_head`` (unless
-    tied), ``prefix{i}`` layers and ``groups/layer{i}`` stacked on a
-    leading axis of ``num_groups``.  Layer ``L`` of the port is prefix
-    layer ``L`` or, after the prefix, group ``g``'s ``layer{i}`` with
-    ``g, i = divmod(L - len(prefix), len(group))``.  Leaves map name for
-    name, a Mamba2 mixer's bare ``A_log`` / ``dt_bias`` / ``D`` beside its
-    ``in_proj`` / ``conv`` / ``ssm_norm`` / ``out_proj``.  Weights keep the
-    reference's (in, out) layout, so every leaf is a copy, never a
+    tied; the audio stub's ``head{c}`` instead), the vision stub's
+    ``patch_proj``, ``prefix{i}`` layers and ``groups/layer{i}`` stacked
+    on a leading axis of ``num_groups``.  Layer ``L`` of the port is
+    prefix layer ``L`` or, after the prefix, group ``g``'s ``layer{i}``
+    with ``g, i = divmod(L - len(prefix), len(group))``.  Leaves map name
+    for name, a Mamba2 mixer's bare ``A_log`` / ``dt_bias`` / ``D`` beside
+    its ``in_proj`` / ``conv`` / ``ssm_norm`` / ``out_proj``.  Weights keep
+    the reference's (in, out) layout, so every leaf is a copy, never a
     transpose.  Shapes are checked, and every leaf must be used.
     """
     dev = resolve_device(device)
-    prefix, num_groups, group = scan_grouping(cfg)
     params = transformer.init_params(cfg, None, device="meta").to_empty(device=dev)
     used = 0
     for name, p in params.named_parameters():
-        parts = name.split(".")
-        sub, g = tree, None
-        if parts[0] == "layers":
-            L = int(parts[1])
-            if L < len(prefix):
-                sub = tree[f"prefix{L}"]
-            else:
-                g, i = divmod(L - len(prefix), len(group))
-                sub = tree["groups"][f"layer{i}"]
-            parts = parts[2:]
-        for key in parts:
-            sub = sub[key]
-        a = np.asarray(sub if g is None else np.asarray(sub)[g])
+        sub, g = _reference_node(cfg, tree, name)
+        a = _array(sub, g)
         if a.shape != tuple(p.shape):
             raise ValueError(f"{name}: shape {a.shape}, expected {tuple(p.shape)}")
-        if a.dtype.name == "bfloat16":  # numpy has no bfloat16; exact via f32
-            a = a.astype(np.float32)
         with torch.no_grad():
             p.copy_(torch.tensor(a))
         used += g in (None, 0)  # a stacked leaf counts once
@@ -140,3 +170,27 @@ def model_params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
         raise ValueError(f"the tree holds {_leaves(tree)} leaves; "
                          f"{used} map onto the port's parameters")
     return params
+
+
+def train_state_from_numpy(cfg: ModelConfig, opt_state, params):
+    """The port's AdamW state (``train.optimizer.AdamWState``) for the
+    parameters ``params`` (a port model, on its device) holding a
+    reference ``AdamWState`` read as numpy: ``step`` and the moment trees
+    ``mu`` / ``nu``, shaped as the reference's parameters, whose leaves
+    are float32 moments or, quantized, ``{"q": codes, "s": row scales}``.
+    Leaves map as :func:`model_params_from_numpy` maps parameters."""
+    from repro_torch.train.optimizer import AdamWState
+
+    def carry(node, dev):
+        if isinstance(node, dict):
+            return {k: carry(v, dev) for k, v in node.items()}
+        return torch.from_numpy(node.copy()).to(dev)
+
+    mu, nu = {}, {}
+    for name, p in params.named_parameters():
+        for out, tree in ((mu, opt_state.mu), (nu, opt_state.nu)):
+            out[name] = carry(reference_leaf(cfg, tree, name), p.device)
+    dev = next(params.parameters()).device
+    step = torch.tensor(int(np.asarray(opt_state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step, mu, nu)

@@ -61,7 +61,8 @@ class ContinuousBatcher:
     largest position among the active slots, so a slot admitted with a
     shorter history attends over zero rows between its own end and the
     frontier; Mamba2 layers ignore the position.  Per-slot positions
-    would be a feature the reference lacks.
+    would be a feature the reference lacks.  A vision-stub model is served
+    text prompts, as the reference serves it; the audio stub raises.
     The decode step reads the weights as :func:`cast_params` gives them
     (cast to the activation dtype once per parameter version), so a
     parameter updated in place is cast anew and the step is captured
@@ -70,6 +71,11 @@ class ContinuousBatcher:
 
     def __init__(self, cfg, params, slots: int, max_len: int,
                  moe_impl: str = "gspmd"):
+        if cfg.modality == "audio_stub":
+            raise NotImplementedError(
+                f"{cfg.name}: the batcher serves token prompts, and the audio "
+                "stub reads frame embeddings (the reference's batcher fails "
+                "on it too)")
         self.cfg, self.params = cfg, params
         self.moe_impl = moe_impl
         self.device = params["embedding"]["table"].device

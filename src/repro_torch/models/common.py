@@ -5,16 +5,20 @@ The port's counterpart of ``repro/models/common.py``.  Parameters are
 ``scale``) and layouts (a dense weight is (in, out)), gathered into
 ``nn.ModuleDict``s by the layer modules, so a carried JAX pytree maps
 onto them name for name.  Parameters are made with ``requires_grad``
-off: this slice serves, and training comes in a later one.  ``shard``
-is the identity: the port has no mesh yet.
+off, as serving wants them; ``train.train_step.init_train_state`` turns
+it on for the floating leaves.  ``shard`` is the identity: the port has
+no mesh yet.
 
 Layers compute in the activation dtype and read each weight through
 :func:`cast`, which keeps one copy of a parameter in that dtype per
 version of the parameter (``Tensor._version``, bumped by every in-place
 update): the cast is made once, not on every call, and is the same
 deterministic cast, so the outputs are bit-identical to casting on the
-fly.  :func:`cast_params` gives a model's whole parameter tree in that
-form, the stable buffers a captured decode step reads.
+fly.  Under autograd a leaf that requires grad is cast with a plain
+differentiable ``.to(dtype)`` instead, never from the cache, so the
+gradient reaches the float32 master parameter.  :func:`cast_params`
+gives a model's whole parameter tree in the cached form, the stable
+buffers a captured decode step reads.
 """
 
 from __future__ import annotations
@@ -73,9 +77,13 @@ def dense_init(gen: torch.Generator | None, in_dim: int, out_dim: int, *,
 
 
 def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t.to(dtype)``, made once per version of ``t`` and kept on it."""
+    """``t.to(dtype)``, made once per version of ``t`` and kept on it;
+    differentiable (and not cached) when ``t`` requires grad and grad
+    mode is on."""
     if t.dtype == dtype:
         return t
+    if t.requires_grad and torch.is_grad_enabled():
+        return t.to(dtype)
     hit = getattr(t, "_cast_copy", None)
     if hit is not None and hit[0] == t._version and hit[1] == dtype:
         return hit[2]

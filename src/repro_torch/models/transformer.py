@@ -1,6 +1,6 @@
 """Decoder assembly: embeddings -> blocks -> head, with prefill and
-cached decode, for the text configurations with GQA, MLA or Mamba2
-mixers and dense, MoE or no FFNs.
+cached decode and the training loss, for every configuration: GQA, MLA
+or Mamba2 mixers, dense, MoE or no FFNs, text, patch or frame inputs.
 
 The port's counterpart of ``repro/models/transformer.py``.  The
 reference factors the layers into ``prefix + group × G`` and
@@ -18,17 +18,28 @@ the reference.  Every function also takes the parameters as
 :func:`~repro_torch.models.common.cast_params` gives them.  ``moe_impl``
 is threaded to the MoE layers as in the reference.
 
-Ported layouts: every text configuration (internlm2-1.8b, olmo-1b,
-mistral-nemo-12b, qwen1.5-110b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b,
-mamba2-370m, jamba-1.5-large-398b).  The vision/audio stubs raise
-``NotImplementedError`` naming the slice that brings them; ``lm_loss``
-and training wait for the training slice.
+Every configuration runs.  The modality stubs are the reference's:
+``vision_stub`` (internvl2-26b) projects precomputed patch embeddings
+(``batch["patch_embeds"]``, (B, P, D)) through ``patch_proj`` and puts them
+before the text; ``audio_stub`` (musicgen-large) reads precomputed frame
+embeddings (``batch["frame_embeds"]``, (B, S, D); a (B, 1, D) frame as
+``decode_step``'s ``tokens``) and has ``num_codebooks`` parallel heads
+``head{c}``, its logits (B, S, C, V).
+
+Training: :func:`lm_loss` is the reference's masked next-token
+cross-entropy.  With ``cfg.remat`` (the default, as the reference's
+``nothing_saveable`` checkpoint of its scan body) and grad mode on,
+:func:`forward` runs each layer under ``torch.utils.checkpoint``, so only
+each layer's input is kept and the layer runs again in the backward
+(its flash kernel launch too); the gradients are those without remat,
+bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, layer_layout
 from repro_torch.device import resolve_device
@@ -40,9 +51,9 @@ from repro_torch.models.ffn import dense_ffn, moe_ffn
 from repro_torch.models.ssm import mamba
 
 __all__ = [
-    "check_supported",
     "init_params",
     "forward",
+    "lm_loss",
     "init_decode_caches",
     "decode_step",
     "prefill",
@@ -50,15 +61,6 @@ __all__ = [
 
 
 _MIXERS = {"attn": gqa, "mla": mla, "mamba": mamba}
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a text
-    configuration."""
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.modality} frontend is not ported yet; it "
-            "comes with the modality-stub slice of the model stack")
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +88,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
     ``device``; ``None`` on the ``meta`` device, for shapes only).  The
     default device is the card (``resolve_device``): without one it
     raises unless the caller asks for ``"cpu"``."""
-    check_supported(cfg)
     device = resolve_device(device)
     dt = dtype_of(cfg.param_dtype)
     table = normal((cfg.padded_vocab_size, cfg.d_model), gen, device, 0.02, dt)
@@ -96,8 +97,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
                                    dt, device),
     })
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab_size,
-                                       dtype=dt, device=device)
+        heads = ([f"head{c}" for c in range(cfg.num_codebooks)]
+                 if cfg.num_codebooks else ["lm_head"])
+        for name in heads:
+            params[name] = dense_init(gen, cfg.d_model, cfg.padded_vocab_size,
+                                      dtype=dt, device=device)
+    if cfg.modality == "vision_stub":
+        params["patch_proj"] = dense_init(gen, cfg.d_model, cfg.d_model,
+                                          dtype=dt, device=device)
     params["layers"] = nn.ModuleList(
         _init_layer(cfg, spec, gen, device) for spec in layer_layout(cfg))
     return params
@@ -107,16 +114,33 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None,
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(cfg: ModelConfig, params: nn.ModuleDict,
+def _embed_tokens(cfg: ModelConfig, params: nn.ModuleDict,
                   tokens: torch.Tensor) -> torch.Tensor:
     # Gather, then cast: the same values as the reference's cast-then-
     # gather, without a cast copy of the whole table.
-    x = params["embedding"]["table"][tokens.long()].to(dtype_of(cfg.dtype))
+    return params["embedding"]["table"][tokens.long()].to(dtype_of(cfg.dtype))
+
+
+def _embed_inputs(cfg: ModelConfig, params: nn.ModuleDict,
+                  batch: dict) -> torch.Tensor:
+    """Token / patch / frame embedding by modality (the stub frontends)."""
+    act = dtype_of(cfg.dtype)
+    if cfg.modality == "audio_stub":
+        x = batch["frame_embeds"].to(act)
+    else:
+        x = _embed_tokens(cfg, params, batch["tokens"])
+        if cfg.modality == "vision_stub" and "patch_embeds" in batch:
+            patches = linear(params["patch_proj"], batch["patch_embeds"].to(act))
+            x = torch.cat([patches, x], dim=1)
     return shard(x, "batch", "seq", "embed")
 
 
 def _head(cfg: ModelConfig, params: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
     x = norm_apply(params["final_norm"], x)
+    if cfg.num_codebooks:
+        logits = torch.stack([linear(params[f"head{c}"], x)
+                              for c in range(cfg.num_codebooks)], dim=2)
+        return shard(logits, "batch", "seq", None, "vocab")  # (B, S, C, V)
     if cfg.tie_embeddings:
         logits = x @ cast(params["embedding"]["table"], x.dtype).T
     else:
@@ -142,22 +166,57 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+def _layer(cfg: ModelConfig, spec: LayerSpec, p: nn.ModuleDict,
+           x: torch.Tensor, positions: torch.Tensor,
+           moe_impl: str) -> tuple[torch.Tensor, torch.Tensor | float]:
+    """One block of the full-sequence forward; returns (x, aux loss)."""
+    mix, _ = _MIXERS[spec.mixer].apply(cfg, p["mixer"],
+                                       norm_apply(p["pre_norm"], x), positions)
+    return _ffn(cfg, spec, p, shard(x + mix, "batch", "seq", "embed"),
+                moe_impl)
+
+
 def forward(cfg: ModelConfig, params: nn.ModuleDict, batch: dict,
             moe_impl: str = "gspmd") -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits, aux_loss): the MoE layers'
-    aux losses summed in float32 (0 without MoE layers)."""
-    x = _embed_inputs(cfg, params, batch["tokens"])
+    """Full-sequence forward of a batch dict (``tokens``; for the vision
+    stub optionally ``patch_embeds``; for the audio stub ``frame_embeds``).
+    Returns (logits, aux_loss): the MoE layers' aux losses summed in
+    float32 (0 without MoE layers).  With ``cfg.remat`` and grad mode on
+    each layer is checkpointed (see the module docstring)."""
+    x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for spec, p in zip(layer_layout(cfg), params["layers"]):
-        mix, _ = _MIXERS[spec.mixer].apply(cfg, p["mixer"],
-                                           norm_apply(p["pre_norm"], x),
-                                           positions)
-        x, aux = _ffn(cfg, spec, p, shard(x + mix, "batch", "seq", "embed"),
-                      moe_impl)
+        if remat:
+            x, aux = checkpoint(_layer, cfg, spec, p, x, positions, moe_impl,
+                                use_reentrant=False)
+        else:
+            x, aux = _layer(cfg, spec, p, x, positions, moe_impl)
         aux_total = aux_total + aux
     return _head(cfg, params, x), aux_total
+
+
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy (labels already shifted upstream),
+    over (B, S, V) logits or the audio stub's (B, S, C, V) with (B, S, C)
+    labels, in float32 with a logsumexp normalizer; ``mask`` (the labels'
+    shape) weights each position, the mean taken over its sum (at least
+    1).  The reference takes the label logit by a one-hot contraction so
+    that the vocab axis stays sharded over its mesh; the port has no mesh,
+    and a ``take_along_dim`` gather of the label logit is the same value
+    without the (..., V) one-hot."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.take_along_dim(logits, labels.long()[..., None],
+                                       dim=-1)[..., 0]
+    nll = lse - label_logit
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +230,6 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
     GQA, ``{"c_kv", "k_rope"}`` of (batch, max_len, kv_lora_rank / rope)
     for MLA, ``mamba.init_cache``'s ``{"conv", "ssm"}`` for Mamba2 (the
     SSM state float32)."""
-    check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     return [mamba.init_cache(cfg, batch, dtype, device) if spec.mixer == "mamba"
@@ -183,12 +241,16 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(cfg: ModelConfig, params: nn.ModuleDict, caches: list[dict],
                 tokens: torch.Tensor, pos: int | torch.Tensor,
                 moe_impl: str = "gspmd") -> tuple[torch.Tensor, list[dict]]:
-    """One decoding step.  tokens (B, 1); ``pos`` the index being written,
-    an int or a 0-dim integer tensor on the tokens' device.  Returns
-    (logits (B, 1, V), caches), the caches updated in place."""
+    """One decoding step.  tokens (B, 1), or for the audio stub the frame
+    embedding (B, 1, D); ``pos`` the index being written, an int or a
+    0-dim integer tensor on the tokens' device.  Returns (logits (B, 1, V)
+    or (B, 1, C, V), caches), the caches updated in place."""
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), pos, dtype=torch.int32, device=tokens.device)
-    x = _embed_inputs(cfg, params, tokens)
+    if cfg.modality == "audio_stub":
+        x = tokens.to(dtype_of(cfg.dtype))
+    else:
+        x = _embed_tokens(cfg, params, tokens)
     for spec, p, cache in zip(layer_layout(cfg), params["layers"], caches):
         mix, _ = _MIXERS[spec.mixer].decode(cfg, p["mixer"],
                                             norm_apply(p["pre_norm"], x),
@@ -202,13 +264,14 @@ def prefill(cfg: ModelConfig, params: nn.ModuleDict, batch: dict,
             moe_impl: str = "gspmd") -> tuple[torch.Tensor, list[dict]]:
     """Run the prompt through the model, filling decode caches.
 
-    Returns (last-position logits (B, 1, V), caches): each attention
+    ``batch`` as :func:`forward` takes it.  Returns (last-position
+    logits (B, 1, V), or (B, 1, C, V) for the audio stub, caches): each attention
     layer's cache contribution (GQA's K/V, MLA's latent and rope key)
     written into a zeroed (B, max_len, ...) cache, each Mamba2 layer's
     final ``{"conv", "ssm"}`` states kept as they are, as the reference
     does.
     """
-    x = _embed_inputs(cfg, params, batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")

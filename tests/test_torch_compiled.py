@@ -370,7 +370,7 @@ def _int_pos_decode(cfg, params, caches, tokens, pos: int):
     from repro_torch.models.common import norm_apply
     from repro_torch.parallel import decode_attention as D
 
-    x = T._embed_inputs(cfg, params, tokens)
+    x = T._embed_inputs(cfg, params, {"tokens": tokens})
     dense = LayerSpec("attn", "dense")
     for p, cache in zip(params["layers"], caches):
         h = norm_apply(p["pre_norm"], x)

@@ -155,7 +155,8 @@ def _load_example(name: str):
 def test_examples_import_neither_jax_nor_reference():
     code = (
         "import importlib.util, os, sys\n"
-        "for name in ('quickstart_torch', 'taxi_demand_augmentation_torch'):\n"
+        "for name in ('quickstart_torch', 'taxi_demand_augmentation_torch',\n"
+        "             'train_lm_100m_torch', 'discovery_service_torch'):\n"
         "    spec = importlib.util.spec_from_file_location(\n"
         "        name, os.path.join(sys.argv[1], name + '.py'))\n"
         "    mod = importlib.util.module_from_spec(spec)\n"
