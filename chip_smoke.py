@@ -220,6 +220,26 @@ it fails:
      and a weather column discovered, the augmented test MAE below the
      baseline (``[augment]`` lines).
 
+ 21. the discovery mesh on the phase-3 index (``[mesh]`` lines):
+     ``make_host_mesh(devices=[cuda:0] * 4)`` (four shards on the one
+     card), a 3-shard mesh (group buckets padded to the shard count) and
+     ``make_host_mesh()`` over the visible cards: (a) ``execute``'s
+     (Q, C) MI and join sizes (Q = 4 a dtype) bit-equal to the batched
+     executor's; (b) ``query_many(mesh=)`` identical to the batched path
+     (rankings, MI, join sizes) through the dense (Q = 4), unfused
+     two-phase, fused and gated (``min_containment=0.1``) routes, cold
+     and warm; (c) ``distributed_topk`` equal to the stable argsort of
+     ``score_batch``; (d) ``DiscoveryService(mesh=)`` ``submit`` equal to
+     a loop of mesh queries and to phase 7's submit; under
+     ``dispatch@distributed`` (dense) and fused / prefilter faults it
+     descends to the batched rung with the same results; the non-finite
+     fence on the distributed rung launches ``pairwise_cheb``; (e) each
+     shard's ``radius_counts`` launches of a warm fused pass, captured
+     under ``eager()``, bit-equal to the plain version; (f) warm
+     ``query_many`` medians of 5 (mesh and batched alternated), one
+     profiled pass of each, ``radius_counts`` launches per window and
+     peak memory over the resident index (replayed and eager).
+
  18. the MoE and MLA serving path, after phase 11 with its model freed,
      for ``qwen3-moe-30b-a3b`` (``[moe]`` lines) then
      ``deepseek-v2-lite-16b`` (``[mla]``), one at a time: (a) the
@@ -312,11 +332,11 @@ it fails:
      ``LAUNCH_LOSS_FALL``, the final parameters beside the uninterrupted
      run's with the two uninterrupted runs' spread.
 
-Phases 14, 15, 16 (a)-(c), 17, 12 and 13 run after phase 10 and before
-phase 11, so that the serving path starts with the discovery state
-freed; phases 18, 19 and 20 run after phase 11.  Each of phases 3, 7-9
-and 11-20 sets every kernel's launch count to 0 just before it drives
-its path and reads the counts just after.
+Phases 14, 15, 16 (a)-(c), 17, 21, 12 and 13 run after phase 10 and
+before phase 11, so that the serving path starts with the discovery
+state freed; phases 18, 19 and 20 run after phase 11.  Each of phases 3,
+7-9 and 11-21 sets every kernel's launch count to 0 just before it
+drives its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
 (``{"record": ...}``), then the kernels' JSON line, the card's name and
@@ -446,6 +466,11 @@ WIDE_K = 32  # phase 14: a k past the staged body's buffer
 GATE_MC = 0.1
 HANDLE_TIMEOUT_S = 120.0
 MI_TOL = 1e-6
+# Phase 21: the discovery mesh on one card (4 shards on cuda:0, the
+# card's counterpart of the reference tests' forced host devices; 3 shards
+# to pad the pow-2 group buckets), the dense routes' queries per dtype
+# (they score the whole lake), and the warm passes per median.
+MESH_SHARDS, MESH_ODD_SHARDS, MESH_DENSE_Q, MESH_REPS = 4, 3, 2, 5
 # Phase 17: warm calls per median of the ad-hoc scorers; the seed path's
 # cut (a first call slower than ADHOC_REF_SLOW_S runs on the first
 # ADHOC_REF_CUT columns); the synthetic cases (paper Section V-A/V-B:
@@ -4963,6 +4988,281 @@ def profile_pass(index, batch, **query_kw) -> dict:
                                                  min_join=MIN_JOIN, **query_kw))
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the discovery mesh
+# ---------------------------------------------------------------------------
+
+def equal_or_raise(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    """Bit-equality of two host arrays (NaN positions equal), with the
+    largest difference in the message when they differ."""
+    if got.shape != want.shape or not np.array_equal(got, want, equal_nan=True):
+        diff = (np.nanmax(np.abs(got.astype(np.float64) - want.astype(np.float64)))
+                if got.shape == want.shape else "shape")
+        raise AssertionError(f"{what}: mesh differs from the batched path "
+                             f"(max abs difference {diff})")
+
+
+def mesh_routes(index, batches, mesh, dense_q: int) -> dict:
+    """(b): ``query_many`` on the mesh and on the batched path through
+    each route, per target dtype; the dense route on the first
+    ``dense_q`` queries (it scores the whole lake).  Each route runs
+    twice on the mesh (the first window's per-shard rungs start at their
+    floor and overflow into the host boundary), and every pass must equal
+    the batched one exactly."""
+    routes = {"dense": {"prefilter": False}, "two_phase": {"fused": False},
+              "fused": {}, "gated": {"min_containment": GATE_MC}}
+    out = {}
+    for route, kw in routes.items():
+        for b in batches:
+            qs = b[:dense_q] if route == "dense" else b
+            want = flat_results(index.query_many(qs, top_k=TOP_K,
+                                                 min_join=MIN_JOIN, **kw))
+            for rep in range(2):
+                got = flat_results(index.query_many(qs, top_k=TOP_K,
+                                                    min_join=MIN_JOIN,
+                                                    mesh=mesh, **kw))
+                if got != want:
+                    raise AssertionError(
+                        f"query_many(mesh={mesh}) {route} pass {rep} differs "
+                        f"from the batched path")
+            out[route] = len(qs)
+    return out
+
+
+def mesh_launch_samples(index, batches, mesh) -> list:
+    """(e): one warm fused mesh pass per target dtype under ``eager()``
+    with ``radius_counts``' Python call wrapped (as ``capture_launches``):
+    every launch with its inputs, arguments and outputs."""
+    from repro_torch import compile as programs
+
+    seen = []
+    for b in batches:
+        with programs.eager():
+            _, s = spy_radius_counts(lambda b=b: index.query_many(
+                b, top_k=TOP_K, min_join=MIN_JOIN, mesh=mesh))
+        seen += s
+    return seen
+
+
+def run_mesh(index, batches, svc_queue, clean, card: str, dev) -> dict:
+    """Phase 21: the discovery mesh over the phase-3 index, 4 shards on
+    one card (``make_host_mesh(devices=[cuda:0] * 4)``), a 3-shard mesh
+    (its group buckets padded to the shard count) and the mesh over the
+    visible cards.  (a) ``execute`` bit-equal to the batched executor;
+    (b) ``query_many(mesh=)`` equal to the batched path on every route;
+    (c) ``distributed_topk`` against ``score_batch``'s argsort; (d) the
+    service on the mesh, its fault descent and the non-finite fence; (e)
+    each shard's ``radius_counts`` launches bit-equal to the plain
+    version; (f) warm wall and device times, launches and peak memory
+    beside the batched path's."""
+    from repro_torch import compile as programs
+    from repro_torch.core.discovery import (
+        BatchedExecutor,
+        DiscoveryService,
+        distributed_topk,
+        inject_faults,
+        score_batch,
+        stack_trains_host,
+    )
+    from repro_torch.kernels.knn_stats import kernel, ref
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(devices=[dev] * MESH_SHARDS)
+    odd = make_host_mesh(devices=[dev] * MESH_ODD_SHARDS)
+    card0 = mesh.axis_devices("data")[0]
+    visible = make_host_mesh()
+    rec = {"shards": MESH_SHARDS, "odd_shards": MESH_ODD_SHARDS,
+           "visible_cards": visible.shape["data"],
+           "memory_at_start": {"allocated": torch.cuda.memory_allocated(),
+                               "reserved": torch.cuda.memory_reserved()}}
+    log(f"[mesh] device memory at the start: "
+        f"{rec['memory_at_start']['allocated'] / 2**30:.2f} GiB allocated, "
+        f"{rec['memory_at_start']['reserved'] / 2**30:.2f} GiB reserved")
+
+    # (a) execute against the batched executor, both target dtypes.
+    reset_launches()
+    for b in batches:
+        y_disc = bool(b[0].value_is_discrete)
+        plan = index.plan(y_disc)
+        trains = stack_trains_host(b[:MESH_DENSE_Q], dev)
+        for m in (mesh, odd):
+            mi, js = index._distributed_executor(m).execute(plan, trains)
+            want = BatchedExecutor().execute(plan, trains)
+            equal_or_raise(f"execute {m} MI (y_discrete={y_disc})", mi, want[0])
+            equal_or_raise(f"execute {m} join sizes", js, want[1])
+    rec["execute_launches"] = read_launches()
+    rec["memory_after_execute"] = {"allocated": torch.cuda.memory_allocated(),
+                                   "reserved": torch.cuda.memory_reserved()}
+    if rec["execute_launches"]["radius_counts"] == 0:
+        raise AssertionError("mesh execute never launched radius_counts")
+    log(f"[mesh] (a) execute on {MESH_SHARDS} and {MESH_ODD_SHARDS} shards of "
+        f"{card0}, Q={MESH_DENSE_Q} per dtype over C={len(index)}: (Q, C) MI and "
+        f"join sizes bit-equal to the batched executor; launches "
+        f"{launch_words(rec['execute_launches'])}; device memory "
+        f"{rec['memory_after_execute']['allocated'] / 2**30:.2f} GiB allocated, "
+        f"{rec['memory_after_execute']['reserved'] / 2**30:.2f} GiB reserved")
+
+    # (b) every route on 4 shards and on the visible cards; the 3-shard
+    # mesh runs its routes at the end of the phase, since meshes share
+    # the index's per-shard rungs (keyed on sharding, not on the shard
+    # count) and its shards hold more rows each.
+    t0 = time.perf_counter()
+    rec["routes"] = {str(mesh): mesh_routes(index, batches, mesh, MESH_DENSE_Q),
+                     str(visible): mesh_routes(index, batches[:1], visible,
+                                               MESH_DENSE_Q)}
+    live = {f"y_discrete={y}": [[int(l.sum()) for l in sg.lives] for sg in
+                                index._distributed_executor(mesh)._groups(
+                                    index.plan(y))]
+            for y in (False, True)}
+    rec["live_rows_per_shard"] = live
+    log(f"[mesh] (b) query_many(mesh=) == the batched path (rankings, MI and "
+        f"join sizes exactly) through the dense (Q={MESH_DENSE_Q}), two-phase, "
+        f"fused and gated (min_containment={GATE_MC}) routes, cold and warm, on "
+        f"{MESH_SHARDS} shards, and every route on make_host_mesh() "
+        f"({visible.shape['data']} card(s), continuous target); "
+        f"{time.perf_counter() - t0:.2f} s; live rows per shard, by group: {live}")
+
+    # (c) distributed_topk against score_batch's argsort.
+    for b in batches:
+        sk = b[0]
+        train, cands = index.train_arrays(sk), index.stacked(sk.value_is_discrete)
+        mi, js = (t.cpu().numpy() for t in score_batch(train, cands))
+        v, gi, jz = distributed_topk(train, cands, mesh, TOP_K)
+        order = np.argsort(-mi, kind="stable")[:TOP_K]
+        equal_or_raise("distributed_topk values", v, mi[order])
+        equal_or_raise("distributed_topk ids", gi, order.astype(gi.dtype))
+        equal_or_raise("distributed_topk join sizes", jz, js[order])
+    log(f"[mesh] (c) distributed_topk(top_k={TOP_K}) on {MESH_SHARDS} shards == "
+        f"the stable argsort of score_batch (values, ids, join sizes), both dtypes")
+
+    # (d) the service on the mesh.
+    msvc = DiscoveryService(index=index, k=3, mesh=mesh)
+    reset_launches()
+    got = msvc.submit(svc_queue, top_k=TOP_K, min_join=MIN_JOIN)
+    loop = [index.query(sk, top_k=TOP_K, min_join=MIN_JOIN, mesh=mesh)
+            for sk in svc_queue]
+    if flat_results(got) != flat_results(loop) or \
+            flat_results(got) != flat_results(clean):
+        raise AssertionError("mesh submit differs from its looped mesh queries "
+                             "or from phase 7's submit")
+    small = svc_queue[:2 * MESH_DENSE_Q]
+    dense = {"prefilter": False}
+    want = msvc.submit(small, top_k=TOP_K, min_join=MIN_JOIN, **dense)
+    with inject_faults({"dispatch@distributed": "all"}):
+        res, outs = msvc.submit_safe(small, top_k=TOP_K, min_join=MIN_JOIN,
+                                     **dense)
+    if flat_results(res) != flat_results(want) or \
+            {o.rung for o in outs} != {"batched"}:
+        raise AssertionError(f"dispatch@distributed: expected the batched rung "
+                             f"with the same results; rungs {[o.rung for o in outs]}")
+    with inject_faults({"fused_dispatch@distributed": "all",
+                        "prefilter_dispatch@distributed": "all"}):
+        res2, outs2 = msvc.submit_safe(svc_queue, top_k=TOP_K, min_join=MIN_JOIN)
+    if flat_results(res2) != flat_results(got) or \
+            {o.rung for o in outs2} != {"batched"}:
+        raise AssertionError("fused faults on the mesh: expected the batched rung")
+    reset_launches()
+    with inject_faults({"scores": FENCE_LANES}, seed=SEED) as fplan:
+        res3, outs3 = msvc.submit_safe(svc_queue, top_k=TOP_K, min_join=MIN_JOIN)
+    fence_launches = read_launches()
+    if {o.rung for o in outs3} != {"distributed"} or fplan.corrupted != \
+            FENCE_LANES * len(svc_queue) or fence_launches["pairwise_cheb"] == 0:
+        raise AssertionError(f"mesh fence: rungs {sorted({o.rung for o in outs3})}, "
+                             f"{fplan.corrupted} lanes, launches {fence_launches}")
+    for a, b in zip(res3, got):
+        same_rankings([a], [b], tol=MI_TOL)
+    rec["service"] = {"admission": msvc.stats()["admission"],
+                      "fence_launches": fence_launches}
+    log(f"[mesh] (d) DiscoveryService(mesh=) submit of {len(svc_queue)} queries "
+        f"== looped mesh queries == phase 7's submit; dispatch@distributed "
+        f"(dense, {len(small)} queries) and fused/prefilter@distributed faults "
+        f"descend to the batched rung with the same results; the fence on the "
+        f"distributed rung: {fplan.corrupted} NaN lanes, launches "
+        f"{launch_words(fence_launches)}")
+
+    # (e) each shard's radius_counts launches against the plain version.
+    reset_launches()
+    seen = mesh_launch_samples(index, batches, mesh)
+    counted = read_launches()["radius_counts"]
+    if counted != len(seen) or len(seen) % MESH_SHARDS:
+        raise AssertionError(f"{len(seen)} captured launches, {counted} counted; "
+                             f"expected a multiple of {MESH_SHARDS} shards")
+    rows = []
+    for i, (x, y, m, args, out_k) in enumerate(seen):
+        group, shard = divmod(i, MESH_SHARDS)
+        err = bit_equal(f"radius_counts, group {group} shard {shard}", out_k,
+                        ref.radius_counts(x, y, m, **args))
+        staged = kernel.takes_staged(x.shape[1], args["mode"], args["k"],
+                                     args["kb"])
+        rows.append({"group": group, "shard": shard, "mode": args["mode"],
+                     "which": args["which"], "B": int(x.shape[0]),
+                     "P": int(x.shape[1]),
+                     "body": "staged" if staged else "tiled",
+                     "max_abs_err": err})
+    max_err = max((r["max_abs_err"] for r in rows), default=0.0)
+    rec["shard_launches"] = rows
+    log(f"[mesh] (e) {len(seen)} radius_counts launches of a warm fused pass per "
+        f"dtype ({len(seen) // MESH_SHARDS} groups x {MESH_SHARDS} shards), each "
+        f"bit-equal to ref.radius_counts on its shard's samples; bodies "
+        f"{sorted({r['body'] for r in rows})}; B per launch "
+        f"{[r['B'] for r in rows]}")
+
+    # (f) warm times, launches per window, peak memory: mesh and batched
+    # alternated, each pass both target dtypes.
+    def one(m):
+        return run_pass(index, batches, dev, **({"mesh": m} if m else {}))[0]
+
+    times = {"mesh": [], "batched": []}
+    for _ in range(MESH_REPS):
+        times["mesh"].append(one(mesh))
+        times["batched"].append(one(None))
+    launches, peak, peak_eager, prof = {}, {}, {}, {}
+    for name, m in (("mesh", mesh), ("batched", None)):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        one(m)
+        launches[name] = read_launches()["radius_counts"]
+        peak[name] = torch.cuda.max_memory_allocated() - base
+        # The working set of the computation itself: a replay allocates
+        # only its outputs' copies (its temporaries live in the graphs'
+        # pool), an eager pass allocates every temporary.
+        torch.cuda.reset_peak_memory_stats()
+        with programs.eager():
+            one(m)
+        peak_eager[name] = torch.cuda.max_memory_allocated() - base
+        prof[name] = profile_call(lambda m=m: one(m))
+    if launches["mesh"] != MESH_SHARDS * launches["batched"]:
+        raise AssertionError(f"warm window launches {launches}: each shard "
+                             "should launch once per KSG group")
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    rec.update(times_s=times, median_s=med, launches_per_window=launches,
+               peak_bytes_over_base=peak, peak_eager_bytes_over_base=peak_eager,
+               profile={k: {"wall_ms": p["wall_ms"], "device_ms": p["device_ms"],
+                            "busy_share": p["busy_share"],
+                            "launches": p["launches"]}
+                        for k, p in prof.items()},
+               max_abs_err=max_err)
+    for k in ("mesh", "batched"):
+        log(f"[mesh] (f) warm query_many, {k}: median {1e3 * med[k]:.2f} ms of "
+            f"{MESH_REPS} (both dtypes, Q={Q} each), profiled wall "
+            f"{prof[k]['wall_ms']:.2f} ms, device {prof[k]['device_ms']:.2f} ms "
+            f"(busy {prof[k]['busy_share'] or 0:.2f}); radius_counts launches per "
+            f"window {launches[k]}; peak over the resident index "
+            f"{peak[k] / 2**20:.1f} MiB replayed, {peak_eager[k] / 2**20:.1f} "
+            f"MiB eager; card {card}")
+
+    # (b) on the 3-shard mesh (group buckets padded to the shard count).
+    t0 = time.perf_counter()
+    rec["routes"][str(odd)] = mesh_routes(index, batches, odd, MESH_DENSE_Q)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] (b) the same routes on {MESH_ODD_SHARDS} shards == the batched "
+        f"path; {time.perf_counter() - t0:.2f} s")
+    log(f"[mesh] phase 21 in {rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5185,6 +5485,9 @@ def main() -> int:
     app = run_application(index, [cont[0], disc[0]], [warm[0][0], warm[1][0]],
                           gpu_sub, cpu_sub, rows, keys, y, card, dev)
 
+    # Phase 21: the discovery mesh over the same index.
+    mesh = run_mesh(index, [cont, disc], queue, clean, card, dev)
+
     # Phase 12: the two-op kNN API on phase 5's samples; phase 13: the
     # lake's keys hashed on the card.  Both run before phase 11, so that
     # the serving path starts with the discovery state freed.
@@ -5253,7 +5556,7 @@ def main() -> int:
         "scheduler": sched, "materialized": mat, "two_op": two_op,
         "lake_hash": lake_hash, "serving": serving, "moe_serving": moe,
         "ssm_serving": ssm_serving, "training": training,
-        "application": app,
+        "application": app, "mesh": mesh,
         "compile_end": programs.compile_stats(),
         "total_s": time.perf_counter() - t_start,
     }
@@ -5263,8 +5566,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/knn_stats/csrc/radius_counts.cu",
         "replaces": "src/repro/kernels/knn_stats/kernel.py:481",
-        "launches": main_launches["radius_counts_staged"],
-        "max_abs_err": max_err,
+        # Phase 3's warm pass and phase 21's warm mesh window.
+        "launches": main_launches["radius_counts_staged"]
+        + mesh["launches_per_window"]["mesh"],
+        "max_abs_err": max(max_err, mesh["max_abs_err"]),
         "ms": rc_ms,
         "plain_ms": rc_plain,
         "bound_ms": rc_bound_ms,
@@ -5287,7 +5592,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/pairwise_cheb/csrc/pairwise_cheb.cu",
         "replaces": "src/repro/kernels/pairwise_cheb/kernel.py:59",
-        "launches": safe["launches"]["pairwise_cheb"],
+        # The fences of phase 8 and of phase 21 (d) (the distributed rung).
+        "launches": safe["launches"]["pairwise_cheb"]
+        + mesh["service"]["fence_launches"]["pairwise_cheb"],
         "max_abs_err": pc_max_err,
         "ms": pc_ms,
         "plain_ms": pc_plain,

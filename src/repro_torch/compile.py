@@ -12,9 +12,10 @@ the staged ``min_containment``) is a 0-dim device tensor input, so a
 new value is a new input, not a new program.
 
 On a CUDA device the first call at a key runs the function eagerly on a
-side stream (the warm-up, whose results it returns), then captures it
-into a ``torch.cuda.CUDAGraph`` that reads copies of the inputs held in
-static buffers.  Each later call copies its inputs into those buffers
+side stream (the warm-up, whose results it returns), releases the
+allocator's cached blocks, then captures it into a
+``torch.cuda.CUDAGraph`` that reads copies of the inputs held in static
+buffers.  Each later call copies its inputs into those buffers
 (device copies, no host sync), replays the graph and returns copies of
 its outputs, so a handle that collects later never sees the next
 replay's results.  On the CPU the function runs eagerly, and the key is
@@ -248,6 +249,11 @@ class Program:
             warm = self.fn(*bound.args, **bound.kwargs)
         cur.wait_stream(side)
         _map(lambda t: t.record_stream(cur), warm)
+        # The capture allocates its temporaries again, from the graph
+        # pool, and a capture cannot free cached blocks (no cudaFree while
+        # capturing): release the warm-up's now, or a large program needs
+        # twice its working set on the card.
+        torch.cuda.empty_cache()
 
         counters = launch_counters()
         before = [f.launches for f in counters]

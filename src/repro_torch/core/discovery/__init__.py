@@ -6,10 +6,11 @@ compute layers, and the serving front end on top:
   * :mod:`.planner` — layout: :class:`QueryPlan`, estimator groups,
     pow-2 bucket ladders, shortlists, the service's signatures,
     coalescing and :class:`PlanCache`;
-  * :mod:`.executors` — compute: partitioned and batched executors, the
-    fused two-phase pipeline (prefilter, compaction, gather, score) and
-    the phase-0 containment gate in front of it, each group's body a
-    compiled program (:mod:`repro_torch.compile`; :func:`compile_count`);
+  * :mod:`.executors` — compute: partitioned, batched and group-major
+    distributed (mesh-sharded) executors, the fused two-phase pipeline
+    (prefilter, compaction, gather, score) and the phase-0 containment
+    gate in front of it, each group's body a compiled program
+    (:mod:`repro_torch.compile`; :func:`compile_count`);
   * :mod:`.service` — :class:`DiscoveryService` (``submit``,
     ``submit_safe``, ``submit_async``): admission control, the
     retry/fallback ladder, the non-finite fence;
@@ -20,14 +21,18 @@ compute layers, and the serving front end on top:
 The functional entry points :func:`score_batch`,
 :func:`score_batch_reference` and :func:`score_batch_partitioned` score
 a raw stacked candidate dict (``SketchIndex.stacked``) against one train
-sketch, with no plan kept between calls.
+sketch, with no plan kept between calls; :func:`distributed_topk` ranks
+one over a mesh.
 """
 
 from repro_torch.compile import compile_count
 from repro_torch.core.discovery.executors import (
     BatchedExecutor,
     Executor,
+    GroupMajorDistributedExecutor,
     PartitionedLocalExecutor,
+    _shard_topk_plan,
+    distributed_topk,
     get_executor,
     pad_trains_q,
     score_batch,
@@ -133,12 +138,14 @@ __all__ = [
     "Executor",
     "PartitionedLocalExecutor",
     "BatchedExecutor",
+    "GroupMajorDistributedExecutor",
     "get_executor",
     "stack_trains",
     "compile_count",
     "score_batch",
     "score_batch_partitioned",
     "score_batch_reference",
+    "distributed_topk",
     "pad_trains_q",
     "stack_trains_host",
     "stage_trains_host",

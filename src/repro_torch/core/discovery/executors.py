@@ -8,6 +8,10 @@
     — on the device with no host sync until ``collect``; its
     ``tiered_dispatch`` puts the phase-0 containment gate (a signature
     sweep and survivor compaction) in front of the same pipeline.
+  * :class:`GroupMajorDistributedExecutor` — the same paths on a mesh
+    (:mod:`repro_torch.launch.mesh`): each group's candidate rows split
+    over the ``"data"`` axis, each shard scoring its own rows and keeping
+    its top-k, the winners merged on the first device with one top-k.
 
 Where the reference vmaps a per-sample body over (Q, candidates), the
 port writes the batch dimension out: one join over all (Q × rows)
@@ -51,7 +55,8 @@ Fault-injection sites (:func:`~repro_torch.core.discovery.resilience.maybe_fault
 sit where the reference has them: ``staging`` and ``stack_h2d`` in the
 two halves of the train upload, ``dispatch`` / ``prefilter_dispatch`` /
 ``shortlist_dispatch`` / ``fused_dispatch`` / ``tiered_dispatch`` at the
-batched executor's entry points, and ``collect`` at each pending handle's first host sync.
+batched and distributed executors' entry points (scopes ``"batched"`` and
+``"distributed"``), and ``collect`` at each pending handle's first host sync.
 The partitioned executor, the service's reference rung, has none.
 """
 
@@ -63,13 +68,14 @@ import torch
 from repro_torch.compile import program
 from repro_torch.core import estimators
 from repro_torch.core.discovery.planner import (
-    _MESH_SLICE,
     EST_DC_XD,
     EST_MIXED,
     EST_MLE,
+    GroupPlan,
     QueryPlan,
     ShortlistOverflow,
     SurvivorOverflow,
+    _next_pow2,
     group_rows,
     make_plan,
     pack_group,
@@ -78,11 +84,13 @@ from repro_torch.core.discovery.planner import (
 )
 from repro_torch.core.discovery.resilience import maybe_fault
 from repro_torch.core.join import (
+    effective_keys,
     presorted_join_size,
     signature_join_size,
     sketch_join_lexsort,
     sketch_join_presorted,
 )
+from repro_torch.device import canonical_device
 
 __all__ = [
     "score_batch",
@@ -97,7 +105,9 @@ __all__ = [
     "Executor",
     "PartitionedLocalExecutor",
     "BatchedExecutor",
+    "GroupMajorDistributedExecutor",
     "get_executor",
+    "distributed_topk",
 ]
 
 _TRAIN_FIELDS = ("keys", "vals_f", "vals_u", "mask")
@@ -781,11 +791,599 @@ class BatchedExecutor(Executor):
         return _PendingTiered(blocks, Q)
 
 
+# ---------------------------------------------------------------------------
+# The discovery mesh: candidate rows sharded over the "data" axis.
+# ---------------------------------------------------------------------------
+
+
+def _shard_topk_plan(c_padded: int, n_shards: int,
+                     top_k: int) -> tuple[int, int]:
+    """Per-shard and global result counts of a distributed top-k.
+
+    ``k_shard`` rides a pow-2 ladder (the next power of two >= ``top_k``,
+    clamped to the shard's rows), so varied top-k traffic builds one
+    shard program per k bucket; every shard keeps ``min(k_bucket,
+    shard_size)`` and the merge returns ``min(top_k, shards ·
+    k_shard)``, never fewer than ``min(top_k, C)``.
+    """
+    shard_size = c_padded // n_shards
+    k_shard = max(min(_next_pow2(top_k), shard_size), 1)
+    k_final = min(top_k, n_shards * k_shard)
+    return k_shard, k_final
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: the ``k`` largest of each row,
+    best first, ties to the lowest position.  A stable descending sort,
+    since ``torch.topk`` promises no order among equal values."""
+    v, pos = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], pos[..., :k]
+
+
+def _shard_topk_impl(trains: dict, lives: dict, shards: list, *,
+                     est_id: int, k: int, k_shard: int):
+    """Dense scoring of the shards that share one device, each over its
+    own rows (trains replicated).  ``k_shard == 0`` returns each shard's
+    (mi, js) (Q, rows); otherwise its top ``k_shard`` per query, dead
+    rows fenced to -inf: (values, shard-local rows, join sizes)."""
+    out = []
+    for sh, live in zip(shards, lives.values()):
+        mi, js = _score_group_impl(trains, sh, est_id=est_id, k=k)
+        if k_shard == 0:
+            out.append((mi, js))
+            continue
+        v, i = _top_k(torch.where(live[None, :], mi, -torch.inf), k_shard)
+        out.append((v, i, js.gather(1, i)))
+    return out
+
+
+def _shard_fused_impl(trains: dict, lives: dict, indexes: dict, shards: list,
+                      min_join, sentinel, *, est_id: int, k: int,
+                      s_shard: int, k_shard: int):
+    """The fused pipeline on each shard of one device: its own
+    prefilter, compaction into ``s_shard`` lanes, gather, scoring and
+    top ``k_shard``.  Per shard: (values, global ids, join sizes,
+    survivor counts (Q, 1), the phase-1 join sizes (Q, rows))."""
+    out = []
+    for sh, live, index in zip(shards, lives.values(), indexes.values()):
+        mi, gidx, jsz, js, counts = _fused_score_group_impl(
+            trains, sh, index, live, min_join, sentinel, est_id=est_id,
+            k=k, s_bucket=s_shard)
+        v, pos = _top_k(torch.where(gidx != sentinel, mi, -torch.inf),
+                        k_shard)
+        out.append((v, gidx.gather(1, pos), jsz.gather(1, pos),
+                    counts[:, None], js))
+    return out
+
+
+def _shard_tiered_impl(trains: dict, lives: dict, indexes: dict,
+                       shards: list, min_join, min_containment, sentinel, *,
+                       est_id: int, k: int, s_surv: int, s_shard: int,
+                       k_shard: int):
+    """The gated pipeline on each shard of one device (its signature rows
+    sharded like its sketch rows, so the survivor gather stays on the
+    shard).  Per shard: (values, global ids, join sizes, survivor counts
+    (Q, 1), shortlist counts (Q, 1))."""
+    out = []
+    for sh, live, index in zip(shards, lives.values(), indexes.values()):
+        mi, gidx, jsz, c0, c1 = _tiered_score_group_impl(
+            trains, sh, sh["sig"], index, live, min_join, min_containment,
+            sentinel, est_id=est_id, k=k, s_surv=s_surv, s_bucket=s_shard)
+        v, pos = _top_k(torch.where(gidx != sentinel, mi, -torch.inf),
+                        k_shard)
+        out.append((v, gidx.gather(1, pos), jsz.gather(1, pos),
+                    c0[:, None], c1[:, None]))
+    return out
+
+
+# One program per (group, Q bucket, k bucket, widths) and device: the
+# shards that share a device are one graph on the card.
+_shard_topk = program(_shard_topk_impl, static=("est_id", "k", "k_shard"),
+                      resident=("shards",))
+_shard_fused = program(_shard_fused_impl,
+                       static=("est_id", "k", "s_shard", "k_shard"),
+                       resident=("shards",))
+_shard_tiered = program(_shard_tiered_impl,
+                        static=("est_id", "k", "s_surv", "s_shard", "k_shard"),
+                        resident=("shards",))
+
+
+def _globalize_rows(i: torch.Tensor, index: torch.Tensor, *, k_shard: int,
+                    shard_rows: int) -> torch.Tensor:
+    """Per-shard top-k rows (Q, shards · k_shard), each numbered within
+    its shard, as global candidate ids: undo the shard numbering, then
+    read the group's row -> candidate index (dead rows give the
+    sentinel, which the ranking drops)."""
+    shard = torch.arange(i.shape[1], device=i.device) // k_shard
+    return index[i + (shard * shard_rows)[None, :]]
+
+
+def _concat1(xs: list) -> torch.Tensor:
+    """Concatenate along axis 1, with no copy for a single block."""
+    return xs[0] if len(xs) == 1 else torch.cat(xs, dim=1)
+
+
+def _merge_topk_device(v, gi, js, *, k_final: int):
+    """The cross-shard, cross-group merge on the first device: one top-k
+    over the concatenated winners, all Q rows at once, ties to the
+    lowest position as ``lax.top_k``; the host then receives
+    O(Q · k_final) values."""
+    vals, pos = _top_k(v, k_final)
+    return vals, gi.gather(1, pos), js.gather(1, pos)
+
+
+def _pad_group_to_shards(gp: GroupPlan, n_shards: int,
+                         sentinel: int) -> GroupPlan:
+    """A group whose row bucket does not divide the shard count (a
+    non-power-of-two mesh on a plan built without the mesh rounding),
+    zero-padded to a multiple of it: dead rows point at ``sentinel``
+    (the plan's ``n_candidates``), their keys go back through
+    :func:`~repro_torch.core.join.effective_keys` so the presorted join
+    stays fenced, and signature pads are -1."""
+    b = gp.bucket
+    if b % n_shards == 0:
+        return gp
+    pad = -(-b // n_shards) * n_shards - b
+    arrays = {name: torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+              for name, a in gp.arrays.items()}
+    arrays["keys"] = effective_keys(arrays["keys"], arrays["mask"])
+    index = np.concatenate([np.asarray(gp.index, np.int32),
+                            np.full(pad, sentinel, np.int32)])
+    live = torch.cat([gp.live, gp.live.new_zeros(pad)])
+    sig = gp.sig
+    if sig is not None:
+        sig = torch.cat([sig, sig.new_full((pad, sig.shape[1]), -1)])
+    return GroupPlan(gp.est_id, arrays, index, live, gp.size,
+                     torch.from_numpy(index).to(live.device), sig)
+
+
+class _ShardedGroup:
+    """One plan group laid out on the mesh: the shard-padded group (on
+    the plan's device), and per shard its rows on its own device — views
+    of the group's tensors where the shard shares their device, copies
+    otherwise — its live mask and its rows' global ids."""
+
+    __slots__ = ("gp", "rows", "shards", "lives", "indexes", "index_first",
+                 "by_device")
+
+    def __init__(self, gp: GroupPlan, devices: list):
+        n = len(devices)
+        self.gp = gp
+        self.rows = R = gp.bucket // n
+        home = canonical_device(gp.live.device)
+
+        def part(t, s, dev):
+            rows = t[s * R:(s + 1) * R]
+            return rows if dev == home else rows.to(dev)
+
+        tensors = dict(gp.arrays)
+        if gp.sig is not None:
+            tensors["sig"] = gp.sig
+        self.shards, self.lives, self.indexes = [], [], []
+        by_device: dict = {}
+        for s, dev in enumerate(devices):
+            self.shards.append({name: part(t, s, dev)
+                                for name, t in tensors.items()})
+            self.lives.append(part(gp.live, s, dev))
+            self.indexes.append(part(gp.index_dev, s, dev))
+            by_device.setdefault(dev, []).append(s)
+        self.by_device = list(by_device.items())
+        first = devices[0]
+        self.index_first = (gp.index_dev if first == home
+                            else gp.index_dev.to(first))
+
+    def call(self, fn, trains_by_dev: dict, scalars_by_dev: dict | None = None,
+             indexed: bool = False, **static) -> list:
+        """``fn`` (a shard program) once per device over the shards on
+        it; returns the per-shard outputs in shard order, each on its
+        own device."""
+        out = [None] * len(self.shards)
+        for dev, ids in self.by_device:
+            args = [trains_by_dev[dev],
+                    {str(j): self.lives[s] for j, s in enumerate(ids)}]
+            if indexed:
+                args.append({str(j): self.indexes[s]
+                             for j, s in enumerate(ids)})
+            args.append([self.shards[s] for s in ids])
+            args += (scalars_by_dev or {}).get(dev, [])
+            for s, o in zip(ids, fn(*args, **static)):
+                out[s] = o
+        return out
+
+
+class _PendingTopk:
+    """Dispatched distributed top-k: the merged (Q, k_merge) triples on
+    the first device.  ``collect`` syncs once and returns one (values,
+    global ids, join sizes) triple per live query, cut to ``k_live``
+    columns (the merge is best-first, so the first columns of a wider
+    merge are the same).  An empty handle (every shortlist empty) gives
+    zero-length triples."""
+
+    def __init__(self, vals, gidx, jsz, q_live: int, k_live: int | None = None):
+        self._vals = vals
+        self._gidx = gidx
+        self._jsz = jsz
+        self._q_live = q_live
+        self._k_live = k_live
+
+    def _triples(self, v, gi, js) -> list:
+        kl = self._k_live
+        if kl is not None and kl < v.shape[1]:
+            v, gi, js = v[:, :kl], gi[:, :kl], js[:, :kl]
+        return [(v[i], gi[i], js[i]) for i in range(self._q_live)]
+
+    def _result(self) -> list:
+        q = self._q_live
+        return [t[:q] for t in (self._vals, self._gidx, self._jsz)]
+
+    def collect(self):
+        maybe_fault("collect")
+        if self._vals is None:
+            return [_empty_triple() for _ in range(self._q_live)]
+        return self._triples(*_host_many(self._result()))
+
+
+class _PendingFusedTopk(_PendingTopk):
+    """Dispatched fused two-phase top-k on the mesh: the merged triples
+    and the shard-local compaction fence.  ``collect`` moves the
+    per-(group, shard) survivor counts and the triples in one transfer,
+    then checks the fence: a shard whose survivor count exceeds its
+    ``s_shard`` lanes raises :class:`ShortlistOverflow` (the caller then
+    builds host shortlists from ``js_blocks()``).  The collect fault site
+    fires only on a clean fence."""
+
+    def __init__(self, vals, gidx, jsz, q_live: int, k_live: int,
+                 fence: list):
+        super().__init__(vals, gidx, jsz, q_live, k_live=k_live)
+        # fence: [(group, s_shard, counts (Qb, shards), js (Qb, bucket))]
+        self._fence = fence
+        self.observed: dict[int, int] = {}
+        self.shortlisted = 0
+
+    def _fence_host(self, counts: list) -> None:
+        overflow = False
+        shortlisted = 0
+        for (gp, s_shard, _c, _js), c in zip(self._fence, counts):
+            m = int(c.max(initial=0))
+            self.observed[gp.est_id] = max(self.observed.get(gp.est_id, 0), m)
+            shortlisted += int(c.sum())
+            overflow |= m > s_shard
+        self.shortlisted = shortlisted
+        if overflow:
+            raise ShortlistOverflow(
+                "fused shard-local compaction overflowed its staged bucket")
+
+    def js_blocks(self):
+        q = self._q_live
+        return [(gp, _host(js[:q])) for gp, _s, _c, js in self._fence]
+
+    def collect(self):
+        q = self._q_live
+        counts = [c[:q] for _gp, _s, c, _js in self._fence]
+        result = [] if self._vals is None else self._result()
+        host = _host_many(counts + result)
+        self._fence_host(host[:len(counts)])
+        if self._vals is None:
+            return super().collect()
+        maybe_fault("collect")
+        return self._triples(*host[len(counts):])
+
+
+class _PendingTieredTopk(_PendingTopk):
+    """Dispatched gated top-k on the mesh: the merged triples and both
+    shard-local fences (phase-0 survivor counts and within-survivor
+    shortlist counts per (group, shard)).  A shard past either width
+    raises :class:`SurvivorOverflow` (the caller re-runs the window
+    through the ungated fused mesh path); the collect fault site fires
+    only on a clean fence."""
+
+    def __init__(self, vals, gidx, jsz, q_live: int, k_live: int,
+                 fence: list):
+        super().__init__(vals, gidx, jsz, q_live, k_live=k_live)
+        # fence: [(group, s_surv_shard, s_shard, c0 (Qb, shards),
+        #          c1 (Qb, shards))]
+        self._fence = fence
+        self.observed: dict[int, int] = {}
+        self.observed_t0: dict[int, int] = {}
+        self.shortlisted = 0
+        self.survivors = 0
+
+    def _fence_host(self, counts: list) -> None:
+        overflow = False
+        survivors = shortlisted = 0
+        for (gp, s_surv, s_shard, _c0, _c1), (c0, c1) in zip(self._fence,
+                                                             counts):
+            m0, m1 = int(c0.max(initial=0)), int(c1.max(initial=0))
+            self.observed_t0[gp.est_id] = max(
+                self.observed_t0.get(gp.est_id, 0), m0)
+            self.observed[gp.est_id] = max(self.observed.get(gp.est_id, 0), m1)
+            survivors += int(c0.sum())
+            shortlisted += int(c1.sum())
+            overflow |= m0 > s_surv or m1 > s_shard
+        self.survivors = survivors
+        self.shortlisted = shortlisted
+        if overflow:
+            raise SurvivorOverflow(
+                "shard-local containment gate overflowed its staged buffers")
+
+    def collect(self):
+        q = self._q_live
+        counts = [t[:q] for *_h, c0, c1 in self._fence for t in (c0, c1)]
+        result = [] if self._vals is None else self._result()
+        host = _host_many(counts + result)
+        n = len(counts)
+        self._fence_host([(host[i], host[i + 1]) for i in range(0, n, 2)])
+        if self._vals is None:
+            return super().collect()
+        maybe_fault("collect")
+        return self._triples(*host[n:])
+
+
+class GroupMajorDistributedExecutor(Executor):
+    """Mesh-sharded scoring with estimator partitioning outside the
+    shards: per group, one program per device runs every shard there
+    over its own candidate rows, the train arrays replicated; each
+    shard keeps its top ``k_shard`` and the winners are merged on the
+    first device with one top-k, so ``topk`` moves O(groups · shards ·
+    k_shard) values between devices and O(Q · k) to the host.
+
+    ``mesh`` is a :class:`~repro_torch.launch.mesh.Mesh`; shard ``s`` of
+    its ``"data"`` axis runs on that axis's ``s``-th device, and a
+    device may hold several shards.  The kernel's inputs and outputs
+    stay on each shard's device until the merge.
+    """
+
+    # One live plan per target dtype is the steady state (the index
+    # caches exactly that); a deeper cache would pin superseded plans'
+    # device buffers during ingest-while-serving.
+    _PAD_CACHE_MAX = 2
+
+    def __init__(self, mesh, k: int = 3):
+        self.mesh = mesh
+        self.k = k
+        self.devices = list(mesh.axis_devices("data"))
+        self.first = self.devices[0]
+        # Sharded groups per plan, keyed by plan identity with a strong
+        # reference to the plan so its id cannot be recycled while the
+        # entry lives: repeat queries against a cached plan re-shard and
+        # re-copy nothing.
+        self._pad_cache: dict[int, tuple[QueryPlan, list]] = {}
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.devices)
+
+    def _groups(self, plan: QueryPlan) -> list[_ShardedGroup]:
+        hit = self._pad_cache.get(id(plan))
+        if hit is not None and hit[0] is plan:
+            return hit[1]
+        groups = [
+            _ShardedGroup(_pad_group_to_shards(gp, self.n_shards,
+                                               plan.n_candidates),
+                          self.devices)
+            for gp in plan.groups
+        ]
+        while len(self._pad_cache) >= self._PAD_CACHE_MAX:
+            self._pad_cache.pop(next(iter(self._pad_cache)))
+        self._pad_cache[id(plan)] = (plan, groups)
+        return groups
+
+    def _replicate(self, trains: dict, q_bucket: int | None):
+        """The stacked trains padded to ``q_bucket`` lanes and copied to
+        every device of the mesh (once each); returns (trains per device,
+        live query count)."""
+        trains = _as_stacked_trains(trains)
+        Q = int(trains["keys"].shape[0])
+        if q_bucket is not None:
+            trains = pad_trains_q(trains, q_bucket)
+        t_in = _train_inputs(trains)
+        home = canonical_device(trains["keys"].device)
+        by_dev = {}
+        for dev in self.devices:
+            if dev not in by_dev:
+                by_dev[dev] = t_in if dev == home else {
+                    f: t.to(dev, non_blocking=True) for f, t in t_in.items()}
+        return by_dev, Q
+
+    def _to_first(self, t: torch.Tensor) -> torch.Tensor:
+        return t if canonical_device(t.device) == self.first else \
+            t.to(self.first, non_blocking=True)
+
+    def _gather(self, per_shard: list, j: int) -> torch.Tensor:
+        """Output ``j`` of every shard, on the first device, concatenated
+        along axis 1 in shard order (the all-gather)."""
+        return _concat1([self._to_first(o[j]) for o in per_shard])
+
+    def _scalars(self, *values) -> dict:
+        """Each (value, dtype) as a 0-dim tensor on every device."""
+        return {dev: [_device_scalar(v, dt, dev) for v, dt in values]
+                for dev in dict.fromkeys(self.devices)}
+
+    def _merge(self, vs, gis, jss, top_k: int):
+        """The cross-group merge on the pow-2 k ladder of the shard
+        programs; the exact count is cut on the host."""
+        flat_v = _concat1(vs)
+        width = int(flat_v.shape[1])
+        k_merge = min(_next_pow2(top_k), width)
+        vals, gidx, jsz = _merge_topk_device(flat_v, _concat1(gis),
+                                             _concat1(jss), k_final=k_merge)
+        return vals, gidx, jsz, min(top_k, width)
+
+    def execute(self, plan, trains):
+        """Dense (Q, C) scores and join sizes, every shard scoring its
+        rows; equal to the batched executor's."""
+        by_dev, Q = self._replicate(trains, None)
+        blocks = []
+        for sg in self._groups(plan):
+            out = sg.call(_shard_topk, by_dev, est_id=sg.gp.est_id, k=self.k,
+                          k_shard=0)
+            blocks.append((sg.gp, self._gather(out, 0), self._gather(out, 1)))
+        return _PendingScores(plan, blocks, Q)._scatter()
+
+    def topk_dispatch(self, plan, trains, top_k: int, *,
+                      q_bucket: int | None = None):
+        """Enqueue every group's shard programs and the merge; the
+        handle's ``collect`` is the first host sync."""
+        maybe_fault("dispatch", "distributed")
+        by_dev, Q = self._replicate(trains, q_bucket)
+        vs, gis, jss = [], [], []
+        for sg in self._groups(plan):
+            k_shard, _ = _shard_topk_plan(sg.gp.bucket, self.n_shards, top_k)
+            out = sg.call(_shard_topk, by_dev, est_id=sg.gp.est_id, k=self.k,
+                          k_shard=k_shard)
+            vs.append(self._gather(out, 0))
+            gis.append(_globalize_rows(self._gather(out, 1), sg.index_first,
+                                       k_shard=k_shard, shard_rows=sg.rows))
+            jss.append(self._gather(out, 2))
+        vals, gidx, jsz, k_live = self._merge(vs, gis, jss, top_k)
+        return _PendingTopk(vals, gidx, jsz, Q, k_live=k_live)
+
+    def topk(self, plan, trains, top_k: int):
+        return self.topk_dispatch(plan, trains, top_k).collect()
+
+    # -- two-phase retrieval ------------------------------------------------
+
+    def prefilter_dispatch(self, plan, trains, *,
+                           q_bucket: int | None = None):
+        """Phase 1 on the mesh: each shard's join sizes over its own rows,
+        gathered to (Q, bucket) per shard-padded group; pass
+        ``multiple=n_shards`` to ``build_shortlists``."""
+        maybe_fault("prefilter_dispatch", "distributed")
+        by_dev, Q = self._replicate(trains, q_bucket)
+        blocks = []
+        for sg in self._groups(plan):
+            per_shard = []
+            for dev, ids in sg.by_device:
+                t = by_dev[dev]
+                per_shard += [(s, _join_sizes(t["keys"], t["mask"],
+                                              sg.shards[s]["keys"],
+                                              sg.shards[s]["mask"]))
+                              for s in ids]
+            per_shard.sort(key=lambda e: e[0])
+            blocks.append((sg.gp, _concat1([self._to_first(js)
+                                            for _, js in per_shard])))
+        return _PendingJoinSizes(blocks, Q)
+
+    def shortlist_topk_dispatch(self, plan, trains, shortlists, top_k: int,
+                                *, q_bucket: int | None = None):
+        """Phase 2 on the mesh: each non-empty shortlist is gathered on the
+        plan's device into a compact (Q, s_bucket) batch, its lanes split
+        over the shards; each shard scores its lanes, fences dead ones
+        and keeps its top ``k_shard``; the winners merge on the first
+        device.  Every scored candidate passed ``min_join``, so the top
+        ``top_k`` are exact."""
+        maybe_fault("shortlist_dispatch", "distributed")
+        by_dev, Q = self._replicate(trains, q_bucket)
+        qb = int(next(iter(by_dev.values()))["keys"].shape[0])
+        n = self.n_shards
+        vs, gis, jss = [], [], []
+        for sl in shortlists:
+            if sl is None:
+                continue
+            home = sl.group.live.device
+            rows = torch.from_numpy(_pad_rows_q(sl.rows, qb)).to(home).long()
+            cand = [sl.group.arrays[f][rows] for f in _TRAIN_FIELDS]
+            gi = torch.from_numpy(np.ascontiguousarray(
+                _pad_rows_q(sl.gidx, qb))).to(home)
+            js = torch.from_numpy(np.ascontiguousarray(
+                _pad_rows_q(sl.js, qb))).to(home)
+            k_shard, _ = _shard_topk_plan(sl.s_bucket, n, top_k)
+            S = sl.s_bucket // n
+            per_shard = []
+            for s, dev in enumerate(self.devices):
+                part = slice(s * S, (s + 1) * S)
+                c = [t[:, part].to(dev) for t in cand]
+                g, j = gi[:, part].to(dev), js[:, part].to(dev)
+                mi, _ = _score_pairs(by_dev[dev], *c, est_id=sl.group.est_id,
+                                     k=self.k)
+                v, pos = _top_k(torch.where(g < plan.n_candidates, mi,
+                                            -torch.inf), k_shard)
+                per_shard.append((v, g.gather(1, pos), j.gather(1, pos)))
+            vs.append(self._gather(per_shard, 0))
+            gis.append(self._gather(per_shard, 1))
+            jss.append(self._gather(per_shard, 2))
+        if not vs:
+            return _PendingTopk(None, None, None, Q)
+        vals, gidx, jsz, k_live = self._merge(vs, gis, jss, top_k)
+        return _PendingTopk(vals, gidx, jsz, Q, k_live=k_live)
+
+    def fused_topk_dispatch(self, plan, trains, spec, min_join: int,
+                            top_k: int, *, q_bucket: int | None = None):
+        """Fused two-phase on the mesh: per group and shard, prefilter,
+        compaction, gather, scoring and top-k on the shard's own rows,
+        then the merge; no host sync before the handle's ``collect``.
+        Each shard compacts ``s_bucket // n_shards`` lanes (build
+        ``spec`` with ``multiple=n_shards``), so the overflow fence is per
+        (group, shard); an overflow at collect falls back to the host
+        boundary through the handle's ``js_blocks()``."""
+        maybe_fault("fused_dispatch", "distributed")
+        by_dev, Q = self._replicate(trains, q_bucket)
+        n = self.n_shards
+        scalars = self._scalars((int(min_join), torch.int32),
+                                (plan.n_candidates, torch.int32))
+        vs, gis, jss, fence = [], [], [], []
+        for sg, s_bucket in zip(self._groups(plan), spec.s_buckets):
+            s_shard = max(min(int(s_bucket), sg.gp.bucket) // n, 1)
+            k_shard = max(min(_next_pow2(top_k), s_shard), 1)
+            out = sg.call(_shard_fused, by_dev, scalars, indexed=True,
+                          est_id=sg.gp.est_id, k=self.k, s_shard=s_shard,
+                          k_shard=k_shard)
+            vs.append(self._gather(out, 0))
+            gis.append(self._gather(out, 1))
+            jss.append(self._gather(out, 2))
+            fence.append((sg.gp, s_shard, self._gather(out, 3),
+                          self._gather(out, 4)))
+        if not vs:
+            return _PendingFusedTopk(None, None, None, Q, 0, fence)
+        vals, gidx, jsz, k_live = self._merge(vs, gis, jss, top_k)
+        return _PendingFusedTopk(vals, gidx, jsz, Q, k_live, fence)
+
+    def tiered_topk_dispatch(self, plan, trains, tspec, spec, min_join: int,
+                             min_containment: float, top_k: int, *,
+                             q_bucket: int | None = None):
+        """The gated pipeline on the mesh: per group and shard, the
+        phase-0 gate and the fused pipeline over the shard's rows, then
+        the merge.  Build ``tspec`` and ``spec`` with
+        ``multiple=n_shards``; both fences are per (group, shard).  An
+        overflow at collect re-runs the window through
+        :meth:`fused_topk_dispatch` (ungated)."""
+        maybe_fault("tiered_dispatch", "distributed")
+        by_dev, Q = self._replicate(trains, q_bucket)
+        n = self.n_shards
+        scalars = self._scalars(
+            (int(min_join), torch.int32),
+            (stage_min_containment(min_containment), torch.float32),
+            (plan.n_candidates, torch.int32))
+        vs, gis, jss, fence = [], [], [], []
+        for sg, s_surv, s_bucket in zip(self._groups(plan), tspec.s_survivors,
+                                        spec.s_buckets):
+            if sg.gp.sig is None:
+                raise ValueError(
+                    "tiered dispatch on a plan without a signature tier")
+            rows_local = max(sg.gp.bucket // n, 1)
+            s_surv_shard = min(max(min(int(s_surv), sg.gp.bucket) // n, 1),
+                               rows_local)
+            s_shard = min(max(min(int(s_bucket), sg.gp.bucket) // n, 1),
+                          s_surv_shard)
+            k_shard = max(min(_next_pow2(top_k), s_shard), 1)
+            out = sg.call(_shard_tiered, by_dev, scalars, indexed=True,
+                          est_id=sg.gp.est_id, k=self.k, s_surv=s_surv_shard,
+                          s_shard=s_shard, k_shard=k_shard)
+            vs.append(self._gather(out, 0))
+            gis.append(self._gather(out, 1))
+            jss.append(self._gather(out, 2))
+            fence.append((sg.gp, s_surv_shard, s_shard, self._gather(out, 3),
+                          self._gather(out, 4)))
+        if not vs:
+            return _PendingTieredTopk(None, None, None, Q, 0, fence)
+        vals, gidx, jsz, k_live = self._merge(vs, gis, jss, top_k)
+        return _PendingTieredTopk(vals, gidx, jsz, Q, k_live, fence)
+
+
 def get_executor(spec, mesh=None, k: int = 3) -> Executor:
     """Resolve an executor: an instance passes through; ``None`` picks
     the distributed backend when a mesh is given, else the partitioned
-    one.  The distributed backend raises without a mesh, as in the
-    reference, and with one (a later slice of the port)."""
+    one.  The distributed backend raises without a mesh."""
     if isinstance(spec, Executor):
         return spec
     if spec is None:
@@ -797,7 +1395,7 @@ def get_executor(spec, mesh=None, k: int = 3) -> Executor:
     if spec == "distributed":
         if mesh is None:
             raise ValueError("distributed executor requires a mesh")
-        raise NotImplementedError(_MESH_SLICE)
+        return GroupMajorDistributedExecutor(mesh, k=k)
     raise ValueError(f"unknown executor {spec!r}")
 
 
@@ -900,3 +1498,21 @@ def score_batch_partitioned(train: dict, cands: dict, k: int = 3,
         ], device)
     mi, js = PartitionedLocalExecutor(k=k).execute(plan, _one_train(train))
     return torch.from_numpy(mi[0]).to(device), torch.from_numpy(js[0]).to(device)
+
+
+def distributed_topk(train: dict, cands: dict, mesh, top_k: int, k: int = 3):
+    """Mesh-sharded discovery query of a raw stacked candidate dict with a
+    per-shard top-k and the merge on the first device.
+
+    The candidates are planned ad hoc with every group bucket rounded to
+    the shard count (:func:`~repro_torch.core.discovery.planner.make_plan`
+    with ``pad_multiple``) on every call; repeated callers hold a
+    :class:`GroupMajorDistributedExecutor` and the index's cached plan,
+    as ``SketchIndex.query(mesh=...)`` does.  Returns (values, global
+    ids, join sizes) of the global top ``min(top_k, C)``, best first, as
+    host arrays.
+    """
+    plan = make_plan(cands, y_discrete=bool(train.get("y_discrete", False)),
+                     pad_multiple=mesh.shape["data"])
+    ex = GroupMajorDistributedExecutor(mesh, k=k)
+    return ex.topk(plan, _one_train(train), top_k)[0]

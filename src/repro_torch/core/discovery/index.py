@@ -29,10 +29,16 @@ containment of the train keys, and only the survivors reach the exact
 phases, which then run at survivor width.  A survivor-buffer overflow
 re-runs the window ungated.
 
+``mesh=`` (a :class:`~repro_torch.launch.mesh.Mesh`) runs every path on
+the group-major distributed executor, one per (mesh, k), shared with the
+service: candidate rows sharded over the mesh's ``"data"`` axis, each
+shard keeping its own top-k and the winners merged on the first device.
+The dense mesh path asks each shard for :func:`topk_oversample` winners
+so that the ``min_join`` filter cannot starve the result list.
+
 The device flush carries the ``flush`` fault-injection site, fired
-before either tier mutates.  Not in this slice: the mesh executors
-(``mesh=``), and the reference's plan leases, which the port does not
-need (see ``_DeviceStore.append_block``).
+before either tier mutates.  Not in the port: the reference's plan
+leases, which it does not need (see ``_DeviceStore.append_block``).
 """
 
 from __future__ import annotations
@@ -44,7 +50,6 @@ import torch
 
 from repro_torch.core.discovery import executors as _ex
 from repro_torch.core.discovery.planner import (
-    _MESH_SLICE,
     EST_MLE,
     MIN_BUCKET,
     GroupPlan,
@@ -62,7 +67,7 @@ from repro_torch.core.join import KEY_MAX
 from repro_torch.core.sketch import Sketch, build_sketch
 from repro_torch.device import resolve_device
 
-__all__ = ["CandidateMeta", "SketchIndex"]
+__all__ = ["CandidateMeta", "SketchIndex", "topk_oversample"]
 
 # Gather indices, group row ids and the dead-candidate sentinel are int32
 # end to end; ingest refuses to grow past the int32 index space.
@@ -75,6 +80,15 @@ _DTYPES = {
     "mask": torch.bool,
 }
 _FILL = {"keys": KEY_MAX, "vals_f": 0, "vals_u": 0, "mask": False}
+
+
+def topk_oversample(top_k: int, n_candidates: int) -> int:
+    """Winners the dense mesh path asks for: 4x ``top_k``, so that the
+    ``min_join`` filter can drop high-MI, low-support candidates without
+    starving the list.  One definition for ``query``, ``query_many`` and
+    ``DiscoveryService.submit``: their equality rests on asking the
+    executor for the same count."""
+    return max(min(top_k * 4, n_candidates), 1)
 
 
 def _signature_block(block: dict[str, np.ndarray], w: int) -> np.ndarray:
@@ -237,6 +251,9 @@ class SketchIndex:
         # and its shortlist rungs, which count within the survivors and
         # so must not shrink the ungated path's.
         self.tier_hints = ShortlistHints()
+        # One distributed executor per (mesh, k), held across queries so
+        # its sharded group cache serves every query of a plan.
+        self._dist_executors: dict = {}
 
     def __len__(self) -> int:
         return len(self.meta)
@@ -476,6 +493,13 @@ class SketchIndex:
     # Queries
     # ------------------------------------------------------------------
 
+    def _distributed_executor(self, mesh, k: int = 3):
+        ex = self._dist_executors.get((mesh, k))
+        if ex is None:
+            ex = self._dist_executors[(mesh, k)] = \
+                _ex.GroupMajorDistributedExecutor(mesh, k=k)
+        return ex
+
     def _rank(self, v, gi, js, top_k: int, min_join: int,
               C: int | None = None) -> list:
         """Score descending, global candidate index ascending on ties —
@@ -495,13 +519,22 @@ class SketchIndex:
     def _use_prefilter(prefilter: bool | None, min_join: int) -> bool:
         return (min_join > 0) if prefilter is None else bool(prefilter)
 
-    def _fused_triples(self, plan: QueryPlan, trains, min_join: int,
-                       ex) -> list:
+    def _fused_triples(self, plan: QueryPlan, trains, top_k: int,
+                       min_join: int, ex, n_shards: int) -> list:
         """The fused device pipeline, with the host boundary as the
-        overflow fallback; observed survivor counts update the hints."""
+        overflow fallback; observed survivor counts update the hints
+        (per shard on a mesh of more than one shard)."""
+        sharded = n_shards > 1
+        on_mesh = isinstance(ex, _ex.GroupMajorDistributedExecutor)
+        mult = n_shards if sharded else 1
         hints = self.shortlist_hints
-        spec = fused_shortlist_spec(plan, hints, min_join)
-        handle = ex.fused_dispatch(plan, trains, spec, min_join)
+        spec = fused_shortlist_spec(plan, hints, min_join, multiple=mult,
+                                    sharded=sharded)
+        if on_mesh:
+            handle = ex.fused_topk_dispatch(plan, trains, spec, min_join,
+                                            top_k)
+        else:
+            handle = ex.fused_dispatch(plan, trains, spec, min_join)
         try:
             triples = handle.collect()
             overflowed = False
@@ -510,16 +543,23 @@ class SketchIndex:
             overflowed = True
         for eid, m in handle.observed.items():
             hints.observe(
-                (plan.y_discrete, eid, int(min_join), False), m,
+                (plan.y_discrete, eid, int(min_join), sharded), m,
                 overflowed=overflowed,
             )
         if overflowed:
-            shortlists = build_shortlists(plan, handle.js_blocks(), min_join)
-            triples = ex.shortlist_dispatch(plan, trains, shortlists).collect()
+            shortlists = build_shortlists(plan, handle.js_blocks(), min_join,
+                                          multiple=mult)
+            if on_mesh:
+                triples = ex.shortlist_topk_dispatch(
+                    plan, trains, shortlists, top_k).collect()
+            else:
+                triples = ex.shortlist_dispatch(plan, trains,
+                                                shortlists).collect()
         return triples
 
-    def _tiered_triples(self, plan: QueryPlan, trains, min_join: int,
-                        min_containment: float, ex) -> list:
+    def _tiered_triples(self, plan: QueryPlan, trains, top_k: int,
+                        min_join: int, min_containment: float, ex,
+                        n_shards: int) -> list:
         """The phase-0 containment gate in front of the fused pipeline.
 
         One signature sweep over every candidate estimates its
@@ -530,11 +570,20 @@ class SketchIndex:
         through the ungated :meth:`_fused_triples`.  Survivor and
         shortlist rungs live in ``tier_hints``.
         """
+        sharded = n_shards > 1
+        on_mesh = isinstance(ex, _ex.GroupMajorDistributedExecutor)
+        mult = n_shards if sharded else 1
         hints = self.tier_hints
-        tspec = tier_spec(plan, hints, min_containment)
-        spec = fused_shortlist_spec(plan, hints, min_join)
-        handle = ex.tiered_dispatch(plan, trains, tspec, spec, min_join,
-                                    min_containment)
+        tspec = tier_spec(plan, hints, min_containment, multiple=mult,
+                          sharded=sharded)
+        spec = fused_shortlist_spec(plan, hints, min_join, multiple=mult,
+                                    sharded=sharded)
+        if on_mesh:
+            handle = ex.tiered_topk_dispatch(plan, trains, tspec, spec,
+                                             min_join, min_containment, top_k)
+        else:
+            handle = ex.tiered_dispatch(plan, trains, tspec, spec, min_join,
+                                        min_containment)
         try:
             triples = handle.collect()
             overflowed = False
@@ -543,7 +592,7 @@ class SketchIndex:
             overflowed = True
         mc_key = round(float(min_containment), 6)
         for eid, m in handle.observed_t0.items():
-            hints.observe(("tier0", plan.y_discrete, eid, mc_key, False), m,
+            hints.observe(("tier0", plan.y_discrete, eid, mc_key, sharded), m,
                           overflowed=overflowed)
         for eid, m in handle.observed.items():
             if overflowed:
@@ -551,20 +600,22 @@ class SketchIndex:
                 # count with it; the survivor count bounds it from above,
                 # so growing to it converges in one round.
                 m = max(m, handle.observed_t0.get(eid, 0))
-            hints.observe((plan.y_discrete, eid, int(min_join), False), m,
+            hints.observe((plan.y_discrete, eid, int(min_join), sharded), m,
                           overflowed=overflowed)
         if overflowed:
-            triples = self._fused_triples(plan, trains, min_join, ex)
+            triples = self._fused_triples(plan, trains, top_k, min_join, ex,
+                                          n_shards)
         return triples
 
     def _two_phase(self, plan: QueryPlan, trains, top_k: int,
-                   min_join: int, k: int, fused: bool | None,
+                   min_join: int, mesh, k: int, fused: bool | None,
                    min_containment: float = 0.0) -> list:
         """Join-size prefilter (phase 1), then gather-and-score of the
         survivors (phase 2); one ranked list per query.
         ``min_containment`` > 0 puts the phase-0 gate in front of the
         fused pipeline (it needs the fused path and the signature tier);
-        at 0 the window takes the ungated fused path."""
+        at 0 the window takes the ungated fused path.  With ``mesh`` every
+        phase runs sharded on the distributed executor."""
         use_fused = fused is None or bool(fused)
         gate = float(min_containment) > 0.0
         if gate and not use_fused:
@@ -578,25 +629,34 @@ class SketchIndex:
                 "min_containment > 0 requires a signature tier; this "
                 "index was built with sig_width <= 0"
             )
-        ex = _ex.BatchedExecutor(k=k)
+        if mesh is not None:
+            ex = self._distributed_executor(mesh, k)
+            n_shards = mesh.shape["data"]
+        else:
+            ex = _ex.BatchedExecutor(k=k)
+            n_shards = 1
         if gate:
-            triples = self._tiered_triples(plan, trains, min_join,
-                                           min_containment, ex)
+            triples = self._tiered_triples(plan, trains, top_k, min_join,
+                                           min_containment, ex, n_shards)
         elif use_fused:
-            triples = self._fused_triples(plan, trains, min_join, ex)
+            triples = self._fused_triples(plan, trains, top_k, min_join, ex,
+                                          n_shards)
         else:
             shortlists = build_shortlists(
                 plan, ex.prefilter_dispatch(plan, trains).collect(), min_join,
+                multiple=n_shards,
             )
-            triples = ex.shortlist_dispatch(plan, trains, shortlists).collect()
+            if mesh is not None:
+                triples = ex.shortlist_topk_dispatch(
+                    plan, trains, shortlists, top_k).collect()
+            else:
+                triples = ex.shortlist_dispatch(plan, trains,
+                                                shortlists).collect()
         return [
             self._rank(v, gi, js, top_k, min_join) for v, gi, js in triples
         ]
 
-    def _check_options(self, mesh, min_containment, prefilter,
-                       min_join) -> None:
-        if mesh is not None:
-            raise NotImplementedError(_MESH_SLICE)
+    def _check_options(self, min_containment, prefilter, min_join) -> None:
         if float(min_containment) > 0.0 and not self._use_prefilter(
             prefilter, min_join
         ):
@@ -616,15 +676,20 @@ class SketchIndex:
         adds the phase-0 containment gate: only candidates whose
         estimated containment (signature join size / train size) reaches
         the threshold are scored.  The gate is an estimate, exact for
-        candidates holding at most ``sig_width`` keys.
+        candidates holding at most ``sig_width`` keys.  ``mesh`` shards
+        the candidates over its ``"data"`` axis.
         """
-        self._check_options(mesh, min_containment, prefilter, min_join)
+        self._check_options(min_containment, prefilter, min_join)
         train = self.train_arrays(train_sketch)
         C = len(self.meta)
         plan = self.plan(train_sketch.value_is_discrete)
         if self._use_prefilter(prefilter, min_join):
-            return self._two_phase(plan, train, top_k, min_join, k, fused,
-                                   min_containment)[0]
+            return self._two_phase(plan, train, top_k, min_join, mesh, k,
+                                   fused, min_containment)[0]
+        if mesh is not None:
+            ex = self._distributed_executor(mesh, k)
+            v, gi, js = ex.topk(plan, train, topk_oversample(top_k, C))[0]
+            return self._rank(v, gi, js, top_k, min_join)
         mi, jsz = _ex.PartitionedLocalExecutor(k=k).execute(plan, train)
         return self._rank(mi[0], np.arange(C), jsz[0], top_k, min_join)
 
@@ -639,9 +704,9 @@ class SketchIndex:
         .executors.get_executor`, or an instance) keeps the dense path
         through that executor; with ``prefilter=True`` or with
         ``min_containment > 0`` it raises, since the two-phase path picks
-        its own backend."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH_SLICE)
+        its own backend.  With ``mesh`` the dense path runs the
+        distributed executor's top-k (an ``executor=`` must then be the
+        distributed one)."""
         if executor is not None and prefilter:
             raise ValueError(
                 "prefilter=True is incompatible with executor=: the "
@@ -668,12 +733,25 @@ class SketchIndex:
         plan = self.plan(y_disc.pop())
         C = len(self.meta)
         if self._use_prefilter(prefilter, min_join) and executor is None:
-            return self._two_phase(plan, trains, top_k, min_join, k, fused,
-                                   min_containment)
-        ex = (_ex.BatchedExecutor(k=k) if executor is None
-              else _ex.get_executor(executor, k=k))
-        mi, js = ex.execute(plan, trains)
+            return self._two_phase(plan, trains, top_k, min_join, mesh, k,
+                                   fused, min_containment)
+        if executor is None:
+            ex = (self._distributed_executor(mesh, k) if mesh is not None
+                  else _ex.BatchedExecutor(k=k))
+        else:
+            ex = _ex.get_executor(executor, mesh=mesh, k=k)
+        if mesh is not None:
+            if not isinstance(ex, _ex.GroupMajorDistributedExecutor):
+                raise ValueError(
+                    f"mesh= runs the distributed executor's top-k; "
+                    f"executor={executor!r} has none (drop executor= or "
+                    f"pass executor='distributed')"
+                )
+            triples = ex.topk(plan, trains, topk_oversample(top_k, C))
+        else:
+            mi, js = ex.execute(plan, trains)
+            triples = [(mi[q], np.arange(C), js[q])
+                       for q in range(mi.shape[0])]
         return [
-            self._rank(mi[q], np.arange(C), js[q], top_k, min_join)
-            for q in range(mi.shape[0])
+            self._rank(v, gi, js, top_k, min_join) for v, gi, js in triples
         ]

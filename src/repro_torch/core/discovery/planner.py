@@ -18,6 +18,12 @@ containment gate sizes its survivor buffer up a third pow-2 ladder
 :func:`make_plan` / :func:`pack_group` lay out a raw stacked candidate
 dict (the ad-hoc scorers' input) the way the index lays out its stores.
 
+On a mesh every ladder takes ``multiple=`` (the shard count): a rung
+that does not divide it is rounded up to a multiple, so each shard holds
+the same number of rows or lanes; for power-of-two shard counts the
+ladders are unchanged.  The fused and gated widths are per shard there
+(``sharded=`` keys the hints apart from the single-device path's).
+
 For the service: :func:`plan_signature` / :func:`shortlist_signature`
 (what a batch's layout is keyed on), :func:`coalesce_queries` (split a
 queue by signature, chunk it at ``max_q_bucket`` and bucket each chunk
@@ -86,12 +92,6 @@ MIN_SHORTLIST = 8
 # Smallest bucket on the phase-0 survivor ladder (tiered retrieval).
 MIN_SURVIVORS = 8
 
-# What an entry point that needs the multi-GPU executors raises.
-_MESH_SLICE = (
-    "mesh= needs the multi-GPU executors, a later slice of the port "
-    "(ROADMAP.md: multi-GPU)"
-)
-
 # Largest rung of the Q-axis ladder: the most queries an admission
 # controller hands to one executor pass; larger queues are chunked.
 MAX_Q_BUCKET = 64
@@ -119,21 +119,30 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def bucket_rows(n: int) -> int:
-    """Next power of two >= max(n, MIN_BUCKET)."""
-    return _next_pow2(max(n, MIN_BUCKET))
+def _round_up(b: int, multiple: int) -> int:
+    """``b`` rounded up to a multiple of ``multiple`` (a mesh shard count)
+    when it does not already divide."""
+    if multiple > 1 and b % multiple:
+        b = -(-b // multiple) * multiple
+    return b
 
 
-def bucket_shortlist(n: int) -> int:
+def bucket_rows(n: int, multiple: int = 1) -> int:
+    """Next power of two >= max(n, MIN_BUCKET), rounded up to
+    ``multiple``."""
+    return _round_up(_next_pow2(max(n, MIN_BUCKET)), multiple)
+
+
+def bucket_shortlist(n: int, multiple: int = 1) -> int:
     """Shortlist-ladder bucket for ``n`` prefilter survivors: next power
-    of two >= max(n, MIN_SHORTLIST)."""
-    return _next_pow2(max(n, MIN_SHORTLIST))
+    of two >= max(n, MIN_SHORTLIST), rounded up to ``multiple``."""
+    return _round_up(_next_pow2(max(n, MIN_SHORTLIST)), multiple)
 
 
-def bucket_survivors(n: int) -> int:
+def bucket_survivors(n: int, multiple: int = 1) -> int:
     """Survivor-ladder bucket for ``n`` phase-0 gate survivors: next
-    power of two >= max(n, MIN_SURVIVORS)."""
-    return _next_pow2(max(n, MIN_SURVIVORS))
+    power of two >= max(n, MIN_SURVIVORS), rounded up to ``multiple``."""
+    return _round_up(_next_pow2(max(n, MIN_SURVIVORS)), multiple)
 
 
 def bucket_queries(q: int, cap: int = MAX_Q_BUCKET) -> int:
@@ -206,14 +215,16 @@ def build_shortlists(
     plan: QueryPlan,
     js_blocks: list,
     min_join: int,
+    multiple: int = 1,
 ) -> list:
     """Turn phase-1 join sizes into per-group phase-2 shortlists.
 
     ``js_blocks`` pairs each :class:`GroupPlan` with its host (Q,
     bucket) join-size matrix.  Rows passing ``min_join`` (live rows only)
     become the shortlist, ascending, padded up the pow-2 shortlist
-    ladder shared across the batch's queries; a group with no survivor
-    for any query yields ``None``.
+    ladder shared across the batch's queries (rounded up to ``multiple``,
+    the mesh's shard count, whose extra lanes are padding); a group with
+    no survivor for any query yields ``None``.
     """
     out = []
     for gp, js in js_blocks:
@@ -226,7 +237,8 @@ def build_shortlists(
         if s_max == 0:
             out.append(None)
             continue
-        s_bucket = min(bucket_shortlist(s_max), bucket_rows(gp.bucket))
+        s_bucket = min(bucket_shortlist(s_max, multiple),
+                       bucket_rows(gp.bucket, multiple))
         take = min(s_bucket, passing.shape[1])
         order = np.argsort(~passing, axis=1, kind="stable")[:, :take]
         if take < s_bucket:
@@ -295,18 +307,33 @@ class FusedSpec:
     s_buckets: tuple
 
 
+def _width(rung: int, bucket: int, multiple: int) -> int:
+    """A group's compaction width: its rung clamped to the group's rows,
+    or on a mesh the per-shard rung clamped to a shard's rows, times the
+    shard count."""
+    if multiple > 1:
+        rows_local = max(bucket_rows(bucket, multiple) // multiple, 1)
+        return min(rung, rows_local) * multiple
+    return min(rung, bucket_rows(bucket))
+
+
 def fused_shortlist_spec(
     plan: QueryPlan,
     hints: ShortlistHints,
     min_join: int,
+    multiple: int = 1,
+    sharded: bool = False,
 ) -> FusedSpec:
     """Choose each group's compaction width from the hint table (clamped
-    to the group's row bucket)."""
+    to the group's row bucket).  On a mesh (``multiple`` shards) the
+    compaction and its overflow fence are per shard, so the width is the
+    per-shard rung times the shard count; ``sharded`` keys the hints so
+    that per-shard counts do not feed the single-device rungs."""
     s_buckets = []
     for gp in plan.groups:
-        key = (bool(plan.y_discrete), gp.est_id, int(min_join), False)
+        key = (bool(plan.y_discrete), gp.est_id, int(min_join), sharded)
         rung = bucket_shortlist(hints.get(key))
-        s_buckets.append(min(rung, bucket_rows(gp.bucket)))
+        s_buckets.append(_width(rung, gp.bucket, multiple))
     return FusedSpec(tuple(s_buckets))
 
 
@@ -331,17 +358,19 @@ class TierSpec:
 
 
 def tier_spec(plan: QueryPlan, hints: ShortlistHints,
-              min_containment: float) -> TierSpec:
+              min_containment: float, multiple: int = 1,
+              sharded: bool = False) -> TierSpec:
     """Choose each group's survivor-buffer width from the hint table, as
-    :func:`fused_shortlist_spec` does, the hint keyed on the rounded
-    threshold (survivor counts track the gate's selectivity, not
-    ``min_join``) and clamped to the group's row bucket."""
+    :func:`fused_shortlist_spec` does (per shard on a mesh), the hint
+    keyed on the rounded threshold (survivor counts track the gate's
+    selectivity, not ``min_join``) and clamped to the group's row
+    bucket."""
     mc_key = round(float(min_containment), 6)
     s_survivors = []
     for gp in plan.groups:
-        key = ("tier0", bool(plan.y_discrete), gp.est_id, mc_key, False)
+        key = ("tier0", bool(plan.y_discrete), gp.est_id, mc_key, sharded)
         rung = bucket_survivors(hints.get(key))
-        s_survivors.append(min(rung, bucket_rows(gp.bucket)))
+        s_survivors.append(_width(rung, gp.bucket, multiple))
     sig = tuple(("tier0", gp.est_id, s)
                 for gp, s in zip(plan.groups, s_survivors))
     return TierSpec(tuple(s_survivors), sig)
@@ -490,14 +519,15 @@ class PlanCache:
         }
 
 
-def group_rows(idx: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """A group's candidate rows padded up the group ladder: (rows
-    (bucket,) int64, the first ``len(idx)`` ``idx`` and the rest
-    ``idx[0]`` again; live (bucket,) bool), on ``device``.  The ad-hoc
-    scorers pad every group this way, so each estimator call sees the
-    shapes a plan gives it."""
+def group_rows(idx: np.ndarray, device,
+               multiple: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """A group's candidate rows padded up the group ladder (rounded up to
+    ``multiple``): (rows (bucket,) int64, the first ``len(idx)`` ``idx``
+    and the rest ``idx[0]`` again; live (bucket,) bool), on ``device``.
+    The ad-hoc scorers pad every group this way, so each estimator call
+    sees the shapes a plan gives it."""
     g = len(idx)
-    bucket = bucket_rows(g)
+    bucket = bucket_rows(g, multiple)
     rows = np.concatenate([idx, np.full(bucket - g, idx[0], idx.dtype)])
     return (torch.from_numpy(rows.astype(np.int64)).to(device),
             torch.from_numpy(np.arange(bucket) < g).to(device))
@@ -512,14 +542,12 @@ def pack_group(cands: dict, eid: int, idx: np.ndarray, n_candidates: int,
     ``cands`` holds (C, cap) tensors on one device.  Rows [g, bucket)
     repeat candidate ``idx[0]`` with an all-False mask (they join empty
     and score 0.0) and map to the sentinel ``n_candidates``; keys are
-    returned in effective form.  ``pad_multiple`` is the reference's
-    mesh rounding: only 1 is served.
+    returned in effective form.  ``pad_multiple`` (a mesh's shard count)
+    rounds the bucket up to a multiple of it.
     """
-    if pad_multiple != 1:
-        raise NotImplementedError(_MESH_SLICE)
     g = len(idx)
     device = cands["keys"].device
-    gathered, live = group_rows(idx, device)
+    gathered, live = group_rows(idx, device, pad_multiple)
     mask = cands["mask"][gathered] & live[:, None]
     arrays = {
         "keys": effective_keys(cands["keys"][gathered], mask),
@@ -539,7 +567,8 @@ def make_plan(cands: dict, y_discrete: bool, pad_multiple: int = 1,
 
     Candidates whose mask is all False (stack padding) still join empty
     and score 0.0, in their original place, so executors reproduce the
-    ad-hoc scorers' output shapes.  ``pad_multiple`` must be 1 (see
+    ad-hoc scorers' output shapes.  ``pad_multiple`` rounds every group
+    bucket up to a multiple of a mesh's shard count (see
     :func:`pack_group`).
     """
     est = torch.as_tensor(cands["est_id"]).cpu().numpy()

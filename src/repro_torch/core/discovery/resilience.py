@@ -11,8 +11,9 @@ The four pieces ``DiscoveryService.submit_safe`` composes, as in
     dtype); offenders become structured :class:`QueryOutcome` errors
     while the rest of the queue serves unchanged.
   * **Retry/fallback ladder** — :class:`RetryPolicy` bounds same-rung
-    re-attempts with exponential backoff; a bucket that exhausts the
-    batched executor degrades to the reference per-query loop.
+    re-attempts with exponential backoff; a bucket that exhausts its
+    executor degrades down the ladder (distributed mesh, with a mesh ->
+    batched -> the reference per-query loop).
   * **Numeric fences** — :func:`fence_nonfinite` finds non-finite MI
     lanes after collect and recomputes them through the materialized
     estimators (:func:`reference_score_pairs`), which reach the
@@ -91,8 +92,8 @@ class FaultPlan:
     ``schedule`` maps a site key to *which invocations fail*:
 
       * ``"site"`` matches the site under any executor scope;
-        ``"site@scope"`` matches only calls made with that scope (the
-        port's executor sites use the scope ``"batched"``).
+        ``"site@scope"`` matches only calls made with that scope
+        (``"batched"`` or ``"distributed"``, the executor's rung).
       * value ``"all"`` — every invocation raises; ``int n`` — the first
         ``n`` invocations raise; iterable of ints — exactly those 0-based
         invocation indices raise.  (For the ``scores`` corruption site
@@ -215,7 +216,8 @@ class QueryOutcome:
     (rejected at admission validation — ``error`` carries the code,
     ``detail`` the reason), or ``"failed"`` (the bucket exhausted the
     executor ladder; the paired result is None).  ``rung`` names the
-    executor that delivered the result (``batched`` / ``reference``);
+    executor that delivered the result (``distributed`` / ``batched`` /
+    ``reference``);
     ``retries`` / ``fallbacks`` count what recovery cost this query's
     bucket; ``nonfinite_lanes`` counts score lanes the numeric fence
     recomputed for this query.

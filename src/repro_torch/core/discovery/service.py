@@ -41,8 +41,11 @@ the executors' entry points and collects, outside every captured
 program, so the ladder is the same with programs on or under
 :func:`~repro_torch.compile.eager`.
 
-Not in this slice: ``mesh=`` (the distributed rung) raises
-``NotImplementedError``.
+**The mesh** (``mesh=``): every admitted bucket runs on the index's
+group-major distributed executor (one per (mesh, k), so the service and
+``index.query(mesh=...)`` share its sharded groups) and returns ranked
+winners merged on the first device.  The ladder then runs distributed
+-> batched -> reference, and each outcome reports its rung.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ import numpy as np
 from repro_torch.compile import compile_count
 from repro_torch.core.discovery import executors as _ex
 from repro_torch.core.discovery import resilience
-from repro_torch.core.discovery.index import _MESH_SLICE, SketchIndex
+from repro_torch.core.discovery.index import SketchIndex, topk_oversample
 from repro_torch.core.discovery.planner import (
     MAX_Q_BUCKET,
     PlanCache,
@@ -190,7 +193,7 @@ class _Window:
     __slots__ = (
         "queries", "jobs", "results", "outcomes", "C", "version",
         "top_k", "min_join", "min_containment", "rank", "isolate",
-        "use_pref",
+        "use_pref", "n_shards",
     )
 
     def __init__(self, queries: list, isolate: bool):
@@ -206,6 +209,7 @@ class _Window:
         self.rank = "mi"
         self.isolate = isolate
         self.use_pref = False
+        self.n_shards = 1
 
 
 def _check_options(rank: str) -> None:
@@ -222,7 +226,9 @@ class DiscoveryService:
     through the micro-batch scheduler).  One service owns one
     :class:`SketchIndex` (pass ``index=`` to wrap an existing corpus,
     e.g. ``SketchIndex(device="cpu")`` for a CPU run; otherwise one is
-    made on the card, with a ``sig_width``-wide signature tier).
+    made on the card, with a ``sig_width``-wide signature tier).  With
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) every bucket runs
+    sharded over the mesh's ``"data"`` axis.
     """
 
     def __init__(
@@ -239,8 +245,6 @@ class DiscoveryService:
         retry_policy: RetryPolicy | None = None,
         sig_width: int = 16,
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_SLICE)
         max_q_bucket = int(max_q_bucket)
         # The chunker cuts queues to max_q_bucket and the ladder pads up
         # to the next power of two, so a non-pow-2 cap would make a full
@@ -260,6 +264,11 @@ class DiscoveryService:
         self.retry_policy = retry_policy if retry_policy is not None \
             else RetryPolicy()
         self._batched = _ex.BatchedExecutor(k=k)
+        self.mesh = mesh
+        # The index's per-(mesh, k) distributed executor, shared with
+        # direct ``index.query(mesh=...)`` callers.
+        self._dist = (self.index._distributed_executor(mesh, k)
+                      if mesh is not None else None)
         # The micro-batch scheduler is attached on the first
         # submit_async; the lock makes racing first callers share one.
         self._scheduler = None
@@ -460,9 +469,11 @@ class DiscoveryService:
                 "pipeline (prefilter off or fused=False disables the "
                 "path the phase-0 gate fronts)"
             )
+        n_shards = self.mesh.shape["data"] if self.mesh is not None else 1
+        primary_rung = "distributed" if self._dist is not None else "batched"
         win.top_k, win.min_join, win.rank = top_k, min_join, rank
         win.min_containment = min_containment
-        win.use_pref = use_pref
+        win.use_pref, win.n_shards = use_pref, n_shards
 
         # 1. split the queue by target dtype -> estimator signature and
         # chunk it (nothing flushes mid-dispatch, so one plan per dtype).
@@ -505,7 +516,7 @@ class DiscoveryService:
         # 2. dispatch every bucket before any collect.  With the
         # prefilter on and fused off, "dispatch" is phase 1 only.
         for job in jobs:
-            job.rung = "batched"
+            job.rung = primary_rung
             try:
                 job.sp = self.plan_cache.lookup(
                     version, job.y_disc, job.q_bucket,
@@ -521,13 +532,22 @@ class DiscoveryService:
                 job.trains = self._upload(job.sketches, copy_stream)
                 if use_gate:
                     job.handle = self._tiered_dispatch(
-                        job, min_join, min_containment, C, version
+                        job, min_join, min_containment, top_k, n_shards, C,
+                        version,
                     )
                 elif use_fused:
-                    job.handle = self._fused_dispatch(job, min_join, C, version)
+                    job.handle = self._fused_dispatch(
+                        job, min_join, top_k, n_shards, C, version)
                 elif use_pref:
-                    job.pend1 = self._batched.prefilter_dispatch(
+                    ex = self._dist if self._dist is not None \
+                        else self._batched
+                    job.pend1 = ex.prefilter_dispatch(
                         job.sp.plan, job.trains, q_bucket=job.q_bucket
+                    )
+                elif self._dist is not None:
+                    job.handle = self._dist.topk_dispatch(
+                        job.sp.plan, job.trains, topk_oversample(top_k, C),
+                        q_bucket=job.q_bucket,
                     )
                 else:
                     job.handle = self._batched.dispatch(
@@ -547,7 +567,8 @@ class DiscoveryService:
                 if job.error is not None:
                     continue
                 try:
-                    job.handle = self._shortlist_phase(job, min_join, C, version)
+                    job.handle = self._shortlist_phase(
+                        job, min_join, top_k, n_shards, C, version)
                 except Exception as e:  # noqa: BLE001
                     job.error = e
                     if not isolate:
@@ -565,12 +586,13 @@ class DiscoveryService:
         C, version = win.C, win.version
         top_k, min_join, rank, isolate = (win.top_k, win.min_join, win.rank,
                                           win.isolate)
+        n_shards = win.n_shards
         for job in win.jobs:
             if job.error is not None:
                 continue
             try:
                 triples = self._collect_triples(
-                    job, C, min_join, version,
+                    job, C, min_join, top_k, n_shards, version,
                     min_containment=win.min_containment,
                 )
             except Exception as e:  # noqa: BLE001
@@ -587,20 +609,25 @@ class DiscoveryService:
             if job.error is not None:
                 st.failed_buckets += 1
                 self._recover(job, queries, results, outcomes, top_k,
-                              min_join, win.use_pref, C, version, rank=rank)
+                              min_join, win.use_pref, n_shards, C, version,
+                              rank=rank)
         return results, outcomes
 
-    def _shortlist_phase(self, job: _BucketJob, min_join: int, C: int,
-                         version: int):
+    def _shortlist_phase(self, job: _BucketJob, min_join: int, top_k: int,
+                         n_shards: int, C: int, version: int,
+                         rung: str | None = None):
         """Collect a bucket's phase-1 join sizes, build its shortlists,
-        stage the prefilter stat deltas, and dispatch phase 2."""
+        stage the prefilter stat deltas, and dispatch phase 2 on the
+        bucket's rung."""
+        on_mesh = (rung or job.rung) == "distributed"
         pend1 = job.pend1
         # A fused handle that overflowed replays its own phase-1 join
         # sizes (already on the device) instead of recomputing them.
         js = pend1.js_blocks() if hasattr(pend1, "js_blocks") \
             else pend1.collect()
         job.staged["host_syncs"] = job.staged.get("host_syncs", 1) + 1
-        shortlists = build_shortlists(job.sp.plan, js, min_join)
+        shortlists = build_shortlists(job.sp.plan, js, min_join,
+                                      multiple=n_shards if on_mesh else 1)
         s_key = shortlist_signature(shortlists)
         self.plan_cache.lookup(
             version, job.y_disc, job.q_bucket,
@@ -612,16 +639,25 @@ class DiscoveryService:
             sl.shortlisted for sl in shortlists if sl is not None
         )
         job.staged["s_buckets"] = {b for _, b in s_key}
+        if on_mesh:
+            return self._dist.shortlist_topk_dispatch(
+                job.sp.plan, job.trains, shortlists, top_k,
+                q_bucket=job.q_bucket)
         return self._batched.shortlist_dispatch(
             job.sp.plan, job.trains, shortlists, q_bucket=job.q_bucket
         )
 
-    def _fused_dispatch(self, job: _BucketJob, min_join: int, C: int,
-                        version: int):
+    def _fused_dispatch(self, job: _BucketJob, min_join: int, top_k: int,
+                        n_shards: int, C: int, version: int):
         """Enqueue a bucket's whole fused two-phase pipeline; the
-        compaction widths come from the index's adaptive hints."""
+        compaction widths come from the index's adaptive hints (per shard
+        on the mesh)."""
+        on_mesh = job.rung == "distributed"
         plan = job.sp.plan
-        spec = fused_shortlist_spec(plan, self.index.shortlist_hints, min_join)
+        spec = fused_shortlist_spec(plan, self.index.shortlist_hints,
+                                    min_join,
+                                    multiple=n_shards if on_mesh else 1,
+                                    sharded=on_mesh)
         s_key = tuple(("fused", gp.est_id, s)
                       for gp, s in zip(plan.groups, spec.s_buckets))
         self.plan_cache.lookup(
@@ -631,20 +667,29 @@ class DiscoveryService:
         job.staged["cands_considered"] = len(job.chunk) * C
         job.staged["s_buckets"] = set(spec.s_buckets)
         job.staged["fused_windows"] = 1
+        if on_mesh:
+            return self._dist.fused_topk_dispatch(
+                plan, job.trains, spec, min_join, top_k,
+                q_bucket=job.q_bucket)
         return self._batched.fused_dispatch(plan, job.trains, spec, min_join,
                                             q_bucket=job.q_bucket)
 
     def _tiered_dispatch(self, job: _BucketJob, min_join: int,
-                         min_containment: float, C: int, version: int):
+                         min_containment: float, top_k: int, n_shards: int,
+                         C: int, version: int):
         """Enqueue a bucket's phase-0-gated pipeline: the corpus-wide
         signature sweep and the fused chain, one dispatch, one collect.
         Survivor and shortlist widths come from the tier hints and join
         the plan-cache key (``"tier0"`` entries beside ``"fused"`` ones,
         so a gated window never shares its ungated twin's entry)."""
+        on_mesh = job.rung == "distributed"
+        mult = n_shards if on_mesh else 1
         plan = job.sp.plan
         hints = self.index.tier_hints
-        tspec = tier_spec(plan, hints, min_containment)
-        spec = fused_shortlist_spec(plan, hints, min_join)
+        tspec = tier_spec(plan, hints, min_containment, multiple=mult,
+                          sharded=on_mesh)
+        spec = fused_shortlist_spec(plan, hints, min_join, multiple=mult,
+                                    sharded=on_mesh)
         s_key = tuple(("fused", gp.est_id, s)
                       for gp, s in zip(plan.groups, spec.s_buckets))
         self.plan_cache.lookup(
@@ -659,13 +704,18 @@ class DiscoveryService:
         job.staged["gated_windows"] = 1
         job.staged["signature_bytes"] = \
             self.index.ingest_stats["signature_bytes"]
+        if on_mesh:
+            return self._dist.tiered_topk_dispatch(
+                plan, job.trains, tspec, spec, min_join, min_containment,
+                top_k, q_bucket=job.q_bucket)
         return self._batched.tiered_dispatch(
             plan, job.trains, tspec, spec, min_join, min_containment,
             q_bucket=job.q_bucket,
         )
 
     def _collect_triples(self, job: _BucketJob, C: int, min_join: int,
-                         version: int, min_containment: float = 0.0) -> list:
+                         top_k: int, n_shards: int, version: int,
+                         min_containment: float = 0.0) -> list:
         """First host sync of a bucket's handle -> one (values, global
         indices, join sizes) triple per query.  A fused handle checks its
         overflow fence here: on overflow the hints grow and the bucket
@@ -677,43 +727,47 @@ class DiscoveryService:
             mi, js = handle.collect()
             gi = np.arange(C, dtype=np.int32)
             return [(mi[q], gi, js[q]) for q in range(len(job.chunk))]
-        if isinstance(handle, _ex._PendingTiered):
-            return self._collect_tiered(job, handle, C, min_join, version,
-                                        min_containment)
-        if isinstance(handle, _ex._PendingFused):
+        if isinstance(handle, (_ex._PendingTiered, _ex._PendingTieredTopk)):
+            return self._collect_tiered(job, handle, C, min_join, top_k,
+                                        n_shards, version, min_containment)
+        if isinstance(handle, (_ex._PendingFused, _ex._PendingFusedTopk)):
+            on_mesh = isinstance(handle, _ex._PendingFusedTopk)
             hints = self.index.shortlist_hints
             try:
                 triples = handle.collect()
             except ShortlistOverflow:
                 for eid, seen in handle.observed.items():
-                    hints.observe((job.y_disc, eid, int(min_join), False),
+                    hints.observe((job.y_disc, eid, int(min_join), on_mesh),
                                   seen, overflowed=True)
                 job.pend1 = handle
-                job.handle = self._shortlist_phase(job, min_join, C, version)
+                job.handle = self._shortlist_phase(job, min_join, top_k,
+                                                   n_shards, C, version)
                 job.staged["host_syncs"] = 3
                 job.staged["fused_windows"] = 0
-                return self._collect_triples(job, C, min_join, version)
+                return self._collect_triples(job, C, min_join, top_k,
+                                             n_shards, version)
             for eid, seen in handle.observed.items():
-                hints.observe((job.y_disc, eid, int(min_join), False), seen)
+                hints.observe((job.y_disc, eid, int(min_join), on_mesh), seen)
             job.staged["cands_shortlisted"] = handle.shortlisted
             return triples
         return handle.collect()
 
     def _collect_tiered(self, job: _BucketJob, handle, C: int,
-                        min_join: int, version: int,
-                        min_containment: float) -> list:
+                        min_join: int, top_k: int, n_shards: int,
+                        version: int, min_containment: float) -> list:
+        on_mesh = isinstance(handle, _ex._PendingTieredTopk)
         hints = self.index.tier_hints
         mc_key = round(float(min_containment), 6)
         try:
             triples = handle.collect()
         except SurvivorOverflow:
             for eid, seen in handle.observed_t0.items():
-                hints.observe(("tier0", job.y_disc, eid, mc_key, False),
+                hints.observe(("tier0", job.y_disc, eid, mc_key, on_mesh),
                               seen, overflowed=True)
             for eid, seen in handle.observed.items():
                 # The truncated survivor buffer truncated this count too;
                 # the survivor count bounds it from above.
-                hints.observe((job.y_disc, eid, int(min_join), False),
+                hints.observe((job.y_disc, eid, int(min_join), on_mesh),
                               max(seen, handle.observed_t0.get(eid, 0)),
                               overflowed=True)
             # The gate did not deliver this window: its staged counters
@@ -722,14 +776,16 @@ class DiscoveryService:
             job.staged["gated_windows"] = 0
             job.staged.pop("cands_considered_t0", None)
             job.staged.pop("signature_bytes", None)
-            job.handle = self._fused_dispatch(job, min_join, C, version)
-            triples = self._collect_triples(job, C, min_join, version)
+            job.handle = self._fused_dispatch(job, min_join, top_k, n_shards,
+                                              C, version)
+            triples = self._collect_triples(job, C, min_join, top_k,
+                                            n_shards, version)
             job.staged["host_syncs"] = job.staged.get("host_syncs", 1) + 1
             return triples
         for eid, seen in handle.observed_t0.items():
-            hints.observe(("tier0", job.y_disc, eid, mc_key, False), seen)
+            hints.observe(("tier0", job.y_disc, eid, mc_key, on_mesh), seen)
         for eid, seen in handle.observed.items():
-            hints.observe((job.y_disc, eid, int(min_join), False), seen)
+            hints.observe((job.y_disc, eid, int(min_join), on_mesh), seen)
         job.staged["cands_gated_t0"] = handle.survivors
         job.staged["cands_shortlisted"] = handle.shortlisted
         return triples
@@ -791,16 +847,19 @@ class DiscoveryService:
     def _recover(
         self, job: _BucketJob, queries: list, results: list,
         outcomes: list, top_k: int, min_join: int, use_pref: bool,
-        C: int, version: int, rank: str = "mi",
+        n_shards: int, C: int, version: int, rank: str = "mi",
     ) -> None:
-        """Retry a failed bucket with bounded backoff, then descend to
-        the reference rung; other buckets are untouched.  The primary
-        pass spent the batched rung's first attempt; the reference rung —
-        the dense per-query path of :meth:`SketchIndex.query`, free of
-        every fault site — gets a fresh attempt plus retries."""
+        """Retry a failed bucket with bounded backoff, descending the
+        executor ladder (distributed, with a mesh; batched; reference)
+        between rungs; other buckets are untouched.  The primary pass
+        spent its rung's first attempt; each lower rung gets a fresh
+        attempt plus retries.  The reference rung — the dense per-query
+        path of :meth:`SketchIndex.query`, free of every fault site — is
+        the last."""
         st = self.admission
         policy = self.retry_policy
-        rungs = ["batched", "reference"]
+        rungs = (["distributed"] if self._dist is not None else []) \
+            + ["batched", "reference"]
         last_err = job.error
         for ri, rung in enumerate(rungs):
             if ri > 0:
@@ -813,8 +872,9 @@ class DiscoveryService:
                     job.retries += 1
                     st.retries += 1
                 try:
-                    triples = self._run_bucket(job, queries, min_join,
-                                               use_pref, C, version, rung)
+                    triples = self._run_bucket(job, queries, top_k, min_join,
+                                               use_pref, n_shards, C, version,
+                                               rung)
                     job.rung = rung
                     job.error = None
                     self._finish(job, triples, queries, results, outcomes,
@@ -830,8 +890,9 @@ class DiscoveryService:
             )
         st.lost_queries += len(job.chunk)
 
-    def _run_bucket(self, job: _BucketJob, queries: list, min_join: int,
-                    use_pref: bool, C: int, version: int, rung: str) -> list:
+    def _run_bucket(self, job: _BucketJob, queries: list, top_k: int,
+                    min_join: int, use_pref: bool, n_shards: int, C: int,
+                    version: int, rung: str) -> list:
         """Synchronously re-execute one bucket on the given rung and
         return its per-query triples (``job.staged`` is rebuilt to match
         what this run did)."""
@@ -850,17 +911,26 @@ class DiscoveryService:
                 mi, js = ex.execute(job.sp.plan, train)
                 triples.append((mi[0], np.arange(C), js[0]))
             return triples
+        ex = self._dist if rung == "distributed" else self._batched
         job.trains = _ex.stack_trains_host(job.sketches, self.index.device)
         if use_pref:
-            job.pend1 = self._batched.prefilter_dispatch(
+            job.pend1 = ex.prefilter_dispatch(
                 job.sp.plan, job.trains, q_bucket=job.q_bucket
             )
-            job.handle = self._shortlist_phase(job, min_join, C, version)
+            job.handle = self._shortlist_phase(job, min_join, top_k,
+                                               n_shards, C, version,
+                                               rung=rung)
+        elif rung == "distributed":
+            job.handle = ex.topk_dispatch(
+                job.sp.plan, job.trains, topk_oversample(top_k, C),
+                q_bucket=job.q_bucket,
+            )
         else:
-            job.handle = self._batched.dispatch(
+            job.handle = ex.dispatch(
                 job.sp.plan, job.trains, q_bucket=job.q_bucket
             )
-        return self._collect_triples(job, C, min_join, version)
+        return self._collect_triples(job, C, min_join, top_k, n_shards,
+                                     version)
 
     # ------------------------------------------------------------------
     # Observability

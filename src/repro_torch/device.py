@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "canonical_device", "resolve_device"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -25,4 +25,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "on the CPU explicitly"
         )
+    return dev
+
+
+def canonical_device(device: str | torch.device) -> torch.device:
+    """``device`` with a CUDA index resolved (``"cuda"`` is the current
+    card), so that ``"cuda"`` and ``"cuda:0"`` compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

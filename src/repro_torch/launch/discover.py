@@ -6,7 +6,11 @@ and target column, the top-k candidate (table, column) pairs ranked by
 sketch-estimated mutual information, no join materialized.
 
   PYTHONPATH=src python -m repro_torch.launch.discover --synthetic 200 \
-      --n 256 --top-k 10 [--device cpu]
+      --n 256 --top-k 10 [--device cpu] [--mesh]
+
+``--mesh`` shards candidate scoring over the local devices: every
+visible card (``make_host_mesh()``), or with ``--device cpu`` a
+one-shard mesh on the CPU.  Its ranking equals the run without it.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 from repro_torch.core.discovery import SketchIndex
 from repro_torch.core.sketch import build_sketch
 from repro_torch.data.tables import Table
+from repro_torch.launch.mesh import make_host_mesh
 
 
 def synthetic_corpus(n_tables: int, rng) -> tuple[list[Table], Table, str, str]:
@@ -53,6 +58,8 @@ def main(argv=None) -> int:
                     choices=["tupsk", "lv2sk", "prisk", "indsk", "csk"])
     ap.add_argument("--agg", default="first")
     ap.add_argument("--top-k", type=int, default=10)
+    ap.add_argument("--mesh", action="store_true",
+                    help="shard candidate scoring over local devices")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -93,8 +100,12 @@ def main(argv=None) -> int:
         n=args.n, method=args.method, side="train",
         value_is_discrete=base[target_col].is_discrete,
     )
+    mesh = None
+    if args.mesh:
+        mesh = make_host_mesh(model=1, devices=(
+            ["cpu"] if index.device.type == "cpu" else None))
     t0 = time.time()
-    results = index.query(train_sk, top_k=args.top_k)
+    results = index.query(train_sk, top_k=args.top_k, mesh=mesh)
     t_query = time.time() - t0
     print(f"[discover] query over {len(index)} candidates in {t_query:.3f}s "
           f"({len(index) / max(t_query, 1e-9):.0f} cands/s)")

@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.compile import program
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import MODEL_MESH_SLICE
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.models.common import cast_params, dtype_of
@@ -158,8 +159,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.mesh != "none":
-        raise NotImplementedError("--mesh host: the port has no mesh yet; it "
-                                  "comes with the multi-GPU slice")
+        raise NotImplementedError(f"--mesh host: {MODEL_MESH_SLICE}")
     dev = resolve_device(args.device)
     cfg = M.get_config(args.arch, smoke=args.smoke)
     rng = np.random.default_rng(args.seed)

@@ -8,7 +8,7 @@ when asked (``--device cpu``).
 
 Deviation from the reference: ``--mesh`` defaults to ``none``, the only
 value the port takes; ``host`` and ``production`` raise until the
-multi-GPU slice (ROADMAP queue 1 item 7) brings the mesh.  The
+model mesh (ROADMAP queue 1 item 7, the next multi-GPU slice) lands.  The
 reference's default is ``host``.  A periodic checkpoint is labelled by
 the number of steps done (the reference labels it by the step just run,
 one less, so a resume from it would run one step twice).
@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import MODEL_MESH_SLICE
 from repro_torch.models import model as M
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as O
@@ -41,8 +42,7 @@ from repro_torch.train.fault_tolerance import (PREEMPTED_EXIT_CODE,
                                                StragglerMonitor,
                                                plan_batch_for_mesh)
 
-_MESH_SLICE = ("--mesh {}: the port has no mesh yet; it comes with the "
-               "multi-GPU slice (ROADMAP queue 1 item 7)")
+_MESH_SLICE = "--mesh {}: " + MODEL_MESH_SLICE
 
 # Configurations the launcher takes beside the registry's, as (registry
 # base, overrides): the ~100M dense decoder of the 100M example

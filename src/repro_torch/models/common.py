@@ -7,7 +7,7 @@ The port's counterpart of ``repro/models/common.py``.  Parameters are
 onto them name for name.  Parameters are made with ``requires_grad``
 off, as serving wants them; ``train.train_step.init_train_state`` turns
 it on for the floating leaves.  ``shard`` is the identity: the port has
-no mesh yet.
+no model mesh yet.
 
 Layers compute in the activation dtype and read each weight through
 :func:`cast`, which keeps one copy of a parameter in that dtype per

@@ -4,7 +4,7 @@ The port's counterpart of ``repro/parallel/decode_attention.py``: its
 ``_local_decode``, in plain torch (the reference has no Pallas kernel
 here; XLA fuses it).  There is no mesh branch yet: the context-parallel
 merge over mesh axes, and the fence for a shard with no live row, come
-with the multi-GPU slice.
+with the model mesh, the next multi-GPU slice.
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ by ``1 / grad_accum``.
 
 Compression: the reference's ``"int8_ef"`` compresses pod-local
 gradients across the pods of a multi-pod mesh and is a no-op without one
-(the error-feedback buffers stay zero).  The port has no mesh (ROADMAP
+(the error-feedback buffers stay zero).  The port has no model mesh (ROADMAP
 queue 1 item 7), so ``"int8_ef"`` is that no-op here, and asking for a
 mesh raises.
 """
@@ -34,8 +34,9 @@ from repro_torch.train.optimizer import (AdamWState, Optimizer, Schedule,
 __all__ = ["TrainState", "init_train_state", "build_train_step",
            "batch_to_device", "MESH_SLICE"]
 
-MESH_SLICE = ("the port has no mesh yet; multi-pod gradient compression "
-              "comes with the multi-GPU slice (ROADMAP queue 1 item 7)")
+MESH_SLICE = ("the port has no model mesh yet; multi-pod gradient "
+              "compression comes with the next multi-GPU slice (ROADMAP "
+              "queue 1 item 7)")
 
 
 class TrainState(NamedTuple):

@@ -24,6 +24,7 @@ from repro.core.sketch import build_sketch as j_build
 from repro_torch.convert import index_from_numpy, stacked_from_numpy
 from repro_torch.core.discovery import (
     BatchedExecutor,
+    GroupMajorDistributedExecutor,
     PartitionedLocalExecutor,
     get_executor,
     make_plan,
@@ -35,6 +36,7 @@ from repro_torch.core.discovery import (
 )
 from repro_torch.core.discovery import SketchIndex as TIndex
 from repro_torch.core.sketch import build_sketch as t_build
+from repro_torch.launch.mesh import make_host_mesh
 
 TOL = 1e-5
 N, ROWS = 64, 1200
@@ -281,12 +283,25 @@ def test_make_plan_and_groups_override(indexes, y_disc):
 
 
 def test_pad_multiple_needs_the_mesh_slice(indexes):
-    _, t = indexes
+    """``pad_multiple`` (a mesh's shard count) rounds every group bucket up
+    to a multiple of it, laid out as the reference's: pow-2 counts leave
+    the ladder as it is, 3 pads it."""
+    j, t = indexes
     cands = t["add"].stacked(False)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        make_plan(cands, y_discrete=False, pad_multiple=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        pack_group(cands, 1, np.arange(3), len(cands["est_id"]), pad_multiple=4)
+    for mult in (2, 3):
+        plan = make_plan(cands, y_discrete=False, pad_multiple=mult)
+        j_plan = j_planner.make_plan(j.stacked(False), y_discrete=False,
+                                     pad_multiple=mult)
+        assert [(g.est_id, g.size, g.bucket) for g in plan.groups] == \
+            [(g.est_id, g.size, g.bucket) for g in j_plan.groups]
+        assert all(g.bucket % mult == 0 for g in plan.groups)
+        for g, jg in zip(plan.groups, j_plan.groups):
+            np.testing.assert_array_equal(g.index, jg.index)
+            np.testing.assert_array_equal(g.arrays["mask"].numpy(),
+                                          np.asarray(jg.arrays["mask"]))
+    gp = pack_group(cands, 1, np.arange(3), len(cands["est_id"]),
+                    pad_multiple=3)
+    assert (gp.size, gp.bucket) == (3, 9)
 
 
 @pytest.mark.parametrize("pad", [1, 4, 16])
@@ -355,9 +370,11 @@ def test_get_executor():
     assert get_executor("batched", k=7).k == 7
     with pytest.raises(ValueError, match="requires a mesh"):
         get_executor("distributed")
+    mesh = make_host_mesh(devices=["cpu"] * 2)
     for spec in ("distributed", None):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            get_executor(spec, mesh=object())
+        ex = get_executor(spec, mesh=mesh, k=4)
+        assert type(ex) is GroupMajorDistributedExecutor
+        assert ex.mesh is mesh and ex.k == 4
     with pytest.raises(ValueError, match="unknown executor"):
         get_executor("sharded")
 
@@ -403,8 +420,12 @@ def test_query_many_executor_rejects_two_phase_options(indexes):
                          min_containment=0.1)
     with pytest.raises(ValueError, match="requires the two-phase path"):
         index.query_many([sk], min_join=4, prefilter=False, min_containment=0.1)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        index.query_many([sk], mesh=object(), executor="batched")
+    mesh = make_host_mesh(devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="distributed executor's top-k"):
+        index.query_many([sk], mesh=mesh, executor="batched")
+    assert index.query_many([sk], min_join=4, mesh=mesh,
+                            executor="distributed") == \
+        index.query_many([sk], min_join=4, executor="batched")
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from repro_torch.core.discovery import SketchIndex as TIndex
 from repro_torch.core.discovery import executors as t_ex
 from repro_torch.core.discovery import planner as t_planner
 from repro_torch.core.sketch import build_sketch as t_build
+from repro_torch.launch.mesh import make_host_mesh
 
 TOL = 1e-5
 N, ROWS, C = 64, 120, 48
@@ -277,8 +278,10 @@ def test_incremental_ingest_and_plan_versions():
 def test_rejects_invalid_and_later_slices(port_indexes, j_index):
     ix = port_indexes["add"]
     sk = _sketches(t_build, False)[0]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ix.query(sk, mesh=object())
+    # The mesh is ported: a 3-shard CPU mesh ranks as the batched path.
+    mesh = make_host_mesh(devices=["cpu"] * 3)
+    assert _flat([ix.query(sk, top_k=12, min_join=MIN_JOIN, mesh=mesh)]) == \
+        _flat([ix.query(sk, top_k=12, min_join=MIN_JOIN)])
     # The phase-0 gate is ported: a gated batch equals the reference's.
     gated = ix.query_many([sk], top_k=12, min_join=MIN_JOIN,
                           min_containment=0.1)
@@ -342,6 +345,9 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from repro_torch.launch.mesh import make_host_mesh\n"
+        "assert make_host_mesh(devices=['cpu'] * 2).shape['data'] == 2\n"
+        "assert 'repro_torch.launch.mesh' in sys.modules\n"
         "sys.path.insert(0, sys.argv[1])\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"

@@ -36,6 +36,7 @@ from repro_torch.core.discovery import (
     stack_trains_host,
 )
 from repro_torch.core.sketch import build_sketch as t_build
+from repro_torch.launch.mesh import make_host_mesh
 
 TOL = 1e-5
 N, ROWS, C = 64, 120, 48
@@ -299,8 +300,12 @@ class TestSubmitContracts:
         assert svc.plan_cache.stats["misses"] == misses  # all hits
 
     def test_later_slices_raise(self, index, j_index):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            DiscoveryService(index=index, mesh=object())
+        # The mesh is ported: a mesh submit ranks as the batched one.
+        mesh = make_host_mesh(devices=["cpu"] * 4)
+        assert DiscoveryService(index=index, mesh=mesh).submit(
+            _queue(3), top_k=5, min_join=MIN_JOIN) == \
+            DiscoveryService(index=index).submit(_queue(3), top_k=5,
+                                                 min_join=MIN_JOIN)
         svc = DiscoveryService(index=index)
         # The phase-0 gate is ported: a gated submit equals the reference's.
         gated = svc.submit(_queue(3), top_k=5, min_join=MIN_JOIN,

@@ -19,9 +19,9 @@ train sketches go through both, on the CPU:
   (e) the overflow protocol: ``SurvivorOverflow``, hint growth, the
       service's ``host_syncs`` / ``gated_windows`` accounting and warm
       delivery gated; the ``tiered_dispatch`` fault recovering ungated;
-  (f) the argument checks, ``stats()["tiers"]``, ``submit_async`` and the
-      reference's 4-shard scenario held against the port's batched
-      executor (the port has no mesh yet).
+  (f) the argument checks, ``stats()["tiers"]``, ``submit_async``, the
+      gate on a 3-shard CPU mesh, and the reference's 4-shard scenario
+      held against the port's batched executor.
 
 Join sizes, survivors and candidates are held equal; MI within rtol/atol
 1e-5 (torch's digamma differs from jax's by ~2e-6); rankings identical
@@ -61,6 +61,7 @@ from repro_torch.core.discovery import executors as t_ex
 from repro_torch.core.discovery import planner as t_planner
 from repro_torch.core.discovery.index import _signature_block
 from repro_torch.core.sketch import build_sketch as t_build
+from repro_torch.launch.mesh import make_host_mesh
 
 TOL = 1e-5
 N_ROWS = 1200
@@ -605,8 +606,12 @@ class TestValidation:
         assert index.query(_train(Y), top_k=3, min_join=4)
 
     def test_mesh_still_raises(self, index):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            index.query_many([_train(Y)], min_containment=0.1, mesh=object())
+        """The gate runs on the mesh (it used to raise): per shard, with
+        the batched path's rankings."""
+        mesh = make_host_mesh(devices=["cpu"] * 3)
+        kw = dict(top_k=5, min_join=4, min_containment=0.1)
+        got = index.query_many([_train(Y)], mesh=mesh, **kw)
+        assert got[0] and got == index.query_many([_train(Y)], **kw)
 
 
 class TestServiceSurface:
