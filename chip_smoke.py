@@ -233,7 +233,9 @@ it fails:
      a loop of mesh queries and to phase 7's submit; under
      ``dispatch@distributed`` (dense) and fused / prefilter faults it
      descends to the batched rung with the same results; the non-finite
-     fence on the distributed rung launches ``pairwise_cheb``; (e) each
+     fence on the distributed rung launches ``pairwise_cheb``;
+     ``submit(rank="hybrid")`` bit-equal to the batched service's on
+     every route, on 4 and on 3 shards; (e) each
      shard's ``radius_counts`` launches of a warm fused pass, captured
      under ``eager()``, bit-equal to the plain version; (f) warm
      ``query_many`` medians of 5 (mesh and batched alternated), one
@@ -331,12 +333,38 @@ it fails:
      bit-equal to an uninterrupted pipeline's, the loss falling by
      ``LAUNCH_LOSS_FALL``, the final parameters beside the uninterrupted
      run's with the two uninterrupted runs' spread.
+ 22. the model mesh's serving path, after phase 20 with its models freed;
+     every mesh is one process over ``["cuda:0"] * 4``, four shard
+     boundaries on the one card, so the transfers between cards are
+     bypassed: (a) ``[mesh-cp]``: the context-parallel decode attention
+     at internlm2's serve shape (B 4, S 4096, Hkv 8, H 16, Dh 128) on
+     (2, 2) and (1, 4) meshes at positions 2047, 4095 and 100 (only the
+     first sequence shard live) against the unsharded one, bfloat16
+     within one output spacing + 2e-5 and float32 within 1e-5, the
+     pieces views of the cache, the dead shard's partial exact zeros,
+     both timed; (b) ``[mesh-ep]``: one MoE layer of qwen3-moe-30b-a3b at
+     full width (128 experts top-8, bf16, 2048 tokens) with EP on (1, 4),
+     32 experts a shard, against ``impl="gspmd"``: the route equal, the
+     output within ``MESH_EP_RTOL``, 4 grouped GEMM calls against 1, both
+     timed; (c) ``[mesh-serve]``: internlm2-1.8b whole with phase 11's
+     weights seed and traffic, served plain and on a (2, 2) mesh (prefill,
+     decode, tok/s, peak memory; 24 Hopper flash launches a prefill in
+     each; the mesh run profiled), the mesh decode program bit-equal to
+     ``eager()``, and the two batchers teacher-forced in lockstep, in
+     bf16 (prefill logits bit-equal, decode logits within
+     ``MESH_LOGIT_RTOL``, greedy tokens compared where the top-2 gap
+     clears it) and in float32 activations (within
+     ``MESH_F32_LOGIT_RTOL``, greedy tokens required equal there);
+     (d) ``[mesh-moe]``: qwen3-moe-30b-a3b at full width cut to 8 of 48
+     layers (bf16 parameters) with ``moe_impl="ep"`` on (1, 4), the same
+     way (bf16 only: the grouped GEMM takes no float32) against the same
+     model without a mesh (prefill logits within the tolerance too).
 
 Phases 14, 15, 16 (a)-(c), 17, 21, 12 and 13 run after phase 10 and
 before phase 11, so that the serving path starts with the discovery
-state freed; phases 18, 19 and 20 run after phase 11.  Each of phases 3,
-7-9 and 11-21 sets every kernel's launch count to 0 just before it
-drives its path and reads the counts just after.
+state freed; phases 18, 19, 20 and 22 run after phase 11.  Each of
+phases 3, 7-9 and 11-22 sets every kernel's launch count to 0 just
+before it drives its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
 (``{"record": ...}``), then the kernels' JSON line, the card's name and
@@ -2722,15 +2750,17 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
 
 def serve_traffic(cfg, params, prompts: list, card: str, tag: str = "[serve]",
                   slots: int = SERVE_SLOTS, gen_len: int = SERVE_GEN,
-                  max_len: int = SERVE_MAX):
-    """``ContinuousBatcher`` over ``prompts`` until every request has
-    ``gen_len`` tokens, with every launch count set to 0 just before and
-    read just after; prefill and decode times on the host clock around a
-    synchronize.  Request 0's served logits (its prefill, then each decode
-    step while it is active) are kept on the card (device copies, no sync).
-    Returns (record, served logits, batcher)."""
+                  max_len: int = SERVE_MAX, mesh=None, moe_impl: str = "gspmd"):
+    """``ContinuousBatcher`` (made under ``mesh``, with ``moe_impl``) over
+    ``prompts`` until every request has ``gen_len`` tokens, with every
+    launch count set to 0 just before and read just after; prefill and
+    decode times on the host clock around a synchronize.  Request 0's
+    served logits (its prefill, then each decode step while it is active)
+    are kept on the card (device copies, no sync).  Returns (record,
+    served logits, batcher)."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import mesh_context
 
     served = []
     prefill_fn = T.prefill
@@ -2743,7 +2773,8 @@ def serve_traffic(cfg, params, prompts: list, card: str, tag: str = "[serve]",
 
     start_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    batcher = serve.ContinuousBatcher(cfg, params, slots, max_len)
+    with mesh_context(mesh):
+        batcher = serve.ContinuousBatcher(cfg, params, slots, max_len, moe_impl)
     decode_fn = batcher._decode
 
     def decode_capture(toks, pos):
@@ -2957,6 +2988,13 @@ def run_serving(card: str, dev: torch.device) -> dict:
             "served_logits": rec_b, "profile": prof, "programs": decode16}
 
 
+def whole(t) -> torch.Tensor:
+    """A cache tensor, or a mesh cache's pieces reassembled."""
+    from repro_torch.parallel.sharding import ShardedTensor, unshard
+
+    return unshard(t) if isinstance(t, ShardedTensor) else t
+
+
 def compare_decode(batcher, card: str, tag: str = "[programs]",
                    spans=()) -> dict:
     """Phase 16 (d): the batcher's captured decode step against its eager
@@ -2974,7 +3012,8 @@ def compare_decode(batcher, card: str, tag: str = "[programs]",
         toks[s, 0] = batcher.outputs[batcher.slot_req[s]][-1]
     toks = torch.as_tensor(toks, device=batcher.device)
     mine = batcher.caches
-    twin = [{n: t.clone() for n, t in c.items()} for c in mine]
+    twin = [{n: t.clone() for n, t in c.items()} for c in mine]  # a mesh
+    # cache's clone keeps its layout: the pieces of one cloned tensor
     n0 = programs.compile_count()
     got, _ = batcher._decode(toks, pos)
     replayed = programs.compile_count() == n0
@@ -2985,8 +3024,8 @@ def compare_decode(batcher, card: str, tag: str = "[programs]",
     finally:
         batcher.caches = mine
     torch.cuda.synchronize()
-    caches_equal = all(torch.equal(a[k], b[k]) for a, b in zip(mine, twin)
-                       for k in a)
+    caches_equal = all(torch.equal(whole(a[k]), whole(b[k]))
+                       for a, b in zip(mine, twin) for k in a)
     if not (replayed and torch.equal(got, want) and caches_equal):
         raise AssertionError(f"captured decode step differs from eager: "
                              f"replayed {replayed}, logits equal "
@@ -5029,6 +5068,29 @@ def mesh_routes(index, batches, mesh, dense_q: int) -> dict:
     return out
 
 
+def mesh_hybrid(index, queue: list, small: list, mesh) -> dict:
+    """(d): ``submit(rank="hybrid")`` on the mesh against the batched
+    service, bit for bit, on every route (the dense one on ``small``):
+    the shard programs weight by join size / train size before their
+    top-k (``executors._hybrid``)."""
+    from repro_torch.core.discovery import DiscoveryService
+
+    routes = {"dense": {"prefilter": False}, "two_phase": {"fused": False},
+              "fused": {}, "gated": {"min_containment": GATE_MC}}
+    msvc = DiscoveryService(index=index, k=3, mesh=mesh)
+    bsvc = DiscoveryService(index=index, k=3)
+    out = {}
+    for route, kw in routes.items():
+        qs = small if route == "dense" else queue
+        kw = dict(top_k=TOP_K, min_join=MIN_JOIN, rank="hybrid", **kw)
+        got = flat_results(msvc.submit(qs, **kw))
+        if got != flat_results(bsvc.submit(qs, **kw)):
+            raise AssertionError(f"hybrid submit on {mesh}, {route} route, "
+                                 "differs from the batched service")
+        out[route] = len(qs)
+    return out
+
+
 def mesh_launch_samples(index, batches, mesh) -> list:
     """(e): one warm fused mesh pass per target dtype under ``eager()``
     with ``radius_counts``' Python call wrapped (as ``capture_launches``):
@@ -5051,7 +5113,8 @@ def run_mesh(index, batches, svc_queue, clean, card: str, dev) -> dict:
     visible cards.  (a) ``execute`` bit-equal to the batched executor;
     (b) ``query_many(mesh=)`` equal to the batched path on every route;
     (c) ``distributed_topk`` against ``score_batch``'s argsort; (d) the
-    service on the mesh, its fault descent and the non-finite fence; (e)
+    service on the mesh, its fault descent, the non-finite fence and
+    ``rank="hybrid"`` on every route (4 and 3 shards); (e)
     each shard's ``radius_counts`` launches bit-equal to the plain
     version; (f) warm wall and device times, launches and peak memory
     beside the batched path's."""
@@ -5174,12 +5237,14 @@ def run_mesh(index, batches, svc_queue, clean, card: str, dev) -> dict:
         same_rankings([a], [b], tol=MI_TOL)
     rec["service"] = {"admission": msvc.stats()["admission"],
                       "fence_launches": fence_launches}
+    rec["hybrid"] = {str(mesh): mesh_hybrid(index, svc_queue, small, mesh)}
     log(f"[mesh] (d) DiscoveryService(mesh=) submit of {len(svc_queue)} queries "
         f"== looped mesh queries == phase 7's submit; dispatch@distributed "
         f"(dense, {len(small)} queries) and fused/prefilter@distributed faults "
         f"descend to the batched rung with the same results; the fence on the "
         f"distributed rung: {fplan.corrupted} NaN lanes, launches "
-        f"{launch_words(fence_launches)}")
+        f"{launch_words(fence_launches)}; submit(rank='hybrid') == the "
+        f"batched service on every route {rec['hybrid'][str(mesh)]}")
 
     # (e) each shard's radius_counts launches against the plain version.
     reset_launches()
@@ -5256,11 +5321,417 @@ def run_mesh(index, batches, svc_queue, clean, card: str, dev) -> dict:
     # (b) on the 3-shard mesh (group buckets padded to the shard count).
     t0 = time.perf_counter()
     rec["routes"][str(odd)] = mesh_routes(index, batches, odd, MESH_DENSE_Q)
+    rec["hybrid"][str(odd)] = mesh_hybrid(index, svc_queue, small, odd)
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"[mesh] (b) the same routes on {MESH_ODD_SHARDS} shards == the batched "
-        f"path; {time.perf_counter() - t0:.2f} s")
+        f"path, and (d)'s hybrid submit on every route; "
+        f"{time.perf_counter() - t0:.2f} s")
     log(f"[mesh] phase 21 in {rec['seconds']:.1f} s")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the model mesh (serving), one process over four shards of the
+# one card
+# ---------------------------------------------------------------------------
+
+# Every phase-22 mesh is ["cuda:0"] * 4: four shard boundaries on one
+# card, so the shards' pieces are views of one tensor and nothing crosses
+# between cards (the mesh's transfers between cards are bypassed).
+MESH_DEVICES = ["cuda:0"] * 4
+MESH_SHAPES = ((2, 2), (1, 4))
+# (a): the last row of a 2048-token prompt, the last row of the cache, and
+# a position where only the first sequence shard holds live rows (on
+# both meshes: 2 shards of 2048 rows, 4 of 1024).
+MESH_DECODE_POS = (2047, 4095, 100)
+MESH_DECODE_REPS = 20
+# The CP decode attention in float32 against the unsharded one: the merge
+# reorders float32 sums, the reference's own mesh tests hold 1e-5.
+MESH_F32_ATOL = 1e-5
+# (b) one MoE layer of qwen3 at full width on (1, 4), 32 experts a shard,
+# bfloat16, at a prefill's token count: EP against impl="gspmd" as a
+# relative RMS per token.  EP sums each shard's (top-8 combine of its own
+# experts) in bfloat16 where the plain path sums all 8 in one pass, so the
+# two differ by bfloat16 rounding of a sum of up to 8 terms (a few
+# 2^-8); GROUPED_RTOL (2^-6) sits above that and far below a wrong expert.
+MESH_EP_ARCH = "qwen3-moe-30b-a3b"
+MESH_EP_SHAPE = (1, 4)
+MESH_EP_RTOL = GROUPED_RTOL
+# (c) internlm2 whole on (2, 2); (d) qwen3 with moe_impl="ep" on (1, 4),
+# cut to its first 8 of 48 layers, bf16 parameters.  The last field: also
+# held in float32 activations (the grouped GEMM takes bf16 / fp16 only,
+# so the MoE model is held in bf16 alone).
+MESH_SERVE = (("internlm2-1.8b", "[mesh-serve]", (2, 2), "gspmd", {}, True),
+              ("qwen3-moe-30b-a3b", "[mesh-moe]", (1, 4), "ep",
+               {"num_layers": 8, "param_dtype": "bfloat16"}, False))
+# Teacher-forced logits of the mesh batcher against the plain batcher's,
+# relative RMS per slot and step.  In bf16 the sharded decode attention
+# (and EP's sums) round from float32 sums taken in another order; the
+# flipped roundings grow through the layers: 0.038 max / 0.025 median
+# (internlm2) and 0.024 / 0.006 (qwen3) on an H100 at 700 W (PERF.md), the
+# same kind and size as the dtype policy's own error (0.043 against the
+# float32 forward, phase 11), so phase 11's SERVED_RTOL holds them; an
+# unmasked forward moves the logits 0.40-0.50.  The greedy tokens are
+# compared where the plain logits' top-2 gap exceeds the tolerance times
+# their RMS and reported: in bf16 a flip there is a rounding, not a fault.
+MESH_LOGIT_RTOL = SERVED_RTOL
+# The same in float32 activations (internlm2): the only difference left
+# is the CP merge's float32 order (about 1e-7 of an attention output), so
+# the logits must agree within 1e-4 and the greedy tokens must be equal
+# wherever the top-2 gap exceeds 1e-4 of the logits' RMS.
+MESH_F32_LOGIT_RTOL = 1e-4
+
+
+def mesh_cp_decode(card: str, dev) -> dict:
+    """(a): the CP decode attention at internlm2's serve shape against the
+    unsharded ``decode_attention`` on the same inputs, bfloat16 (the
+    serving dtype: within one output spacing + FA_F32_ATOL) and float32
+    (within MESH_F32_ATOL); the pieces are views of the cache; a shard
+    with no live row gives exact zeros; both timed (CUDA events)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel import decode_attention as DA
+    from repro_torch.parallel.sharding import NamedSharding, shard_tensor
+
+    cfg = M.get_config(SERVE_ARCH)
+    B, S = SERVE_SLOTS, SERVE_MAX
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = Dh ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    q32 = torch.randn(B, H, Dh, generator=gen, device=dev)
+    k32 = torch.randn(B, S, Hkv, Dh, generator=gen, device=dev)
+    v32 = torch.randn(B, S, Hkv, Dh, generator=gen, device=dev)
+    out = {}
+    for shape in MESH_SHAPES:
+        mesh = make_host_mesh(*shape, devices=MESH_DEVICES)
+        spec = DA.cache_spec(mesh, B, S)
+        rows = []
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dt) for t in (q32, k32, v32))
+            sh = NamedSharding(mesh, spec)
+            ks, vs = shard_tensor(k, sh), shard_tensor(v, sh)
+            views = all(p.untyped_storage().data_ptr()
+                        == t.untyped_storage().data_ptr()
+                        for t, st in ((k, ks), (v, vs))
+                        for p in st.local_tensors())
+            if not views:
+                raise AssertionError("[mesh-cp] a piece on the repeated card "
+                                     "is not a view of the cache")
+            for pos in MESH_DECODE_POS:
+                pos_t = torch.full((), pos, dtype=torch.int32, device=dev)
+                want = DA.decode_attention(q, k, v, pos_t, scale=scale)
+                got = DA.decode_attention(q, ks, vs, pos_t, scale=scale)
+                if dt == torch.float32:
+                    err = _max_abs_err(got, want)
+                    ok, ulps = err <= MESH_F32_ATOL, float("nan")
+                else:
+                    ok, err, ulps = fa_within(got, want)
+                row = {"dtype": str(dt), "pos": pos, "max_abs_err": err,
+                       "ulps": ulps, "ok": ok}
+                if dt == torch.bfloat16 and pos == MESH_DECODE_POS[-1]:
+                    Sl = ks.block_shape[1]
+                    b1 = ks.block((0, 1, 0, 0)), vs.block((0, 1, 0, 0))
+                    _m, l1, o1 = DA._local_decode(
+                        q[:ks.block_shape[0]], *b1, pos_t, scale,
+                        global_offset=Sl, axis_names=("model",))
+                    row["dead_shard_zero"] = not (l1.any() or o1.any())
+                    if not row["dead_shard_zero"]:
+                        raise AssertionError("[mesh-cp] a shard with no live "
+                                             "row contributed non-zeros")
+                if dt == torch.bfloat16:
+                    row["ms"] = time_cuda(lambda: DA.decode_attention(
+                        q, ks, vs, pos_t, scale=scale), MESH_DECODE_REPS)
+                    row["whole_ms"] = time_cuda(lambda: DA.decode_attention(
+                        q, k, v, pos_t, scale=scale), MESH_DECODE_REPS)
+                rows.append(row)
+                if not ok:
+                    raise AssertionError(f"[mesh-cp] {shape} {dt} pos {pos}: "
+                                         f"CP decode differs from the unsharded "
+                                         f"one: {err} ({ulps} spacings)")
+        out[str(shape)] = {"spec": repr(spec), "rows": rows}
+        log(f"[mesh-cp] {shape} mesh on 4 x cuda:0, cache spec {spec}, q "
+            f"({B}, {H}, {Dh}), cache ({B}, {S}, {Hkv}, {Dh}); against the "
+            f"unsharded decode attention: "
+            + "; ".join(f"{r['dtype'].split('.')[-1]} pos {r['pos']} max abs "
+                        f"{r['max_abs_err']:.3e}"
+                        + (f" ({r['ulps']:.2f} spacings), {r['ms']:.4f} ms "
+                           f"against {r['whole_ms']:.4f} ms whole"
+                           if "ms" in r else "") for r in rows)
+            + f"; pieces are views; the dead shard contributes zeros; card {card}")
+    return out
+
+
+def mesh_ep_layer(card: str, dev) -> dict:
+    """(b): one MoE layer of qwen3 at full width (bf16 weights, 128 experts
+    top-8), 2048 tokens, EP on (1, 4) against ``impl="gspmd"``: the route
+    equal, the output within MESH_EP_RTOL relative RMS per token, both
+    timed (CUDA events) with their grouped-GEMM launches."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.common import cast_params
+    from repro_torch.models.ffn import moe_ffn
+    from repro_torch.parallel.sharding import mesh_context
+
+    cfg = M.get_config(MESH_EP_ARCH).with_overrides(param_dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    p = cast_params(moe_ffn.init(cfg, gen, dev), torch.bfloat16)
+    x = torch.randn(1, SERVE_PROMPT, cfg.d_model, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    mesh = make_host_mesh(*MESH_EP_SHAPE, devices=MESH_DEVICES)
+    routes = []
+    route_fn = moe_ffn.route
+
+    def spy(*a, **kw):
+        out = route_fn(*a, **kw)
+        routes.append(out)
+        return out
+
+    moe_ffn.route = staticmethod(spy)
+    try:
+        reset_launches()
+        want, _ = moe_ffn.apply(cfg, p, x, impl="gspmd")
+        n_plain = read_launches()["grouped_swiglu_mm"]
+        reset_launches()
+        with mesh_context(mesh):
+            got, _ = moe_ffn.apply(cfg, p, x, impl="ep")
+        n_ep = read_launches()["grouped_swiglu_mm"]
+    finally:
+        moe_ffn.route = staticmethod(route_fn)
+    same_route = all(torch.equal(a, b) for a, b in zip(routes[0][:2],
+                                                       routes[1][:2]))
+    err = rel_rms(got[0], want[0])
+    n_model = mesh.shape["model"]
+    if not same_route:
+        raise AssertionError("[mesh-ep] the EP route differs from gspmd's")
+    if not float(err.max()) <= MESH_EP_RTOL:
+        raise AssertionError(f"[mesh-ep] EP differs from gspmd: relative RMS "
+                             f"{float(err.max())} > {MESH_EP_RTOL}")
+    if (n_plain, n_ep) != (1, n_model):
+        raise AssertionError(f"[mesh-ep] grouped GEMM launches {n_plain} / "
+                             f"{n_ep}; expected 1 / {n_model}")
+    with mesh_context(mesh):
+        ep_ms = time_cuda(lambda: moe_ffn.apply(cfg, p, x, impl="ep"), 5)
+    plain_ms = time_cuda(lambda: moe_ffn.apply(cfg, p, x, impl="gspmd"), 5)
+    rec = {"tokens": SERVE_PROMPT, "experts": cfg.num_experts,
+           "top_k": cfg.top_k, "experts_per_shard": cfg.num_experts // n_model,
+           "route_equal": same_route, "rel_rms_max": float(err.max()),
+           "rel_rms_mean": float(err.mean()), "tol": MESH_EP_RTOL,
+           "grouped_launches": {"gspmd": n_plain, "ep": n_ep},
+           "ep_ms": ep_ms, "gspmd_ms": plain_ms}
+    log(f"[mesh-ep] {MESH_EP_ARCH} one MoE layer, {SERVE_PROMPT} tokens, "
+        f"{cfg.num_experts} experts top-{cfg.top_k}, bf16, EP on "
+        f"{MESH_EP_SHAPE} ({rec['experts_per_shard']} experts a shard): route "
+        f"equal to gspmd's, output relative RMS max {rec['rel_rms_max']:.3e} "
+        f"(mean {rec['rel_rms_mean']:.3e}, tolerance {MESH_EP_RTOL}); "
+        f"{n_ep} grouped GEMM calls against {n_plain}; EP {ep_ms:.4f} ms, "
+        f"gspmd {plain_ms:.4f} ms (CUDA events, mean of 5); card {card}")
+    return rec
+
+
+def mesh_lockstep(cfg, params, prompts: list, mesh, impl: str, tag: str,
+                  exact_prefill: bool, tol: float, gate_tokens: bool) -> dict:
+    """The mesh batcher against the plain one on the same weights and
+    prompts, teacher-forced (after every admit and step the mesh
+    batcher's tokens are overwritten with the plain one's): prefill logits
+    (bit-equal where ``exact_prefill``: no EP, so the prefill is the same
+    computation) and every active slot's decode logits within ``tol``
+    relative RMS; greedy tokens compared wherever the plain logits' top-2
+    gap exceeds ``tol`` times their RMS, required equal there if
+    ``gate_tokens``."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import mesh_context
+
+    a = serve.ContinuousBatcher(cfg, params, SERVE_SLOTS, SERVE_MAX, impl)
+    with mesh_context(mesh):
+        b = serve.ContinuousBatcher(cfg, params, SERVE_SLOTS, SERVE_MAX, impl)
+    pre = {"a": [], "b": []}
+    dec = {"a": [], "b": []}
+    prefill_fn = T.prefill
+    who = ["a"]
+
+    def prefill_capture(*args, **kw):
+        logits, caches = prefill_fn(*args, **kw)
+        pre[who[0]].append(logits[0, -1].float())
+        return logits, caches
+
+    for name, bt in (("a", a), ("b", b)):
+        fn = bt._decode
+
+        def capture(toks, pos, fn=fn, name=name):
+            logits, caches = fn(toks, pos)
+            dec[name].append(logits[:, 0].float())
+            return logits, caches
+
+        bt._decode = capture
+    n = len(prompts)
+    queue, finished, actives = list(range(n)), [], []
+    T.prefill = prefill_capture
+    try:
+        while len(finished) < n:
+            while queue:
+                who[0] = "a"
+                if not a.admit(queue[0], prompts[queue[0]]):
+                    break
+                who[0] = "b"
+                rid = queue.pop(0)
+                if not b.admit(rid, prompts[rid]):
+                    raise AssertionError(f"{tag} the mesh batcher refused "
+                                         f"request {rid}")
+                b.outputs[rid] = list(a.outputs[rid])
+            actives.append(np.flatnonzero(a.active))
+            a.step()
+            b.step()
+            for rid, toks in a.outputs.items():
+                b.outputs[rid] = list(toks)
+            done = a.retire(SERVE_GEN)
+            if b.retire(SERVE_GEN) != done:
+                raise AssertionError(f"{tag} the batchers retired differently")
+            finished += done
+    finally:
+        T.prefill = prefill_fn
+    pa, pb = torch.stack(pre["a"]), torch.stack(pre["b"])
+    pre_err = float(rel_rms(pb, pa).max())
+    errs, checked, agree = [], 0, 0
+    for act, la, lb in zip(actives, dec["a"], dec["b"]):
+        la, lb = la[act], lb[act]
+        errs.append(rel_rms(lb, la))
+        top2 = la.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        clear = gap > tol * la.pow(2).mean(-1).sqrt()
+        same = la.argmax(-1) == lb.argmax(-1)
+        checked += int(clear.sum())
+        agree += int((same & clear).sum())
+    err = torch.cat(errs)
+    rec = {"prefill_rel_rms_max": pre_err,
+           "prefill_bit_equal": bool(torch.equal(pa, pb)),
+           "decode_rel_rms_max": float(err.max()),
+           "decode_rel_rms_median": float(err.median()),
+           "decode_rows": int(err.numel()), "tokens_checked": checked,
+           "tokens_agree": agree, "tol": tol, "dtype": cfg.dtype}
+    log(f"{tag} {cfg.dtype} teacher-forced against the plain batcher: "
+        f"prefill logits "
+        + ("bit-equal" if rec["prefill_bit_equal"] else
+           f"relative RMS max {pre_err:.3e}")
+        + f"; decode logits ({rec['decode_rows']} slot-steps) relative RMS max "
+        f"{rec['decode_rel_rms_max']:.3e} (median "
+        f"{rec['decode_rel_rms_median']:.3e}, tolerance {tol}); greedy tokens "
+        f"equal at {agree}/{checked} slot-steps whose top-2 gap clears the "
+        f"tolerance" + ("" if gate_tokens else " (reported, not held)"))
+    if exact_prefill and not rec["prefill_bit_equal"]:
+        raise AssertionError(f"{tag} the mesh prefill differs from the plain "
+                             f"one ({pre_err})")
+    if not (pre_err <= tol and rec["decode_rel_rms_max"] <= tol):
+        raise AssertionError(f"{tag} mesh logits differ from the plain "
+                             f"batcher's beyond {tol}")
+    if gate_tokens and agree != checked:
+        raise AssertionError(f"{tag} greedy tokens differ at "
+                             f"{checked - agree} clear slot-steps")
+    return rec
+
+
+def mesh_serve(arch: str, tag: str, shape: tuple, impl: str, over: dict,
+               f32: bool, serving: dict | None, card: str, dev) -> dict:
+    """(c) / (d): ``arch`` at published widths (cut by ``over``), phase 11's
+    weights seed, prompts and traffic, served by the plain batcher and by
+    the batcher under a ``shape`` mesh on 4 x cuda:0 (times, tokens/s,
+    peak memory, launches: one flash launch per attention layer per
+    prefill, one grouped SwiGLU per MoE layer per prefill and decode step
+    and shard); the mesh decode program against ``eager()``; the
+    teacher-forced comparison (:func:`mesh_lockstep`) in bf16, and in
+    float32 activations where ``f32``."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import ShardedTensor
+
+    cfg = M.get_config(arch).with_overrides(**over)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                           device=dev)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=SERVE_PROMPT)
+               .astype(np.int32) for _ in range(SERVE_REQUESTS)]
+    mesh = make_host_mesh(*shape, devices=MESH_DEVICES)
+    n_model = mesh.shape["model"] if impl == "ep" else 1
+    log(f"{tag} {arch}: {cfg.num_layers} layers, {cfg.param_dtype} "
+        f"parameters, moe_impl {impl}; phase 11's traffic, plain then on a "
+        f"{shape} mesh of 4 x cuda:0 (every shard on the one card: no "
+        f"transfer between cards)")
+    plain, _, pb = serve_traffic(cfg, params, prompts, card, f"{tag} plain",
+                                 moe_impl=impl)
+    del pb
+    gc.collect()
+    torch.cuda.empty_cache()
+    run, _, batcher = serve_traffic(cfg, params, prompts, card, f"{tag} mesh",
+                                    mesh=mesh, moe_impl=impl)
+    for what, r, shards in (("plain", plain, 1), ("mesh", run, n_model)):
+        want = {**{k: 0 for k in r["launches"]},
+                "flash_attention_wgmma": attention_layers(cfg) * SERVE_REQUESTS,
+                "grouped_swiglu_mm": moe_layers(cfg) * shards
+                * (SERVE_REQUESTS + r["decode_steps"])}
+        if r["launches"] != want:
+            raise AssertionError(f"{tag} {what} serving made launches "
+                                 f"{ {k: v for k, v in r['launches'].items() if v} }"
+                                 f"; expected { {k: v for k, v in want.items() if v} }")
+    sharded = sum(isinstance(c.get("k"), ShardedTensor) for c in batcher.caches)
+    if sharded != attention_layers(cfg):
+        raise AssertionError(f"{tag} {sharded} sharded caches; expected one "
+                             "per attention layer")
+    prof = profile_serving(batcher, prompts, f"{tag} mesh")
+    programs = compare_decode(batcher, card, f"{tag} mesh")
+    del batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    lock = {"bf16": mesh_lockstep(cfg, params, prompts, mesh, impl, tag,
+                                  impl != "ep", MESH_LOGIT_RTOL, False)}
+    if f32:
+        gc.collect()
+        torch.cuda.empty_cache()
+        lock["f32"] = mesh_lockstep(cfg.with_overrides(dtype="float32"),
+                                    params, prompts, mesh, impl, tag,
+                                    impl != "ep", MESH_F32_LOGIT_RTOL, True)
+    ratio = run["decode_ms_median"] / plain["decode_ms_median"]
+    rec = {"arch": arch, "layers": cfg.num_layers, "mesh": list(shape),
+           "moe_impl": impl, "plain": plain, "mesh_run": run,
+           "profile": prof, "programs": programs, "lockstep": lock,
+           "decode_ratio": ratio,
+           "prefill_ratio": run["prefill_ms_median"] / plain["prefill_ms_median"]}
+    ref11 = ""
+    if serving is not None:
+        ref11 = (f"; phase 11 (plain, earlier in this run): prefill "
+                 f"{serving['prefill_ms_median']:.2f} ms, decode "
+                 f"{serving['decode_ms_median']:.2f} ms, "
+                 f"{serving['generated_tok_s']:.1f} tok/s, peak "
+                 f"{serving['peak_mem_bytes'] / 2**30:.2f} GiB")
+    log(f"{tag} mesh against plain: prefill {run['prefill_ms_median']:.2f} / "
+        f"{plain['prefill_ms_median']:.2f} ms, decode "
+        f"{run['decode_ms_median']:.2f} / {plain['decode_ms_median']:.2f} ms "
+        f"({ratio:.2f}x), {run['generated_tok_s']:.1f} / "
+        f"{plain['generated_tok_s']:.1f} tok/s, peak "
+        f"{run['peak_mem_bytes'] / 2**30:.2f} / "
+        f"{plain['peak_mem_bytes'] / 2**30:.2f} GiB{ref11}; card {card}")
+    del params
+    return rec
+
+
+def run_model_mesh(serving: dict | None, card: str, dev) -> dict:
+    """Phase 22: (a) the CP decode attention, (b) one EP MoE layer, (c)
+    internlm2 served whole on a (2, 2) mesh, (d) qwen3 with EP on (1, 4),
+    each mesh four shards on cuda:0."""
+    t0 = time.perf_counter()
+    out = {"cp_decode": mesh_cp_decode(card, dev),
+           "ep_layer": mesh_ep_layer(card, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, tag, shape, impl, over, f32 in MESH_SERVE:
+        out[arch] = mesh_serve(arch, tag, shape, impl, over, f32,
+                               serving if arch == SERVE_ARCH else None,
+                               card, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[mesh-serve] phase 22 in {out['seconds']:.2f} s; card {card}")
+    return out
 
 
 def main() -> int:
@@ -5524,6 +5995,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Phase 20: the training path, with phase 19's models freed.
     training = run_training(card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Phase 22: the model mesh's serving path, four shards on the card.
+    model_mesh = run_model_mesh(serving, card, dev)
+    mesh_runs = [model_mesh[arch][run] for arch, *_ in MESH_SERVE
+                 for run in ("plain", "mesh_run")]
     train_checks = list(training["check"].values())
     train_full = list(training["full"].values())
     moe_full = [moe[arch]["serve"] for arch, *_ in MOE_SERVE]
@@ -5556,7 +6033,7 @@ def main() -> int:
         "scheduler": sched, "materialized": mat, "two_op": two_op,
         "lake_hash": lake_hash, "serving": serving, "moe_serving": moe,
         "ssm_serving": ssm_serving, "training": training,
-        "application": app, "mesh": mesh,
+        "application": app, "mesh": mesh, "model_mesh": model_mesh,
         "compile_end": programs.compile_stats(),
         "total_s": time.perf_counter() - t_start,
     }
@@ -5637,12 +6114,13 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
-        # The serving runs of phase 11, phase 18 (c) and phase 19 (c) and
-        # the training runs of phase 20 (b); the times are phase 11's
-        # launches, at the internlm2 shape.
+        # The serving runs of phase 11, phase 18 (c), phase 19 (c) and
+        # phase 22 (c), (d) (plain and on the mesh) and the training runs
+        # of phase 20 (b); the times are phase 11's launches, at the
+        # internlm2 shape.
         "launches": serving["launches"]["flash_attention_wgmma"] + sum(
             r["launches"]["flash_attention_wgmma"]
-            for r in moe_full + ssm_full + train_full),
+            for r in moe_full + ssm_full + train_full + mesh_runs),
         "max_abs_err": fa_err["flash_attention_wgmma"],
         "ms": serving["flash"]["ms"],
         "plain_ms": serving["flash"]["plain_ms"],

@@ -115,9 +115,14 @@ def compile_stats() -> dict:
 
 
 def _leaves(obj) -> list:
-    """The tensors of a nested structure of dicts, lists and tuples."""
+    """The tensors of a nested structure of dicts, lists and tuples (a
+    :class:`~repro_torch.parallel.sharding.ShardedTensor` gives its
+    distinct pieces)."""
     if isinstance(obj, torch.Tensor):
         return [obj]
+    local = getattr(obj, "local_tensors", None)
+    if local is not None:
+        return list(local())
     if isinstance(obj, dict):
         return [t for v in obj.values() for t in _leaves(v)]
     if isinstance(obj, (list, tuple)):

@@ -820,18 +820,31 @@ def _top_k(x: torch.Tensor, k: int):
     return v[..., :k], pos[..., :k]
 
 
+def _hybrid(trains: dict, mi: torch.Tensor, js: torch.Tensor) -> torch.Tensor:
+    """``rank="hybrid"``'s score when the trains carry ``"tsize"`` (each
+    query's train size, at least 1, float32 (Q,)): mi · (js / tsize),
+    the division first, as the service weights a batched result on the
+    host, so the bits are the same; ``mi`` unchanged otherwise."""
+    tsize = trains.get("tsize")
+    if tsize is None:
+        return mi
+    return mi * (js.to(torch.float32) / tsize[:, None])
+
+
 def _shard_topk_impl(trains: dict, lives: dict, shards: list, *,
                      est_id: int, k: int, k_shard: int):
     """Dense scoring of the shards that share one device, each over its
     own rows (trains replicated).  ``k_shard == 0`` returns each shard's
-    (mi, js) (Q, rows); otherwise its top ``k_shard`` per query, dead
-    rows fenced to -inf: (values, shard-local rows, join sizes)."""
+    (mi, js) (Q, rows); otherwise its top ``k_shard`` per query by the
+    (hybrid-weighted, see :func:`_hybrid`) score, dead rows fenced to
+    -inf: (values, shard-local rows, join sizes)."""
     out = []
     for sh, live in zip(shards, lives.values()):
         mi, js = _score_group_impl(trains, sh, est_id=est_id, k=k)
         if k_shard == 0:
             out.append((mi, js))
             continue
+        mi = _hybrid(trains, mi, js)
         v, i = _top_k(torch.where(live[None, :], mi, -torch.inf), k_shard)
         out.append((v, i, js.gather(1, i)))
     return out
@@ -849,6 +862,7 @@ def _shard_fused_impl(trains: dict, lives: dict, indexes: dict, shards: list,
         mi, gidx, jsz, js, counts = _fused_score_group_impl(
             trains, sh, index, live, min_join, sentinel, est_id=est_id,
             k=k, s_bucket=s_shard)
+        mi = _hybrid(trains, mi, jsz)
         v, pos = _top_k(torch.where(gidx != sentinel, mi, -torch.inf),
                         k_shard)
         out.append((v, gidx.gather(1, pos), jsz.gather(1, pos),
@@ -869,6 +883,7 @@ def _shard_tiered_impl(trains: dict, lives: dict, indexes: dict,
         mi, gidx, jsz, c0, c1 = _tiered_score_group_impl(
             trains, sh, sh["sig"], index, live, min_join, min_containment,
             sentinel, est_id=est_id, k=k, s_surv=s_surv, s_bucket=s_shard)
+        mi = _hybrid(trains, mi, jsz)
         v, pos = _top_k(torch.where(gidx != sentinel, mi, -torch.inf),
                         k_shard)
         out.append((v, gidx.gather(1, pos), jsz.gather(1, pos),
@@ -1168,16 +1183,24 @@ class GroupMajorDistributedExecutor(Executor):
         self._pad_cache[id(plan)] = (plan, groups)
         return groups
 
-    def _replicate(self, trains: dict, q_bucket: int | None):
+    def _replicate(self, trains: dict, q_bucket: int | None,
+                   tsize=None):
         """The stacked trains padded to ``q_bucket`` lanes and copied to
         every device of the mesh (once each); returns (trains per device,
-        live query count)."""
+        live query count).  ``tsize`` (one train size a live query, for
+        ``rank="hybrid"``) rides along as the trains' ``"tsize"`` field,
+        a float32 device input (padded lanes 1), so the shard programs
+        weight before their top-k and a new size is no new program."""
         trains = _as_stacked_trains(trains)
         Q = int(trains["keys"].shape[0])
         if q_bucket is not None:
             trains = pad_trains_q(trains, q_bucket)
         t_in = _train_inputs(trains)
         home = canonical_device(trains["keys"].device)
+        if tsize is not None:
+            ts = np.ones(int(trains["keys"].shape[0]), np.float32)
+            ts[:Q] = np.maximum(np.asarray(tsize, np.float32), 1.0)
+            t_in["tsize"] = torch.from_numpy(ts).to(home)
         by_dev = {}
         for dev in self.devices:
             if dev not in by_dev:
@@ -1221,11 +1244,12 @@ class GroupMajorDistributedExecutor(Executor):
         return _PendingScores(plan, blocks, Q)._scatter()
 
     def topk_dispatch(self, plan, trains, top_k: int, *,
-                      q_bucket: int | None = None):
+                      q_bucket: int | None = None, tsize=None):
         """Enqueue every group's shard programs and the merge; the
-        handle's ``collect`` is the first host sync."""
+        handle's ``collect`` is the first host sync.  With ``tsize`` (see
+        :meth:`_replicate`) every top-k ranks by the hybrid score."""
         maybe_fault("dispatch", "distributed")
-        by_dev, Q = self._replicate(trains, q_bucket)
+        by_dev, Q = self._replicate(trains, q_bucket, tsize)
         vs, gis, jss = [], [], []
         for sg in self._groups(plan):
             k_shard, _ = _shard_topk_plan(sg.gp.bucket, self.n_shards, top_k)
@@ -1265,7 +1289,7 @@ class GroupMajorDistributedExecutor(Executor):
         return _PendingJoinSizes(blocks, Q)
 
     def shortlist_topk_dispatch(self, plan, trains, shortlists, top_k: int,
-                                *, q_bucket: int | None = None):
+                                *, q_bucket: int | None = None, tsize=None):
         """Phase 2 on the mesh: each non-empty shortlist is gathered on the
         plan's device into a compact (Q, s_bucket) batch, its lanes split
         over the shards; each shard scores its lanes, fences dead ones
@@ -1273,7 +1297,7 @@ class GroupMajorDistributedExecutor(Executor):
         device.  Every scored candidate passed ``min_join``, so the top
         ``top_k`` are exact."""
         maybe_fault("shortlist_dispatch", "distributed")
-        by_dev, Q = self._replicate(trains, q_bucket)
+        by_dev, Q = self._replicate(trains, q_bucket, tsize)
         qb = int(next(iter(by_dev.values()))["keys"].shape[0])
         n = self.n_shards
         vs, gis, jss = [], [], []
@@ -1296,6 +1320,7 @@ class GroupMajorDistributedExecutor(Executor):
                 g, j = gi[:, part].to(dev), js[:, part].to(dev)
                 mi, _ = _score_pairs(by_dev[dev], *c, est_id=sl.group.est_id,
                                      k=self.k)
+                mi = _hybrid(by_dev[dev], mi, j)
                 v, pos = _top_k(torch.where(g < plan.n_candidates, mi,
                                             -torch.inf), k_shard)
                 per_shard.append((v, g.gather(1, pos), j.gather(1, pos)))
@@ -1308,7 +1333,8 @@ class GroupMajorDistributedExecutor(Executor):
         return _PendingTopk(vals, gidx, jsz, Q, k_live=k_live)
 
     def fused_topk_dispatch(self, plan, trains, spec, min_join: int,
-                            top_k: int, *, q_bucket: int | None = None):
+                            top_k: int, *, q_bucket: int | None = None,
+                            tsize=None):
         """Fused two-phase on the mesh: per group and shard, prefilter,
         compaction, gather, scoring and top-k on the shard's own rows,
         then the merge; no host sync before the handle's ``collect``.
@@ -1317,7 +1343,7 @@ class GroupMajorDistributedExecutor(Executor):
         (group, shard); an overflow at collect falls back to the host
         boundary through the handle's ``js_blocks()``."""
         maybe_fault("fused_dispatch", "distributed")
-        by_dev, Q = self._replicate(trains, q_bucket)
+        by_dev, Q = self._replicate(trains, q_bucket, tsize)
         n = self.n_shards
         scalars = self._scalars((int(min_join), torch.int32),
                                 (plan.n_candidates, torch.int32))
@@ -1340,7 +1366,7 @@ class GroupMajorDistributedExecutor(Executor):
 
     def tiered_topk_dispatch(self, plan, trains, tspec, spec, min_join: int,
                              min_containment: float, top_k: int, *,
-                             q_bucket: int | None = None):
+                             q_bucket: int | None = None, tsize=None):
         """The gated pipeline on the mesh: per group and shard, the
         phase-0 gate and the fused pipeline over the shard's rows, then
         the merge.  Build ``tspec`` and ``spec`` with
@@ -1348,7 +1374,7 @@ class GroupMajorDistributedExecutor(Executor):
         overflow at collect re-runs the window through
         :meth:`fused_topk_dispatch` (ungated)."""
         maybe_fault("tiered_dispatch", "distributed")
-        by_dev, Q = self._replicate(trains, q_bucket)
+        by_dev, Q = self._replicate(trains, q_bucket, tsize)
         n = self.n_shards
         scalars = self._scalars(
             (int(min_join), torch.int32),

@@ -160,7 +160,7 @@ class _BucketJob:
     __slots__ = (
         "chunk", "y_disc", "q_bucket", "sp", "sketches", "trains",
         "pend1", "handle", "rung", "retries", "fallbacks", "error",
-        "staged",
+        "staged", "tsize",
     )
 
     def __init__(self, chunk: list[int], y_disc: bool, sketches: list,
@@ -178,6 +178,9 @@ class _BucketJob:
         self.fallbacks = 0
         self.error = None
         self.staged: dict = {}
+        # rank="hybrid": each query's train size, which the distributed
+        # rung's shard programs weight by before their top-k.
+        self.tsize = None
 
 
 class _Window:
@@ -512,6 +515,10 @@ class DiscoveryService:
                        [queries[i] for i in b.chunk], b.q_bucket)
             for b in buckets
         ]
+        if rank == "hybrid":
+            for job in jobs:
+                job.tsize = np.array([max(int(sk.size), 1)
+                                      for sk in job.sketches], np.float32)
 
         # 2. dispatch every bucket before any collect.  With the
         # prefilter on and fused off, "dispatch" is phase 1 only.
@@ -547,7 +554,7 @@ class DiscoveryService:
                 elif self._dist is not None:
                     job.handle = self._dist.topk_dispatch(
                         job.sp.plan, job.trains, topk_oversample(top_k, C),
-                        q_bucket=job.q_bucket,
+                        q_bucket=job.q_bucket, tsize=job.tsize,
                     )
                 else:
                     job.handle = self._batched.dispatch(
@@ -642,7 +649,7 @@ class DiscoveryService:
         if on_mesh:
             return self._dist.shortlist_topk_dispatch(
                 job.sp.plan, job.trains, shortlists, top_k,
-                q_bucket=job.q_bucket)
+                q_bucket=job.q_bucket, tsize=job.tsize)
         return self._batched.shortlist_dispatch(
             job.sp.plan, job.trains, shortlists, q_bucket=job.q_bucket
         )
@@ -670,7 +677,7 @@ class DiscoveryService:
         if on_mesh:
             return self._dist.fused_topk_dispatch(
                 plan, job.trains, spec, min_join, top_k,
-                q_bucket=job.q_bucket)
+                q_bucket=job.q_bucket, tsize=job.tsize)
         return self._batched.fused_dispatch(plan, job.trains, spec, min_join,
                                             q_bucket=job.q_bucket)
 
@@ -707,7 +714,7 @@ class DiscoveryService:
         if on_mesh:
             return self._dist.tiered_topk_dispatch(
                 plan, job.trains, tspec, spec, min_join, min_containment,
-                top_k, q_bucket=job.q_bucket)
+                top_k, q_bucket=job.q_bucket, tsize=job.tsize)
         return self._batched.tiered_dispatch(
             plan, job.trains, tspec, spec, min_join, min_containment,
             q_bucket=job.q_bucket,
@@ -799,25 +806,34 @@ class DiscoveryService:
         isolate mode, per query row), scatter results, emit outcomes,
         and commit the bucket's staged stat deltas.  ``C`` is the corpus
         size the scores were computed against; ``rank="hybrid"`` scales
-        each score by join_size / train_size before ranking."""
+        each score by join_size / train_size before ranking.  The
+        distributed rung's shard programs applied that weight on the
+        device before their top-k (``job.tsize``), so only the lanes the
+        non-finite fence recomputes are weighted here."""
         st = self.admission
         C = len(self.index) if C is None else int(C)
+        weighted = job.tsize is not None and job.rung == "distributed"
         for row, qi in enumerate(job.chunk):
             v, gi, js = triples[row]
             nf = 0
+            fenced = None
             if isolate:
                 v, gi, js = np.asarray(v), np.asarray(gi), np.asarray(js)
                 eligible = (gi < C) & (js >= min_join)
                 v = resilience.corrupt_scores(v, eligible)
+                fenced = (~np.isfinite(np.asarray(v, np.float32))
+                          & (gi < len(self.index)) & (js >= min_join))
                 v, nf = resilience.fence_nonfinite(
                     v, gi, js, self.index, queries[qi], min_join, self.k
                 )
                 st.nonfinite_lanes += nf
-            if rank == "hybrid":
+            if rank == "hybrid" and not (weighted and nf == 0):
                 tsize = max(int(queries[qi].size), 1)
-                v = np.asarray(v, np.float32) * (
-                    np.asarray(js, np.float32) / np.float32(tsize)
-                )
+                w = np.asarray(js, np.float32) / np.float32(tsize)
+                v = np.asarray(v, np.float32)
+                # Weighted on the device already: only the lanes the
+                # fence recomputed.
+                v = np.where(fenced, v * w, v) if weighted else v * w
             results[qi] = self.index._rank(v, gi, js, top_k, min_join, C=C)
             if isolate:
                 outcomes[qi] = QueryOutcome(
@@ -923,7 +939,7 @@ class DiscoveryService:
         elif rung == "distributed":
             job.handle = ex.topk_dispatch(
                 job.sp.plan, job.trains, topk_oversample(top_k, C),
-                q_bucket=job.q_bucket,
+                q_bucket=job.q_bucket, tsize=job.tsize,
             )
         else:
             job.handle = ex.dispatch(

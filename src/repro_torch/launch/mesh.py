@@ -15,7 +15,9 @@ counterpart of the reference tests' four forced host devices, and
 multi-host mesh is out of scope.
 
 :func:`make_production_mesh` (the dry run's 256 / 512-chip meshes)
-belongs to the model mesh, a later slice of the port, and raises.
+belongs to the dry run, a later slice of the port, and raises.  The
+model mesh's serving half runs on the same :class:`Mesh`
+(``serve --mesh host``; ``repro_torch.parallel.sharding``).
 
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh()                          # every visible card
@@ -33,10 +35,14 @@ from repro_torch.device import canonical_device
 __all__ = ["Mesh", "make_host_mesh", "make_production_mesh",
            "MODEL_MESH_SLICE"]
 
-# What an entry point of the model mesh raises until that slice lands.
+# What the model mesh's remaining entry points raise: the serving half
+# (parallel/sharding.py, the context-parallel decode attention, EP MoE,
+# serve --mesh host) is ported; training on it and the dry run are not.
 MODEL_MESH_SLICE = (
-    "the model mesh (parallel/sharding.py, the sharded model and train "
-    "step) is the next multi-GPU slice of the port (ROADMAP queue 1 item 7)"
+    "training on the model mesh (train --mesh, int8_ef across pods, "
+    "checkpoint.restore(shardings=)) and the dry run (launch/dryrun.py, "
+    "make_production_mesh) are the next slice of the port (ROADMAP queue 1 "
+    "item 2)"
 )
 
 
@@ -62,6 +68,11 @@ class Mesh:
             self.devices[pos] = canonical_device(d)
         self.axis_names = names
         self.shape = dict(zip(names, arr.shape))
+        # A mesh is not changed after it is made: its key and hash are
+        # kept (model code looks specs up per mesh on every call).
+        self._k = (names, self.devices.shape,
+                   tuple(str(d) for d in self.devices.flat))
+        self._h = hash(self._k)
 
     @property
     def size(self) -> int:
@@ -79,15 +90,12 @@ class Mesh:
             out.append(self.devices[tuple(index)])
         return out
 
-    def _key(self) -> tuple:
-        return (self.axis_names, self.devices.shape,
-                tuple(str(d) for d in self.devices.flat))
-
     def __eq__(self, other) -> bool:
-        return isinstance(other, Mesh) and self._key() == other._key()
+        return isinstance(other, Mesh) and (
+            self is other or (self._h == other._h and self._k == other._k))
 
     def __hash__(self) -> int:
-        return hash(self._key())
+        return self._h
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{n}={s}" for n, s in self.shape.items())
@@ -125,6 +133,8 @@ def make_host_mesh(data: int | None = None, model: int = 1,
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The dry run's (16, 16) / (2, 16, 16) mesh: not in the port yet."""
+    """The dry run's (16, 16) / (2, 16, 16) mesh: not in the port yet (a
+    ``Mesh`` of repeated ``"cpu"`` devices stands in for resolving specs,
+    see ``repro_torch.parallel.sharding``)."""
     raise NotImplementedError(
         f"make_production_mesh(multi_pod={multi_pod}): {MODEL_MESH_SLICE}")

@@ -11,10 +11,21 @@ reference's ``jax.jit`` of it): on the card it is captured once as a
 CUDA graph over the batched caches and the weights cast once to the
 activation dtype, and replayed every step.  The prefill runs eager.
 
+``--mesh host`` serves under ``mesh_context(make_host_mesh())``, a mesh
+over every visible card (it raises without one): each GQA layer's KV
+cache is laid out as pieces over the mesh (the sequence over ``"model"``,
+the slots over ``"data"`` where they divide it;
+:func:`repro_torch.parallel.decode_attention.cache_spec`) and the decode
+attention is context-parallel.  Everything else computes whole on the
+mesh's first card (``parallel/sharding.py``); a batcher made with
+``moe_impl="ep"`` under a mesh runs its MoE layers expert-parallel.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b --smoke \
       --requests 12 --slots 4 --prompt-len 32 --gen-len 16 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+      --smoke --mesh host
 
 The default device is ``cuda``, which raises without a card.
 """
@@ -29,22 +40,28 @@ import numpy as np
 import torch
 
 from repro_torch.compile import program
-from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import MODEL_MESH_SLICE
+from repro_torch.configs.base import layer_layout
+from repro_torch.device import canonical_device, resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.models.common import cast_params, dtype_of
+from repro_torch.parallel.decode_attention import cache_spec
+from repro_torch.parallel.sharding import (NamedSharding, current_mesh,
+                                           mesh_context, shard_tensor)
 
 
-def _decode_step(tokens, pos, *, cfg, moe_impl, params, caches):
-    """The batched decode step's body: logits (B, 1, V); ``caches``
-    updated in place at the device position ``pos``."""
-    logits, _ = T.decode_step(cfg, params, caches, tokens, pos,
-                              moe_impl=moe_impl)
+def _decode_step(tokens, pos, *, cfg, moe_impl, mesh, params, caches):
+    """The batched decode step's body under ``mesh`` (or none): logits
+    (B, 1, V); ``caches`` updated in place at the device position
+    ``pos``."""
+    with mesh_context(mesh):
+        logits, _ = T.decode_step(cfg, params, caches, tokens, pos,
+                                  moe_impl=moe_impl)
     return logits
 
 
-_decode_program = program(_decode_step, static=("cfg", "moe_impl"),
+_decode_program = program(_decode_step, static=("cfg", "moe_impl", "mesh"),
                           resident=("params", "caches"))
 
 
@@ -68,6 +85,16 @@ class ContinuousBatcher:
     (cast to the activation dtype once per parameter version), so a
     parameter updated in place is cast anew and the step is captured
     anew.
+
+    The batcher serves under the mesh active when it is made
+    (``mesh_context``), as the reference's does under its caller's: each
+    GQA layer's KV cache becomes a
+    :class:`~repro_torch.parallel.sharding.ShardedTensor` laid out by
+    ``cache_spec`` (pieces on a repeated device are views of one cache
+    tensor, which stays put, so the captured step replays), the splice
+    and the decode step write into the pieces that own the rows, and
+    prefill and decode run under the mesh.  MLA and Mamba2 caches stay
+    whole, as the reference gives them no ``shard_map``.
     """
 
     def __init__(self, cfg, params, slots: int, max_len: int,
@@ -79,10 +106,23 @@ class ContinuousBatcher:
                 "on it too)")
         self.cfg, self.params = cfg, params
         self.moe_impl = moe_impl
+        self.mesh = current_mesh()
         self.device = params["embedding"]["table"].device
+        if self.mesh is not None and canonical_device(self.device) != \
+                canonical_device(self.mesh.devices.flat[0]):
+            raise ValueError(f"the parameters are on {self.device}, the "
+                             f"mesh's first device is "
+                             f"{self.mesh.devices.flat[0]}")
         self.slots = slots
         self.max_len = max_len
         self.caches = T.init_decode_caches(cfg, slots, max_len, self.device)
+        spec = cache_spec(self.mesh, slots, max_len)
+        if spec is not None:
+            sharding = NamedSharding(self.mesh, spec)
+            for layer, cache in zip(layer_layout(cfg), self.caches):
+                if layer.mixer == "attn":
+                    for name in ("k", "v"):
+                        cache[name] = shard_tensor(cache[name], sharding)
         self.pos = np.zeros(slots, np.int32)
         self.active = np.zeros(slots, bool)
         self.outputs: dict[int, list[int]] = {}
@@ -94,8 +134,8 @@ class ContinuousBatcher:
         weights = cast_params(self.params, dtype_of(self.cfg.dtype))
         pos_t = torch.full((), pos, dtype=torch.int32, device=self.device)
         logits = _decode_program(toks, pos_t, cfg=self.cfg,
-                                 moe_impl=self.moe_impl, params=weights,
-                                 caches=self.caches)
+                                 moe_impl=self.moe_impl, mesh=self.mesh,
+                                 params=weights, caches=self.caches)
         return logits, self.caches
 
     def admit(self, req_id: int, prompt: np.ndarray) -> bool:
@@ -104,11 +144,14 @@ class ContinuousBatcher:
             return False
         slot = int(free[0])
         tokens = torch.as_tensor(np.asarray(prompt)[None, :], device=self.device)
-        logits, cache1 = T.prefill(self.cfg, self.params, {"tokens": tokens},
-                                   max_len=self.max_len, moe_impl=self.moe_impl)
+        with mesh_context(self.mesh):
+            logits, cache1 = T.prefill(self.cfg, self.params,
+                                       {"tokens": tokens},
+                                       max_len=self.max_len,
+                                       moe_impl=self.moe_impl)
         for batched, one in zip(self.caches, cache1):
             for name, buf in batched.items():
-                buf[slot].copy_(one[name][0])
+                buf[slot] = one[name][0]
         tok = int(torch.argmax(logits[0, -1]))
         self.pos[slot] = len(prompt)
         self.active[slot] = True
@@ -158,15 +201,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(f"--mesh host: {MODEL_MESH_SLICE}")
-    dev = resolve_device(args.device)
+    mesh = make_host_mesh() if args.mesh == "host" else None
+    dev = (canonical_device(mesh.devices.flat[0]) if mesh is not None
+           else resolve_device(args.device))
     cfg = M.get_config(args.arch, smoke=args.smoke)
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=dev)
 
-    batcher = ContinuousBatcher(cfg, params, args.slots, args.max_len)
+    with mesh_context(mesh):
+        batcher = ContinuousBatcher(cfg, params, args.slots, args.max_len)
     queue = list(range(args.requests))
     prompts = {
         r: rng.integers(0, cfg.vocab_size, size=args.prompt_len).astype(np.int32)
@@ -186,7 +230,8 @@ def main(argv=None) -> int:
                   f"{batcher.outputs[rid][:8]}...")
     dt = time.time() - t0
     print(f"[serve] {args.requests} requests, {steps} decode steps, "
-          f"{steps * args.slots / dt:.1f} tok/s aggregate (device={dev})")
+          f"{steps * args.slots / dt:.1f} tok/s aggregate (device={dev}, "
+          f"mesh={mesh})")
     return 0
 
 

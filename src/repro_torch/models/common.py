@@ -6,8 +6,9 @@ The port's counterpart of ``repro/models/common.py``.  Parameters are
 ``nn.ModuleDict``s by the layer modules, so a carried JAX pytree maps
 onto them name for name.  Parameters are made with ``requires_grad``
 off, as serving wants them; ``train.train_step.init_train_state`` turns
-it on for the floating leaves.  ``shard`` is the identity: the port has
-no model mesh yet.
+it on for the floating leaves.  ``shard`` is
+:func:`repro_torch.parallel.sharding.shard_activation`, the reference's
+hook: it resolves a layout under a mesh and returns its input.
 
 Layers compute in the activation dtype and read each weight through
 :func:`cast`, which keeps one copy of a parameter in that dtype per
@@ -25,6 +26,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.parallel.sharding import shard_activation as shard
 
 __all__ = [
     "dtype_of",
@@ -158,6 +161,3 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
-def shard(x: torch.Tensor, *logical_axes) -> torch.Tensor:
-    """The reference's sharding hook; the identity without a mesh."""
-    return x

@@ -22,9 +22,16 @@ decode step with MoE layers is captured as a CUDA graph
 ``jax.lax.top_k`` breaks them, lowest expert id first (a stable
 descending sort; ``torch.topk`` orders ties otherwise).
 
-``impl="ep"`` is the reference's expert parallelism over a mesh; the
-port has no mesh, so it computes the plain path, as the reference does
-when no mesh is set.
+``impl="ep"`` is the reference's expert parallelism: under a mesh
+with a ``"model"`` axis that divides the expert count, every (data,
+model) shard runs its slice of the tokens (split over ``("pod",
+"data")``) through its own ``E / model`` experts (``_dropless`` with
+``expert_offset`` / ``local_experts``), and the shards' outputs are
+summed over ``"model"`` in shard order on the mesh's first device, where
+the reference runs ``shard_map`` and one ``psum``.  The expert pieces
+are placed once per weight version (:func:`_expert_pieces`), views of
+the weight where a shard shares its device.  Otherwise ``"ep"`` computes
+the plain path, as the reference does.
 """
 
 from __future__ import annotations
@@ -36,8 +43,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import canonical_device
 from repro_torch.models.common import (cast, dense_init, dtype_of, linear,
                                        normal, param, shard)
+from repro_torch.parallel.sharding import (NamedSharding, P, current_mesh,
+                                           manual_axes_scope, shard_tensor)
 
 __all__ = ["dense_ffn", "moe_ffn", "grouped_swiglu", "grouped_swiglu_loop",
            "grouped_swiglu_mm"]
@@ -125,6 +135,21 @@ def grouped_swiglu(x_sorted: torch.Tensor, group_sizes: torch.Tensor,
     raise ValueError(f"no grouped SwiGLU for {x_sorted.device}")
 
 
+def _expert_pieces(w: torch.Tensor, mesh):
+    """``w`` (E, ...) split over the mesh's ``"model"`` axis (spec
+    ``("model", None, None)``), made once per version of ``w`` and mesh
+    and kept on it, as :func:`~repro_torch.models.common.cast` keeps its
+    copies (not cached for a leaf that autograd tracks)."""
+    tracked = w.requires_grad and torch.is_grad_enabled()
+    hit = None if tracked else getattr(w, "_ep_pieces", None)
+    if hit is not None and hit[0] == w._version and hit[1] == mesh:
+        return hit[2]
+    pieces = shard_tensor(w, NamedSharding(mesh, P("model", None, None)))
+    if not tracked:
+        w._ep_pieces = (w._version, mesh, pieces)
+    return pieces
+
+
 class moe_ffn:
     @staticmethod
     def init(cfg: ModelConfig, gen: torch.Generator | None,
@@ -170,16 +195,29 @@ class moe_ffn:
 
     @staticmethod
     def _dropless(cfg: ModelConfig, experts, x_flat: torch.Tensor,
-                  top_p: torch.Tensor, top_i: torch.Tensor) -> torch.Tensor:
+                  top_p: torch.Tensor, top_i: torch.Tensor,
+                  expert_offset: int = 0,
+                  local_experts: int | None = None) -> torch.Tensor:
         """Sort-based dropless dispatch: the token copies sorted by expert
         id (stable, as ``jnp.argsort``), the grouped SwiGLU over them, the
         inverse gather, the combine weight multiplied in the activation
-        dtype, and the sum over k."""
+        dtype, and the sum over k.
+
+        With ``local_experts`` set, ``experts`` holds experts
+        ``expert_offset`` onwards; copies routed elsewhere are parked in a
+        trailing null group, which no GEMM computes, and contribute
+        zeros."""
         T, D = x_flat.shape
         k = cfg.top_k
-        E = cfg.num_experts
+        E = local_experts or cfg.num_experts
         flat_e = top_i.reshape(-1)  # (T·k,)
         flat_w = top_p.reshape(-1)
+        local = None
+        if local_experts is not None:
+            flat_e = flat_e - expert_offset
+            local = (flat_e >= 0) & (flat_e < E)
+            flat_e = torch.where(local, flat_e, E)  # the null group's id
+            flat_w = torch.where(local, flat_w, 0.0)
         order = torch.argsort(flat_e, stable=True)
         inv = torch.empty_like(order)
         inv[order] = torch.arange(T * k, device=order.device)
@@ -197,20 +235,80 @@ class moe_ffn:
             cast(experts["w_up"], x_flat.dtype),
             cast(experts["w_down"], x_flat.dtype))
         y = y_sorted[inv] * flat_w[:, None].to(x_flat.dtype)
+        if local is not None:
+            # The null group's rows are past the last offset: the grouped
+            # GEMM leaves them undefined (the loop and ragged_dot zero).
+            y = torch.where(local[:, None], y, torch.zeros_like(y))
         return y.reshape(T, k, D).sum(dim=1)
+
+    @staticmethod
+    def _expert_parallel(cfg: ModelConfig, experts, x_flat: torch.Tensor,
+                         top_p: torch.Tensor, top_i: torch.Tensor,
+                         mesh) -> torch.Tensor:
+        """The reference's EP ``shard_map`` body, one computation per
+        (data, model) shard on the shard's device: the tokens split over
+        ``("pod", "data")`` (pod major), experts over ``"model"``; each
+        data block's outputs summed over the model shards in order on the
+        mesh's first device, the blocks concatenated in order."""
+        T = x_flat.shape[0]
+        names = mesh.axis_names
+        data_axes = [a for a in ("pod", "data") if a in mesh.shape]
+        n_data = 1
+        for a in data_axes:
+            n_data *= mesh.shape[a]
+        if T % n_data:
+            raise ValueError(f"{T} tokens do not split over the mesh's "
+                             f"{n_data} data shards")
+        n_model = mesh.shape["model"]
+        e_local = cfg.num_experts // n_model
+        dt = x_flat.dtype
+        pieces = [_expert_pieces(cast(experts[n], dt), mesh)
+                  for n in ("w_gate", "w_up", "w_down")]
+        first = canonical_device(mesh.devices.flat[0])
+        Tl = T // n_data
+        outs = []
+        with manual_axes_scope(names):
+            for d in range(n_data):
+                coord = {"model": 0}
+                rest = d
+                for a in reversed(data_axes):
+                    coord[a] = rest % mesh.shape[a]
+                    rest //= mesh.shape[a]
+                rows = slice(d * Tl, (d + 1) * Tl)
+                acc = None
+                for m in range(n_model):
+                    coord["model"] = m
+                    pos = tuple(coord.get(a, 0) for a in names)
+                    dev = mesh.devices[pos]
+                    w = dict(zip(("w_gate", "w_up", "w_down"),
+                                 (st.pieces[pos] for st in pieces)))
+                    out = moe_ffn._dropless(
+                        cfg, w, x_flat[rows].to(dev), top_p[rows].to(dev),
+                        top_i[rows].to(dev), expert_offset=m * e_local,
+                        local_experts=e_local).to(first)
+                    acc = out if acc is None else acc + out
+                outs.append(acc)
+        return outs[0] if n_data == 1 else torch.cat(outs)
 
     @staticmethod
     def apply(cfg: ModelConfig, p, x: torch.Tensor,
               impl: str = "gspmd") -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (out, aux_loss · aux_loss_coef).  x (B, S, D).  ``impl``
-        is ``"gspmd"`` or ``"ep"``; without a mesh both are the plain
-        path."""
+        is ``"gspmd"`` or ``"ep"``; ``"ep"`` runs expert parallelism under
+        a mesh whose ``"model"`` axis divides the expert count, and the
+        plain path otherwise, as ``"gspmd"`` always does."""
         if impl not in ("gspmd", "ep"):
             raise ValueError(f"unknown MoE impl {impl!r}")
         B, S, D = x.shape
         x_flat = x.reshape(B * S, D)
         top_p, top_i, aux = moe_ffn.route(cfg, p, x_flat)
-        out = moe_ffn._dropless(cfg, p["experts"], x_flat, top_p, top_i)
+        mesh = current_mesh()
+        if (impl == "ep" and mesh is not None and "model" in mesh.shape
+                and cfg.num_experts % mesh.shape["model"] == 0):
+            out = moe_ffn._expert_parallel(cfg, p["experts"], x_flat, top_p,
+                                           top_i, mesh)
+        else:
+            out = moe_ffn._dropless(cfg, p["experts"], x_flat, top_p, top_i)
         out = out.reshape(B, S, D)
         if "shared" in p:
             out = out + dense_ffn.apply(cfg, p["shared"], x)

@@ -205,8 +205,8 @@ def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
     labels, in float32 with a logsumexp normalizer; ``mask`` (the labels'
     shape) weights each position, the mean taken over its sum (at least
     1).  The reference takes the label logit by a one-hot contraction so
-    that the vocab axis stays sharded over its mesh; the port has no mesh,
-    and a ``take_along_dim`` gather of the label logit is the same value
+    that the vocab axis stays sharded over its mesh; the port computes the
+    logits whole (``shard_activation``), and a ``take_along_dim`` gather of the label logit is the same value
     without the (..., V) one-hot."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)

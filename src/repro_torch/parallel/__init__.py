@@ -1,1 +1,3 @@
-"""Parallel helpers of the port (single device in this slice)."""
+"""Parallel helpers of the port: sharding specs and placement
+(``sharding``), the context-parallel decode attention
+(``decode_attention``)."""

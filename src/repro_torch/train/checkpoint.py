@@ -25,8 +25,8 @@ bfloat16 leaf (numpy has no such dtype) is stored as its uint16 bits with
     before it returns and writes the files on a daemon thread.
   * placement — restore puts each leaf on the device (and dtype) of the
     leaf it replaces in ``like``.  The reference's ``shardings=``
-    (re-placing onto another mesh) waits for the port's model mesh (ROADMAP
-    queue 1 item 7).
+    (re-placing onto another mesh) waits for training on the port's model
+    mesh (ROADMAP queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -45,8 +45,9 @@ from repro_torch.train.tree import named_leaves
 
 __all__ = ["save", "restore", "latest_step", "CheckpointManager"]
 
-_MESH_SLICE = ("restore(shardings=...): the port has no model mesh yet; it "
-               "comes with the next multi-GPU slice (ROADMAP queue 1 item 7)")
+_MESH_SLICE = ("restore(shardings=...): placing a checkpoint on the model "
+               "mesh comes with the next multi-GPU slice (ROADMAP queue 1 "
+               "item 2)")
 
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:

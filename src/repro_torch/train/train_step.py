@@ -13,9 +13,9 @@ by ``1 / grad_accum``.
 
 Compression: the reference's ``"int8_ef"`` compresses pod-local
 gradients across the pods of a multi-pod mesh and is a no-op without one
-(the error-feedback buffers stay zero).  The port has no model mesh (ROADMAP
-queue 1 item 7), so ``"int8_ef"`` is that no-op here, and asking for a
-mesh raises.
+(the error-feedback buffers stay zero).  The port's model mesh serves
+but does not train yet (ROADMAP queue 1 item 2), so ``"int8_ef"`` is
+that no-op here, and asking for a mesh raises.
 """
 
 from __future__ import annotations
@@ -34,9 +34,9 @@ from repro_torch.train.optimizer import (AdamWState, Optimizer, Schedule,
 __all__ = ["TrainState", "init_train_state", "build_train_step",
            "batch_to_device", "MESH_SLICE"]
 
-MESH_SLICE = ("the port has no model mesh yet; multi-pod gradient "
-              "compression comes with the next multi-GPU slice (ROADMAP "
-              "queue 1 item 7)")
+MESH_SLICE = ("the train step on the model mesh and multi-pod gradient "
+              "compression come with the next multi-GPU slice (ROADMAP "
+              "queue 1 item 2)")
 
 
 class TrainState(NamedTuple):

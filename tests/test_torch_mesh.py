@@ -547,6 +547,25 @@ class TestServiceOnMesh:
         assert {o.rung for o in outcomes} == {"distributed"}
         assert svc.stats()["admission"]["q_buckets"] == [1, 2]
 
+    @pytest.mark.parametrize("path", sorted(PATHS))
+    @pytest.mark.parametrize("shards", SHARDS)
+    def test_hybrid_submit_equals_batched_service(self, index, shards, path):
+        """``rank="hybrid"`` weights each score by join size / train size
+        on the device before the shard top-k and the merge, so the mesh
+        ranks every candidate the batched service ranks (query 0 keeps
+        t33 and t39, which rank lower by MI alone), bit for bit."""
+        queue = [sk for pair in zip(_sketches(t_build, False),
+                                    _sketches(t_build, True)) for sk in pair]
+        kw = dict(top_k=6, min_join=MIN_JOIN, rank="hybrid", **PATHS[path])
+        want = DiscoveryService(index=index).submit(queue, **kw)
+        got = DiscoveryService(index=index, mesh=_mesh(shards)).submit(
+            queue, **kw)
+        assert _flat(got) == _flat(want)
+        tables = {m.table for m, _, _ in want[0]}
+        assert {"t33", "t39"} <= tables
+        assert _flat(want) != _flat(DiscoveryService(index=index).submit(
+            queue, **{**kw, "rank": "mi"}))
+
     @pytest.mark.parametrize("sites, path", [
         (("dispatch",), "dense"),
         (("fused_dispatch", "prefilter_dispatch"), "fused"),

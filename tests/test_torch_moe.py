@@ -137,8 +137,8 @@ class TestDroplessDispatch:
 
 class TestExpertParallel:
     def test_ep_without_mesh_equals_plain(self):
-        """The port has no mesh: ``impl="ep"`` is the plain path, as the
-        reference's is when no mesh is set."""
+        """Without a mesh ``impl="ep"`` is the plain path, as the
+        reference's is when no mesh is set (the mesh: test_torch_sharding)."""
         p = to_torch(jax_moe(CFG, 2))
         x = torch.from_numpy(inputs((2, 8, 32), 5))
         plain, aux1 = moe_ffn.apply(CFG, p, x)
