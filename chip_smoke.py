@@ -316,7 +316,17 @@ it fails:
      attention output is detached; the flash autograd Function's q/k/v
      gradients on a captured launch (float32, and bf16 through the
      Hopper kernel) against autograd through ``ref.chunked_attention``;
-     ``prefill`` + one ``decode_step`` against ``forward``; (b) each at
+     ``prefill`` + one ``decode_step`` against ``forward``; then, beside
+     the stubs, ``deepseek-v2-lite-16b`` (``[train-mla]``: MLA, a dense
+     prefix layer and a MoE layer of 64 experts) and ``mamba2-370m``
+     (``[train-ssm]``), each 2 layers at full width, float32 parameters:
+     one step's gradients on the card (deepseek in bf16 activations, the
+     grouped GEMM's and MLA's backward; mamba2 in float32, the SSD's)
+     against the CPU's float32 step on the same batch (``TRAIN_BF16_*`` /
+     ``TRAIN_*`` tolerances, the share of equal routes reported), a
+     control with the attention (SSD) output detached outside them, the
+     flash and grouped-GEMM launches counted, and two whole steps timed;
+     (b) each at
      full width (musicgen whole, 48 layers, 3.24 B parameters;
      internvl2's first 8 of 48 layers, 4.30 B), float32 master
      parameters, bf16 activations, remat, int8 AdamW, batches of 2 x
@@ -360,10 +370,36 @@ it fails:
      way (bf16 only: the grouped GEMM takes no float32) against the same
      model without a mesh (prefill logits within the tolerance too).
 
+ 23. training on the model mesh, after phase 22 with its models freed;
+     every mesh is one process over ``["cuda:0"] * 4``: (a)
+     ``[train-mesh-ep]``: qwen3-moe-30b-a3b at full width cut to 4 of 48
+     layers (3.12 B float32 parameters, bf16 activations, remat, int8
+     AdamW, batches of 2 x 2048) with ``moe_impl="ep"`` on (1, 4) beside
+     the plain step: the first MoE layer's route equal, the deeper ones'
+     share reported; on the plain step's routes the loss and every
+     gradient leaf within the bf16 tolerances and every routed expert
+     (and no other) with a gradient; 5 timed steps each (median step ms,
+     tokens/s, peak memory against the reckoned one, launches); (b)
+     ``[train-mesh-int8ef]``: internlm2-1.8b whole with
+     ``compression="int8_ef"`` on a ("pod", "data") = (2, 2) mesh, batches
+     of 4 x 2048, 4 steps against the same 4 uncompressed: the first loss
+     within 1e-5, all within 5%, the compression cell on the card's
+     per-pod gradients (the leaves ``MESH_INT8EF_CELL`` names) bit-equal
+     to the CPU's cell, step ms and peak memory against the reckoned one
+     (one pod's gradients alive); (c) ``[train-mesh-resume]``: the smoke
+     configuration with int8_ef on the same mesh, 4 steps straight against
+     2 + checkpoint + ``restore(shardings=)`` + 2, every leaf (both pods'
+     residuals) bit-equal; then ``python -m repro_torch.launch.train
+     --mesh host`` on the card; (d) ``[dryrun]``: ``python -m
+     repro_torch.launch.dryrun`` on ``tests/test_dryrun.py``'s three cells
+     (started at the phase's start, traced on the meta device beside
+     (a)-(c)), their reports held to that test's assertions where the
+     port's design allows them.
+
 Phases 14, 15, 16 (a)-(c), 17, 21, 12 and 13 run after phase 10 and
 before phase 11, so that the serving path starts with the discovery
-state freed; phases 18, 19, 20 and 22 run after phase 11.  Each of
-phases 3, 7-9 and 11-22 sets every kernel's launch count to 0 just
+state freed; phases 18, 19, 20, 22 and 23 run after phase 11.  Each of
+phases 3, 7-9 and 11-23 sets every kernel's launch count to 0 just
 before it drives its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
@@ -675,6 +711,45 @@ TRAIN_GRAD_RTOL = 1e-4
 TRAIN_UPDATE_RTOL = 1e-2
 TRAIN_CODE_MISMATCH = 1e-2
 TRAIN_DEQ_RTOL = 1e-2
+# (a), beside the stubs: a MoE + MLA configuration and a Mamba2 one, each
+# at full width cut to TRAIN_CHECK_LAYERS layers (deepseek: its dense
+# prefix layer and one MoE layer of 64 experts; mamba2: two SSD layers),
+# float32 parameters, one step's gradients on the card against the CPU's
+# on the same batch: the backward of torch._grouped_mm, of MLA and of the
+# SSD.  The tag, and the card's activation dtype: deepseek trains in bf16
+# on the card (its grouped GEMM takes no float32) against the CPU's
+# float32; mamba2 in float32 on both.
+TRAIN_FAMILIES = (("deepseek-v2-lite-16b", "[train-mla]", "bfloat16"),
+                  ("mamba2-370m", "[train-ssm]", "float32"))
+# Whole steps each family's step is timed over (the first warms up).
+TRAIN_FAMILY_STEPS = 6
+# The bf16 step against the float32 one: every activation rounds to bf16
+# (2^-9 relative) and the MoE's grouped GEMMs and flash attention compute
+# in bf16, so the loss, a mean over 1024 positions, moves by about 2^-9 of
+# itself and each gradient leaf by a few 2^-8 relative RMS through two
+# layers; a token whose top-6 route flips between the two (a probability
+# gap under the bf16 noise) moves its experts' rows.  TRAIN_BF16_*_RTOL
+# hold those and stay far below a leaf the backward misses (relative RMS
+# 1: the detached control).  The routed leaves are the exception: a token
+# whose top-k route differs between the two (its k-th and (k+1)-th
+# probabilities closer than the bf16 noise of its logits) moves its
+# gradient from one expert's rows to another's, and the router's gradient
+# is the combine weights' (a dot product over d_model of the upstream
+# gradient and the expert's bf16 output, which cancel) through the
+# softmax's Jacobian (a second cancellation).  On an H100 at 700 W the
+# expert leaves and the router of deepseek's MoE layer came to 0.074-0.076
+# (PERF.md), every other leaf within 0.022, so
+# TRAIN_BF16_ROUTED_RTOL holds them: it is still far below an expert or
+# router whose gradient is lost (relative RMS 1) or misplaced (about 1.4).
+TRAIN_BF16_LOSS_RTOL = 1e-2
+TRAIN_BF16_GRAD_RTOL = 0.05
+TRAIN_BF16_ROUTED_RTOL = 0.25
+
+
+def bf16_grad_tol(leaf: str) -> float:
+    """The bf16 gradient tolerance of a leaf (see TRAIN_BF16_*)."""
+    routed = leaf.endswith("router.w") or ".experts." in leaf
+    return TRAIN_BF16_ROUTED_RTOL if routed else TRAIN_BF16_GRAD_RTOL
 # (a): prefill + one decode step against the forward on the card (float32,
 # relative RMS of the logits; summation order only), and the flash
 # Function's q/k/v gradients against autograd through
@@ -4610,6 +4685,208 @@ def train_check_model(arch: str, tag: str, card: str, dev) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def recorded_routes(out: list):
+    """While entered, every MoE route's expert ids (T, k) are appended to
+    ``out``, copied to the host."""
+    from repro_torch.models.ffn import moe_ffn
+
+    own = moe_ffn.route
+
+    def spy(*args, **kw):
+        r = own(*args, **kw)
+        out.append(r[1].detach().to("cpu", copy=True))
+        return r
+
+    moe_ffn.route = staticmethod(spy)
+    try:
+        yield out
+    finally:
+        moe_ffn.route = staticmethod(own)
+
+
+@contextlib.contextmanager
+def forced_routes(ids: list, own: list):
+    """While entered, the i-th MoE route computes its own expert ids
+    (appended to ``own``, on the host) and then takes ``ids[i]`` in their
+    place, its probabilities and aux loss taken from its own router at
+    those ids (``moe_ffn.route``'s arithmetic): two runs whose inputs
+    differ by rounding then route every token alike."""
+    from repro_torch.models.common import cast
+    from repro_torch.models.ffn import moe_ffn
+
+    real = moe_ffn.route
+
+    def spy(cfg, p, x_flat):
+        _, top_i, _ = real(cfg, p, x_flat)
+        own.append(top_i.detach().to("cpu", copy=True))
+        want = ids[len(own) - 1].to(top_i.device)
+        probs = torch.softmax(x_flat.float() @ cast(p["router"]["w"],
+                                                    torch.float32), dim=-1)
+        top_p = probs.gather(1, want)
+        if cfg.norm_topk:
+            top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+        E = cfg.num_experts
+        counts = torch.zeros(E, dtype=torch.float32, device=x_flat.device)
+        counts.scatter_add_(0, want[:, 0], torch.ones_like(top_p[:, 0]))
+        aux = E * (counts / x_flat.shape[0] * probs.mean(dim=0)).sum()
+        return top_p, want, aux
+
+    moe_ffn.route = staticmethod(spy)
+    try:
+        yield own
+    finally:
+        moe_ffn.route = staticmethod(real)
+
+
+def route_share(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The share of tokens routed to the same set of experts."""
+    same = torch.sort(a, dim=-1).values == torch.sort(b, dim=-1).values
+    return float(same.all(dim=-1).double().mean())
+
+
+def detached_ssd():
+    """While entered, the SSD's output and final state are detached: a
+    Mamba2 layer whose SSD backward is missing, as a control."""
+    from repro_torch.models import ssm
+
+    own = ssm._ssd_chunked
+
+    def cut(*args, **kw):
+        y, state = own(*args, **kw)
+        return y.detach(), state.detach()
+
+    return _patched(ssm, "_ssd_chunked", cut)
+
+
+def train_family_check(arch: str, tag: str, act: str, card: str, dev) -> dict:
+    """Phase 20 (a) for a MoE + MLA or Mamba2 configuration: one step's
+    gradients of the 2-layer full-width model on the card (activations in
+    ``act``) against the CPU's float32 step on the same batch and weights,
+    with a control whose attention (or SSD) output is detached; then the
+    whole step (gradients, clipping, int8 AdamW) on the card, timed."""
+    import copy
+
+    from repro_torch.configs.base import layer_layout
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    t_start = time.perf_counter()
+    base = M.get_config(arch).with_overrides(
+        num_layers=TRAIN_CHECK_LAYERS, dtype="float32", param_dtype="float32")
+    cfg = base.with_overrides(dtype=act)
+    bf16 = act == "bfloat16"
+    loss_tol = TRAIN_BF16_LOSS_RTOL if bf16 else TRAIN_LOSS_RTOL
+
+    def grad_tol(leaf: str) -> float:
+        return bf16_grad_tol(leaf) if bf16 else TRAIN_GRAD_RTOL
+
+    np_batch = TokenPipeline(cfg, batch=TRAIN_CHECK_B, seq=TRAIN_CHECK_S,
+                             seed=SEED).next_batch()
+    cpu_params = TS.trainable(T.init_params(
+        base, torch.Generator().manual_seed(SEED), device="cpu"))
+    gpu_params = TS.trainable(copy.deepcopy(cpu_params).to(dev))
+    opt = O.adamw(quantized=True)
+    sched = O.warmup_cosine(TRAIN_CHECK_LR, 0, 10)
+    routes = {"cpu": [], "gpu": []}
+    t0 = time.perf_counter()
+    with recorded_routes(routes["cpu"]):
+        want, want_met = TS.build_train_step(base, opt, sched).grads_and_metrics(
+            cpu_params, TS.batch_to_device(np_batch, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    step = TS.build_train_step(cfg, opt, sched)
+    batch = TS.batch_to_device(np_batch, dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded_routes(routes["gpu"]):
+        got, met = step.grads_and_metrics(gpu_params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    shares = [route_share(a, b) for a, b in zip(routes["cpu"], routes["gpu"])]
+    launches = {k: v for k, v in read_launches().items() if v}
+    loss = {"gpu": float(met["loss"]), "cpu": float(want_met["loss"])}
+    loss_err = abs(loss["gpu"] - loss["cpu"]) / abs(loss["cpu"])
+    grad_err = {n: leaf_rel_rms(got[n], want[n]) for n in want}
+    worst = max(grad_err, key=lambda n: grad_err[n] / grad_tol(n))
+    del want
+    layout = layer_layout(cfg)
+    attn = sum(spec.mixer != "mamba" for spec in layout)
+    moe = sum(spec.ffn == "moe" for spec in layout)
+    want_launches = {}
+    if attn:
+        want_launches["flash_attention_wgmma" if bf16 else "flash_attention"] \
+            = 2 * attn
+        if not bf16:
+            want_launches["flash_attention_simt_regtile"] = 2 * attn
+    if moe:
+        want_launches["grouped_swiglu_mm"] = 2 * moe
+    if launches != want_launches:
+        raise AssertionError(f"{tag} (a) the card's step launched {launches}; "
+                             f"expected {want_launches} (forward and remat)")
+    control_leaf = ("layers.0.mixer.A_log" if not attn
+                    else "layers.0.mixer.wq.w")
+    with (detached_ssd() if not attn else detached_attention()):
+        gd, _ = step.grads_and_metrics(gpu_params, batch)
+    control = leaf_rel_rms(gd[control_leaf], got[control_leaf])
+    del gd, got
+    if (loss_err > loss_tol or grad_err[worst] > grad_tol(worst)
+            or control <= grad_tol(control_leaf)):
+        raise AssertionError(
+            f"{tag} (a) card ({act}) against the CPU (float32): loss "
+            f"{loss_err} (tol {loss_tol}), worst gradient {worst} "
+            f"{grad_err[worst]} (tol {grad_tol(worst)}); control "
+            f"{control_leaf} {control} must lie outside; all "
+            f"{sorted(grad_err.items(), key=lambda kv: -kv[1])[:6]}")
+    # The whole step on the card, TRAIN_FAMILY_STEPS times: the first
+    # warms up, the median of the others is the step's time.
+    state = TS.init_train_state(cfg, opt, None, params=gpu_params)
+    times = []
+    reset_launches()
+    for _ in range(TRAIN_FAMILY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_launches = {k: v for k, v in read_launches().items() if v}
+    if not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"{tag} (a) loss {float(m['loss'])}")
+    rec = {"layers": TRAIN_CHECK_LAYERS, "step_launches": step_launches,
+           "route_share": shares, "batch": [TRAIN_CHECK_B, TRAIN_CHECK_S],
+           "activations": act, "loss": loss, "loss_rel_err": loss_err,
+           "loss_tol": loss_tol, "grad_rel_rms_max": grad_err[worst],
+           "grad_worst_leaf": worst, "grad_tol": grad_tol(worst),
+           "grad_rel_rms": grad_err, "control": {control_leaf: control},
+           "launches": launches, "first_grads_s": first_s, "cpu_grads_s": cpu_s,
+           "step_s": times, "step_s_median": float(np.median(times[1:])),
+           "params": sum(p.numel() for p in
+                                          state.params.parameters()),
+           "seconds": time.perf_counter() - t_start}
+    log(f"{tag} (a) {arch}, {TRAIN_CHECK_LAYERS} layers at full width "
+        f"({rec['params']:,} parameters), float32 parameters, {act} "
+        f"activations on the card against float32 on the CPU, batch "
+        f"{TRAIN_CHECK_B} x {TRAIN_CHECK_S}: loss {loss['gpu']:.6f} / CPU "
+        f"{loss['cpu']:.6f} (rel {loss_err:.2e}, tol {loss_tol}); gradients "
+        f"worst {worst} {grad_err[worst]:.2e} (tol {grad_tol(worst)}; the "
+        f"largest {[(n, round(e, 5)) for n, e in sorted(grad_err.items(), key=lambda kv: -kv[1])[:4]]}); control "
+        f"({'SSD' if not attn else 'attention'} output detached) "
+        f"{control_leaf} {control:.3e}; routes equal to the CPU's on "
+        f"{[round(x, 5) for x in shares]} of tokens (forward, remat); "
+        f"launches {launches}; step {1e3 * rec['step_s_median']:.1f} ms, "
+        f"the median of {len(times) - 1} warm steps (range "
+        f"{1e3 * min(times[1:]):.1f}-{1e3 * max(times[1:]):.1f} ms; first "
+        f"{1e3 * times[0]:.1f} ms; the CPU's gradients {cpu_s:.1f} s); card "
+        f"{card}")
+    del state, batch, gpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def matmul_params(cfg, params) -> int:
     """Parameters that multiply activations (all but the token table: a
     gather for the vision stub, unused by the audio stub)."""
@@ -4930,9 +5207,10 @@ def grouped_mm_backward(dev) -> dict:
 
 
 def run_training(card: str, dev) -> dict:
-    """Phase 20: (a) the check models, (b) the full-width runs, (c) the
-    launcher, the card freed between them; and whether the grouped GEMM
-    of the MoE layers (not trained on the card here) has a backward."""
+    """Phase 20: (a) the check models (the stubs, then the MoE + MLA and
+    Mamba2 families), (b) the full-width runs, (c) the launcher, the card
+    freed between them; and whether the grouped GEMM of the MoE layers
+    has a backward."""
     out = {"check": {}, "full": {}, "grouped_mm": grouped_mm_backward(dev)}
     log(f"[train] torch._grouped_mm under autograd: {out['grouped_mm']}")
     t_phase = time.perf_counter()
@@ -4940,6 +5218,8 @@ def run_training(card: str, dev) -> dict:
         out["check"][arch] = train_check_model(arch, tag, card, dev)
         gc.collect()
         torch.cuda.empty_cache()
+    out["families"] = {arch: train_family_check(arch, tag, act, card, dev)
+                       for arch, tag, act in TRAIN_FAMILIES}
     for arch, tag, layers in TRAIN_ARCHS:
         out["full"][arch] = train_full_model(arch, tag, layers, card, dev)
     out["launcher"] = run_launcher(card)
@@ -5734,6 +6014,512 @@ def run_model_mesh(serving: dict | None, card: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: training on the model mesh (four shards of the one card) and
+# the dry run
+# ---------------------------------------------------------------------------
+
+# (a) qwen3-moe at full width cut to MESH_TRAIN_EP_LAYERS of 48 layers
+# (3.12 B parameters), float32 master parameters, bf16 activations, remat,
+# int8 AdamW, phase 20 (b)'s batches (TRAIN_B x TRAIN_S): EP on (1, 4)
+# against the plain step (moe_impl "gspmd"), MESH_TRAIN_STEPS timed steps
+# each.  The first MoE layer sees the same input in both, so its route
+# must be equal; deeper, EP's other bf16 summation order flips the routes
+# of near-tied tokens (random weights route many tokens to few experts),
+# so the gradients are compared with EP on the plain step's routes
+# (``forced_routes``), where only that order differs: phase 20 (a)'s bf16
+# tolerances.
+MESH_TRAIN_EP = ("qwen3-moe-30b-a3b", 4, (1, 4))
+MESH_TRAIN_STEPS = 5
+# (b) internlm2 whole, int8_ef on a ("pod", "data") = (2, 2) mesh, batches
+# of MESH_INT8EF_B x TRAIN_S, MESH_INT8EF_STEPS steps, against the same
+# steps uncompressed: the first loss (computed before any compression)
+# within INT8EF_FIRST_RTOL, every loss within INT8EF_TRACK_RTOL (the
+# reference's TestInt8EfMultiPod criteria).  The compression cell's
+# outputs on the card's per-pod gradients (the leaves MESH_INT8EF_CELL
+# names) bit-equal to the CPU's cell on the same inputs: it is IEEE
+# arithmetic (an abs-max, a division, round half to even) on both.
+MESH_INT8EF = ("internlm2-1.8b", (2, 2))
+MESH_INT8EF_B, MESH_INT8EF_STEPS = 4, 4
+INT8EF_FIRST_RTOL = 1e-5
+INT8EF_TRACK_RTOL = 0.05
+MESH_INT8EF_CELL = ("embedding.table", "lm_head.w", "final_norm.scale",
+                    "layers.0.", "layers.23.")
+# (c) the smoke configuration of internlm2, int8_ef on the same mesh, run
+# MESH_RESUME_STEPS straight and preempted after half of them.
+MESH_RESUME_STEPS = 4
+# (d) the dry run's cells (tests/test_dryrun.py's), one process each.
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False),
+                ("olmo-1b", "decode_32k", True),
+                ("olmo-1b", "long_500k", False))
+DRYRUN_TIMEOUT_S = 600
+
+
+def pod_mesh():
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(np.array(MESH_DEVICES, dtype=object).reshape(2, 2),
+                ("pod", "data"))
+
+
+def mesh_train_ep(card: str, dev) -> dict:
+    """(a): qwen3 EP training on (1, 4) against the plain step: the first
+    MoE layer's route equal (the deeper ones' share reported); on the
+    plain step's routes, the loss and every gradient leaf within the bf16
+    tolerances (TRAIN_BF16_GRAD_RTOL for every leaf) and every routed
+    expert (and no other) with a gradient;
+    MESH_TRAIN_STEPS timed steps each, on their own routes, with their
+    launches and peak memory."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    arch, layers, shape = MESH_TRAIN_EP
+    tag = "[train-mesh-ep]"
+    t_start = time.perf_counter()
+    cfg = M.get_config(arch).with_overrides(num_layers=layers,
+                                            param_dtype="float32")
+    torch.cuda.empty_cache()
+    # What earlier phases still hold: the peaks below are reported less it.
+    held = torch.cuda.memory_allocated()
+    params = TS.trainable(T.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev))
+    n_params = sum(p.numel() for p in params.parameters())
+    predicted = predicted_train_bytes(cfg, n_params)
+    mesh = make_host_mesh(*shape, devices=MESH_DEVICES)
+    n_model = mesh.shape["model"]
+    pipe = TokenPipeline(cfg, batch=TRAIN_B, seq=TRAIN_S, seed=SEED)
+    batch = TS.batch_to_device(pipe.next_batch(), dev)
+    opt = O.adamw(quantized=True)
+    sched = O.warmup_cosine(TRAIN_LR, 0, 2 * MESH_TRAIN_STEPS + 1)
+    steps = {"plain": TS.build_train_step(cfg, opt, sched, moe_impl="gspmd"),
+             "ep": TS.build_train_step(cfg, opt, sched, moe_impl="ep",
+                                       mesh=mesh)}
+    log(f"{tag} {arch}: {layers} of 48 layers at full width, {n_params:,} "
+        f"float32 parameters, bf16 activations, remat, int8 AdamW, batch "
+        f"{TRAIN_B} x {TRAIN_S}; EP on a {shape} mesh of 4 x cuda:0 "
+        f"({cfg.num_experts // n_model} experts a shard) against the plain "
+        f"step; predicted peak {predicted['total'] / 2**30:.2f} GiB before "
+        "activations")
+    # The plain step records its routes; EP recomputes its own (their
+    # share of equal tokens reported, the first MoE layer's required equal)
+    # and takes the plain step's, so that the gradients differ only by
+    # EP's bf16 summation order.
+    routes = {"plain": [], "ep": []}
+    grads, mets, launches = {}, {}, {}
+    for name in ("plain", "ep"):
+        reset_launches()
+        spy = (recorded_routes(routes["plain"]) if name == "plain"
+               else forced_routes(routes["plain"], routes["ep"]))
+        with spy, mesh_context(mesh if name == "ep" else None):
+            grads[name], mets[name] = steps[name].grads_and_metrics(params,
+                                                                    batch)
+        torch.cuda.synchronize()
+        launches[name] = {k: v for k, v in read_launches().items() if v}
+    first_equal = torch.equal(routes["plain"][0], routes["ep"][0])
+    deeper = [route_share(a, b) for a, b in zip(routes["plain"][1:layers],
+                                                routes["ep"][1:layers])]
+    loss = {k: float(m["loss"]) for k, m in mets.items()}
+    loss_err = abs(loss["ep"] - loss["plain"]) / abs(loss["plain"])
+    grad_err = {n: leaf_rel_rms(grads["ep"][n], grads["plain"][n])
+                for n in grads["plain"]}
+    # On the plain step's routes no route flips, so no leaf needs the
+    # routed tolerance (bf16_grad_tol): every leaf, the experts' and the
+    # router's too, is held to TRAIN_BF16_GRAD_RTOL.
+    worst = max(grad_err, key=grad_err.get)
+    # Every expert with tokens receives a gradient, and no other: by the
+    # routes both steps took (the forward's, one a layer).
+    reach = {}
+    for layer, top_i in enumerate(routes["plain"][:layers]):
+        routed = torch.zeros(cfg.num_experts, dtype=torch.bool)
+        routed[top_i.flatten()] = True
+        for leaf in ("w_gate", "w_up", "w_down"):
+            n = f"layers.{layer}.ffn.experts.{leaf}"
+            for name in ("plain", "ep"):
+                got = (grads[name][n].flatten(1).abs().amax(dim=1) > 0).cpu()
+                reach[(name, n)] = int((got != routed).sum())
+        reach[("routed", layer)] = int(routed.sum())
+    unreached = {f"{k[0]} {k[1]}": v for k, v in reach.items()
+                 if k[0] != "routed" and v}
+    del grads
+    gc.collect()
+    want = {"flash_attention_wgmma": 2 * layers}
+    diag = (f"first route equal {first_equal}, deeper routes' shares "
+            f"{[round(d, 5) for d in deeper]}, loss {loss_err} (tol "
+            f"{TRAIN_BF16_LOSS_RTOL}), worst gradient {worst} {grad_err[worst]} "
+            f"(tol {TRAIN_BF16_GRAD_RTOL}; the largest "
+            f"{[(n, round(e, 5)) for n, e in sorted(grad_err.items(), key=lambda kv: -kv[1])[:4]]}), "
+            f"experts whose gradient disagrees with their routing {unreached}, "
+            f"launches {launches}")
+    if (not first_equal or loss_err > TRAIN_BF16_LOSS_RTOL
+            or grad_err[worst] > TRAIN_BF16_GRAD_RTOL or unreached
+            or launches["plain"] != dict(want, grouped_swiglu_mm=2 * layers)
+            or launches["ep"] != dict(want,
+                                      grouped_swiglu_mm=2 * layers * n_model)):
+        raise AssertionError(f"{tag} EP against plain: {diag}")
+    log(f"{tag} gradients, EP on the plain step's routes: loss EP "
+        f"{loss['ep']:.6f} / plain {loss['plain']:.6f}; {diag}; experts "
+        f"routed a layer {[reach[('routed', i)] for i in range(layers)]} of "
+        f"{cfg.num_experts}, each with a gradient in both steps and no other")
+    state = TS.init_train_state(cfg, opt, None, params=params)
+    del params
+    runs = {}
+    for name in ("plain", "ep"):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times, losses = [], []
+        for _ in range(MESH_TRAIN_STEPS):
+            b = TS.batch_to_device(pipe.next_batch(), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steps[name](state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        step_s = float(np.median(times[1:]))
+        runs[name] = {"step_s": times, "step_s_median": step_s,
+                      "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+                      "losses": losses,
+                      "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                      "launches": {k: v for k, v in read_launches().items()
+                                   if v}}
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{tag} {name} losses {losses}")
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"arch": arch, "layers": layers, "mesh": list(shape),
+           "params": n_params, "batch": [TRAIN_B, TRAIN_S],
+           "loss": loss, "loss_rel_err": loss_err,
+           "grad_rel_rms_max": grad_err[worst], "grad_worst_leaf": worst,
+           "grad_rel_rms": grad_err, "first_route_equal": first_equal, "deeper_route_equal": deeper,
+           "grad_launches": launches, "runs": runs, "predicted_bytes": predicted,
+           "held_by_earlier_phases_bytes": held,
+           "seconds": time.perf_counter() - t_start}
+    log(f"{tag} {MESH_TRAIN_STEPS} steps each (median after the first, host "
+        f"clock around a step ending in a synchronize): plain "
+        f"{1e3 * runs['plain']['step_s_median']:.1f} ms "
+        f"({runs['plain']['tokens_per_s']:,.0f} tokens/s, peak "
+        f"{runs['plain']['peak_bytes'] / 2**30:.2f} GiB), EP "
+        f"{1e3 * runs['ep']['step_s_median']:.1f} ms "
+        f"({runs['ep']['tokens_per_s']:,.0f} tokens/s, peak "
+        f"{runs['ep']['peak_bytes'] / 2**30:.2f} GiB; peaks less the "
+        f"{held / 2**30:.2f} GiB earlier phases hold); predicted "
+        f"{predicted['total'] / 2**30:.2f} GiB before activations; launches "
+        f"plain {runs['plain']['launches']}, EP {runs['ep']['launches']}; "
+        f"card {card}")
+    return rec
+
+
+def mesh_train_int8ef(card: str, dev) -> dict:
+    """(b): internlm2 whole with int8_ef across the two pods of a (2, 2)
+    mesh against the same steps uncompressed; the compression cell on the
+    card's per-pod gradients against the CPU's cell; times and peak
+    memory against the reckoned peak."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    arch, shape = MESH_INT8EF
+    tag = "[train-mesh-int8ef]"
+    t_start = time.perf_counter()
+    cfg = M.get_config(arch).with_overrides(param_dtype="float32")
+    mesh = pod_mesh()
+    pipe = TokenPipeline(cfg, batch=MESH_INT8EF_B, seq=TRAIN_S, seed=SEED)
+    batches = [pipe.next_batch() for _ in range(MESH_INT8EF_STEPS)]
+    opt = O.adamw(weight_decay=0.01, quantized=True)
+    sched = O.warmup_cosine(TRAIN_LR, 2, 20)
+    runs, cell = {}, {}
+    for comp in (None, "int8_ef"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # earlier phases' leftovers
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                               device=dev)
+        n = sum(p.numel() for p in params.parameters())
+        state = TS.init_train_state(cfg, opt, None, params=params,
+                                    compression=comp, mesh=mesh)
+        del params
+        step = TS.build_train_step(cfg, opt, sched, compression=comp, mesh=mesh)
+        spy_ctx = contextlib.nullcontext()
+        if comp:
+            spy_ctx = spy_compression(state, cell)
+        reset_launches()
+        times, losses = [], []
+        for i, b in enumerate(batches):
+            b = TS.batch_to_device(b, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (spy_ctx if i == 0 else contextlib.nullcontext()):
+                state, m = step(state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        key = comp or "uncompressed"
+        runs[key] = {"step_s": times, "losses": losses,
+                     # Step 0 carries the cell's capture (int8_ef).
+                     "step_s_median": float(np.median(times[1:])),
+                     "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                     "held_by_earlier_phases_bytes": held,
+                     "launches": {k: v for k, v in read_launches().items() if v}}
+        if comp:
+            runs[key]["residual_abs_max"] = max(
+                float(e.abs().max()) for pod in state.err_fb
+                for e in pod.values())
+        del state
+        gc.collect()
+    predicted = {"params": 4 * n, "moments": 2 * n, "residuals": 8 * n,
+                 "one_pod_grads": 4 * n, "code_sums": 4 * n, "total": 22 * n}
+    l_c, l_u = runs["int8_ef"]["losses"], runs["uncompressed"]["losses"]
+    first_err = abs(l_c[0] - l_u[0]) / abs(l_u[0])
+    track = max(abs(a - b) / abs(b) for a, b in zip(l_c, l_u))
+    cell_equal = all(cell[k]["equal"] for k in cell)
+    # Forward and remat a layer a step; int8_ef runs them once a pod.
+    per_run = 2 * cfg.num_layers * MESH_INT8EF_STEPS
+    bad_launch = [k for k, r in runs.items() if r["launches"] != {
+        "flash_attention_wgmma": per_run * (2 if k == "int8_ef" else 1)}]
+    if (first_err > INT8EF_FIRST_RTOL or track > INT8EF_TRACK_RTOL
+            or not cell_equal or not cell or bad_launch
+            or not runs["int8_ef"]["residual_abs_max"] > 0):
+        raise AssertionError(
+            f"{tag} first loss rel {first_err} (tol {INT8EF_FIRST_RTOL}), "
+            f"losses within {track} (tol {INT8EF_TRACK_RTOL}), cell bit-equal "
+            f"{ {k: c['equal'] for k, c in cell.items()} }, launches "
+            f"{ {k: r['launches'] for k, r in runs.items()} }")
+    rec = {"arch": arch, "mesh": {"pod": 2, "data": 2}, "params": n,
+           "batch": [MESH_INT8EF_B, TRAIN_S], "runs": runs,
+           "first_loss_rel_err": first_err, "loss_track_max": track,
+           "cell": cell,
+           "predicted_bytes": predicted,
+           "seconds": time.perf_counter() - t_start}
+    log(f"{tag} {arch} whole ({n:,} parameters), int8_ef on a (pod 2, data 2) "
+        f"mesh of 4 x cuda:0, batch {MESH_INT8EF_B} x {TRAIN_S} (a pod's block "
+        f"{MESH_INT8EF_B // 2} x {TRAIN_S}), {MESH_INT8EF_STEPS} steps: losses "
+        f"{[round(l, 5) for l in l_c]} against uncompressed "
+        f"{[round(l, 5) for l in l_u]} (first rel {first_err:.2e}, tol "
+        f"{INT8EF_FIRST_RTOL}; all within {track:.2e}, tol {INT8EF_TRACK_RTOL}); "
+        f"the cell on {len(cell)} captured (pod, leaf) inputs bit-equal to the "
+        f"CPU's (codes, scales, residuals); step "
+        f"{1e3 * runs['int8_ef']['step_s_median']:.1f} ms against "
+        f"{1e3 * runs['uncompressed']['step_s_median']:.1f} uncompressed "
+        f"(median of steps 2-{MESH_INT8EF_STEPS}); peak "
+        f"{runs['int8_ef']['peak_bytes'] / 2**30:.2f} GiB (reckoned "
+        f"{predicted['total'] / 2**30:.2f} GiB before activations: one pod's "
+        f"gradients alive) against {runs['uncompressed']['peak_bytes'] / 2**30:.2f}"
+        f" uncompressed (peaks less the {held / 2**30:.2f} GiB earlier phases "
+        f"hold); card {card}")
+    return rec
+
+
+@contextlib.contextmanager
+def spy_compression(state, cell: dict):
+    """While entered, each call of ``train_step.compress_residual`` on a
+    leaf MESH_INT8EF_CELL names is recorded: its inputs and outputs copied
+    to the host, and the CPU's cell run on the inputs
+    (``cell[(pod, leaf)]["equal"]``: codes, scales and new residual
+    bit-equal)."""
+    from repro_torch.train import train_step as TS
+
+    owner = {id(e): (p, name) for p, pod in enumerate(state.err_fb)
+             for name, e in pod.items()
+             if any(name == w or (w.endswith(".") and name.startswith(w))
+                    for w in MESH_INT8EF_CELL)}
+    real = TS.compress_residual
+
+    def spy(g, e):
+        who = owner.get(id(e))
+        if who is None:
+            return real(g, e)
+        g_cpu, e_cpu = g.to("cpu", copy=True), e.to("cpu", copy=True)
+        q, safe = real(g, e)
+        q2, safe2 = real(g_cpu, e_cpu)
+        cell[f"pod{who[0]}:{who[1]}"] = {"numel": g.numel(),
+                     "equal": bool(torch.equal(q.cpu(), q2)
+                                   and torch.equal(safe.cpu(), safe2)
+                                   and torch.equal(e.cpu(), e_cpu)),
+                     "codes_equal": bool(torch.equal(q.cpu(), q2))}
+        return q, safe
+
+    with _patched(TS, "compress_residual", spy):
+        yield
+
+
+def mesh_train_resume(card: str, dev) -> dict:
+    """(c): the smoke configuration with int8_ef on the (2, 2) pod mesh,
+    MESH_RESUME_STEPS steps straight, and preempted after half of them:
+    checkpointed, restored with ``shardings=`` into a fresh state and
+    resumed; parameters, moments and every pod's residual bit-equal.  Then
+    ``python -m repro_torch.launch.train --mesh host`` on the card."""
+    import tempfile
+
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.tree import named_leaves
+
+    tag = "[train-mesh-resume]"
+    t_start = time.perf_counter()
+    cfg = M.get_config(MESH_INT8EF[0], smoke=True)
+    mesh = pod_mesh()
+    pipe = TokenPipeline(cfg, batch=4, seq=32, seed=SEED)
+    batches = [TS.batch_to_device(pipe.next_batch(), dev)
+               for _ in range(MESH_RESUME_STEPS)]
+    opt = O.adamw(weight_decay=0.01, quantized=True)
+    step = TS.build_train_step(cfg, opt, O.warmup_cosine(1e-2, 0, 10),
+                               compression="int8_ef", mesh=mesh)
+
+    def fresh():
+        return TS.init_train_state(
+            cfg, opt, torch.Generator(device=dev).manual_seed(SEED),
+            compression="int8_ef", device=dev, mesh=mesh)
+
+    reset_launches()
+    straight = fresh()
+    for b in batches:
+        straight, _ = step(straight, b)
+    half = MESH_RESUME_STEPS // 2
+    first = fresh()
+    for b in batches[:half]:
+        first, _ = step(first, b)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as work:
+        ckpt.save(work, half, first)
+        like = fresh()
+        resumed, _ = ckpt.restore(work, half, like,
+                                  shardings=TS.state_shardings(like, mesh))
+    for b in batches[half:]:
+        resumed, _ = step(resumed, b)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    a, b = named_leaves(straight), named_leaves(resumed)
+    unequal = [pa for (pa, x), (pb, y) in zip(a, b)
+               if pa != pb or not torch.equal(x, y)]
+    if unequal or len(a) != len(b):
+        raise AssertionError(f"{tag} resumed run differs from the "
+                             f"uninterrupted one at {unequal[:5]}")
+    n_resid = sum(1 for pa, _ in a if pa[0] == "err_fb")
+    # The launcher on the card: --mesh host (every visible card).
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         MESH_INT8EF[0], "--smoke", "--steps", "4", "--batch", "4", "--seq",
+         "32", "--log-every", "1", "--mesh", "host", "--compression", "int8_ef",
+         "--quantized-opt"], capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=LAUNCH_TIMEOUT_S)
+    launcher_s = time.perf_counter() - t0
+    n_cards = torch.cuda.device_count()
+    mesh_line = f"mesh={{'data': {n_cards}, 'model': 1}}"
+    if proc.returncode != 0 or mesh_line not in proc.stdout \
+            or "done: 4 steps" not in proc.stdout:
+        raise AssertionError(f"{tag} train --mesh host exited {proc.returncode}: "
+                             f"{proc.stdout[-800:]} {proc.stderr[-1500:]}")
+    rec = {"steps": MESH_RESUME_STEPS, "preempted_after": half,
+           "leaves": len(a), "residual_leaves": n_resid, "bit_equal": True,
+           "launches": launches, "launcher_s": launcher_s,
+           "launcher_tail": proc.stdout.splitlines()[-3:],
+           "seconds": time.perf_counter() - t_start}
+    log(f"{tag} {cfg.name} smoke, int8_ef on (pod 2, data 2) of 4 x cuda:0: "
+        f"{MESH_RESUME_STEPS} steps straight against {half} + checkpoint + "
+        f"restore(shardings=) + {MESH_RESUME_STEPS - half}: all {len(a)} "
+        f"leaves bit-equal ({n_resid} of them the two pods' residuals); "
+        f"launches {launches}; train --mesh host ({mesh_line}) in "
+        f"{launcher_s:.1f} s: {proc.stdout.splitlines()[-1]}; card {card}")
+    return rec
+
+
+def start_dryrun() -> list:
+    """(d): ``python -m repro_torch.launch.dryrun`` on each DRYRUN_CELLS
+    cell, one process each, started together (CPU only: the cells are
+    traced on the meta device)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        args = ["--arch", arch, "--shape", shape, "--force", "--tag", "smoke"]
+        procs.append(((arch, shape, multi), time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             *(["--multi-pod"] if multi else [])], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)))
+    return procs
+
+
+def finish_dryrun(procs: list, card: str) -> dict:
+    """(d): each cell's exit, its report and the reference test's
+    assertions where the port's design allows them."""
+    from repro_torch.launch import dryrun as D
+
+    out = {}
+    try:
+        for (arch, shape, multi), t0, proc in procs:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"[dryrun] {arch} {shape} exited "
+                                     f"{proc.returncode}: {stderr[-1500:]}")
+            with open(D.cell_path(arch, shape, multi, "smoke")) as f:
+                rep = json.load(f)
+            label = f"{arch}__{shape}__{'2x16x16' if multi else '16x16'}"
+            out[label] = dict(rep, wall_s=wall)
+    finally:
+        for _, _, proc in procs:
+            proc.kill()
+    train = out["internlm2-1.8b__train_4k__16x16"]
+    decode = out["olmo-1b__decode_32k__2x16x16"]
+    skip = out["olmo-1b__long_500k__16x16"]
+    ok = (train["status"] == "ok" and train["mesh"] == {"data": 16, "model": 16}
+          and train["cost_analysis"]["flops"] > 1e12
+          and train["param_bytes_per_device"] < 40e6
+          and train["num_collectives"] == 0
+          and decode["status"] == "ok"
+          and decode["mesh"] == {"pod": 2, "data": 16, "model": 16}
+          and decode["collectives"]["all-reduce"]["count"] > 0
+          and skip["status"] == "skipped" and "sub-quadratic" in skip["reason"])
+    if not ok:
+        raise AssertionError(f"[dryrun] reports: {out}")
+    for label, rep in out.items():
+        words = (f"{rep['status']}, traced in {rep.get('trace_s')} s "
+                 f"(process {rep['wall_s']:.1f} s), flops "
+                 f"{rep['cost_analysis']['flops']:.4e}, param bytes/device "
+                 f"{rep['param_bytes_per_device']:,.0f}, argument bytes/device "
+                 f"{rep['memory_analysis']['argument_size_in_bytes']:,.0f} "
+                 f"(first device {rep['memory_analysis']['first_device_argument_bytes']:,.0f}), "
+                 f"collectives {rep['collectives']}"
+                 if rep["status"] == "ok" else f"skipped ({rep['reason']})")
+        log(f"[dryrun] {label}: {words}")
+    return out
+
+
+def run_train_mesh(card: str, dev) -> dict:
+    """Phase 23: (d)'s dry-run processes started, then (a) EP training,
+    (b) int8_ef across pods, (c) the preempted mesh run, and (d)'s
+    reports, the card freed between them."""
+    t0 = time.perf_counter()
+    procs = start_dryrun()
+    try:
+        out = {"ep": mesh_train_ep(card, dev)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["int8_ef"] = mesh_train_int8ef(card, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["resume"] = mesh_train_resume(card, dev)
+        out["dryrun"] = finish_dryrun(procs, card)
+    finally:
+        for *_, proc in procs:
+            proc.kill()  # a no-op once it has exited
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train-mesh] phase 23 in {out['seconds']:.2f} s; card {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5999,6 +6785,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Phase 22: the model mesh's serving path, four shards on the card.
     model_mesh = run_model_mesh(serving, card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Phase 23: training on the model mesh, and the dry run.
+    train_mesh = run_train_mesh(card, dev)
+    # Every flash launch of phase 20 (a)'s MoE + MLA / Mamba2 checks and of
+    # phase 23's runs, by kernel counter.
+    train_launches = [f[k] for f in training["families"].values()
+                      for k in ("launches", "step_launches")]
+    train_launches += [train_mesh["ep"]["grad_launches"][k]
+                       for k in ("plain", "ep")]
+    train_launches += [r["launches"] for r in train_mesh["ep"]["runs"].values()]
+    train_launches += [r["launches"] for r in train_mesh["int8_ef"]["runs"].values()]
+    train_launches.append(train_mesh["resume"]["launches"])
+
+    def more(name: str) -> int:
+        return sum(d.get(name, 0) for d in train_launches)
     mesh_runs = [model_mesh[arch][run] for arch, *_ in MESH_SERVE
                  for run in ("plain", "mesh_run")]
     train_checks = list(training["check"].values())
@@ -6034,6 +6836,7 @@ def main() -> int:
         "lake_hash": lake_hash, "serving": serving, "moe_serving": moe,
         "ssm_serving": ssm_serving, "training": training,
         "application": app, "mesh": mesh, "model_mesh": model_mesh,
+        "train_mesh": train_mesh,
         "compile_end": programs.compile_stats(),
         "total_s": time.perf_counter() - t_start,
     }
@@ -6095,19 +6898,22 @@ def main() -> int:
         "bound_by": fa32["bound_by"],
         "library_ms": fa32["library_ms"],
     } for name, launches, err, ms in (
-        # Phase 11 (c)'s float32 forward and phase 20 (a)'s float32 train
-        # steps (forward and remat) on the card.
+        # Phase 11 (c)'s float32 forward, phase 20 (a)'s float32 train
+        # steps (forward and remat) on the card and phase 23 (c)'s float32
+        # smoke-size mesh steps.
         ("flash_attention", serving["flash_f32_launches"]["flash_attention"]
-         + sum(r["launches"]["flash_attention"] for r in train_checks),
+         + sum(r["launches"]["flash_attention"] for r in train_checks)
+         + more("flash_attention"),
          max(fa_err["flash_attention_simt_regtile"],
              fa_err["flash_attention_simt_basic"]), "ms"),
         ("flash_attention_simt_regtile",
          serving["flash_f32_launches"]["flash_attention_simt_regtile"]
          + sum(r["launches"]["flash_attention_simt_regtile"]
-               for r in train_checks),
+               for r in train_checks) + more("flash_attention_simt_regtile"),
          fa_err["flash_attention_simt_regtile"], "ms"),
         ("flash_attention_simt_basic",
-         serving["flash_f32_basic_launches"]["flash_attention_simt_basic"],
+         serving["flash_f32_basic_launches"]["flash_attention_simt_basic"]
+         + more("flash_attention_simt_basic"),
          fa_err["flash_attention_simt_basic"], "basic_ms"))],
     {
         "name": "flash_attention_wgmma",
@@ -6116,11 +6922,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
         # The serving runs of phase 11, phase 18 (c), phase 19 (c) and
         # phase 22 (c), (d) (plain and on the mesh) and the training runs
-        # of phase 20 (b); the times are phase 11's launches, at the
+        # of phase 20 (a) (deepseek, bf16), (b) and phase 23 (a), (b)
+        # (plain, EP, int8_ef); the times are phase 11's launches, at the
         # internlm2 shape.
         "launches": serving["launches"]["flash_attention_wgmma"] + sum(
             r["launches"]["flash_attention_wgmma"]
-            for r in moe_full + ssm_full + train_full + mesh_runs),
+            for r in moe_full + ssm_full + train_full + mesh_runs)
+        + more("flash_attention_wgmma"),
         "max_abs_err": fa_err["flash_attention_wgmma"],
         "ms": serving["flash"]["ms"],
         "plain_ms": serving["flash"]["plain_ms"],

@@ -3,7 +3,8 @@ plain chunked version on the CPU.
 
 ``attention(q, k, v)`` takes the reference's (B, H, S, D) layout and
 contract (``repro/kernels/flash_attention/ops.py::attention``).  A CPU
-tensor takes ``ref.chunked_attention`` (under autograd too); a CUDA tensor
+tensor takes ``ref.chunked_attention`` (under autograd too), and so does
+a ``meta`` tensor (the dry run: shapes only, no kernel); a CUDA tensor
 launches a hand-written kernel (``kernel.flash_attention``: the Hopper
 kernel for bfloat16/float16 at its head dims, which rounds P to that
 dtype before P·V, the CUDA-core kernel otherwise) or raises, and never
@@ -66,7 +67,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Hq, S, Dv) in q's dtype.  Distinct Dk/Dv are taken (MLA)."""
     if scale is None:
         scale = 1.0 / q.shape[-1] ** 0.5
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return ref.chunked_attention(q, k, v, scale=scale, causal=causal)
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

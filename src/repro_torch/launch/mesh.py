@@ -14,10 +14,12 @@ counterpart of the reference tests' four forced host devices, and
 ``["cpu"] * 4`` the CPU tests'.  One process cannot span hosts, so a
 multi-host mesh is out of scope.
 
-:func:`make_production_mesh` (the dry run's 256 / 512-chip meshes)
-belongs to the dry run, a later slice of the port, and raises.  The
-model mesh's serving half runs on the same :class:`Mesh`
-(``serve --mesh host``; ``repro_torch.parallel.sharding``).
+:func:`make_production_mesh` builds the reference's (16, 16) / (2, 16,
+16) meshes: over 256 / 512 visible cards, or over the devices given (the
+dry run passes ``["meta"] * n``: shapes only, nothing allocated).  The
+model mesh serves (``serve --mesh host``), trains (``train --mesh``) and
+dry-runs (``launch/dryrun.py``) on the same :class:`Mesh`
+(``repro_torch.parallel.sharding``).
 
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh()                          # every visible card
@@ -32,18 +34,7 @@ import torch
 
 from repro_torch.device import canonical_device
 
-__all__ = ["Mesh", "make_host_mesh", "make_production_mesh",
-           "MODEL_MESH_SLICE"]
-
-# What the model mesh's remaining entry points raise: the serving half
-# (parallel/sharding.py, the context-parallel decode attention, EP MoE,
-# serve --mesh host) is ported; training on it and the dry run are not.
-MODEL_MESH_SLICE = (
-    "training on the model mesh (train --mesh, int8_ef across pods, "
-    "checkpoint.restore(shardings=)) and the dry run (launch/dryrun.py, "
-    "make_production_mesh) are the next slice of the port (ROADMAP queue 1 "
-    "item 2)"
-)
+__all__ = ["Mesh", "make_host_mesh", "make_production_mesh"]
 
 
 class Mesh:
@@ -90,6 +81,13 @@ class Mesh:
             out.append(self.devices[tuple(index)])
         return out
 
+    def take(self, axis: str, index: int) -> "Mesh":
+        """The sub-mesh at ``index`` along ``axis`` (that axis dropped):
+        one pod of a multi-pod mesh."""
+        a = self.axis_names.index(axis)
+        names = self.axis_names[:a] + self.axis_names[a + 1:]
+        return Mesh(np.take(self.devices, index, axis=a), names)
+
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and (
             self is other or (self._h == other._h and self._k == other._k))
@@ -132,9 +130,25 @@ def make_host_mesh(data: int | None = None, model: int = 1,
     return Mesh(grid, ("data", "model"))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The dry run's (16, 16) / (2, 16, 16) mesh: not in the port yet (a
-    ``Mesh`` of repeated ``"cpu"`` devices stands in for resolving specs,
-    see ``repro_torch.parallel.sharding``)."""
-    raise NotImplementedError(
-        f"make_production_mesh(multi_pod={multi_pod}): {MODEL_MESH_SLICE}")
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The reference's production mesh: ``(data=16, model=16)``, or
+    ``(pod=2, data=16, model=16)`` with ``multi_pod``, row-major over
+    ``devices``.  ``devices`` defaults to the visible cards, and like
+    ``jax.make_mesh`` it raises when there are fewer than the mesh needs
+    (more are left unused); a device may repeat."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    if devices is None:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n < need:
+            raise RuntimeError(
+                f"make_production_mesh(multi_pod={multi_pod}) needs {need} "
+                f"CUDA devices; {n} are visible (pass devices=[...], e.g. "
+                f"['meta'] * {need} for the dry run)")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = list(devices)
+    if len(devices) < need:
+        raise ValueError(f"a {shape} mesh needs {need} devices; got "
+                         f"{len(devices)}")
+    return Mesh(np.array(devices[:need], dtype=object).reshape(shape), axes)

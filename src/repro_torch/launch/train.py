@@ -1,17 +1,22 @@
 """Training launcher of the port: the end-to-end entry point.
 
-Wires together: config registry -> data pipeline -> train step ->
-checkpoint manager (auto-resume, async saves) -> preemption guard ->
-straggler monitor, as ``repro/launch/train.py`` does.  It runs on the
+Wires together: config registry -> data pipeline -> train step on the
+mesh -> checkpoint manager (auto-resume, async saves) -> preemption guard
+-> straggler monitor, as ``repro/launch/train.py`` does.  It runs on the
 card by default (``--device cuda``; without one it raises) and on the CPU
 when asked (``--device cpu``).
 
-Deviation from the reference: ``--mesh`` defaults to ``none``, the only
-value the port takes; ``host`` and ``production`` raise until the
-model mesh (ROADMAP queue 1 item 7, the next multi-GPU slice) lands.  The
-reference's default is ``host``.  A periodic checkpoint is labelled by
-the number of steps done (the reference labels it by the step just run,
-one less, so a resume from it would run one step twice).
+``--mesh``: ``host`` (the default, as in the reference) is
+``make_host_mesh()``, every visible card (with ``--device cpu`` a (1, 1)
+mesh over the CPU); ``production`` is ``make_production_mesh(multi_pod=)``
+(256 / 512 cards; with ``--device cpu`` that many shards of the CPU);
+``none`` trains without a mesh.  The state is placed by
+``train_step.state_shardings`` (whole on the mesh's first device, each
+int8_ef pod residual on its pod's), and a resume restores it there
+(``try_resume(shardings=)``).  Deviation from the reference: a periodic
+checkpoint is labelled by the number of steps done (the reference labels
+it by the step just run, one less, so a resume from it would run one step
+twice).
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch olmo-1b --smoke --steps 20 --batch 4 --seq 32 --device cpu
@@ -32,8 +37,9 @@ import torch
 
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import MODEL_MESH_SLICE
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import model as M
+from repro_torch.parallel.sharding import mesh_context
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as O
 from repro_torch.train import train_step as TS
@@ -41,8 +47,6 @@ from repro_torch.train.fault_tolerance import (PREEMPTED_EXIT_CODE,
                                                PreemptionGuard,
                                                StragglerMonitor,
                                                plan_batch_for_mesh)
-
-_MESH_SLICE = "--mesh {}: " + MODEL_MESH_SLICE
 
 # Configurations the launcher takes beside the registry's, as (registry
 # base, overrides): the ~100M dense decoder of the 100M example
@@ -78,7 +82,7 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", choices=["host", "production", "none"],
-                    default="none")
+                    default="host")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--moe-impl", default="gspmd", choices=["gspmd", "ep"])
     ap.add_argument("--quantized-opt", action="store_true")
@@ -90,13 +94,20 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    if args.mesh != "none" or args.multi_pod:
-        raise NotImplementedError(_MESH_SLICE.format(args.mesh))
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    plan = plan_batch_for_mesh(args.batch, {})
+    on_card = dev.type == "cuda"
+    if args.mesh == "production":
+        need = 512 if args.multi_pod else 256
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    devices=None if on_card else [dev] * need)
+    elif args.mesh == "host":
+        mesh = make_host_mesh(devices=None if on_card else [dev])
+    else:
+        mesh = None
+    plan = plan_batch_for_mesh(args.batch, dict(mesh.shape) if mesh else {})
     print(f"[train] {cfg.name} params={M.count_params_analytic(cfg):,} "
-          f"mesh=None plan={plan} device={dev}")
+          f"mesh={dict(mesh.shape) if mesh else None} plan={plan} device={dev}")
 
     opt = O.adamw(weight_decay=0.01, quantized=args.quantized_opt)
     sched = O.warmup_cosine(args.lr, args.warmup, args.steps)
@@ -105,16 +116,27 @@ def main(argv=None) -> int:
     pipe = TokenPipeline(cfg, batch=args.batch, seq=args.seq, seed=args.seed)
     guard = PreemptionGuard()
     monitor = StragglerMonitor()
+    with mesh_context(mesh):
+        return _loop(args, cfg, mesh, dev, opt, step_fn, pipe, guard, monitor)
+
+
+def _loop(args, cfg, mesh, dev, opt, step_fn, pipe, guard, monitor) -> int:
+    """The training loop of :func:`main`, under its mesh."""
     state = TS.init_train_state(
         cfg, opt, torch.Generator(device=dev).manual_seed(args.seed),
         compression=args.compression, device=dev)
+    shardings = None
+    if mesh is not None:
+        shardings = TS.state_shardings(state, mesh)
+        state = TS.place_state(state, shardings)
+        dev = next(state.params.parameters()).device
 
     manager = None
     start_step = 0
     if args.ckpt_dir:
         manager = ckpt.CheckpointManager(args.ckpt_dir,
                                          save_every=args.save_every)
-        resumed = manager.try_resume(state)
+        resumed = manager.try_resume(state, shardings=shardings)
         if resumed is not None:
             state, extra, start_step = resumed
             pipe.load_state_dict(extra["pipeline"])

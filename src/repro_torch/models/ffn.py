@@ -12,7 +12,10 @@ chosen by the tensors' device as the kernels' ``ops.py`` choose theirs:
 * CUDA: :func:`grouped_swiglu_mm`, three ``torch._grouped_mm`` calls
   (the library's grouped GEMM) with device offsets, bfloat16 or float16
   only.  A CUDA tensor never takes the loop, and nothing falls back: a
-  missing ``torch._grouped_mm`` or another dtype raises.
+  missing ``torch._grouped_mm`` or another dtype raises.  Its backward
+  is the library's (two more grouped GEMMs per call).
+* meta (the dry run: shapes only): the same three ``torch._grouped_mm``
+  calls, which the loop cannot take (it reads the group sizes).
 
 Everything around the GEMMs (the route, the sort, the inverse
 permutation, the group sizes and offsets, the combine) is one code path
@@ -31,7 +34,9 @@ summed over ``"model"`` in shard order on the mesh's first device, where
 the reference runs ``shard_map`` and one ``psum``.  The expert pieces
 are placed once per weight version (:func:`_expert_pieces`), views of
 the weight where a shard shares its device.  Otherwise ``"ep"`` computes
-the plain path, as the reference does.
+the plain path, as the reference does.  Under autograd (a train step on
+the mesh) the pieces are differentiable slices of the expert weights, so
+each expert's gradient arrives through its shard's piece.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ from repro_torch.device import canonical_device
 from repro_torch.models.common import (cast, dense_init, dtype_of, linear,
                                        normal, param, shard)
 from repro_torch.parallel.sharding import (NamedSharding, P, current_mesh,
-                                           manual_axes_scope, shard_tensor)
+                                           manual_axes_scope,
+                                           record_collective, shard_tensor)
 
 __all__ = ["dense_ffn", "moe_ffn", "grouped_swiglu", "grouped_swiglu_loop",
            "grouped_swiglu_mm"]
@@ -132,6 +138,11 @@ def grouped_swiglu(x_sorted: torch.Tensor, group_sizes: torch.Tensor,
     if x_sorted.device.type == "cuda":
         return grouped_swiglu_mm(x_sorted, group_sizes, offs, w_gate, w_up,
                                  w_down)
+    if x_sorted.device.type == "meta":
+        mm = torch._grouped_mm
+        h = (F.silu(mm(x_sorted, w_gate, offs=offs))
+             * mm(x_sorted, w_up, offs=offs))
+        return mm(h, w_down, offs=offs)
     raise ValueError(f"no grouped SwiGLU for {x_sorted.device}")
 
 
@@ -223,6 +234,13 @@ class moe_ffn:
         inv[order] = torch.arange(T * k, device=order.device)
         # Row j of the reference's repeat(x, k)[order] is x[order[j] // k].
         x_rep = x_flat[order // k]
+        if local is not None:
+            # The null group's rows lie past the last offset, where the
+            # grouped GEMM leaves its outputs (and, in the backward, their
+            # input gradients) undefined: zeroed here, nothing of them
+            # reaches x's gradient.
+            x_rep = torch.where(local[order][:, None], x_rep,
+                                torch.zeros_like(x_rep))
         # E + 1 bins, as the reference's (its last is the mesh path's null
         # group, empty here).
         sizes = torch.zeros(E + 1, dtype=torch.int64, device=x_flat.device)
@@ -288,6 +306,8 @@ class moe_ffn:
                         local_experts=e_local).to(first)
                     acc = out if acc is None else acc + out
                 outs.append(acc)
+        record_collective("all-reduce", "model", Tl * x_flat.shape[1]
+                          * x_flat.element_size(), n_model)
         return outs[0] if n_data == 1 else torch.cat(outs)
 
     @staticmethod

@@ -32,7 +32,9 @@ cross-entropy.  With ``cfg.remat`` (the default, as the reference's
 :func:`forward` runs each layer under ``torch.utils.checkpoint``, so only
 each layer's input is kept and the layer runs again in the backward
 (its flash kernel launch too); the gradients are those without remat,
-bit for bit.
+bit for bit.  The layer runs again under the sharding scope it ran under
+first (``sharding.current_scope``: the mesh, so EP layers recompute per
+shard too), whichever thread the backward recomputes it on.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from repro_torch.models.common import (cast, dense_init, dtype_of, linear,
                                        rmsnorm_init, shard)
 from repro_torch.models.ffn import dense_ffn, moe_ffn
 from repro_torch.models.ssm import mamba
+from repro_torch.parallel.sharding import current_scope, scope
 
 __all__ = [
     "init_params",
@@ -176,6 +179,13 @@ def _layer(cfg: ModelConfig, spec: LayerSpec, p: nn.ModuleDict,
                 moe_impl)
 
 
+def _scoped_layer(saved: tuple, *args):
+    """:func:`_layer` under the sharding scope ``saved``: a checkpointed
+    layer's recompute runs on autograd's thread."""
+    with scope(saved):
+        return _layer(*args)
+
+
 def forward(cfg: ModelConfig, params: nn.ModuleDict, batch: dict,
             moe_impl: str = "gspmd") -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward of a batch dict (``tokens``; for the vision
@@ -188,10 +198,11 @@ def forward(cfg: ModelConfig, params: nn.ModuleDict, batch: dict,
     positions = _positions(B, S, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    saved = current_scope()
     for spec, p in zip(layer_layout(cfg), params["layers"]):
         if remat:
-            x, aux = checkpoint(_layer, cfg, spec, p, x, positions, moe_impl,
-                                use_reentrant=False)
+            x, aux = checkpoint(_scoped_layer, saved, cfg, spec, p, x,
+                                positions, moe_impl, use_reentrant=False)
         else:
             x, aux = _layer(cfg, spec, p, x, positions, moe_impl)
         aux_total = aux_total + aux

@@ -24,7 +24,8 @@ A cache the batcher keeps on a mesh is a
 :class:`~repro_torch.parallel.sharding.ShardedTensor` laid out by
 :func:`cache_spec`; a whole cache under a mesh is split on the fly (views
 where the shards share its device).  Without a mesh the same math runs
-whole.
+whole.  On ``meta`` (the dry run) one partial over the whole cache stands
+for the shards' partials: the same FLOPs and merges, no loop.
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ import torch
 
 from repro_torch.device import canonical_device
 from repro_torch.parallel.sharding import (NamedSharding, P, ShardedTensor,
-                                           current_mesh, manual_axes_scope,
-                                           shard_tensor)
+                                           _blocks_per_dim, current_mesh,
+                                           manual_axes_scope,
+                                           record_collective, shard_tensor)
 
 __all__ = ["decode_attention", "cache_spec"]
 
@@ -140,8 +142,31 @@ def _cp_decode(q, k: ShardedTensor, v: ShardedTensor, pos, scale):
                                      axis_names=seq_axes)
                 parts.append(tuple(t.to(first) for t in part))
             outs.append(_merge(parts))
+    _record_merge(parts[0], seq_axes, ns)
     out = outs[0] if nb == 1 else torch.cat(outs)
     return out.reshape(B, H, Dh).to(q.dtype)
+
+
+def _record_merge(part, seq_axes: tuple, ns: int, nb: int = 1) -> None:
+    """The reference's pmax of m and psums of l and o over the sequence
+    axes, each of one batch block's float32 partial (``part`` holds ``nb``
+    batch blocks)."""
+    for t in part:
+        record_collective("all-reduce", seq_axes, t.numel() // nb * 4, ns)
+
+
+def _meta_cp_decode(q, k, v, pos, scale, sharding: NamedSharding):
+    """:func:`_cp_decode` on ``meta`` (the dry run), where no value
+    exists: one partial over the whole cache stands for the shards'
+    partials (their einsums are blocks of its einsums, so the FLOPs are
+    the same) and the same merges are recorded, with no loop over the
+    shards."""
+    nb, ns = _blocks_per_dim(sharding, k.dim())[:2]
+    seq_axes = sharding.spec[1]
+    seq_axes = seq_axes if isinstance(seq_axes, tuple) else (seq_axes,)
+    part = _local_decode(q, k, v, pos, scale, axis_names=seq_axes)
+    _record_merge(part, seq_axes, ns, nb)
+    return _merge([part]).reshape(q.shape).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache, v_cache,
@@ -158,5 +183,7 @@ def decode_attention(q: torch.Tensor, k_cache, v_cache,
     if spec is None:
         return _local_decode(q, k_cache, v_cache, pos, scale)
     sh = NamedSharding(mesh, spec)
+    if k_cache.device.type == "meta":
+        return _meta_cp_decode(q, k_cache, v_cache, pos, scale, sh)
     return _cp_decode(q, shard_tensor(k_cache, sh), shard_tensor(v_cache, sh),
                       pos, scale)

@@ -28,9 +28,17 @@ Where the reference leaves the layout to GSPMD (``shard_activation``,
 the parameter specs under ``jit``), a spec fixes a layout and not a
 value.  The port computes those tensors whole on the mesh's first
 device, so :func:`shard_activation` resolves the spec and returns its
-input; the pieces of the explicit sites are placed with
-:func:`shard_tensor`, whose pieces on a repeated device are views of one
-tensor, and reassembled with :func:`unshard`.
+input, and a tensor laid out by a :class:`NamedSharding` is kept whole
+on :func:`home_device` (the first device of the sharding's mesh); the
+pieces of the explicit sites are placed with :func:`shard_tensor`, whose
+pieces on a repeated device are views of one tensor, and reassembled
+with :func:`unshard`.
+
+Cross-shard merges: each explicit site (EP's sum over ``"model"``, the
+CP decode merge, int8_ef's code and scale sums over ``"pod"``) reports
+what it merges to :func:`record_collective`; under
+:func:`collective_census` (the dry run's) the records are kept, and
+otherwise the call returns at once.
 """
 
 from __future__ import annotations
@@ -63,8 +71,14 @@ __all__ = [
     "validate_spec",
     "shard_tensor",
     "unshard",
+    "home_device",
+    "place",
+    "collective_census",
+    "record_collective",
     "manual_axes",
     "manual_axes_scope",
+    "current_scope",
+    "scope",
     "ShardingPolicy",
     "POLICIES",
     "policy_context",
@@ -115,6 +129,55 @@ def current_mesh():
     return getattr(_STATE, "mesh", None)
 
 
+def home_device(sharding: NamedSharding) -> torch.device:
+    """Where the port keeps a tensor laid out by ``sharding``: whole, on
+    the first device of the sharding's mesh."""
+    return canonical_device(sharding.mesh.devices.flat[0])
+
+
+def place(t: torch.Tensor, sharding: NamedSharding | None) -> torch.Tensor:
+    """``t`` on :func:`home_device` (itself when it is there already, or
+    when ``sharding`` is None)."""
+    if sharding is None:
+        return t
+    dev = home_device(sharding)
+    return t if canonical_device(t.device) == dev else t.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# The census of cross-shard merges (the dry run's "collectives").
+# ---------------------------------------------------------------------------
+
+_CENSUS = threading.local()
+
+
+@contextlib.contextmanager
+def collective_census():
+    """Keep every :func:`record_collective` made on this thread inside the
+    scope; yields the list of records."""
+    prev = getattr(_CENSUS, "records", None)
+    _CENSUS.records = records = []
+    try:
+        yield records
+    finally:
+        _CENSUS.records = prev
+
+
+def record_collective(op: str, axes, nbytes: float, group: int) -> None:
+    """One merge of ``nbytes`` a shard (the result's size on one device)
+    across ``group`` shards along ``axes``; ``op`` in the reference's
+    census words (``"all-reduce"``: a ``psum`` / ``pmax``).  The traffic a
+    device sends is the reference's ring estimate, 2 (n - 1) / n bytes a
+    byte for an all-reduce.  A no-op outside :func:`collective_census`."""
+    records = getattr(_CENSUS, "records", None)
+    if records is None:
+        return
+    traffic = 2.0 * nbytes * (group - 1) / group if group > 1 else 0.0
+    axes = tuple(axes) if isinstance(axes, (list, tuple)) else (axes,)
+    records.append({"op": op, "axes": axes, "bytes": float(nbytes),
+                    "group": int(group), "traffic_per_device": traffic})
+
+
 # ---------------------------------------------------------------------------
 # Manual axes: the port's copy of the two parts of the reference's
 # ``parallel/compat.py`` that mean something here.  The reference's
@@ -147,6 +210,29 @@ def manual_axes_scope(names):
         yield
     finally:
         stack.pop()
+
+
+def current_scope() -> tuple:
+    """This thread's mesh, policy and manual axes: everything model code
+    reads from the sharding state.  Work that runs later on another
+    thread re-enters it with :func:`scope` (autograd recomputes a
+    checkpointed layer on the CUDA device's backward thread, where this
+    thread's state is not set)."""
+    return (current_mesh(), current_policy(),
+            tuple(getattr(_MANUAL, "stack", None) or ()))
+
+
+@contextlib.contextmanager
+def scope(saved: tuple):
+    """Re-enter a :func:`current_scope` for the duration."""
+    mesh, policy, manual = saved
+    prev = getattr(_MANUAL, "stack", None)
+    _MANUAL.stack = list(manual)
+    try:
+        with mesh_context(mesh), policy_context(policy):
+            yield
+    finally:
+        _MANUAL.stack = prev
 
 
 # ---------------------------------------------------------------------------

@@ -23,10 +23,16 @@ bfloat16 leaf (numpy has no such dtype) is stored as its uint16 bits with
     mid-save never corrupts the restore path.
   * async — ``save(..., blocking=False)`` copies every leaf to host memory
     before it returns and writes the files on a daemon thread.
-  * placement — restore puts each leaf on the device (and dtype) of the
-    leaf it replaces in ``like``.  The reference's ``shardings=``
-    (re-placing onto another mesh) waits for training on the port's model
-    mesh (ROADMAP queue 1 item 2).
+  * placement — restore puts each leaf in the dtype of the leaf it
+    replaces in ``like``, on that leaf's device or, with ``shardings=``
+    (a tree of ``NamedSharding``s shaped like ``like``, or any part of
+    it: ``train_step.state_shardings``), where the port keeps a leaf of
+    that sharding: whole on the first device of the sharding's mesh
+    (``sharding.home_device``).  For a state on the model mesh that is
+    where ``train --mesh`` puts a fresh one: parameters and moments on
+    the mesh's first device, each pod's int8_ef residual on its pod's.
+    Leaves are stored whole, so a checkpoint restores onto another mesh
+    (the reference's elastic resharding).
 """
 
 from __future__ import annotations
@@ -39,15 +45,11 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch import nn
 
-from repro_torch.train.tree import named_leaves
+from repro_torch.parallel.sharding import home_device
+from repro_torch.train.tree import by_dotted_name, map_leaves, named_leaves
 
 __all__ = ["save", "restore", "latest_step", "CheckpointManager"]
-
-_MESH_SLICE = ("restore(shardings=...): placing a checkpoint on the model "
-               "mesh comes with the next multi-GPU slice (ROADMAP queue 1 "
-               "item 2)")
 
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
@@ -112,39 +114,19 @@ def _load(final: str, entry: dict) -> np.ndarray:
     return arr.view(np.uint16) if entry["dtype"] == "bfloat16" else arr
 
 
-def _placed(arr: np.ndarray, entry: dict, like):
-    """``arr`` in the type, dtype and place of the ``like`` leaf."""
+def _placed(arr: np.ndarray, entry: dict, like, device=None):
+    """``arr`` in the type and dtype of the ``like`` leaf, on ``device``
+    (a tensor), else on ``like``'s device."""
     if isinstance(like, torch.Tensor):
         t = torch.from_numpy(np.array(arr, order="C"))
         if entry["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
-        dev = like.device if like.device.type != "meta" else torch.device("cpu")
-        return t.to(device=dev, dtype=like.dtype)
+        if device is None:
+            device = like.device if like.device.type != "meta" else "cpu"
+        return t.to(device=device, dtype=like.dtype)
     if isinstance(like, np.ndarray) or hasattr(like, "dtype"):
         return arr.astype(like.dtype)
     return type(like)(arr.item())
-
-
-def _rebuild(like, values: dict, prefix: tuple = ()):
-    """``like`` with every leaf replaced by ``values[path]``; a module's
-    parameters are written in place and the module returned."""
-    if like is None:
-        return None
-    if isinstance(like, nn.Module):
-        with torch.no_grad():
-            for name, p in like.named_parameters():
-                p.copy_(values[prefix + tuple(name.split("."))])
-        return like
-    if isinstance(like, dict):
-        return {k: _rebuild(v, values, prefix + (str(k),))
-                for k, v in like.items()}
-    if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_rebuild(getattr(like, k), values, prefix + (k,))
-                            for k in like._fields))
-    if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(v, values, prefix + (str(i),))
-                          for i, v in enumerate(like))
-    return values[prefix]
 
 
 def restore(ckpt_dir: str, step: int, like: Any, *,
@@ -152,17 +134,22 @@ def restore(ckpt_dir: str, step: int, like: Any, *,
     """Restore into the structure of ``like`` (a tree of tensors, numpy
     arrays, scalars; a tensor on the ``meta`` device stands for shape and
     dtype only and comes back on the CPU).  Each leaf is checked against
-    ``like``'s shape and placed on its device in its dtype; an
-    ``nn.Module`` in ``like`` gets its parameters written in place.
-    Returns (tree, extra)."""
-    if shardings is not None:
-        raise NotImplementedError(_MESH_SLICE)
+    ``like``'s shape and put in its dtype on its device, or on its
+    sharding's home device where ``shardings`` names it (see the module
+    docstring); an ``nn.Module`` in ``like`` gets its parameters written
+    in place.  Returns (tree, extra)."""
+    where = {} if shardings is None else {
+        n: sh for n, sh in by_dotted_name(shardings).items() if sh is not None}
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "MANIFEST.json")) as f:
         manifest = json.load(f)
     by_name = {e["name"]: e for e in manifest["leaves"]}
     values = {}
-    for path, ref in named_leaves(like):
+    leaves = named_leaves(like)
+    unknown = set(where) - {".".join(path) for path, _ in leaves}
+    if unknown:
+        raise KeyError(f"shardings for leaves not in like: {sorted(unknown)[:5]}")
+    for path, ref in leaves:
         name = "/".join(path)
         if name not in by_name:
             raise KeyError(f"checkpoint missing leaf {name!r}")
@@ -172,8 +159,10 @@ def restore(ckpt_dir: str, step: int, like: Any, *,
         if tuple(arr.shape) != shape:
             raise ValueError(f"{name}: checkpoint shape {arr.shape} != "
                              f"expected {shape}")
-        values[path] = _placed(arr, entry, ref)
-    return _rebuild(like, values), manifest["extra"]
+        sh = where.get(".".join(path))
+        values[path] = _placed(arr, entry, ref,
+                               None if sh is None else home_device(sh))
+    return map_leaves(like, lambda path, _: values[path]), manifest["extra"]
 
 
 class CheckpointManager:

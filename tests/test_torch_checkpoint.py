@@ -2,8 +2,9 @@
 
 Mirrors ``tests/test_checkpoint.py`` on the port (round trip, the LATEST
 pointer, async saves, shape checks, the manager's rolling window and
-resume, the preemption guard, the straggler policy and the batch plan;
-``TestElasticResharding`` waits for the port's mesh), holds a
+resume, the preemption guard, the straggler policy, the batch plan and
+``TestElasticResharding``: a checkpoint of an 8-shard mesh's state
+restored onto 4- and 2-shard meshes with ``shardings=``), holds a
 checkpoint the reference wrote of a plain dict tree restoring equal in
 the port (and the other way round), and drives ``python -m
 repro_torch.launch.train --device cpu`` as ``tests/test_launchers.py``
@@ -176,10 +177,65 @@ def test_bfloat16_leaf_round_trip(tmp_path):
     assert got["x"].dtype == torch.bfloat16 and torch.equal(got["x"], t)
 
 
-def test_restore_with_shardings_waits_for_the_mesh(tmp_path):
-    C.save(str(tmp_path), 1, {"x": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 2"):
-        C.restore(str(tmp_path), 1, {"x": torch.zeros(2)}, shardings={"x": None})
+@pytest.mark.parametrize("devs", [4, 2])
+def test_elastic_resharding(tmp_path, devs):
+    """The reference's ``TestElasticResharding`` on the port: saved from an
+    8-shard mesh, restored with ``shardings=`` onto a ``devs``-shard mesh
+    (leaves are stored whole, so the mesh may change), equal and on the
+    new sharding's home device."""
+    import numpy as np
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.sharding import (NamedSharding, P, home_device,
+                                               place)
+
+    def mesh(n):
+        return Mesh(np.array(["cpu"] * n, dtype=object), ("data",))
+
+    w = place(torch.arange(64, dtype=torch.float32).reshape(16, 4),
+              NamedSharding(mesh(8), P("data")))
+    C.save(str(tmp_path), 1, {"w": w})
+    sh = NamedSharding(mesh(devs), P("data"))
+    like = {"w": torch.empty((16, 4), device="meta")}
+    restored, _ = C.restore(str(tmp_path), 1, like, shardings={"w": sh})
+    assert restored["w"].device == home_device(sh)
+    assert torch.equal(restored["w"], w)
+
+
+def test_restore_with_shardings_places_each_leaf(tmp_path):
+    """``restore(shardings=)``: each leaf whole on the first device of its
+    sharding's mesh.  A (pod 2, data 2) mesh whose second pod is on the
+    ``meta`` device tells the places apart on the CPU: parameters and
+    moments on the mesh's first device (the CPU), pod 1's int8_ef residual
+    on pod 1's (meta)."""
+    import numpy as np
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = M.get_config("olmo-1b", smoke=True)
+    opt = O.adamw(quantized=True)
+    mesh = Mesh(np.array(["cpu", "cpu", "meta", "meta"], dtype=object)
+                .reshape(2, 2), ("pod", "data"))
+    state = TS.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                                compression="int8_ef", device="cpu",
+                                mesh=Mesh(np.array(["cpu"] * 4, dtype=object)
+                                          .reshape(2, 2), ("pod", "data")))
+    for e in state.err_fb[1].values():
+        e.normal_()
+    C.save(str(tmp_path), 1, state)
+    fresh = TS.init_train_state(cfg, opt, torch.Generator().manual_seed(9),
+                                compression="int8_ef", device="cpu", mesh=mesh)
+    assert all(e.device.type == "meta" for e in fresh.err_fb[1].values())
+    shardings = TS.state_shardings(fresh, mesh)
+    restored, _ = C.restore(str(tmp_path), 1, fresh, shardings=shardings)
+    assert restored.params is fresh.params
+    for (pa, a), (pb, b) in zip(_leaves(state), _leaves(restored)):
+        assert pa == pb, pa
+        if pa[:2] == ("err_fb", "1"):
+            assert b.device.type == "meta" and b.shape == a.shape, pa
+        else:
+            assert b.device.type == "cpu" and torch.equal(a, b), pa
+    with pytest.raises(KeyError, match="not in like"):
+        C.restore(str(tmp_path), 1, fresh,
+                  shardings={"nothing": shardings.opt_state.step})
 
 
 # ---------------------------------------------------------------------------
@@ -209,12 +265,20 @@ def test_train_cli():
     assert "[train] step=5 loss=" in out.stdout
 
 
-@pytest.mark.parametrize("flags, match", [
-    (["--mesh", "host"], "item 2"), (["--mesh", "production"], "item 2")])
-def test_train_cli_mesh_waits(flags, match):
+@pytest.mark.parametrize("mesh, batch, want", [
+    ("host", 4, "mesh={'data': 1, 'model': 1}"),
+    ("production", 16, "mesh={'data': 16, 'model': 16}")])
+def test_train_cli_mesh(mesh, batch, want, capsys):
+    """``--mesh host`` (the default) and ``--mesh production`` with
+    ``--device cpu``: a (1, 1) mesh over the CPU, and the (16, 16) mesh
+    over 256 shards of it."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match=match):
-        train.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu", *flags])
+    assert train.main(["--arch", "olmo-1b", "--smoke", "--steps", "2",
+                       "--batch", str(batch), "--seq", "16", "--log-every", "1",
+                       "--device", "cpu", "--mesh", mesh]) == 0
+    out = capsys.readouterr().out
+    assert want in out and "done: 2 steps" in out
+    assert "[train] step=1 loss=" in out
 
 
 def test_train_cli_default_device_is_the_card():

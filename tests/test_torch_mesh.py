@@ -163,10 +163,21 @@ class TestMesh:
         with pytest.raises(RuntimeError, match="devices="):
             make_host_mesh()
 
-    def test_production_mesh_names_the_model_mesh(self):
-        for multi_pod in (False, True):
-            with pytest.raises(NotImplementedError, match="model mesh"):
-                make_production_mesh(multi_pod=multi_pod)
+    def test_production_mesh(self):
+        """The reference's (16, 16) / (2, 16, 16) meshes over the devices
+        given (the dry run's ``meta``); like ``jax.make_mesh`` it raises
+        with fewer devices than it needs, and without a card by default."""
+        single = make_production_mesh(devices=["meta"] * 256)
+        assert single.shape == {"data": 16, "model": 16}
+        multi = make_production_mesh(multi_pod=True, devices=["meta"] * 520)
+        assert multi.shape == {"pod": 2, "data": 16, "model": 16}
+        assert multi.axis_devices("pod") == [torch.device("meta")] * 2
+        assert multi.take("pod", 1).shape == {"data": 16, "model": 16}
+        with pytest.raises(ValueError, match="needs 512 devices"):
+            make_production_mesh(multi_pod=True, devices=["cpu"] * 256)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make_production_mesh()
 
 
 class TestShardTopkPlan:
