@@ -395,12 +395,30 @@ it fails:
      (started at the phase's start, traced on the meta device beside
      (a)-(c)), their reports held to that test's assertions where the
      port's design allows them.
+ 24. the launch-shape autotuner (``repro_torch.kernels.autotune``), after
+     phase 12, with ``REPRO_AUTOTUNE=on`` and ``REPRO_AUTOTUNE_CACHE`` in a
+     temporary directory, both variables put back as found (checked):
+     (a) every rung of every tuned body bit-equal to the default rung on
+     that body's inputs (the staged ``radius_counts`` body on phase 5's
+     launches, ``pairwise_cheb`` on phase 8's fence launches and a
+     materialized chunk, the two-op bodies on phase 12's calls, staged
+     and padded to P = 1280), each rung timed there, then one sweep per
+     body from the main path's shape (at that launch's own P): one
+     ``[autotune]`` line per body with the sweep's and the inputs'
+     per-rung ms, the winner and the default; (b) after ``clear_memo()``
+     in ``auto`` mode, the winners read back with zero sweeps, and a warm
+     ``query_many`` pass under ``eager()``, fresh compiled programs around
+     ``knn_radius_counts`` (replayed), ``knn_with_counts`` and the
+     fence's ``pairwise_cheb`` bit-equal to the untuned outputs.  Its
+     launches in (b) count in the kernels' line; the sweeps' launches
+     (uncounted) in the record.  Phases 1-23 run untuned.  The flash
+     bodies and the tiled ``radius_counts`` body are not tuned.
 
-Phases 14, 15, 16 (a)-(c), 17, 21, 12 and 13 run after phase 10 and
+Phases 14, 15, 16 (a)-(c), 17, 21, 12, 24 and 13 run after phase 10 and
 before phase 11, so that the serving path starts with the discovery
-state freed; phases 18, 19, 20, 22 and 23 run after phase 11.  Each of
-phases 3, 7-9 and 11-23 sets every kernel's launch count to 0 just
-before it drives its path and reads the counts just after.
+state freed; phases 18, 19, 20, 22 and 23 run after phase 11.
+Each of phases 3, 7-9 and 11-24 sets every kernel's launch count to 0
+just before it drives its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
 (``{"record": ...}``), then the kernels' JSON line, the card's name and
@@ -522,6 +540,7 @@ N_PLANTED = 8
 WARM_REPS = 10
 SEED = 0
 FENCE_LANES = 4  # NaN lanes per served query in phase 8
+FENCE_KEEP = 2  # phase 8's fence launches whose inputs phase 24 keeps
 CALLERS, PER_CALLER = 4, 8
 WIDE_K = 32  # phase 14: a k past the staged body's buffer
 # Phase 15: the containment threshold.  The lake's joinable columns hold
@@ -1718,18 +1737,38 @@ def invalid_sketches(keys, y):
 def run_submit_safe(svc, queue, clean, bad) -> dict:
     """Phase 8: quarantine, one retried bucket and the non-finite fence
     through ``pairwise_cheb``; then the descent to the reference rung."""
+    from repro_torch.core import estimators as est
     from repro_torch.core.discovery import inject_faults
 
     full = queue + [sk for sk, _ in bad]
     n = len(queue)
     adm0 = dict(svc.stats()["admission"])
+    seen = []  # the first fence calls' inputs, for phase 24
+    op = est.pairwise_cheb
+
+    def spy(x, y, mask):
+        if len(seen) < FENCE_KEEP:
+            seen.append((x, y, mask))
+        return op(x, y, mask)
+
     reset_launches()
     t0 = time.perf_counter()
-    with inject_faults({"fused_dispatch": [0], "scores": FENCE_LANES},
-                       seed=SEED) as plan:
-        res, outs = svc.submit_safe(full, top_k=TOP_K, min_join=MIN_JOIN)
+    est.pairwise_cheb = spy
+    try:
+        with inject_faults({"fused_dispatch": [0], "scores": FENCE_LANES},
+                           seed=SEED) as plan:
+            res, outs = svc.submit_safe(full, top_k=TOP_K, min_join=MIN_JOIN)
+    finally:
+        est.pairwise_cheb = op
     torch.cuda.synchronize()
     t_fenced = time.perf_counter() - t0
+    # The kernel's own (B, P) inputs of those calls, as the op makes them,
+    # copied after the timed window.
+    fence = [tuple(t.to(dtype).reshape(-1, t.shape[-1]).contiguous().clone()
+                   for t, dtype in ((x, torch.float32), (y, torch.float32),
+                                    (m, torch.bool)))
+             for x, y, m in seen]
+    del seen
     launches = read_launches()
     for (sk, code), out, r in zip(bad, outs[n:], res[n:]):
         if out.status != "quarantined" or out.error != code or r is not None:
@@ -1781,6 +1820,7 @@ def run_submit_safe(svc, queue, clean, bad) -> dict:
         f"all {n} served on the reference rung, rankings == clean submit; "
         f"{t_ref:.3f} s; launches {launches_ref}")
     return {"fenced_lanes": plan.corrupted, "fenced_s": t_fenced,
+            "fence_inputs": fence,
             "launches": launches, "reference_rung_s": t_ref,
             "launches_reference_rung": launches_ref,
             "admission": svc.stats()["admission"]}
@@ -6520,6 +6560,254 @@ def run_train_mesh(card: str, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the launch-shape autotuner
+# ---------------------------------------------------------------------------
+
+TUNE_ENV = ("REPRO_AUTOTUNE", "REPRO_AUTOTUNE_CACHE")
+
+
+@contextlib.contextmanager
+def tuning(mode: str, path: str):
+    """``REPRO_AUTOTUNE=mode`` with the cache at ``path`` for the block
+    and the tuner's memo cleared on entry and on exit; both variables are
+    put back as they were found (a variable that was unset is unset
+    again), which the block's end checks."""
+    from repro_torch.kernels import autotune
+
+    saved = {k: os.environ.get(k) for k in TUNE_ENV}
+    os.environ.update({"REPRO_AUTOTUNE": mode, "REPRO_AUTOTUNE_CACHE": path})
+    autotune.clear_memo()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.clear_memo()
+    if {k: os.environ.get(k) for k in TUNE_ENV} != saved or autotune._memo:
+        raise AssertionError("the tuning environment was not put back")
+
+
+def cache_entries(path: str) -> dict:
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)["entries"]
+
+
+def tune_body(name: str, ladder, default: int, cases: list, path: str,
+              card: str) -> dict:
+    """Phase 24 (a) for one tuned body, in ``on`` mode: each case is
+    ``(label, run)``, ``run(rung)`` the body's outputs at that rung on
+    one of the main path's input sets.  Every rung bit-equal to the
+    default rung on every case, each rung timed on the first case (CUDA
+    events); then the first case with ``rung=None`` sweeps (one sweep, one
+    new cache entry), and its output, at the winner, bit-equal too."""
+    from repro_torch.kernels import autotune
+
+    wants = []
+    for label, run in cases:
+        want = run(default)
+        for rung in ladder:
+            bit_equal(f"{name} rung {rung} on {label}", run(rung), want)
+        wants.append(want)
+    ms = {str(r): time_cuda(lambda r=r: cases[0][1](r), 10) for r in ladder}
+    before, sweeps, launches = (set(cache_entries(path)), autotune.sweeps,
+                                autotune.sweep_launches)
+    got = cases[0][1](None)
+    new = [k for k in cache_entries(path) if k not in before]
+    if autotune.sweeps != sweeps + 1 or len(new) != 1:
+        raise AssertionError(f"{name}: {autotune.sweeps - sweeps} sweeps and "
+                             f"new cache entries {new}; expected one of each")
+    entry = cache_entries(path)[new[0]]
+    bit_equal(f"{name} at its winner {entry['block']}", got, wants[0])
+    row = {"body": name, "key": new[0], "ladder": list(ladder),
+           "default": default, "winner": entry["block"],
+           "sweep_ms": {r: 1e3 * s for r, s in entry["seconds"].items()},
+           "main_path_ms": ms, "cases": [label for label, _ in cases],
+           "sweep_launches": autotune.sweep_launches - launches}
+    log(f"[autotune] {name} ({new[0]}): sweep ms "
+        f"{ {r: round(t, 4) for r, t in row['sweep_ms'].items()} }; on "
+        f"{cases[0][0]} ms { {r: round(t, 4) for r, t in ms.items()} }; "
+        f"winner {row['winner']}, default {default}; every rung bit-equal on "
+        f"{len(cases)} input sets; {row['sweep_launches']} sweep launches "
+        f"(uncounted); card {card}")
+    return row
+
+
+def read_back(rows: list, path: str, checks: list) -> dict:
+    """Phase 24 (b), in ``auto`` mode after ``clear_memo()``: each check
+    ``(label, fn, want)`` runs with the tuned rungs (read from the cache,
+    no sweep) and must give ``want`` exactly; the tuner's memo then holds
+    each body's winner; launches counted as usual."""
+    from repro_torch.kernels import autotune
+
+    sweeps = autotune.sweeps
+    reset_launches()
+    for label, fn, want in checks:
+        if isinstance(want, list):  # ranked results
+            if [flat_results(r) for r in fn()] != want:
+                raise AssertionError(f"{label} with the tuned rungs differs "
+                                     "from the untuned pass")
+        else:
+            bit_equal(f"{label} with the tuned rungs", fn(), want)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if autotune.sweeps != sweeps:
+        raise AssertionError(f"{autotune.sweeps - sweeps} sweeps in auto mode")
+    memo = {"|".join(map(str, k)): v for k, v in autotune._memo.items()}
+    for row in rows:
+        if memo.get(row["key"]) != row["winner"]:
+            raise AssertionError(f"{row['key']} read back {memo.get(row['key'])}"
+                                 f", not the winner {row['winner']}")
+    log(f"[autotune] read back in auto mode after clear_memo(): "
+        f"{[(r['body'], r['winner']) for r in rows]}, 0 sweeps; "
+        f"{[label for label, _, _ in checks]} bit-equal to the untuned "
+        f"results; launches {({k: v for k, v in launches.items() if v})}")
+    return {"launches": launches, "checks": [label for label, _, _ in checks]}
+
+
+def program_of(fn, n_out: int, anchor: torch.Tensor):
+    """A fresh compiled program around ``fn`` (three tensors in, a tuple
+    of ``n_out`` tensors out), so that its capture takes the tuned rungs.
+    ``anchor`` is a resident argument it never reads: once the caller
+    drops it, the program is stale and the next capture destroys it, so
+    that it does not hold the stream's graph memory pool for the phases
+    after it."""
+    from repro_torch import compile as programs
+
+    def body(a, b, c, anchor):
+        out = fn(a, b, c)
+        return tuple(out[i] for i in range(n_out))
+
+    prog = programs.program(body, resident=("anchor",))
+    return lambda *inputs: prog(*inputs, anchor)
+
+
+def replayed(fn, *inputs):
+    """``fn``'s second call: the first builds (warm-up and capture), the
+    second replays the captured graph."""
+    fn(*inputs)
+    return fn(*inputs)
+
+
+def run_autotune(index, batches, seen: list, fence: list, card: str,
+                 dev) -> dict:
+    """Phase 24 (after phase 12): with ``REPRO_AUTOTUNE=on`` and a
+    temporary cache, (a) each tuned body on the main path's inputs: the
+    staged ``radius_counts`` body on phase 5's captured launches, the
+    ``pairwise_cheb`` body on phase 8's fence launches and a
+    materialized chunk of phase 5's samples, the two-op bodies on phase
+    12's calls (staged at P=256, tiled padded to TWO_OP_PAD_P); then (b)
+    in ``auto`` mode: a warm ``query_many`` pass under ``eager()`` equal
+    to the same pass untuned (``off``), a fresh compiled program around
+    ``knn_radius_counts`` replayed on each captured launch, phase 12's
+    ``knn_with_counts`` and the fence's ``pairwise_cheb`` through the
+    public ops, all bit-equal to the untuned outputs."""
+    import tempfile
+
+    from repro_torch import compile as programs
+    from repro_torch.core import estimators as est
+    from repro_torch.kernels.knn_stats import kernel, ops
+    from repro_torch.kernels.pairwise_cheb import kernel as pc
+    from repro_torch.kernels.pairwise_cheb import ops as pc_ops
+
+    t0 = time.perf_counter()
+    padded = [tuple(pad_columns(t, TWO_OP_PAD_P, f) for t, f in
+                    ((x, 0.0), (y, 0.0), (m, False))) for x, y, m, _, _ in seen]
+    x0, _, m0, a0, _ = seen[0]
+    chunk = min(x0.shape[0], est._MATERIALIZED_ELEMS // (x0.shape[1] ** 2))
+    cheb_in = [("the fence's launch " + str(i), f) for i, f in enumerate(fence)]
+    cheb_in.append(("a materialized chunk", (x0[:chunk].contiguous(),
+                                             seen[0][1][:chunk].contiguous(),
+                                             m0[:chunk].contiguous())))
+
+    def rc(body, x, y, m, args):
+        return lambda g: body(x, y, m, **args, rung=g)
+
+    def two_op(knn_body, bc_body, x, y, m, args, r):
+        return lambda g: (*knn_body(x, y, m, kb=args["kb"], mode=args["mode"],
+                                    rung=g),
+                          bc_body(x, y, m, r, which=args["which"], rung=g))
+
+    def label(x, args, P):
+        return f"{args['mode']}/{args['which']} B={x.shape[0]} P={P}"
+
+    specs = [
+        ("radius_counts_staged", kernel.STAGED_WARPS,
+         [(f"phase 5's {label(x, a, x.shape[1])}",
+           rc(kernel.radius_counts_staged, x, y, m, a))
+          for x, y, m, a, _ in seen]),
+        ("knn_two_op_staged", kernel.STAGED_WARPS,
+         [(f"phase 12's {label(x, a, x.shape[1])}",
+           two_op(kernel.knn_smallest_staged, kernel.ball_counts_staged,
+                  x, y, m, a, out[0]))
+          for x, y, m, a, out in seen]),
+        ("knn_two_op_tiled", kernel.TWO_OP_TILED_COLS,
+         [(f"phase 12 (b)'s {label(xp, a, TWO_OP_PAD_P)}",
+           two_op(kernel.knn_smallest_tiled, kernel.ball_counts_tiled,
+                  xp, yp, mp, a, pad_columns(out[0], TWO_OP_PAD_P, 0.0)))
+          for (xp, yp, mp), (_, _, _, a, out) in zip(padded, seen)]),
+    ]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune_cache.json")
+        with tuning("on", path):
+            rows = [tune_body(name, ladder, kernel.TUNED[name][1], cases, path,
+                              card) for name, ladder, cases in specs]
+            rows.append(tune_body(
+                "pairwise_cheb", pc.ROW_STEPS, pc.ROW_STEP_DEFAULT,
+                [(lab, lambda g, f=f: pc.pairwise_cheb(*f, rung=g))
+                 for lab, f in cheb_in], path, card))
+            cheb_want = [pc.pairwise_cheb(*f, rung=pc.ROW_STEP_DEFAULT)
+                         for _, f in cheb_in[:len(fence)]]
+
+        def query_pass():
+            with programs.eager():
+                return run_pass(index, batches, dev)[1]
+
+        def fused(x, y, m, args):
+            r, cnt, c = ops.knn_radius_counts(x, y, m, k=args["k"],
+                                              k_max=args["kb"], kk=args["kk"],
+                                              mode=args["mode"],
+                                              which=args["which"])
+            return r, cnt, torch.stack(tuple(c))
+
+        def with_counts(x, y, m, args):
+            knn, cnt, c = ops.knn_with_counts(
+                x, y, m, k=args["k"], k_max=args["kb"], mode=args["mode"],
+                which=args["which"], radius=radius_rule(args, m))
+            return radius_rule(args, m)(knn, cnt), cnt, torch.stack(tuple(c))
+
+        with tuning("off", path):
+            untuned = [flat_results(w) for w in query_pass()]
+        checks = [("warm query_many (eager)", query_pass, untuned)]
+        anchor = torch.empty(1, device=dev)
+        for i, ((x, y, m, a, out), pad) in enumerate(zip(seen, padded)):
+            prog = program_of(lambda x, y, m, a=a: fused(x, y, m, a), 3, anchor)
+            checks.append((f"a replayed program of knn_radius_counts ({i})",
+                           lambda p=prog, x=x, y=y, m=m: replayed(p, x, y, m),
+                           out))
+            checks.append((f"knn_with_counts ({i})",
+                           lambda x=x, y=y, m=m, a=a: with_counts(x, y, m, a),
+                           out))
+            checks.append((f"knn_with_counts padded to P={TWO_OP_PAD_P} ({i})",
+                           lambda pad=pad, a=a, P=x.shape[1]: tuple(
+                               t[..., :P] for t in with_counts(*pad, a)),
+                           out))
+        for (lab, f), want in zip(cheb_in, cheb_want):
+            checks.append((f"pairwise_cheb on {lab}",
+                           lambda f=f: pc_ops.pairwise_cheb(*f), want))
+        with tuning("auto", path):
+            back = read_back(rows, path, checks)
+        del checks, anchor  # the programs' anchors: stale from here on
+    rec = {"rows": rows, **back, "s": time.perf_counter() - t0}
+    log(f"[autotune] {len(rows)} bodies in {rec['s']:.2f} s; card {card}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -6698,6 +6986,7 @@ def main() -> int:
     submit = run_submit(svc, queue, warm)
     clean = submit.pop("results")
     safe = run_submit_safe(svc, queue, clean, invalid_sketches(keys, y))
+    fence = safe.pop("fence_inputs")
     sched = run_scheduler(svc, queue, clean)
 
     # Phase 10: the materialized estimators on phase 5's samples.
@@ -6749,8 +7038,11 @@ def main() -> int:
     # lake's keys hashed on the card.  Both run before phase 11, so that
     # the serving path starts with the discovery state freed.
     two_op = run_two_op(seen, card)
+    # Phase 24: the tuned bodies swept and read back on phases 3, 5, 8
+    # and 12's inputs.
+    tune = run_autotune(index, [cont, disc], seen, fence, card, dev)
     n_index = len(index)
-    del seen, index, svc, gpu_sub, cpu_sub
+    del seen, fence, index, svc, gpu_sub, cpu_sub
     lake_hash = run_hash_lake(rows, card, dev)
     del rows
     gc.collect()  # the index sits in reference cycles; free its stores now
@@ -6801,6 +7093,18 @@ def main() -> int:
 
     def more(name: str) -> int:
         return sum(d.get(name, 0) for d in train_launches)
+
+    # Phase 24 (b)'s launches with the tuned rungs (its sweeps' launches
+    # are uncounted and stand apart, in the record and the [autotune]
+    # lines).
+    from repro_torch.kernels import autotune
+
+    tune["sweeps"], tune["sweep_launches"] = (autotune.sweeps,
+                                              autotune.sweep_launches)
+
+    def tuned(name: str) -> int:
+        return tune["launches"][name]
+
     mesh_runs = [model_mesh[arch][run] for arch, *_ in MESH_SERVE
                  for run in ("plain", "mesh_run")]
     train_checks = list(training["check"].values())
@@ -6836,7 +7140,7 @@ def main() -> int:
         "lake_hash": lake_hash, "serving": serving, "moe_serving": moe,
         "ssm_serving": ssm_serving, "training": training,
         "application": app, "mesh": mesh, "model_mesh": model_mesh,
-        "train_mesh": train_mesh,
+        "train_mesh": train_mesh, "autotune": tune,
         "compile_end": programs.compile_stats(),
         "total_s": time.perf_counter() - t_start,
     }
@@ -6848,7 +7152,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/knn_stats/kernel.py:481",
         # Phase 3's warm pass and phase 21's warm mesh window.
         "launches": main_launches["radius_counts_staged"]
-        + mesh["launches_per_window"]["mesh"],
+        + mesh["launches_per_window"]["mesh"] + tuned("radius_counts_staged"),
         "max_abs_err": max(max_err, mesh["max_abs_err"]),
         "ms": rc_ms,
         "plain_ms": rc_plain,
@@ -6860,7 +7164,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/knn_stats/csrc/radius_counts.cu",
         "replaces": "src/repro/kernels/knn_stats/kernel.py:481",
-        "launches": wide["launches"]["radius_counts_tiled"],
+        "launches": wide["launches"]["radius_counts_tiled"]
+        + tuned("radius_counts_tiled"),
         "max_abs_err": max([max_err] + [r["max_abs_err"] for r in wide_rows]),
         "ms": sum(r["ms"] for r in wide_rows),
         "plain_ms": sum(r["plain_ms"] for r in wide_rows),
@@ -6874,7 +7179,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/pairwise_cheb/kernel.py:59",
         # The fences of phase 8 and of phase 21 (d) (the distributed rung).
         "launches": safe["launches"]["pairwise_cheb"]
-        + mesh["service"]["fence_launches"]["pairwise_cheb"],
+        + mesh["service"]["fence_launches"]["pairwise_cheb"]
+        + tuned("pairwise_cheb"),
         "max_abs_err": pc_max_err,
         "ms": pc_ms,
         "plain_ms": pc_plain,
@@ -6953,15 +7259,17 @@ def main() -> int:
         # phase 12 (b)'s, timed on (a)'s inputs (the same function, the
         # same bound).
         ("knn_smallest", "src/repro/kernels/knn_stats/kernel.py:381", knn_rows,
-         two_op["launches"]["knn_smallest_staged"], "ms", "max_abs_err"),
+         two_op["launches"]["knn_smallest_staged"]
+         + tuned("knn_smallest_staged"), "ms", "max_abs_err"),
         ("knn_smallest_tiled", "src/repro/kernels/knn_stats/kernel.py:381",
-         knn_rows, two_op["tiled_launches"]["knn_smallest_tiled"], "tiled_ms",
-         "tiled_max_abs_err"),
+         knn_rows, two_op["tiled_launches"]["knn_smallest_tiled"]
+         + tuned("knn_smallest_tiled"), "tiled_ms", "tiled_max_abs_err"),
         ("ball_counts", "src/repro/kernels/knn_stats/kernel.py:426", bc_rows,
-         two_op["launches"]["ball_counts_staged"], "ms", "max_abs_err"),
+         two_op["launches"]["ball_counts_staged"]
+         + tuned("ball_counts_staged"), "ms", "max_abs_err"),
         ("ball_counts_tiled", "src/repro/kernels/knn_stats/kernel.py:426",
-         bc_rows, two_op["tiled_launches"]["ball_counts_tiled"], "tiled_ms",
-         "tiled_max_abs_err"))],
+         bc_rows, two_op["tiled_launches"]["ball_counts_tiled"]
+         + tuned("ball_counts_tiled"), "tiled_ms", "tiled_max_abs_err"))],
     {
         "name": "murmur3_fib",
         "route": "cuda",

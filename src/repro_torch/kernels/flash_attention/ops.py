@@ -8,8 +8,12 @@ a ``meta`` tensor (the dry run: shapes only, no kernel); a CUDA tensor
 launches a hand-written kernel (``kernel.flash_attention``: the Hopper
 kernel for bfloat16/float16 at its head dims, which rounds P to that
 dtype before P·V, the CUDA-core kernel otherwise) or raises, and never
-takes the plain path in the forward.  There is no block autotuner and no
-host-side padding of S or D: the kernel masks its own ragged edge.
+takes the plain path in the forward.  The op has no tuning knob, and
+the autotuner (``repro_torch.kernels.autotune``) does not reach it: its
+bodies launch at fixed shapes (128 packed query rows a block, a K/V ring
+of 3 stages up to Dk = 128), since no other row count or ring depth
+timed on the card was faster.  There is no host-side padding of S or
+D: the kernel masks its own ragged edge.
 Unlike the reference, a non-causal call at an S that is not a block
 multiple is exact (the reference lets its padded keys into the softmax).
 

@@ -42,7 +42,9 @@
 // (and kb <= 16 for knn_smallest); the main path's P = 256, kb = 3.  One
 // warp per sample, no block-wide barrier; a block holds as many samples as
 // fit 48 KB of shared memory (6 at P = 256 for knn_smallest, 8 for
-// ball_counts), one above that.
+// ball_counts), one above that, and at most the launch's rung of samples
+// (1, 2, 4 or 8; 8 unless the autotuner picks another: one warp a sample,
+// so no rung changes an output bit).
 //   * Staging compacts the valid columns, in column order, with warp
 //     ballots (4 chunks of 32 columns loaded at once), straight into sort
 //     keys: nothing later visits an invalid column or tests the mask.
@@ -92,9 +94,11 @@
 //     (inf - inf is NaN, inf - finite is inf).
 //
 // knn_smallest_tiled_launch / ball_counts_tiled_launch, the tiled bodies (any
-// P, kb up to 128): the first port's design, unchanged.  One block per
-// (sample, 128-row tile), one thread per row; the sample's columns are
-// staged in shared memory, so every pair reads shared memory only.
+// P, kb up to 128): the first port's design.  One block per (sample,
+// 128-row tile), one thread per row; the sample's columns are staged in
+// shared memory in tiles of the launch's rung (1024, 2048 or 4096 columns;
+// 2048 unless the autotuner picks another: every row visits the columns in
+// the same order at every rung), so every pair reads shared memory only.
 // knn_smallest keeps a sorted register buffer of the W smallest distances
 // (W = the smallest of 4..128 that is >= kb), updated by a branch-free
 // min/max bubble only when a distance beats the current W-th, and writes
@@ -118,6 +122,8 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 namespace staged {
 
 constexpr int kMaxWarps = 8;           // samples (warps) per block, at most
+// The rungs of a launch's cap on samples a block (kernel.py: STAGED_WARPS).
+constexpr int kWarpRungs[] = {1, 2, 4, 8};
 constexpr int kBlockBytes = 48 << 10;  // shared memory a block takes (beyond
                                        // it: one sample a block, opted in)
 constexpr int kPrefetch = 4;           // 32-column chunks loaded per step
@@ -630,12 +636,13 @@ inline int pow2_at_least_32(int P) {
   return NP;
 }
 
-// As many samples (warps) a block as fit kBlockBytes, kMaxWarps at most;
+// As many samples (warps) a block as fit kBlockBytes, max_warps at most;
 // one when a sample needs more, with the kernel opted in to that much.
 template <typename Kernel>
-int block_warps(Kernel* kernel, size_t per_warp, int& warps) {
+int block_warps(Kernel* kernel, size_t per_warp, int max_warps, int& warps) {
   const size_t fit = kBlockBytes / per_warp;
-  warps = fit < 1 ? 1 : fit > kMaxWarps ? kMaxWarps : static_cast<int>(fit);
+  warps = fit < 1 ? 1 : fit > static_cast<size_t>(max_warps)
+                            ? max_warps : static_cast<int>(fit);
   if (per_warp * warps <= static_cast<size_t>(kBlockBytes)) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -644,12 +651,13 @@ int block_warps(Kernel* kernel, size_t per_warp, int& warps) {
 
 template <int W, bool JOINT>
 int launch_knn(const float* x, const float* y, const unsigned char* mask,
-               int B, int P, int kb, float* knn, int* cnt,
+               int B, int P, int kb, float* knn, int* cnt, int max_warps,
                cudaStream_t stream) {
   const int NP = pow2_at_least_32(P);
   const size_t per_warp = knn_layout(P, NP, kb).total;
   int warps;
-  const int err = block_warps(knn_smallest_kernel<W, JOINT>, per_warp, warps);
+  const int err = block_warps(knn_smallest_kernel<W, JOINT>, per_warp,
+                              max_warps, warps);
   if (err != 0) return err;
   const unsigned grid = static_cast<unsigned>((B + warps - 1) / warps);
   knn_smallest_kernel<W, JOINT><<<grid, 32 * warps, per_warp * warps, stream>>>(
@@ -658,20 +666,22 @@ int launch_knn(const float* x, const float* y, const unsigned char* mask,
 }
 
 int knn(const float* x, const float* y, const unsigned char* mask, int B,
-        int P, int kb, int joint, float* out, int* cnt, cudaStream_t s) {
-  if (!joint) return launch_knn<1, false>(x, y, mask, B, P, kb, out, cnt, s);
-  if (kb <= 3) return launch_knn<3, true>(x, y, mask, B, P, kb, out, cnt, s);
-  if (kb <= 8) return launch_knn<8, true>(x, y, mask, B, P, kb, out, cnt, s);
-  return launch_knn<16, true>(x, y, mask, B, P, kb, out, cnt, s);
+        int P, int kb, int joint, float* out, int* cnt, int w, cudaStream_t s) {
+  if (!joint) return launch_knn<1, false>(x, y, mask, B, P, kb, out, cnt, w, s);
+  if (kb <= 3) return launch_knn<3, true>(x, y, mask, B, P, kb, out, cnt, w, s);
+  if (kb <= 8) return launch_knn<8, true>(x, y, mask, B, P, kb, out, cnt, w, s);
+  return launch_knn<16, true>(x, y, mask, B, P, kb, out, cnt, w, s);
 }
 
 template <bool ALL>
 int ball(const float* x, const float* y, const unsigned char* mask,
-         const float* r, int B, int P, int* counts, cudaStream_t stream) {
+         const float* r, int B, int P, int* counts, int max_warps,
+         cudaStream_t stream) {
   const int NP = pow2_at_least_32(P);
   const size_t per_warp = ball_layout<ALL>(NP).total;
   int warps;
-  const int err = block_warps(ball_counts_kernel<ALL>, per_warp, warps);
+  const int err = block_warps(ball_counts_kernel<ALL>, per_warp, max_warps,
+                              warps);
   if (err != 0) return err;
   const unsigned grid = static_cast<unsigned>((B + warps - 1) / warps);
   ball_counts_kernel<ALL><<<grid, 32 * warps, per_warp * warps, stream>>>(
@@ -688,17 +698,20 @@ int ball(const float* x, const float* y, const unsigned char* mask,
 namespace tiled {
 
 constexpr int kRows = 128;      // threads (rows) per block
-constexpr int kColTile = 2048;  // columns staged in shared memory per step
+// The rungs of a launch's column tile, the columns staged in shared
+// memory per step (kernel.py: TWO_OP_TILED_COLS).
+constexpr int kColRungs[] = {1024, 2048, 4096};
 
 template <int W, bool JOINT>
 __global__ void __launch_bounds__(kRows)
 knn_smallest_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const unsigned char* __restrict__ mask, int P, int kb,
-                    float* __restrict__ knn_out, int* __restrict__ cnt_out) {
+                    float* __restrict__ knn_out, int* __restrict__ cnt_out,
+                    int tile) {
   extern __shared__ unsigned char smem[];
   float* sx = reinterpret_cast<float*>(smem);
-  float* sy = sx + kColTile;
-  unsigned char* sm = reinterpret_cast<unsigned char*>(sy + kColTile);
+  float* sy = sx + tile;
+  unsigned char* sm = reinterpret_cast<unsigned char*>(sy + tile);
 
   const size_t base = static_cast<size_t>(blockIdx.x) * P;
   const float* xs = x + base;
@@ -715,8 +728,8 @@ knn_smallest_kernel(const float* __restrict__ x, const float* __restrict__ y,
   for (int s = 0; s < W; ++s) buf[s] = INFINITY;
   int cnt = 0;
 
-  for (int c0 = 0; c0 < P; c0 += kColTile) {
-    const int n = min(kColTile, P - c0);
+  for (int c0 = 0; c0 < P; c0 += tile) {
+    const int n = min(tile, P - c0);
     __syncthreads();
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
       sx[j] = xs[c0 + j];
@@ -765,11 +778,11 @@ __global__ void __launch_bounds__(kRows)
 ball_counts_kernel(const float* __restrict__ x, const float* __restrict__ y,
                    const unsigned char* __restrict__ mask,
                    const float* __restrict__ r_in, int P,
-                   int* __restrict__ counts_out, size_t plane) {
+                   int* __restrict__ counts_out, size_t plane, int tile) {
   extern __shared__ unsigned char smem[];
   float* sy = reinterpret_cast<float*>(smem);
-  float* sx = sy + kColTile;  // staged only when ALL
-  unsigned char* sm = reinterpret_cast<unsigned char*>(sx + kColTile);
+  float* sx = sy + tile;  // staged only when ALL
+  unsigned char* sm = reinterpret_cast<unsigned char*>(sx + tile);
 
   const size_t base = static_cast<size_t>(blockIdx.x) * P;
   const float* ys = y + base;
@@ -782,8 +795,8 @@ ball_counts_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const float r = row ? r_in[base + i] : 0.f;
 
   int x_lt = 0, y_lt = 0, x_eq = 0, y_eq = 0, j_eq = 0;
-  for (int c0 = 0; c0 < P; c0 += kColTile) {
-    const int n = min(kColTile, P - c0);
+  for (int c0 = 0; c0 < P; c0 += tile) {
+    const int n = min(tile, P - c0);
     __syncthreads();
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
       sy[j] = ys[c0 + j];
@@ -817,33 +830,35 @@ ball_counts_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-constexpr size_t kShmem = kColTile * (2 * sizeof(float) + 1);
+inline size_t shmem(int tile) {
+  return static_cast<size_t>(tile) * (2 * sizeof(float) + 1);
+}
 
 template <int W, bool JOINT>
 void launch_knn(const float* x, const float* y, const unsigned char* mask,
-                int B, int P, int kb, float* knn, int* cnt,
+                int B, int P, int kb, float* knn, int* cnt, int tile,
                 cudaStream_t stream) {
   const dim3 grid(B, (P + kRows - 1) / kRows);
-  knn_smallest_kernel<W, JOINT><<<grid, kRows, kShmem, stream>>>(
-      x, y, mask, P, kb, knn, cnt);
+  knn_smallest_kernel<W, JOINT><<<grid, kRows, shmem(tile), stream>>>(
+      x, y, mask, P, kb, knn, cnt, tile);
 }
 
 template <bool JOINT>
 int dispatch_width(const float* x, const float* y, const unsigned char* mask,
-                   int B, int P, int kb, float* knn, int* cnt,
+                   int B, int P, int kb, float* knn, int* cnt, int tile,
                    cudaStream_t s) {
   if (kb <= 4) {
-    launch_knn<4, JOINT>(x, y, mask, B, P, kb, knn, cnt, s);
+    launch_knn<4, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
   } else if (kb <= 8) {
-    launch_knn<8, JOINT>(x, y, mask, B, P, kb, knn, cnt, s);
+    launch_knn<8, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
   } else if (kb <= 16) {
-    launch_knn<16, JOINT>(x, y, mask, B, P, kb, knn, cnt, s);
+    launch_knn<16, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
   } else if (kb <= 32) {
-    launch_knn<32, JOINT>(x, y, mask, B, P, kb, knn, cnt, s);
+    launch_knn<32, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
   } else if (kb <= 64) {
-    launch_knn<64, JOINT>(x, y, mask, B, P, kb, knn, cnt, s);
+    launch_knn<64, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
   } else if (kb <= 128) {
-    launch_knn<128, JOINT>(x, y, mask, B, P, kb, knn, cnt, s);
+    launch_knn<128, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -851,40 +866,50 @@ int dispatch_width(const float* x, const float* y, const unsigned char* mask,
 }
 
 int ball(const float* x, const float* y, const unsigned char* mask,
-         const float* r, int B, int P, int all, int* counts,
+         const float* r, int B, int P, int all, int* counts, int tile,
          cudaStream_t s) {
   const dim3 grid(B, (P + kRows - 1) / kRows);
   const size_t plane = static_cast<size_t>(B) * static_cast<size_t>(P);
   if (all) {
-    ball_counts_kernel<true><<<grid, kRows, kShmem, s>>>(x, y, mask, r, P,
-                                                         counts, plane);
+    ball_counts_kernel<true><<<grid, kRows, shmem(tile), s>>>(
+        x, y, mask, r, P, counts, plane, tile);
   } else {
-    ball_counts_kernel<false><<<grid, kRows, kShmem, s>>>(x, y, mask, r, P,
-                                                          counts, plane);
+    ball_counts_kernel<false><<<grid, kRows, shmem(tile), s>>>(
+        x, y, mask, r, P, counts, plane, tile);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tiled
 
+template <int N>
+bool on_ladder(int rung, const int (&rungs)[N]) {
+  for (int v : rungs)
+    if (v == rung) return true;
+  return false;
+}
+
 }  // namespace
 
 // Plain C entries for ctypes, two per op (the staged body, then the tiled
-// one), each pair with one signature.  Each returns cudaGetLastError() after
-// the launch (0 on success), or cudaErrorInvalidValue for parameters
-// outside the body's range; a refused launch never runs, so the caller must
-// check it.
+// one), each pair with one signature.  rung is the body's launch shape: the
+// staged bodies' cap on samples a block, the tiled bodies' column tile; off
+// its ladder the launch is refused (no clamp).  Each returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for parameters outside the body's range; a refused
+// launch never runs, so the caller must check it.
 //
 // x, y: float32 (B, P); mask: bool (B, P); knn: float32 (B, P, kb); cnt:
 // int32 (B, P).  joint selects the mode.  Staged: P <= 1024, 1 <= kb <= 16.
 extern "C" int knn_smallest_launch(const float* x, const float* y,
                                    const unsigned char* mask, int B, int P,
                                    int kb, int joint, float* knn, int* cnt,
-                                   void* stream) {
+                                   int rung, void* stream) {
   if (B <= 0 || P <= 0) return 0;
-  if (kb < 1 || kb > staged::kMaxKb || P > staged::kMaxP)
+  if (kb < 1 || kb > staged::kMaxKb || P > staged::kMaxP ||
+      !on_ladder(rung, staged::kWarpRungs))
     return static_cast<int>(cudaErrorInvalidValue);
-  return staged::knn(x, y, mask, B, P, kb, joint, knn, cnt,
+  return staged::knn(x, y, mask, B, P, kb, joint, knn, cnt, rung,
                      static_cast<cudaStream_t>(stream));
 }
 
@@ -892,12 +917,15 @@ extern "C" int knn_smallest_launch(const float* x, const float* y,
 extern "C" int knn_smallest_tiled_launch(const float* x, const float* y,
                                          const unsigned char* mask, int B,
                                          int P, int kb, int joint, float* knn,
-                                         int* cnt, void* stream) {
+                                         int* cnt, int rung, void* stream) {
   if (B <= 0 || P <= 0) return 0;
-  if (kb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (kb < 1 || !on_ladder(rung, tiled::kColRungs))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return joint ? tiled::dispatch_width<true>(x, y, mask, B, P, kb, knn, cnt, s)
-               : tiled::dispatch_width<false>(x, y, mask, B, P, kb, knn, cnt, s);
+  return joint ? tiled::dispatch_width<true>(x, y, mask, B, P, kb, knn, cnt,
+                                             rung, s)
+               : tiled::dispatch_width<false>(x, y, mask, B, P, kb, knn, cnt,
+                                              rung, s);
 }
 
 // x: float32 (B, P), or null when all is 0 (never read then); y, r:
@@ -906,20 +934,23 @@ extern "C" int knn_smallest_tiled_launch(const float* x, const float* y,
 extern "C" int ball_counts_launch(const float* x, const float* y,
                                   const unsigned char* mask, const float* r,
                                   int B, int P, int all, int* counts,
-                                  void* stream) {
+                                  int rung, void* stream) {
   if (B <= 0 || P <= 0) return 0;
-  if (P > staged::kMaxP) return static_cast<int>(cudaErrorInvalidValue);
+  if (P > staged::kMaxP || !on_ladder(rung, staged::kWarpRungs))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return all ? staged::ball<true>(x, y, mask, r, B, P, counts, s)
-             : staged::ball<false>(x, y, mask, r, B, P, counts, s);
+  return all ? staged::ball<true>(x, y, mask, r, B, P, counts, rung, s)
+             : staged::ball<false>(x, y, mask, r, B, P, counts, rung, s);
 }
 
 // Tiled: any P.
 extern "C" int ball_counts_tiled_launch(const float* x, const float* y,
                                         const unsigned char* mask,
                                         const float* r, int B, int P, int all,
-                                        int* counts, void* stream) {
+                                        int* counts, int rung, void* stream) {
   if (B <= 0 || P <= 0) return 0;
-  return tiled::ball(x, y, mask, r, B, P, all, counts,
+  if (!on_ladder(rung, tiled::kColRungs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tiled::ball(x, y, mask, r, B, P, all, counts, rung,
                      static_cast<cudaStream_t>(stream));
 }

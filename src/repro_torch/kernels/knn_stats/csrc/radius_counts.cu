@@ -39,7 +39,9 @@
 // radius_counts_launch, the staged body: P <= 1024 and a buffer of at
 // most 16 lanes (k, or kb in class mode, <= 16); the main path's P = 256,
 // k = 3.  One warp per sample, no block-wide barrier; a block holds as
-// many samples as fit 48 KB of shared memory (7 at P = 256).
+// many samples as fit 48 KB of shared memory (7 at P = 256), and at most
+// the launch's rung of samples (1, 2, 4 or 8; 8 unless the autotuner
+// picks another: one warp a sample, so no rung changes an output bit).
 //   * Staging loads 4 chunks of 32 columns at once and compacts the valid
 //     columns, in order, with warp ballots, so nothing later visits an
 //     invalid column or tests the mask.  Compacting is exact: the
@@ -108,6 +110,8 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 namespace staged {
 
 constexpr int kMaxWarps = 8;          // samples (warps) per block, at most
+// The rungs of a launch's cap on samples a block (kernel.py: STAGED_WARPS).
+constexpr int kWarpRungs[] = {1, 2, 4, 8};
 constexpr int kBlockBytes = 48 << 10;  // shared memory a block takes, at most
 constexpr int kPrefetch = 4;          // 32-column chunks loaded per step
 constexpr int kMaxP = 1024;  // kernel.py: STAGED_MAX_P
@@ -569,14 +573,15 @@ radius_counts_kernel(const float* __restrict__ x, const float* __restrict__ y,
 template <int W, int R, bool JOINT, bool ALL>
 int launch(const float* x, const float* y, const unsigned char* mask, int B,
            int P, int k, int kb, int kk, float* r, int* cnt, int* counts,
-           cudaStream_t stream) {
+           int max_warps, cudaStream_t stream) {
   int NP = 32;
   while (NP < P) NP <<= 1;
   const size_t per_warp = layout(P, NP).total;
-  // As many samples a block as fit 48 KB (no opt-in needed), 8 at most:
-  // 7 at P = 256, 3 at P = 512, 1 at P = 1024.
+  // As many samples a block as fit 48 KB (no opt-in needed), max_warps at
+  // most: at the default 8, 7 at P = 256, 3 at P = 512, 1 at P = 1024.
   const size_t fit = kBlockBytes / per_warp;
-  const int warps = fit < 1 ? 1 : fit > kMaxWarps ? kMaxWarps : static_cast<int>(fit);
+  const int warps = fit < 1 ? 1 : fit > static_cast<size_t>(max_warps)
+                                      ? max_warps : static_cast<int>(fit);
   const unsigned grid = static_cast<unsigned>((B + warps - 1) / warps);
   radius_counts_kernel<W, R, JOINT, ALL>
       <<<grid, 32 * warps, per_warp * warps, stream>>>(
@@ -588,13 +593,13 @@ int launch(const float* x, const float* y, const unsigned char* mask, int B,
 template <bool JOINT, bool ALL>
 int dispatch(int need, const float* x, const float* y,
              const unsigned char* mask, int B, int P, int k, int kb, int kk,
-             float* r, int* cnt, int* counts, cudaStream_t stream) {
+             float* r, int* cnt, int* counts, int rung, cudaStream_t stream) {
   if (need <= 3)
-    return launch<3, 4, JOINT, ALL>(x, y, mask, B, P, k, kb, kk, r, cnt, counts, stream);
+    return launch<3, 4, JOINT, ALL>(x, y, mask, B, P, k, kb, kk, r, cnt, counts, rung, stream);
   if (need <= 8)
-    return launch<8, 2, JOINT, ALL>(x, y, mask, B, P, k, kb, kk, r, cnt, counts, stream);
+    return launch<8, 2, JOINT, ALL>(x, y, mask, B, P, k, kb, kk, r, cnt, counts, rung, stream);
   if (need <= kMaxW)
-    return launch<16, 1, JOINT, ALL>(x, y, mask, B, P, k, kb, kk, r, cnt, counts, stream);
+    return launch<16, 1, JOINT, ALL>(x, y, mask, B, P, k, kb, kk, r, cnt, counts, rung, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -762,43 +767,45 @@ int dispatch(int need, const float* x, const float* y,
 
 }  // namespace tiled
 
-using DispatchFn = int (*)(int, const float*, const float*,
-                           const unsigned char*, int, int, int, int, int,
-                           float*, int*, int*, cudaStream_t);
+// A body's dispatch on (mode, count set): (need, x, y, mask, B, P, k, kb,
+// kk, r, cnt, counts, [the staged body's cap on samples a block,] stream).
+using StagedFn = int (*)(int, const float*, const float*,
+                         const unsigned char*, int, int, int, int, int,
+                         float*, int*, int*, int, cudaStream_t);
+using TiledFn = int (*)(int, const float*, const float*,
+                        const unsigned char*, int, int, int, int, int,
+                        float*, int*, int*, cudaStream_t);
 
-int run(const DispatchFn (&fns)[2][2], const float* x, const float* y,
-        const unsigned char* mask, int B, int P, int k, int kb, int kk,
-        int joint, int all, float* r, int* cnt, int* counts, void* stream) {
-  if (B <= 0 || P <= 0) return 0;
-  const int need = joint ? k : kb;
-  return fns[joint ? 1 : 0][all ? 1 : 0](need, x, y, mask, B, P, k, kb, kk, r,
-                                         cnt, counts,
-                                         static_cast<cudaStream_t>(stream));
-}
-
-constexpr DispatchFn kStaged[2][2] = {
+constexpr StagedFn kStaged[2][2] = {
     {staged::dispatch<false, false>, staged::dispatch<false, true>},
     {staged::dispatch<true, false>, staged::dispatch<true, true>}};
-constexpr DispatchFn kTiled[2][2] = {
+constexpr TiledFn kTiled[2][2] = {
     {tiled::dispatch<false, false>, tiled::dispatch<false, true>},
     {tiled::dispatch<true, false>, tiled::dispatch<true, true>}};
 
 }  // namespace
 
-// Plain C entries for ctypes, one per body, with one signature.  x, y:
-// float32 (B, P); mask: bool (B, P); r: float32 (B, P); cnt: int32 (B, P);
-// counts: int32 (5, B, P).  joint selects the mode, all the count set.
-// Each returns cudaGetLastError() after the launch (0 on success), or
+// Plain C entries for ctypes, one per body.  x, y: float32 (B, P); mask:
+// bool (B, P); r: float32 (B, P); cnt: int32 (B, P); counts: int32
+// (5, B, P).  joint selects the mode, all the count set.  The staged
+// entry takes one more int, max_warps, its cap on samples a block: off
+// staged::kWarpRungs the launch is refused (no clamp).  Each returns
+// cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for parameters outside the body's range; a
 // refused launch never runs, so the caller must check it.
 extern "C" int radius_counts_launch(const float* x, const float* y,
                                     const unsigned char* mask, int B, int P,
                                     int k, int kb, int kk, int joint, int all,
                                     float* r, int* cnt, int* counts,
-                                    void* stream) {
-  if (P > staged::kMaxP) return static_cast<int>(cudaErrorInvalidValue);
-  return run(kStaged, x, y, mask, B, P, k, kb, kk, joint, all, r, cnt, counts,
-             stream);
+                                    int max_warps, void* stream) {
+  bool on_ladder = false;
+  for (int w : staged::kWarpRungs) on_ladder |= w == max_warps;
+  if (P > staged::kMaxP || !on_ladder)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || P <= 0) return 0;
+  return kStaged[joint ? 1 : 0][all ? 1 : 0](
+      joint ? k : kb, x, y, mask, B, P, k, kb, kk, r, cnt, counts, max_warps,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int radius_counts_tiled_launch(const float* x, const float* y,
@@ -807,6 +814,8 @@ extern "C" int radius_counts_tiled_launch(const float* x, const float* y,
                                           int joint, int all, float* r,
                                           int* cnt, int* counts,
                                           void* stream) {
-  return run(kTiled, x, y, mask, B, P, k, kb, kk, joint, all, r, cnt, counts,
-             stream);
+  if (B <= 0 || P <= 0) return 0;
+  return kTiled[joint ? 1 : 0][all ? 1 : 0](
+      joint ? k : kb, x, y, mask, B, P, k, kb, kk, r, cnt, counts,
+      static_cast<cudaStream_t>(stream));
 }

@@ -15,6 +15,17 @@ warp a sample, sorted by value, selection and counts along the sorted
 orders) or to a tiled body (one row a thread over column tiles), each
 bit-equal to its ``ref`` function.
 
+Each body but the tiled ``radius_counts`` launches at one rung of its
+launch-shape ladder (the staged bodies' cap on samples a block,
+``STAGED_WARPS``; the tiled two-op bodies' column tile,
+``TWO_OP_TILED_COLS``).  Every rung leaves every output bit as the
+default rung (the body's constant before it was tuned) leaves it.  A
+body's ``rung=None`` asks :mod:`repro_torch.kernels.autotune` (key: the
+body's name, the card, the P bucket); with ``REPRO_AUTOTUNE`` unset and
+no cache file that is the default.  A value off the ladder raises.  The
+tiled ``radius_counts`` body keeps its 1024-column tile: no other tile
+was faster on the card.
+
 Each source is built at first use by :mod:`repro_torch.kernels._build`
 (``nvcc`` for ``sm_90a`` into ``build/kernels/``, loaded with ``ctypes``).
 A failed build or launch raises; nothing falls back to another body or
@@ -29,10 +40,12 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels._build import BuiltLibrary, build, find_nvcc
 
-__all__ = ["SOURCE", "STAGED_MAX_P", "STAGED_MAX_W", "TWO_OP_SOURCE",
-           "TWO_OP_STAGED_MAX_KB", "TWO_OP_STAGED_MAX_P", "BuiltLibrary",
+__all__ = ["SOURCE", "STAGED_MAX_P", "STAGED_MAX_W",
+           "STAGED_WARPS", "TUNED", "TWO_OP_SOURCE", "TWO_OP_STAGED_MAX_KB",
+           "TWO_OP_STAGED_MAX_P", "TWO_OP_TILED_COLS", "BuiltLibrary",
            "ball_counts", "ball_counts_staged", "ball_counts_tiled",
            "find_nvcc", "knn_smallest", "knn_smallest_staged",
            "knn_smallest_tiled", "load_library", "load_two_op_library",
@@ -52,16 +65,41 @@ STAGED_MAX_W = 16
 TWO_OP_STAGED_MAX_P = 1024
 TWO_OP_STAGED_MAX_KB = 16
 
+# Launch-shape ladders (the C entries refuse any other value).  Staged
+# bodies: samples (warps) a block at most, as many as fit 48 KB below it
+# (radius_counts.cu and knn_two_op.cu, staged::kWarpRungs); one warp a
+# sample, so no rung changes an output bit.  Tiled two-op bodies: columns
+# staged in shared memory a step (knn_two_op.cu, tiled::kColRungs); every
+# row visits the columns in the same order at every rung.
+STAGED_WARPS = (1, 2, 4, 8)
+TWO_OP_TILED_COLS = (1024, 2048, 4096)
+# Each tuned body's autotuner key name -> (ladder, default rung).
+TUNED = {"radius_counts_staged": (STAGED_WARPS, 8),
+         "knn_two_op_staged": (STAGED_WARPS, 8),
+         "knn_two_op_tiled": (TWO_OP_TILED_COLS, 2048)}
+# The entries each key's measure times, and the key of each entry.
+_ENTRIES = {"radius_counts_staged": ("radius_counts_launch",),
+            "knn_two_op_staged": ("knn_smallest_launch", "ball_counts_launch"),
+            "knn_two_op_tiled": ("knn_smallest_tiled_launch",
+                                 "ball_counts_tiled_launch")}
+_KEY = {e: name for name, entries in _ENTRIES.items() for e in entries}
+# The most (sample, row, column) triples a tiled body's sweep visits: as
+# many as the discovery path's B = 65536 samples at P = 256 hold.
+_TILED_PAIRS = 1 << 32
+
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> BuiltLibrary:
     """Build (once per source version) and load the kernel library (both
     bodies' entries)."""
     built = build(SOURCE)
-    for name in ("radius_counts_launch", "radius_counts_tiled_launch"):
+    # The staged entry takes its cap on samples a block before the stream.
+    for name, tuned in (("radius_counts_launch", 1),
+                        ("radius_counts_tiled_launch", 0)):
         fn = getattr(built.lib, name)
         fn.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] * tuned + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return built
@@ -75,12 +113,12 @@ def load_two_op_library() -> BuiltLibrary:
     for name in ("knn_smallest_launch", "knn_smallest_tiled_launch"):
         fn = getattr(built.lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p] * 3
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for name in ("ball_counts_launch", "ball_counts_tiled_launch"):
         fn = getattr(built.lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p] * 2
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return built
 
@@ -112,6 +150,70 @@ def _check_batch(name: str, x, y, mask, *extra) -> tuple[int, int]:
 def _raise_on(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _rung(entry: str, rung, B: int, P: int, device, k: int, kb: int) -> int:
+    """The launch shape of ``entry``'s body: ``rung`` when given (on its
+    ladder), else the autotuner's for this P on this card."""
+    name = _KEY[entry]
+    ladder, default = TUNED[name]
+    return autotune.pick(name, rung, ladder=ladder, default=default,
+                         shape=P, device=device, measure=_measure,
+                         args=(name, B, P, k, kb, device))
+
+
+def _tune_samples(B: int, P: int, device) -> dict:
+    """Deterministic synthetic samples for a sweep, (B, P) on ``device``:
+    continuous x and y, class codes and discrete values (8 levels each),
+    sample b valid on its first P - (37 b mod P/2) columns (join sizes
+    spread over [P/2, P]) and radii of 0.05."""
+    i = torch.arange(B * P, device=device).reshape(B, P).to(torch.float32)
+    x, y = torch.sin(i), torch.cos(1.7 * i)
+    n = P - (37 * torch.arange(B, device=device)) % max(P // 2, 1)
+    mask = torch.arange(P, device=device)[None, :] < n[:, None]
+    return {"x": x, "y": y, "codes": torch.floor(4 * x),
+            "yd": torch.floor(4 * y), "mask": mask,
+            "r": torch.full((B, P), 0.05, device=device)}
+
+
+def _measure(name: str, B: int, P: int, k: int, kb: int, device,
+             bucket: int, default: int):
+    """The autotuner's measure factory for the tuned body ``name``: the
+    body at the calling launch's B, P (as the caller padded it; the
+    bucket is only the cache key), k and kb (a tiled body, whose work is
+    B * P^2 pairs, at most ``_TILED_PAIRS`` pairs: B cut to fit), timed
+    over the launches the discovery path makes on it: for radius_counts
+    the three KSG modes of a warm ``query_many`` (MixedKSG's joint/all
+    on continuous data; DC-KSG's class/y on a continuous and on a
+    discrete target), for the two-op bodies both ``knn_smallest`` modes
+    and both ``ball_counts`` sets (kb 3, the discovery path's, when a
+    ``ball_counts`` launch resolves the key).  None of these launches is
+    counted by the wrappers."""
+    if name.endswith("_tiled"):
+        B = min(B, max(1, _TILED_PAIRS // (P * P)))
+    t = _tune_samples(B, P, device)
+    x, y, yd, codes, m, r = (t[n] for n in ("x", "y", "yd", "codes", "mask",
+                                            "r"))
+    if name == "radius_counts_staged":
+        entry, = _ENTRIES[name]
+        calls = [functools.partial(_launch_rc, entry, x, y, m, k, k, k,
+                                   "joint", "all"),
+                 functools.partial(_launch_rc, entry, codes, y, m, k, kb, k,
+                                   "class", "y"),
+                 functools.partial(_launch_rc, entry, codes, yd, m, k, kb, k,
+                                   "class", "y")]
+    else:
+        knn, ball = _ENTRIES[name]
+        calls = [functools.partial(_launch_knn, knn, x, y, m, kb, "joint"),
+                 functools.partial(_launch_knn, knn, codes, y, m, kb, "class"),
+                 functools.partial(_launch_bc, ball, x, y, m, r, "all"),
+                 functools.partial(_launch_bc, ball, x, y, m, r, "y")]
+
+    def measure(rung: int) -> float:
+        return sum(autotune.time_launch(functools.partial(c, rung=rung))
+                   for c in calls)
+
+    return measure
 
 
 def takes_staged(P: int, mode: str, k: int, kb: int) -> bool:
@@ -151,8 +253,10 @@ def radius_counts(
     return out
 
 
-def _launch_rc(entry: str, x, y, mask, k, kb, kk, mode, which):
+def _launch_rc(entry: str, x, y, mask, k, kb, kk, mode, which, rung=None):
     B, P = _check_batch("radius_counts", x, y, mask)
+    shape = () if entry == "radius_counts_tiled_launch" else (
+        _rung(entry, rung, B, P, x.device, k, kb),)
     built = load_library()
     r = torch.empty((B, P), dtype=torch.float32, device=x.device)
     cnt = torch.empty((B, P), dtype=torch.int32, device=x.device)
@@ -162,19 +266,20 @@ def _launch_rc(entry: str, x, y, mask, k, kb, kk, mode, which):
         err = getattr(built.lib, entry)(
             x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, P, int(k),
             int(kb), int(kk), int(mode == "joint"), int(which == "all"),
-            r.data_ptr(), cnt.data_ptr(), counts.data_ptr(), stream,
+            r.data_ptr(), cnt.data_ptr(), counts.data_ptr(), *shape, stream,
         )
     _raise_on(entry, err)
     return (r, cnt, counts), int(B * P > 0)
 
 
-def radius_counts_staged(x, y, mask, *, k, kb, kk, mode, which):
+def radius_counts_staged(x, y, mask, *, k, kb, kk, mode, which, rung=None):
     """The staged body (``radius_counts_launch``): the contract of
     :func:`radius_counts` within :func:`takes_staged`'s range (outside it
-    the launch is refused and this raises).
+    the launch is refused and this raises).  ``rung``: samples a block at
+    most, one of ``STAGED_WARPS`` (None: the autotuner's).
     ``radius_counts_staged.launches`` counts its launches."""
     out, launched = _launch_rc("radius_counts_launch", x, y, mask, k, kb, kk,
-                               mode, which)
+                               mode, which, rung)
     radius_counts_staged.launches += launched
     return out
 
@@ -221,8 +326,9 @@ def knn_smallest(
     return out
 
 
-def _launch_knn(entry: str, x, y, mask, kb, mode):
+def _launch_knn(entry: str, x, y, mask, kb, mode, rung=None):
     B, P = _check_batch("knn_smallest", x, y, mask)
+    rung = _rung(entry, rung, B, P, x.device, kb, kb)
     built = load_two_op_library()
     knn = torch.empty((B, P, kb), dtype=torch.float32, device=x.device)
     cnt = torch.empty((B, P), dtype=torch.int32, device=x.device)
@@ -230,28 +336,32 @@ def _launch_knn(entry: str, x, y, mask, kb, mode):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(built.lib, entry)(
             x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, P, int(kb),
-            int(mode == "joint"), knn.data_ptr(), cnt.data_ptr(), stream,
+            int(mode == "joint"), knn.data_ptr(), cnt.data_ptr(), rung,
+            stream,
         )
     _raise_on(entry, err)
     return (knn, cnt), int(B * P > 0)
 
 
-def knn_smallest_staged(x, y, mask, *, kb, mode):
+def knn_smallest_staged(x, y, mask, *, kb, mode, rung=None):
     """The staged body (``knn_smallest_launch``): the contract of
     :func:`knn_smallest` within :func:`takes_staged_two_op`'s range
-    (outside it the launch is refused and this raises).
-    ``knn_smallest_staged.launches`` counts its launches."""
-    out, launched = _launch_knn("knn_smallest_launch", x, y, mask, kb, mode)
+    (outside it the launch is refused and this raises).  ``rung``:
+    samples a block at most, one of ``STAGED_WARPS`` (None: the
+    autotuner's).  ``knn_smallest_staged.launches`` counts its launches."""
+    out, launched = _launch_knn("knn_smallest_launch", x, y, mask, kb, mode,
+                                rung)
     knn_smallest_staged.launches += launched
     return out
 
 
-def knn_smallest_tiled(x, y, mask, *, kb, mode):
+def knn_smallest_tiled(x, y, mask, *, kb, mode, rung=None):
     """The tiled body (``knn_smallest_tiled_launch``): the contract of
-    :func:`knn_smallest` for any P and kb up to ``K_MAX``.
+    :func:`knn_smallest` for any P and kb up to ``K_MAX``.  ``rung``: the
+    column tile, one of ``TWO_OP_TILED_COLS`` (None: the autotuner's).
     ``knn_smallest_tiled.launches`` counts its launches."""
     out, launched = _launch_knn("knn_smallest_tiled_launch", x, y, mask, kb,
-                                mode)
+                                mode, rung)
     knn_smallest_tiled.launches += launched
     return out
 
@@ -281,8 +391,9 @@ def ball_counts(
     return out
 
 
-def _launch_bc(entry: str, x, y, mask, r, which):
+def _launch_bc(entry: str, x, y, mask, r, which, rung=None):
     B, P = _check_batch("ball_counts", x, y, mask, r)
+    rung = _rung(entry, rung, B, P, x.device, 3, 3)
     built = load_two_op_library()
     counts = torch.empty((5, B, P), dtype=torch.int32, device=x.device)
     every = which == "all"
@@ -290,28 +401,31 @@ def _launch_bc(entry: str, x, y, mask, r, which):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(built.lib, entry)(
             x.data_ptr() if every else None, y.data_ptr(), mask.data_ptr(),
-            r.data_ptr(), B, P, int(every), counts.data_ptr(), stream,
+            r.data_ptr(), B, P, int(every), counts.data_ptr(), rung, stream,
         )
     _raise_on(entry, err)
     return counts, int(B * P > 0)
 
 
-def ball_counts_staged(x, y, mask, r, *, which):
+def ball_counts_staged(x, y, mask, r, *, which, rung=None):
     """The staged body (``ball_counts_launch``): the contract of
     :func:`ball_counts` for P up to ``TWO_OP_STAGED_MAX_P`` (beyond it
-    the launch is refused and this raises).
+    the launch is refused and this raises).  ``rung``: samples a block at
+    most, one of ``STAGED_WARPS`` (None: the autotuner's).
     ``ball_counts_staged.launches`` counts its launches."""
-    out, launched = _launch_bc("ball_counts_launch", x, y, mask, r, which)
+    out, launched = _launch_bc("ball_counts_launch", x, y, mask, r, which,
+                               rung)
     ball_counts_staged.launches += launched
     return out
 
 
-def ball_counts_tiled(x, y, mask, r, *, which):
+def ball_counts_tiled(x, y, mask, r, *, which, rung=None):
     """The tiled body (``ball_counts_tiled_launch``): the contract of
-    :func:`ball_counts` for any P.  ``ball_counts_tiled.launches``
-    counts its launches."""
+    :func:`ball_counts` for any P.  ``rung``: the column tile, one of
+    ``TWO_OP_TILED_COLS`` (None: the autotuner's).
+    ``ball_counts_tiled.launches`` counts its launches."""
     out, launched = _launch_bc("ball_counts_tiled_launch", x, y, mask, r,
-                               which)
+                               which, rung)
     ball_counts_tiled.launches += launched
     return out
 

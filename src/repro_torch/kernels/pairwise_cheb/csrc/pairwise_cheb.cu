@@ -22,8 +22,10 @@
 // VMEM blocks on a sequential grid.  Here B rides grid x (B exceeds
 // grid y's 65535 limit), and each block covers a 32 x 32 tile of one
 // sample: 32 threads along j, so every store of a warp is one coalesced
-// 128-byte line per matrix, and 8 rows of threads that step through the
-// tile's 32 rows.  A thread keeps its column's x_j, y_j and mask in
+// 128-byte line per matrix, and rows of threads that step through the
+// tile's 32 rows: the launch's rung of them (4, 8, 16 or 32; 8 unless the
+// autotuner picks another: each element is computed alone, so no rung
+// changes an output bit).  A thread keeps its column's x_j, y_j and mask in
 // registers; the row values are one broadcast load per warp.  Nothing
 // is staged in shared memory: each input is read once per tile from L2.
 
@@ -33,14 +35,16 @@
 
 namespace {
 
-constexpr int kTile = 32;     // rows and columns of one output tile
-constexpr int kRowStep = 8;   // thread rows per block
+constexpr int kTile = 32;        // rows and columns of one output tile
+constexpr int kMaxRowStep = 32;  // thread rows per block, at most
+// The rungs of a launch's thread rows per block (kernel.py: ROW_STEPS).
+constexpr int kRowSteps[] = {4, 8, 16, 32};
 
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (isnan(a) || a > b) ? a : b;
 }
 
-__global__ void __launch_bounds__(kTile * kRowStep)
+__global__ void __launch_bounds__(kTile * kMaxRowStep)
 pairwise_cheb_kernel(const float* __restrict__ x, const float* __restrict__ y,
                      const unsigned char* __restrict__ mask, int P,
                      float* __restrict__ dx_out, float* __restrict__ dy_out,
@@ -56,7 +60,7 @@ pairwise_cheb_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const bool mj = ms[j] != 0;
   const size_t base = b * static_cast<size_t>(P) * P;
   const int i_end = min(P, static_cast<int>(blockIdx.y + 1) * kTile);
-  for (int i = blockIdx.y * kTile + threadIdx.y; i < i_end; i += kRowStep) {
+  for (int i = blockIdx.y * kTile + threadIdx.y; i < i_end; i += blockDim.y) {
     const bool valid = mj && ms[i] != 0;
     const float dx = valid ? fabsf(xs[i] - xj) : INFINITY;
     const float dy = valid ? fabsf(ys[i] - yj) : INFINITY;
@@ -71,17 +75,22 @@ pairwise_cheb_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }  // namespace
 
 // Plain C entry for ctypes.  x, y: float32 (B, P); mask: bool (B, P);
-// dx, dy, dj: float32 (B, P, P).  Returns cudaGetLastError() after the
-// launch (0 on success); a refused launch never runs, so the caller must
-// check it.
+// dx, dy, dj: float32 (B, P, P); row_step: thread rows per block, one of
+// kRowSteps (off it the launch is refused: no clamp).  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a row_step off the ladder; a refused launch
+// never runs, so the caller must check it.
 extern "C" int pairwise_cheb_launch(const float* x, const float* y,
                                     const unsigned char* mask, int B, int P,
                                     float* dx, float* dy, float* dj,
-                                    void* stream) {
+                                    int row_step, void* stream) {
+  bool on_ladder = false;
+  for (int v : kRowSteps) on_ladder |= v == row_step;
+  if (!on_ladder) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || P <= 0) return 0;
   const int tiles = (P + kTile - 1) / kTile;
   const dim3 grid(B, tiles, tiles);
-  const dim3 block(kTile, kRowStep);
+  const dim3 block(kTile, row_step);
   pairwise_cheb_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       x, y, mask, P, dx, dy, dj);
   return static_cast<int>(cudaGetLastError());

@@ -4,8 +4,11 @@ diagonal fencing, over a leading batch.
 It dispatches by the tensors' device: a CPU tensor takes the plain
 PyTorch version (``ref.py``); a CUDA tensor launches the hand-written
 kernel (``kernel.py``) or raises.  A CUDA tensor never takes the plain
-path.  The reference's block autotuner has no counterpart: the kernel
-has no tile parameter to tune.
+path.  The op has no tuning knob: on the card, ``kernel.pairwise_cheb``
+takes its launch shape (thread rows a block) from the autotuner
+(``repro_torch.kernels.autotune``; ``REPRO_AUTOTUNE=on`` sweeps on the
+card, unset with no cache file launches the default), and every rung
+gives the same bits.  A CPU tensor never reaches the tuner.
 """
 
 from __future__ import annotations
