@@ -78,9 +78,9 @@ it fails:
      with its inputs and outputs: each output held bit-equal to the
      plain version on the same inputs, then timed there (CUDA events and
      profiler device time) beside its plain version's time, its bound
-     (the sorted route's operations, RC_NEED_*) and share, the direct
-     algorithm's bound (RC_OPS) and share, and the tiled body on the
-     same inputs (held bit-equal too);
+     (the cheaper sorted route's operations, RC_NEED_* or RC_ROUTE_*)
+     and share, the direct algorithm's bound (RC_OPS) and share, and the
+     tiled body on the same inputs (held bit-equal too);
   6. times: the warm ``query_many`` wall time (host clock around a
      synchronize, median of 10 per target dtype) and one profiled warm
      pass (device time by kernel);
@@ -109,7 +109,11 @@ it fails:
      programs, then one replayed pass with every kernel's launch count
      set to 0 just before and read just after: every launch must reach
      the tiled body (3, none of the staged one); each launch of a pass
-     held bit-equal to the plain version and timed as in phase 5;
+     held bit-equal to the plain version and timed as in phase 5; (b)
+     the tiled body alone on seeded samples (``TILED_SWEEP``): at B = 1
+     over P = 2048, 10,000, 40,000 and at P = 256 (B = 65536) over k, kb
+     = 32, 64, 128, each bit-equal to the plain version and timed beside
+     its bounds;
  15. the phase-0 containment gate on the phase-3 index (its signature
      tier, 16 keys a candidate, flushed with the sketches) at
      ``min_containment=0.1``, which separates the lake's joinable columns
@@ -487,6 +491,20 @@ RC_OPS = {
 RC_NEED_Y = {"all": (4, 2), "y": (3, 1)}
 RC_NEED_BAND, RC_NEED_SAME, RC_NEED_TIE = (6, 0), (3, 0), (3, 1)
 RC_NEED_SEARCHES, RC_NEED_STEP = 4, (2, 0)
+# The tiled body's route needs no y sweep: each sample
+# is sorted twice (by y, then by x), and every count is a range of one
+# order found by binary search.  As (float, int):
+#   the sorts: 2 log2(n!) compares a sample;
+#   selection: joint mode the band |dx| < r (RC_NEED_BAND a band pair);
+#     class mode the row's run, 2 binary searches, and min(t + 1, cnt)
+#     merge steps (1 subtraction, 1 abs, the compare);
+#   the counts: binary searches a row of ceil(log2(n+1)) steps
+#     (RC_NEED_STEP each): 2 for y_lt, and with which == all 2 for y_eq,
+#     4 for the x counts and 2 for j_eq.
+# A launch's bound is the lesser of the two routes' needs: either route
+# computes the same outputs.
+RC_ROUTE_SEARCHES = {"all": 10, "y": 2}
+RC_ROUTE_RUN_SEARCHES, RC_ROUTE_MERGE = 2, (3, 0)
 # Bytes per sample row: x, y f32 + mask u8 in; r f32 + cnt i32 + 5 i32 out.
 RC_BYTES_PER_ROW = 9 + 28
 # The two-op kernels' direct algorithm (their tiled bodies), counted from
@@ -1516,35 +1534,49 @@ def band_pairs(x: torch.Tensor, mask: torch.Tensor, r: torch.Tensor) -> float:
 def rc_bound(x: torch.Tensor, mask: torch.Tensor, args: dict,
              want: tuple) -> dict:
     """Least time for one launch on these inputs: the operations its
-    data needs once each sample is sorted (RC_NEED_*) at the issue rates,
-    or its bytes over the HBM rate.  The direct algorithm's count
-    (RC_OPS) on the same inputs sits beside it as ``rc_ops_*``."""
+    data needs at the issue rates, or its bytes over the HBM rate, by
+    the cheaper of the two sorted routes (RC_NEED_*: one sort by x and a
+    y sweep; RC_ROUTE_*: two sorts and binary searches).  Each route's
+    bound sits beside it (``x_route_bound_ms``, ``two_order_bound_ms``),
+    and the direct algorithm's (RC_OPS) as ``rc_ops_*``."""
     mode, which = args["mode"], args["which"]
     r, cnt, counts = want
+    nbytes = mask.numel() * RC_BYTES_PER_ROW
     pairs, same = pair_counts(mask, mode, cnt)
     (pf, pi), (sf, si) = RC_OPS[(mode, which)]
-    direct = bound(pairs * pf + same * sf, pairs * pi + same * si,
-                   mask.numel() * RC_BYTES_PER_ROW)
+    direct = bound(pairs * pf + same * sf, pairs * pi + same * si, nbytes)
 
     n = mask.sum(-1, dtype=torch.float64)
     rows = float(n.sum())
-    f = float((torch.lgamma(n + 1) / np.log(2)).sum())  # the sort
-    i = 0.0
+    sort = float((torch.lgamma(n + 1) / np.log(2)).sum())
+    search = float((n * torch.ceil(torch.log2(n + 1))).sum())  # one a row
+    f, i = sort, 0.0
     yf, yi = RC_NEED_Y[which]
     f, i = f + pairs * yf, i + pairs * yi
+    route_f = 2 * sort + RC_ROUTE_SEARCHES[which] * search * RC_NEED_STEP[0]
     if mode == "joint":
         band = band_pairs(x, mask, r)
         f, i = f + band * RC_NEED_BAND[0], i + band * RC_NEED_BAND[1]
+        route_f += band * RC_NEED_BAND[0]
     else:
         band = 0.0
         f, i = f + rows + same * RC_NEED_SAME[0], i + rows + same * RC_NEED_SAME[1]
+        t = (torch.clamp(cnt, max=args["kk"]) - 1).clamp_(0, args["kb"] - 1)
+        merge = float(torch.minimum(t + 1, cnt)[mask].sum(dtype=torch.float64))
+        route_f += (RC_ROUTE_RUN_SEARCHES * search * RC_NEED_STEP[0]
+                    + merge * RC_ROUTE_MERGE[0])
     ties = 0.0
     if which == "all":
         ties = float(counts[2][mask].sum(dtype=torch.float64))
-        steps = RC_NEED_SEARCHES * float((n * torch.ceil(torch.log2(n + 1))).sum())
+        steps = RC_NEED_SEARCHES * search
         f += ties * RC_NEED_TIE[0] + steps * RC_NEED_STEP[0]
         i += ties * RC_NEED_TIE[1] + steps * RC_NEED_STEP[1]
-    return {**bound(f, i, mask.numel() * RC_BYTES_PER_ROW),
+    x_route = bound(f, i, nbytes)
+    two_order = bound(route_f, 0.0, nbytes)
+    best = min(x_route, two_order, key=lambda b: b["bound_ms"])
+    return {**best,
+            "x_route_bound_ms": x_route["bound_ms"],
+            "two_order_bound_ms": two_order["bound_ms"],
             "rc_ops_bound_ms": direct["bound_ms"],
             "rc_ops_float_ops": direct["float_ops"],
             "rc_ops_int_ops": direct["int_ops"],
@@ -1569,8 +1601,8 @@ def check_main_launches(seen: list, card: str) -> list[dict]:
     """Each captured launch against the plain version on its own inputs
     (bit-equal required), then timed there: CUDA events and profiler
     device time, beside the plain version and the bound; a staged launch
-    also through the tiled body (the earlier one-thread-a-row design) on
-    the same inputs, held bit-equal and timed."""
+    also through the tiled body (the two-order route) on the same inputs,
+    held bit-equal and timed."""
     from repro_torch.kernels.knn_stats import kernel, ref
 
     rows = []
@@ -1611,7 +1643,9 @@ def check_main_launches(seen: list, card: str) -> list[dict]:
             other = f", the tiled body {row['tiled_ms']:.4f} ms"
         log(f"[time] radius_counts {name} ({row['body']}): {ms:.4f} ms events, "
             f"{device_ms:.4f} ms device, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}, {100 * row['bound_share']:.1f}%; the direct "
+            f"({row['bound_by']}, {100 * row['bound_share']:.1f}%; the x route's "
+            f"{row['x_route_bound_ms']:.4f} ms, two orders' "
+            f"{row['two_order_bound_ms']:.4f} ms; the direct "
             f"algorithm's {row['rc_ops_bound_ms']:.4f} ms, "
             f"{100 * row['rc_ops_share']:.1f}%){other}, "
             f"plain {plain_ms:.4f} ms; card {card}")
@@ -1643,6 +1677,53 @@ def run_wide_buffer(index, batches, card: str) -> dict:
     rows = check_main_launches(seen, card)
     return {"k": WIDE_K, "launches": launches, "programs_built": built,
             "rows": rows}
+
+
+# Phase 14 (b): the tiled body alone, (B, P, mode, which, k, kb) on
+# rc_inputs: long samples at B = 1, wide buffers at the lake's P = 256.
+TILED_SWEEP = [(1, P, mode, which, 3, 3) for P in (2048, 10000, 40000)
+               for mode, which in (("joint", "all"), ("class", "y"))] + [
+    (C_MAIN, 256, mode, which, k if mode == "joint" else 3, k)
+    for k in (32, 64, 128)
+    for mode, which in (("joint", "all"), ("class", "y"))]
+
+
+def run_tiled_sweep(card: str, dev) -> list[dict]:
+    """Phase 14 (b): each ``TILED_SWEEP`` case through the tiled body,
+    bit-equal to the plain version, timed with CUDA events beside its
+    bounds (``rc_bound``)."""
+    from repro_torch.kernels.knn_stats import kernel, ref
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    rows = []
+    t0 = time.perf_counter()
+    for B, P, mode, which, k, kb in TILED_SWEEP:
+        x, y, m = (t.to(dev) for t in rc_inputs(B, P, mode, gen))
+        args = dict(k=k, kb=kb, kk=kb, mode=mode, which=which)
+        want = ref.radius_counts(x, y, m, **args)
+        got = kernel.radius_counts_tiled(x, y, m, **args)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(g, w) for g, w in zip(got, want))
+        name = f"{mode}/{which} k={k} kb={kb} B={B} P={P}"
+        if err != 0.0:
+            raise AssertionError(f"radius_counts_tiled {name} differs from ref: {err}")
+        ms = time_cuda(lambda: kernel.radius_counts_tiled(x, y, m, **args), 10)
+        row = {"mode": mode, "which": which, "k": k, "kb": kb, "B": B, "P": P,
+               "max_abs_err": err, "ms": ms, **rc_bound(x, m, args, want)}
+        row["bound_share"] = row["bound_ms"] / ms
+        log(f"[time] radius_counts_tiled sweep {name}: {ms:.4f} ms events, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{100 * row['bound_share']:.1f}%; the x route's "
+            f"{row['x_route_bound_ms']:.4f} ms, "
+            f"{100 * row['x_route_bound_ms'] / ms:.1f}%; two orders' "
+            f"{row['two_order_bound_ms']:.4f} ms; the direct algorithm's "
+            f"{row['rc_ops_bound_ms']:.4f} ms), max_abs_err={err}; card {card}")
+        rows.append(row)
+        del x, y, m, want, got
+        torch.cuda.empty_cache()
+    log(f"[time] radius_counts_tiled sweep: {len(rows)} cases bit-equal in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -7000,8 +7081,10 @@ def main() -> int:
         f"sample sets: {pc_ms:.4f} ms, plain {pc_plain:.4f} ms, bound "
         f"{pc_bound_ms:.4f} ms (bytes); card {card}")
 
-    # Phase 14: the wide-buffer path (k=WIDE_K) through the tiled body.
+    # Phase 14: the wide-buffer path (k=WIDE_K) through the tiled body,
+    # then (b) the tiled body's sweep.
     wide = run_wide_buffer(index, [cont, disc], card)
+    wide["sweep"] = run_tiled_sweep(card, dev)
     wide_rows = wide["rows"]
     log(f"[time] radius_counts_tiled, the {len(wide_rows)} launches of a k="
         f"{WIDE_K} warm pass: {sum(r['ms'] for r in wide_rows):.4f} ms, bound "
@@ -7166,7 +7249,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/knn_stats/kernel.py:481",
         "launches": wide["launches"]["radius_counts_tiled"]
         + tuned("radius_counts_tiled"),
-        "max_abs_err": max([max_err] + [r["max_abs_err"] for r in wide_rows]),
+        "max_abs_err": max([max_err] + [r["max_abs_err"]
+                                        for r in wide_rows + wide["sweep"]]),
         "ms": sum(r["ms"] for r in wide_rows),
         "plain_ms": sum(r["plain_ms"] for r in wide_rows),
         "bound_ms": sum(r["bound_ms"] for r in wide_rows),

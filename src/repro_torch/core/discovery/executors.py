@@ -641,12 +641,24 @@ def _as_stacked_trains(trains: dict) -> dict:
 
 
 class Executor:
-    """Backend interface: dense scoring of a plan."""
+    """Backend interface: dense scoring + ranked retrieval of a plan."""
 
     def execute(self, plan: QueryPlan, trains: dict):
         """Score every (query, candidate) pair; returns (mi (Q, C),
         js (Q, C)) numpy arrays in the original candidate order."""
         raise NotImplementedError
+
+    def topk(self, plan: QueryPlan, trains: dict, top_k: int):
+        """Per-query top-k: a list of (values, int32 global indices, join
+        sizes), one triple per query, best first.  Default = dense +
+        stable argsort; the distributed executor overrides it with the
+        per-shard merge."""
+        mi, js = self.execute(plan, _as_stacked_trains(trains))
+        out = []
+        for q in range(mi.shape[0]):
+            order = np.argsort(-mi[q], kind="stable")[:min(top_k, mi.shape[1])]
+            out.append((mi[q][order], order.astype(np.int32), js[q][order]))
+        return out
 
 
 class PartitionedLocalExecutor(Executor):

@@ -7,13 +7,15 @@ each).
 a fixed rule on its parameters (:func:`takes_staged`): the staged body
 (:func:`radius_counts_staged`: one warp a sample, its valid columns
 sorted by x in shared memory, selection along the sorted order) or the
-tiled body (:func:`radius_counts_tiled`: column tiles, one row a thread,
-any P and buffers up to ``K_MAX``).  Both are bit-equal to
-``ref.radius_counts``.  :func:`knn_smallest` and :func:`ball_counts` are
-sent the same way (:func:`takes_staged_two_op`): to a staged body (one
-warp a sample, sorted by value, selection and counts along the sorted
-orders) or to a tiled body (one row a thread over column tiles), each
-bit-equal to its ``ref`` function.
+tiled body (:func:`radius_counts_tiled`: any P and any k, kb; each
+sample's valid columns sorted by y and by x, then one thread a row:
+selection along the sorted orders, every count a binary-searched
+range).  Both are bit-equal to ``ref.radius_counts``.
+:func:`knn_smallest` and :func:`ball_counts` are sent the same way
+(:func:`takes_staged_two_op`): to a staged body (one warp a sample,
+sorted by value, selection and counts along the sorted orders) or to a
+tiled body (one row a thread over column tiles), each bit-equal to its
+``ref`` function.
 
 Each body but the tiled ``radius_counts`` launches at one rung of its
 launch-shape ladder (the staged bodies' cap on samples a block,
@@ -23,8 +25,7 @@ default rung (the body's constant before it was tuned) leaves it.  A
 body's ``rung=None`` asks :mod:`repro_torch.kernels.autotune` (key: the
 body's name, the card, the P bucket); with ``REPRO_AUTOTUNE`` unset and
 no cache file that is the default.  A value off the ladder raises.  The
-tiled ``radius_counts`` body keeps its 1024-column tile: no other tile
-was faster on the card.
+tiled ``radius_counts`` body has no ladder.
 
 Each source is built at first use by :mod:`repro_torch.kernels._build`
 (``nvcc`` for ``sm_90a`` into ``build/kernels/``, loaded with ``ctypes``).
@@ -34,6 +35,7 @@ to the plain version.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from pathlib import Path
@@ -44,8 +46,8 @@ from repro_torch.kernels import autotune
 from repro_torch.kernels._build import BuiltLibrary, build, find_nvcc
 
 __all__ = ["SOURCE", "STAGED_MAX_P", "STAGED_MAX_W",
-           "STAGED_WARPS", "TUNED", "TWO_OP_SOURCE", "TWO_OP_STAGED_MAX_KB",
-           "TWO_OP_STAGED_MAX_P", "TWO_OP_TILED_COLS", "BuiltLibrary",
+           "STAGED_WARPS", "TILED_CHUNK", "TUNED", "TWO_OP_SOURCE",
+           "TWO_OP_STAGED_MAX_KB", "TWO_OP_STAGED_MAX_P", "TWO_OP_TILED_COLS", "BuiltLibrary",
            "ball_counts", "ball_counts_staged", "ball_counts_tiled",
            "find_nvcc", "knn_smallest", "knn_smallest_staged",
            "knn_smallest_tiled", "load_library", "load_two_op_library",
@@ -60,6 +62,11 @@ TWO_OP_SOURCE = Path(__file__).resolve().parent / "csrc" / "knn_two_op.cu"
 # most 16 lanes.
 STAGED_MAX_P = 1024
 STAGED_MAX_W = 16
+# The tiled body's sort chunk (radius_counts.cu, tiled::kChunk): a
+# sample of up to 256 columns is sorted by one warp in registers, a
+# longer one in chunks of this many columns, sorted in shared memory and
+# merged by rank in device scratch.
+TILED_CHUNK = 1024
 # The two-op staged bodies' range (knn_two_op.cu, staged::kMaxP / kMaxKb):
 # the whole sample in one warp's shared memory, and at most 16 kNN lanes.
 TWO_OP_STAGED_MAX_P = 1024
@@ -93,15 +100,18 @@ def load_library() -> BuiltLibrary:
     """Build (once per source version) and load the kernel library (both
     bodies' entries)."""
     built = build(SOURCE)
-    # The staged entry takes its cap on samples a block before the stream.
-    for name, tuned in (("radius_counts_launch", 1),
-                        ("radius_counts_tiled_launch", 0)):
+    # Before the stream, the staged entry takes its cap on samples a
+    # block, the tiled entry its scratch buffer.
+    for name, extra in (("radius_counts_launch", ctypes.c_int),
+                        ("radius_counts_tiled_launch", ctypes.c_void_p)):
         fn = getattr(built.lib, name)
         fn.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
-            + [ctypes.c_int] * tuned + [ctypes.c_void_p]
+            + [extra, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+    built.lib.radius_counts_tiled_scratch.argtypes = [ctypes.c_int] * 2
+    built.lib.radius_counts_tiled_scratch.restype = ctypes.c_longlong
     return built
 
 
@@ -255,18 +265,30 @@ def radius_counts(
 
 def _launch_rc(entry: str, x, y, mask, k, kb, kk, mode, which, rung=None):
     B, P = _check_batch("radius_counts", x, y, mask)
-    shape = () if entry == "radius_counts_tiled_launch" else (
-        _rung(entry, rung, B, P, x.device, k, kb),)
     built = load_library()
-    r = torch.empty((B, P), dtype=torch.float32, device=x.device)
-    cnt = torch.empty((B, P), dtype=torch.int32, device=x.device)
-    counts = torch.empty((5, B, P), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
+    if entry == "radius_counts_tiled_launch":
+        # The chunks' sorted pairs and the sorted orders (P > 256).
+        nbytes = built.lib.radius_counts_tiled_scratch(B, P)
+        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+                   if nbytes else None)
+        extra = scratch.data_ptr() if nbytes else None
+    else:
+        extra = _rung(entry, rung, B, P, x.device, k, kb)
+    # r, cnt and the 5 count planes are views of one allocation, so that a
+    # call at B = 1 pays one allocator call for them, not three.
+    n = B * P
+    out = torch.empty(28 * n, dtype=torch.uint8, device=x.device)
+    r = out[:4 * n].view(torch.float32).view(B, P)
+    cnt = out[4 * n:8 * n].view(torch.int32).view(B, P)
+    counts = out[8 * n:].view(torch.int32).view(5, B, P)
+    on = (contextlib.nullcontext() if x.device.index == torch.cuda.current_device()
+          else torch.cuda.device(x.device))
+    with on:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(built.lib, entry)(
             x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, P, int(k),
             int(kb), int(kk), int(mode == "joint"), int(which == "all"),
-            r.data_ptr(), cnt.data_ptr(), counts.data_ptr(), *shape, stream,
+            r.data_ptr(), cnt.data_ptr(), counts.data_ptr(), extra, stream,
         )
     _raise_on(entry, err)
     return (r, cnt, counts), int(B * P > 0)
@@ -286,8 +308,11 @@ def radius_counts_staged(x, y, mask, *, k, kb, kk, mode, which, rung=None):
 
 def radius_counts_tiled(x, y, mask, *, k, kb, kk, mode, which):
     """The tiled body (``radius_counts_tiled_launch``): the contract of
-    :func:`radius_counts` for any P and kb up to ``K_MAX``.
-    ``radius_counts_tiled.launches`` counts its launches."""
+    :func:`radius_counts` for any P, k and kb.  One call makes one CUDA
+    launch up to P = 256, and three or four beyond (the chunks' sort,
+    past ``TILED_CHUNK`` their merge by rank, the placing, the rows,
+    through device scratch); ``radius_counts_tiled.launches`` counts the
+    call once, as ``radius_counts.launches`` does."""
     out, launched = _launch_rc("radius_counts_tiled_launch", x, y, mask, k,
                                kb, kk, mode, which)
     radius_counts_tiled.launches += launched

@@ -409,7 +409,7 @@ class TestPortRules:
 
     @pytest.mark.parametrize("body, source, constant", [
         (knn_kernel.radius_counts_tiled, "knn_stats/csrc/radius_counts.cu",
-         r"constexpr int kColTile = 1024;"),
+         r"constexpr int kChunk = 1024;"),
         (fa_kernel.flash_attention_simt_regtile,
          "flash_attention/csrc/flash_attention.cu",
          r"constexpr int kRows = 128;"),

@@ -234,6 +234,39 @@ def test_fused_dispatch_matches_host_shortlists(port_indexes):
             assert fa == fb
 
 
+@pytest.mark.parametrize("y_disc", [False, True], ids=["cont_target", "disc_target"])
+def test_base_executor_topk_matches_reference(j_index, port_indexes, y_disc):
+    """The base ``Executor.topk`` (dense scores, a stable descending
+    argsort) of ``BatchedExecutor`` and ``PartitionedLocalExecutor``
+    against the reference's ``BatchedExecutor.topk`` at Q = 3: values
+    within TOL; a candidate may stand at another's place only where the
+    two scores are within TOL, and then its own join size comes with it.
+    Each equals the port's own ``execute`` followed by that argsort."""
+    top_k = 12
+    jplan, tplan = j_index.plan(y_disc), port_indexes["add"].plan(y_disc)
+    jtrains = j_ex.stack_trains_host(_sketches(j_build, y_disc))
+    ttrains = t_ex.stack_trains_host(_sketches(t_build, y_disc), "cpu")
+    want = j_ex.BatchedExecutor(k=3).topk(jplan, jtrains, top_k)
+    j_mi, j_js = j_ex.BatchedExecutor(k=3).execute(jplan, jtrains)
+    for ex in (t_ex.BatchedExecutor(k=3), t_ex.PartitionedLocalExecutor(k=3)):
+        got = ex.topk(tplan, ttrains, top_k)
+        mi, js = ex.execute(tplan, ttrains)
+        assert len(got) == len(want) == 3
+        for q, ((gv, gi, gj), (wv, wi, wj)) in enumerate(zip(got, want)):
+            assert gi.dtype == np.int32 and len(gi) == len(wi) == top_k
+            np.testing.assert_allclose(gv, wv, rtol=TOL, atol=TOL, equal_nan=True)
+            for p in range(top_k):
+                if gi[p] == wi[p]:
+                    assert gj[p] == wj[p]
+                else:
+                    assert abs(j_mi[q, gi[p]] - wv[p]) <= TOL, (q, p, gi[p], wi[p])
+                    assert gj[p] == j_js[q, gi[p]]
+            order = np.argsort(-mi[q], kind="stable")[:top_k]
+            np.testing.assert_array_equal(gi, order.astype(np.int32))
+            np.testing.assert_array_equal(gv, mi[q][order])
+            np.testing.assert_array_equal(gj, js[q][order])
+
+
 def test_planner_ladders_and_hints():
     for n in [0, 1, 7, 8, 9, 100, 4097]:
         assert t_planner.bucket_rows(n) == j_planner.bucket_rows(n)

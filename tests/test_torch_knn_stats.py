@@ -221,3 +221,72 @@ def test_cuda_kernel_matches_plain(cuda_device, P, mode, which, k, k_max, kk,
                                       which=which, kk=kk)
     assert torch.equal(r, want[0])
     assert kernel.radius_counts.launches == before + 2
+
+
+def _batch_samples(B, P, mode, k, seed, finite):
+    """B samples of ``_samples``' kind at any B: tie-heavy x (class codes
+    0-4 in class mode, -0.0 beside +0.0) and y, ragged masks; from B = 3
+    on, the last sample all invalid and the one before it with only
+    k // 2 + 1 valid columns (fewer neighbours than k).  ``finite=False``
+    adds NaN and +-inf x or y in valid rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, P)).astype(np.float32)
+    x[:, : P // 3] = np.round(x[:, : P // 3])
+    if mode == "class":
+        x = rng.integers(0, 5, size=(B, P)).astype(np.float32)
+    x[:, 1::7][x[:, 1::7] == 0] = -0.0
+    y = np.round(rng.normal(size=(B, P)), 1).astype(np.float32)
+    y[:, 2::5][y[:, 2::5] == 0] = -0.0
+    mask = rng.uniform(size=(B, P)) > 0.15
+    if B >= 3:
+        mask[-1] = False
+        mask[-2] = False
+        mask[-2, rng.choice(P, size=min(P, k // 2 + 1), replace=False)] = True
+    if not finite:
+        for v in (x, y):
+            hit = rng.uniform(size=v.shape) < 0.03
+            v[hit] = rng.choice(np.array([np.nan, np.inf, -np.inf], np.float32),
+                                size=int(hit.sum()))
+    return x, y, mask
+
+
+# The tiled body's card cases: long samples at B = 1 and B = 64, wide
+# buffers at P = 256 (B = 4096), 700 (one sort chunk) and 2048, each
+# mode; finite and not.
+TILED_CASES = [
+    (B, P, mode, which, 3, None, None, finite)
+    for P in (1025, 4096, 10000, 40000)
+    for B in (1, 64)
+    for mode, which in (("joint", "all"), ("class", "y"), ("class", "all"))
+    for finite in (True, False)
+    if P < 40000 or (B == 1 or (mode, finite) == ("joint", False))
+] + [
+    (B, P, mode, which, k, k_max, kk, finite)
+    for B, P in ((4096, 256), (64, 700), (4, 2048))
+    for need in (17, 32, 64, 128)
+    for mode, which, k, k_max, kk in (("joint", "all", need, None, None),
+                                      ("joint", "y", need, None, None),
+                                      ("class", "y", 3, need, need),
+                                      ("class", "all", 5, need, 3))
+    for finite in (True, False)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,P,mode,which,k,k_max,kk,finite", TILED_CASES)
+def test_cuda_tiled_body_matches_plain(cuda_device, B, P, mode, which, k,
+                                       k_max, kk, finite):
+    """On the card: every case outside the staged body's range, bit-equal
+    to the plain version through the tiled body, one count a call."""
+    kb = k if k_max is None else k_max
+    assert not kernel.takes_staged(P, mode, k, kb)
+    x, y, mask = _batch_samples(B, P, mode, kb, seed=B + P + kb, finite=finite)
+    args = dict(k=k, kb=kb, kk=k if kk is None else kk, mode=mode, which=which)
+    T = [torch.from_numpy(a).to(cuda_device) for a in (x, y, mask)]
+    before = kernel.radius_counts_tiled.launches
+    got = kernel.radius_counts(*T, **args)
+    want = ref.radius_counts(*T, **args)
+    torch.cuda.synchronize()
+    assert kernel.radius_counts_tiled.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
