@@ -1,9 +1,10 @@
 """Build-at-first-use loader shared by every CUDA kernel of the port.
 
-Each kernel is one ``.cu`` file with a plain C entry point.  It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/kernels/`` at the root of the checkout (the file name carries a
-hash of the source, so an edited source is rebuilt) and loaded with
+Each kernel is one ``.cu`` file with a plain C entry point (and the
+local headers it includes).  It is compiled with ``nvcc`` for ``sm_90a``
+into a shared library under ``build/kernels/`` at the root of the
+checkout (the file name carries a hash of the source and of every local
+header it includes, so an edit to either is rebuilt) and loaded with
 ``ctypes``.  A failed build raises; nothing falls back to a plain
 version.  Nothing here runs at import: the CPU tests import the kernel
 modules without ``nvcc``.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -21,10 +23,12 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "BuiltLibrary", "build", "find_nvcc"]
+__all__ = ["BUILD_DIR", "BuiltLibrary", "build", "build_tag", "find_nvcc",
+           "local_includes"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _ARCH = "arch=compute_90a,code=sm_90a"
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 # One build per source per process, also when the scheduler's loop
 # thread and a caller reach a kernel's first launch together; two
@@ -53,6 +57,28 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
 
 
+def local_includes(source: Path) -> list[Path]:
+    """``source`` and every file it names in an ``#include "..."``, those
+    files' own included the same way, each once, in the order met
+    (resolved against the including file's directory)."""
+    files, todo = [], [Path(source).resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [(path.parent / name.decode()).resolve()
+                 for name in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
+def build_tag(source: Path) -> str:
+    """The build's version: a hash of the source and its local headers
+    (the source's own hash when it includes none)."""
+    return hashlib.sha1(b"".join(p.read_bytes()
+                                 for p in local_includes(source))).hexdigest()[:12]
+
+
 def build(source: Path) -> BuiltLibrary:
     """Compile ``source`` (once per source version) and load it."""
     source = Path(source).resolve()
@@ -62,9 +88,7 @@ def build(source: Path) -> BuiltLibrary:
         hit = _BUILT.get(source)
         if hit is not None:
             return hit
-        src = source.read_bytes()
-        tag = hashlib.sha1(src).hexdigest()[:12]
-        out = BUILD_DIR / f"{source.stem}-{tag}.so"
+        out = BUILD_DIR / f"{source.stem}-{build_tag(source)}.so"
         log = out.with_suffix(".ptxas.txt")  # the report, kept for reuse
         seconds = 0.0
         report = log.read_text() if log.exists() else ""

@@ -28,7 +28,7 @@ working directory; ``REPRO_AUTOTUNE_CACHE`` overrides the path.  The
 variables, the file's layout (``version`` 1, an ``entries`` table) and
 the key format are the reference's, so one setting governs both packages
 and one file may hold both packages' entries: the port's kernel names
-(``radius_counts_staged``, ``knn_two_op_tiled``, ...) never meet the
+(``radius_counts_staged``, ``knn_two_op_staged``, ...) never meet the
 reference's.
 
 Where the port differs: ``backend=None`` is the card's name

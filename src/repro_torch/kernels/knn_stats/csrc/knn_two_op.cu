@@ -24,10 +24,11 @@
 // NaN: as in radius_counts.cu and ref.py, a NaN distance is never selected
 // (it counts as +inf) and fails every count condition.
 //
-// Bound: ALU work.  The direct algorithm (the tiled bodies) pays, per valid
-// pair (i, j != i), a distance evaluation and the compare against the
-// running W-th smallest (knn_smallest), or the distance halves and the count
-// compares and adds (ball_counts): chip_smoke.py's KNN_OPS and BC_OPS.  Once
+// Bound: ALU work.  The direct algorithm (one row a thread over every
+// valid column) pays, per valid pair (i, j != i), a distance evaluation
+// and the compare against the running W-th smallest (knn_smallest), or the
+// distance halves and the count compares and adds (ball_counts):
+// chip_smoke.py's KNN_OPS and BC_OPS.  Once
 // a sample is sorted, knn_smallest needs per row only the band of columns
 // its selection can reach (joint) or kb steps of its class run (class), and
 // ball_counts needs no pair at all: every count is a range of a sorted
@@ -93,28 +94,69 @@
 //     searched within its x-tie range.  A non-finite vi meets no condition
 //     (inf - inf is NaN, inf - finite is inf).
 //
-// knn_smallest_tiled_launch / ball_counts_tiled_launch, the tiled bodies (any
-// P, kb up to 128): the first port's design.  One block per (sample,
-// 128-row tile), one thread per row; the sample's columns are staged in
-// shared memory in tiles of the launch's rung (1024, 2048 or 4096 columns;
-// 2048 unless the autotuner picks another: every row visits the columns in
-// the same order at every rung), so every pair reads shared memory only.
-// knn_smallest keeps a sorted register buffer of the W smallest distances
-// (W = the smallest of 4..128 that is >= kb), updated by a branch-free
-// min/max bubble only when a distance beats the current W-th, and writes
-// its kb lanes at the end (strided by kb).
+// knn_smallest_tiled_launch / ball_counts_tiled_launch, the tiled bodies:
+// every other call (P > 1024, or kb > 16 for knn_smallest; any P and kb up
+// to K_MAX = 128 through the entries).  They read everything off the sorted
+// orders that radius_counts.cu's tiled body builds (sorted_orders.cuh), and
+// never sweep all pairs.  One Python call, one or more CUDA launches:
+//   * The orders (orders::warp_orders, orders::launch_orders).
+//     knn_smallest up to P = 256: one warp a sample, both sorts in
+//     registers, the rows in the same launch (4 samples a block).  Longer
+//     samples, and ball_counts at every P: chunks of 1024 columns sorted
+//     in shared memory, merged by rank, placed in device scratch (one
+//     chunk is placed by its sort); then one thread a column, blocks
+//     spread so that about one block an SM covers the batch, the orders
+//     read through L1 and L2.  The scratch is 40 bytes a column; the
+//     batch goes through these launches in slices of as many samples as
+//     keep it within kScratchCap (1 GiB; one sample at least), so
+//     *_tiled_scratch(B, P) gives at most that.  Each body builds only
+//     the orders it reads: knn_smallest the x order (the joint band
+//     walk's alone by (code_key(x), column) at P <= 256), and the y order
+//     for class runs at P <= 256 and for the four-stream walk;
+//     ball_counts the y order, and the x order for which == all (with
+//     which == y it never reads x: the wrapper passes a null x).
+//   * knn_smallest, joint mode, kb <= 64: the band walk along the x order
+//     (orders::band_walk) with a W-lane register buffer, W = 4, 8, 16, 32
+//     or 64 >= kb (batches of W / 2, at most 32, from 16 lanes up); its
+//     first kb lanes, ascending, are the output.  kb > 64: the four-stream
+//     walk (orders::event_walk), no buffer: its first kb completions, in
+//     order, are the kb lanes; an entry with a NaN distance never
+//     completes, and a lane left unfilled is +inf.  A row with a
+//     non-finite x or y selects +inf only (every distance it has is +inf
+//     or NaN).
+//   * knn_smallest, class mode: the row's run of equal codes by binary
+//     search in the x order (orders::class_run; a NaN code is a run of
+//     none), cnt its length less one; the run is sorted by y, so kb steps
+//     of the two-pointer merge outward from the row (orders::class_walk, a
+//     NaN |dy| ending its side, as the staged body's class_select counts
+//     it +inf) give the kb smallest |dy| ascending, +inf beyond, for any
+//     kb.  A row with a non-finite y selects +inf only.
+//   * ball_counts: every count a range found by binary search on the
+//     predicate itself (orders::count_ranges), the row's own column taken
+//     out, as the staged body does: |dy| < r and dy == 0 over the y order,
+//     |dx| < r and dx == 0 over the x order, j_eq inside the x-tie range.
+//     The radius is the caller's: r <= 0 and NaN give empty ranges, +inf
+//     every finite neighbour.
+//   * The output.  knn_smallest's (B, P, kb) block is most of its bytes.
+//     A row's kb lanes go to a per-warp tile in shared memory (32 rows,
+//     stride kb | 1, odd, so the lanes' writes miss each other's banks),
+//     and leave coalesced: in the warp kernel (rows in x order, so that a
+//     warp's rows are neighbours in x and walk alike) one warp a row; in
+//     the row kernel (one thread a column) a warp's 32 rows leave as one
+//     contiguous run.  cnt and the five count planes leave by column.
+// With the expressions of ref.py every split of rows across threads, warps
+// and blocks gives the same bits: selection is order-free, the counts are
+// integer sums.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include <algorithm>
 
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
+#include "sorted_orders.cuh"
+
+namespace {
 
 // ---------------------------------------------------------------------------
 // The staged bodies
@@ -697,187 +739,335 @@ int ball(const float* x, const float* y, const unsigned char* mask,
 // ---------------------------------------------------------------------------
 namespace tiled {
 
-constexpr int kRows = 128;      // threads (rows) per block
-// The rungs of a launch's column tile, the columns staged in shared
-// memory per step (kernel.py: TWO_OP_TILED_COLS).
-constexpr int kColRungs[] = {1024, 2048, 4096};
+using orders::kWarpP;
+using orders::Scratch;
 
-template <int W, bool JOINT>
-__global__ void __launch_bounds__(kRows)
-knn_smallest_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                    const unsigned char* __restrict__ mask, int P, int kb,
-                    float* __restrict__ knn_out, int* __restrict__ cnt_out,
-                    int tile) {
-  extern __shared__ unsigned char smem[];
-  float* sx = reinterpret_cast<float*>(smem);
-  float* sy = sx + tile;
-  unsigned char* sm = reinterpret_cast<unsigned char*>(sy + tile);
+constexpr int kMaxKb = 128;          // kernel.py: K_MAX (ops.py)
+constexpr int kWarpSamples = 4;      // samples (warps) a block, P <= kWarpP
+constexpr int kRowThreads = 64;      // a row block's threads, at least
+constexpr int kRowMaxThreads = 256;  // and at most
+constexpr size_t kMaxShared = 227 << 10;   // a block's shared memory, at most
+// A call's scratch, at most: the batch goes through the orders and rows
+// launches in slices of as many samples as fit it (at least one).
+constexpr size_t kScratchCap = size_t{1} << 30;
 
-  const size_t base = static_cast<size_t>(blockIdx.x) * P;
-  const float* xs = x + base;
-  const float* ys = y + base;
-  const unsigned char* ms = mask + base;
-  const int i = blockIdx.y * kRows + threadIdx.x;
-  const bool row = i < P;
-  const float xi = row ? xs[i] : 0.f;
-  const float yi = row ? ys[i] : 0.f;
-  const bool mi = row && ms[i] != 0;
+__host__ __device__ inline size_t align16(size_t v) {
+  return (v + 15) & ~static_cast<size_t>(15);
+}
 
-  float buf[W];
+// A row's kb lanes in a warp's output tile: row l at l * stride, stride
+// odd, so 32 lanes writing lane u of their rows hit 32 banks.
+__host__ __device__ inline int tile_stride(int kb) { return kb | 1; }
+__host__ __device__ inline size_t tile_bytes(int kb) {
+  return 32 * 4 * static_cast<size_t>(tile_stride(kb));
+}
+
+// knn_smallest of the valid row at x position s and y position q: its kb
+// smallest selected distances, ascending, +inf beyond, into dst; returns
+// its same-class count (0 in joint mode).  W: the joint band buffer's
+// lanes, 0 for the buffer-free event walk.  RUNS: the band walk leaves a
+// spent x-tie run (orders::band_walk; the row kernel's: its x ties are
+// sorted by y, and long samples have long runs).
+template <int W, bool JOINT, bool RUNS>
+__device__ __forceinline__ int knn_row(const float2* X, const float2* Yo,
+                                       int nnx, int nny, int s, int q, int kb,
+                                       float* dst) {
+  const float2 me = X[s];
+  const float xi = me.x, yi = me.y;
+  const bool fy = fabsf(yi) < INFINITY;
+  int filled = 0, cnt = 0;
+  if (JOINT) {
+    if (fabsf(xi) < INFINITY && fy) {
+      if constexpr (W > 0) {
+        float b[W];
+        orders::band_walk<W, RUNS>(X, nnx, s, xi, yi, b);
 #pragma unroll
-  for (int s = 0; s < W; ++s) buf[s] = INFINITY;
-  int cnt = 0;
-
-  for (int c0 = 0; c0 < P; c0 += tile) {
-    const int n = min(tile, P - c0);
-    __syncthreads();
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      sx[j] = xs[c0 + j];
-      sy[j] = ys[c0 + j];
-      sm[j] = ms[c0 + j];
-    }
-    __syncthreads();
-    if (mi) {
-      for (int jj = 0; jj < n; ++jj) {
-        if (!sm[jj] || c0 + jj == i) continue;
-        const float dy = fabsf(yi - sy[jj]);
-        float d;
-        if (JOINT) {
-          const float dx = fabsf(xi - sx[jj]);
-          d = (isnan(dx) || isnan(dy)) ? NAN : fmaxf(dx, dy);
-        } else {
-          if (!(xi == sx[jj])) continue;
-          ++cnt;
-          d = dy;
+        for (int u = 0; u < W; ++u) {
+          if (u < kb) dst[u] = b[u];
         }
-        if (d < buf[W - 1]) {
-          float v = d;
-#pragma unroll
-          for (int s = 0; s < W; ++s) {
-            const float lo = fminf(buf[s], v);
-            v = fmaxf(buf[s], v);
-            buf[s] = lo;
-          }
-        }
+        filled = kb;
+      } else {
+        filled = orders::event_walk(X, Yo, nnx, nny, s, q, xi, yi, kb,
+                                    [&](int g, float d) { dst[g] = d; });
       }
     }
-  }
-
-  if (row) {
-    float* out = knn_out + (base + i) * static_cast<size_t>(kb);
-#pragma unroll
-    for (int s = 0; s < W; ++s) {
-      if (s < kb) out[s] = buf[s];
+  } else if (xi == xi) {
+    int run, end;
+    orders::class_run(X, nnx, s, xi, run, end);
+    cnt = end - run - 1;
+    if (fy) {
+      filled = orders::class_walk(X, run, end, s, yi, kb,
+                                  [&](int g, float d) { dst[g] = d; });
     }
-    cnt_out[base + i] = cnt;
+  }
+  for (int u = filled; u < kb; ++u) dst[u] = INFINITY;
+  return cnt;
+}
+
+// ---- P <= kWarpP: one warp a sample ------------------------------------
+
+// One sample's shared memory in the warp kernels: its orders
+// (orders::WarpOrders' arrays), then for knn_smallest the columns' cnt
+// (at most 255 others fit a byte) and the warp's output tile.
+struct WarpSample {
+  float2 xo[kWarpP];
+  float2 yo[kWarpP];
+  float2 v[kWarpP];
+  uint16_t ycol[kWarpP];
+  uint16_t xcol[kWarpP];
+  uint16_t pos_y[kWarpP];
+  __device__ orders::WarpOrders arrays() {
+    return {xo, yo, v, ycol, xcol, pos_y};
+  }
+};
+
+__host__ __device__ inline size_t knn_warp_bytes(int kb) {
+  return align16(sizeof(WarpSample) + kWarpP + tile_bytes(kb));
+}
+
+// Rows in x order, lane l taking x positions l, l + 32, ...: each round's
+// rows go to the warp's tile and leave one warp a row (kb lanes,
+// contiguous in the output), the invalid columns' rows (+inf) after.
+// The joint band walk reads the x order alone, which one sort by
+// (code_key(x), column) gives; class runs and the four-stream walk read
+// both orders.
+template <int W, bool JOINT>
+__global__ void __launch_bounds__(32 * kWarpSamples)
+knn_smallest_warp(const float* __restrict__ x, const float* __restrict__ y,
+                  const unsigned char* __restrict__ mask, int B, int P,
+                  int kb, float* __restrict__ knn_out,
+                  int* __restrict__ cnt_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long b = static_cast<long long>(blockIdx.x) * kWarpSamples + warp;
+  if (b >= B) return;  // no block-wide barrier below
+  constexpr bool YO = !(JOINT && W > 0);  // the y order is read
+  unsigned char* base = smem + warp * knn_warp_bytes(kb);
+  WarpSample& S = *reinterpret_cast<WarpSample*>(base);
+  uint8_t* cnt = base + sizeof(WarpSample);
+  float* out = reinterpret_cast<float*>(base + sizeof(WarpSample) + kWarpP);
+  const int stride = tile_stride(kb);
+  const size_t row0 = static_cast<size_t>(b) * P;
+  float* g = knn_out + row0 * static_cast<size_t>(kb);
+
+  int nan_x, nan_y;
+  const int n = orders::warp_orders<true, YO>(x, y, mask, row0, P, lane,
+                                              S.arrays(), nan_x, nan_y);
+  for (int s0 = 0; s0 < n; s0 += 32) {
+    const int s = s0 + lane;
+    int e = 0;
+    if (s < n) {
+      e = S.xcol[s];
+      cnt[e] = static_cast<uint8_t>(knn_row<W, JOINT, false>(
+          S.xo, S.yo, n - nan_x, n - nan_y, s, YO ? S.pos_y[e] : 0, kb,
+          out + lane * stride));
+    }
+    __syncwarp();
+    const int rows = min(32, n - s0);
+    for (int r = 0; r < rows; ++r) {
+      const size_t at = static_cast<size_t>(__shfl_sync(0xFFFFFFFFu, e, r)) * kb;
+      for (int u = lane; u < kb; u += 32) g[at + u] = out[r * stride + u];
+    }
+    __syncwarp();
+  }
+  __syncwarp();
+  for (int e0 = 0; e0 < P; e0 += 32) {
+    const int e = e0 + lane;
+    const bool in = e < P, valid = in && mask[row0 + e];
+    if (in) cnt_out[row0 + e] = valid ? cnt[e] : 0;
+    for (uint32_t gap = __ballot_sync(0xFFFFFFFFu, in && !valid); gap;
+         gap &= gap - 1) {
+      const size_t at = static_cast<size_t>(e0 + __ffs(gap) - 1) * kb;
+      for (int u = lane; u < kb; u += 32) g[at + u] = INFINITY;
+    }
   }
 }
 
+// ---- The orders in scratch, then one thread a column ------------------
+
+// knn_smallest's rows, the orders read through L1 and L2 (staging a long
+// sample's orders in every block cost more than it saved at B = 1).  Each
+// warp's 32 rows are 32 neighbouring columns, so their kb lanes leave the
+// tile as one contiguous run of the output.
+template <int W, bool JOINT>
+__global__ void __launch_bounds__(kRowMaxThreads)
+knn_smallest_rows(const unsigned char* __restrict__ mask, int P, int kb,
+                  float* __restrict__ knn_out, int* __restrict__ cnt_out,
+                  Scratch S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int per = (P + blockDim.x - 1) / blockDim.x;
+  const int b = blockIdx.x / per;
+  const int j = (blockIdx.x % per) * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const size_t row0 = static_cast<size_t>(b) * P;
+  int n, nan_x, nan_y;
+  orders::sample_stats(S, b, P, n, nan_x, nan_y);
+  const float2* X = S.xo + row0;
+  const float2* Yo = S.yo + row0;
+  const int stride = tile_stride(kb);
+  float* tile = reinterpret_cast<float*>(smem) + (threadIdx.x >> 5) * 32 * stride;
+  if (j < P) {
+    const size_t o = row0 + j;
+    float* dst = tile + lane * stride;
+    int c = 0;
+    if (mask[o]) {
+      c = knn_row<W, JOINT, true>(X, Yo, n - nan_x, n - nan_y, S.pos_x[o],
+                            S.pos_y[o], kb, dst);
+    } else {
+      for (int u = 0; u < kb; ++u) dst[u] = INFINITY;
+    }
+    cnt_out[o] = c;
+  }
+  __syncwarp();
+  const int j0 = j - lane, rows = min(32, P - j0);
+  if (rows <= 0) return;
+  float* g = knn_out + (row0 + j0) * static_cast<size_t>(kb);
+  // Element e = lane + 32 i of the run is lane u of row r; 32 = dr kb + du
+  // steps both without a division.
+  const int dr = 32 / kb, du = 32 - dr * kb;
+  int r = lane / kb, u = lane - r * kb;
+  for (int e = lane; e < rows * kb; e += 32) {
+    g[e] = tile[r * stride + u];
+    r += dr;
+    u += du;
+    if (u >= kb) {
+      u -= kb;
+      ++r;
+    }
+  }
+}
+
+// ball_counts' rows, their orders read through L1 and L2.
 template <bool ALL>
-__global__ void __launch_bounds__(kRows)
-ball_counts_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                   const unsigned char* __restrict__ mask,
-                   const float* __restrict__ r_in, int P,
-                   int* __restrict__ counts_out, size_t plane, int tile) {
-  extern __shared__ unsigned char smem[];
-  float* sy = reinterpret_cast<float*>(smem);
-  float* sx = sy + tile;  // staged only when ALL
-  unsigned char* sm = reinterpret_cast<unsigned char*>(sx + tile);
-
-  const size_t base = static_cast<size_t>(blockIdx.x) * P;
-  const float* ys = y + base;
-  const unsigned char* ms = mask + base;
-  const int i = blockIdx.y * kRows + threadIdx.x;
-  const bool row = i < P;
-  const float yi = row ? ys[i] : 0.f;
-  const float xi = (ALL && row) ? x[base + i] : 0.f;
-  const bool mi = row && ms[i] != 0;
-  const float r = row ? r_in[base + i] : 0.f;
-
-  int x_lt = 0, y_lt = 0, x_eq = 0, y_eq = 0, j_eq = 0;
-  for (int c0 = 0; c0 < P; c0 += tile) {
-    const int n = min(tile, P - c0);
-    __syncthreads();
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      sy[j] = ys[c0 + j];
-      sm[j] = ms[c0 + j];
-      if (ALL) sx[j] = x[base + c0 + j];
-    }
-    __syncthreads();
-    if (mi) {
-      for (int jj = 0; jj < n; ++jj) {
-        if (!sm[jj] || c0 + jj == i) continue;
-        const float dy = fabsf(yi - sy[jj]);
-        y_lt += dy < r;
-        if (ALL) {
-          const float dx = fabsf(xi - sx[jj]);
-          x_lt += dx < r;
-          x_eq += dx <= 0.f;
-          y_eq += dy <= 0.f;
-          j_eq += (dx <= 0.f) && (dy <= 0.f);
-        }
-      }
-    }
+__global__ void __launch_bounds__(kRowMaxThreads)
+ball_counts_rows(const float* __restrict__ x, const float* __restrict__ y,
+                 const unsigned char* __restrict__ mask,
+                 const float* __restrict__ r_in, int P,
+                 int* __restrict__ counts_out, size_t plane, Scratch S) {
+  const int per = (P + blockDim.x - 1) / blockDim.x;
+  const int b = blockIdx.x / per;
+  const int j = (blockIdx.x % per) * blockDim.x + threadIdx.x;
+  if (j >= P) return;
+  const size_t row0 = static_cast<size_t>(b) * P, o = row0 + j;
+  int n, nan_x, nan_y;
+  orders::sample_stats(S, b, P, n, nan_x, nan_y);
+  int c[5] = {0, 0, 0, 0, 0};
+  if (mask[o]) {
+    orders::count_ranges<ALL>(S.xo + row0, S.yo + row0, n - nan_x, n - nan_y,
+                              ALL ? x[o] : 0.f, y[o], r_in[o], c);
   }
-
-  if (row) {
-    const size_t o = base + i;
-    counts_out[o] = x_lt;
-    counts_out[plane + o] = y_lt;
-    counts_out[2 * plane + o] = x_eq;
-    counts_out[3 * plane + o] = y_eq;
-    counts_out[4 * plane + o] = j_eq;
-  }
+#pragma unroll
+  for (int u = 0; u < 5; ++u) counts_out[u * plane + o] = c[u];
 }
 
-inline size_t shmem(int tile) {
-  return static_cast<size_t>(tile) * (2 * sizeof(float) + 1);
+// Opts kernel in to kMaxShared bytes of dynamic shared memory, once (so
+// never while a graph is captured).
+template <typename Kernel>
+int opt_in(Kernel* kernel, bool& done) {
+  if (done) return 0;
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxShared)));
+  done = err == 0;
+  return err;
+}
+
+// Samples a slice of the batch takes through the orders and rows
+// launches: as many as keep the scratch within kScratchCap, at least one
+// (carve of n samples is at most n times carve of one).  Samples are
+// independent, so no slicing changes an output bit.
+inline int slice_samples(int B, int P) {
+  const size_t one = orders::carve(nullptr, 1, P, nullptr);
+  return static_cast<int>(std::min<size_t>(B, std::max<size_t>(1, kScratchCap / one)));
+}
+
+// The scratch of a call that goes through the orders.
+inline long long slice_scratch(int B, int P) {
+  return static_cast<long long>(orders::carve(nullptr, slice_samples(B, P), P, nullptr));
+}
+
+// f(o, nb, S) for each slice of the batch: samples b0 .. b0 + nb - 1,
+// o = b0 * P their first column, S their orders carved from scratch.
+// Returns the first error.
+template <typename F>
+int by_slices(int B, int P, void* scratch, F f) {
+  const int per = slice_samples(B, P);
+  for (int b0 = 0; b0 < B; b0 += per) {
+    const int nb = std::min(per, B - b0);
+    Scratch S;
+    orders::carve(static_cast<unsigned char*>(scratch), nb, P, &S);
+    const int err = f(static_cast<size_t>(b0) * P, nb, S);
+    if (err) return err;
+  }
+  return 0;
 }
 
 template <int W, bool JOINT>
-void launch_knn(const float* x, const float* y, const unsigned char* mask,
-                int B, int P, int kb, float* knn, int* cnt, int tile,
-                cudaStream_t stream) {
-  const dim3 grid(B, (P + kRows - 1) / kRows);
-  knn_smallest_kernel<W, JOINT><<<grid, kRows, shmem(tile), stream>>>(
-      x, y, mask, P, kb, knn, cnt, tile);
-}
-
-template <bool JOINT>
-int dispatch_width(const float* x, const float* y, const unsigned char* mask,
-                   int B, int P, int kb, float* knn, int* cnt, int tile,
-                   cudaStream_t s) {
-  if (kb <= 4) {
-    launch_knn<4, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
-  } else if (kb <= 8) {
-    launch_knn<8, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
-  } else if (kb <= 16) {
-    launch_knn<16, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
-  } else if (kb <= 32) {
-    launch_knn<32, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
-  } else if (kb <= 64) {
-    launch_knn<64, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
-  } else if (kb <= 128) {
-    launch_knn<128, JOINT>(x, y, mask, B, P, kb, knn, cnt, tile, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+int launch_knn(const float* x, const float* y, const unsigned char* mask,
+               int B, int P, int kb, float* knn, int* cnt, void* scratch,
+               cudaStream_t stream) {
+  if (P <= kWarpP) {
+    static bool opted = false;
+    int err = opt_in(knn_smallest_warp<W, JOINT>, opted);
+    if (err) return err;
+    const unsigned grid = static_cast<unsigned>((B + kWarpSamples - 1) / kWarpSamples);
+    knn_smallest_warp<W, JOINT>
+        <<<grid, 32 * kWarpSamples, kWarpSamples * knn_warp_bytes(kb), stream>>>(
+            x, y, mask, B, P, kb, knn, cnt);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  static bool opted = false;
+  if (const int refused = opt_in(knn_smallest_rows<W, JOINT>, opted)) return refused;
+  return by_slices(B, P, scratch, [&](size_t o, int nb, const Scratch& S) {
+    // The y order only for the four-stream walk.
+    const int err = orders::launch_orders<true, JOINT && W == 0>(
+        x + o, y + o, mask + o, nb, P, S, stream);
+    if (err) return err;
+    // The rows spread so that about one block an SM covers the slice (a
+    // block's tiles take at most 8 x 16.5 KB).
+    const int threads = orders::spread_threads(nb, P, kRowThreads, kRowMaxThreads);
+    const unsigned rows = (P + threads - 1) / threads;
+    knn_smallest_rows<W, JOINT>
+        <<<static_cast<unsigned>(nb) * rows, threads,
+           threads / 32 * tile_bytes(kb), stream>>>(
+            mask + o, P, kb, knn + o * kb, cnt + o, S);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
+// The joint band buffer's width: 4, 8, 16, 32 or 64 lanes >= kb, and past
+// 64 the buffer-free walk (0); class mode needs no buffer.
+int knn(const float* x, const float* y, const unsigned char* mask, int B,
+        int P, int kb, int joint, float* out, int* cnt, void* scratch,
+        cudaStream_t s) {
+  if (!joint) return launch_knn<0, false>(x, y, mask, B, P, kb, out, cnt, scratch, s);
+  if (kb <= 4) return launch_knn<4, true>(x, y, mask, B, P, kb, out, cnt, scratch, s);
+  if (kb <= 8) return launch_knn<8, true>(x, y, mask, B, P, kb, out, cnt, scratch, s);
+  if (kb <= 16) return launch_knn<16, true>(x, y, mask, B, P, kb, out, cnt, scratch, s);
+  if (kb <= 32) return launch_knn<32, true>(x, y, mask, B, P, kb, out, cnt, scratch, s);
+  if (kb <= 64) return launch_knn<64, true>(x, y, mask, B, P, kb, out, cnt, scratch, s);
+  return launch_knn<0, true>(x, y, mask, B, P, kb, out, cnt, scratch, s);
+}
+
+// Every P through the orders in scratch (up to kChunk columns a sample
+// is one chunk, sorted and placed by one launch).  Without ALL x is null
+// and never offset or read.
+template <bool ALL>
 int ball(const float* x, const float* y, const unsigned char* mask,
-         const float* r, int B, int P, int all, int* counts, int tile,
-         cudaStream_t s) {
-  const dim3 grid(B, (P + kRows - 1) / kRows);
+         const float* r, int B, int P, int* counts, void* scratch,
+         cudaStream_t stream) {
   const size_t plane = static_cast<size_t>(B) * static_cast<size_t>(P);
-  if (all) {
-    ball_counts_kernel<true><<<grid, kRows, shmem(tile), s>>>(
-        x, y, mask, r, P, counts, plane, tile);
-  } else {
-    ball_counts_kernel<false><<<grid, kRows, shmem(tile), s>>>(
-        x, y, mask, r, P, counts, plane, tile);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return by_slices(B, P, scratch, [&](size_t o, int nb, const Scratch& S) {
+    const float* xs = ALL ? x + o : nullptr;
+    const int err = orders::launch_orders<ALL, true>(xs, y + o, mask + o, nb,
+                                                     P, S, stream);
+    if (err) return err;
+    const int threads = orders::spread_threads(nb, P, kRowThreads, kRowMaxThreads);
+    const unsigned rows = (P + threads - 1) / threads;
+    ball_counts_rows<ALL><<<static_cast<unsigned>(nb) * rows, threads, 0, stream>>>(
+        xs, y + o, mask + o, r + o, P, counts + o, plane, S);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace tiled
@@ -892,12 +1082,13 @@ bool on_ladder(int rung, const int (&rungs)[N]) {
 }  // namespace
 
 // Plain C entries for ctypes, two per op (the staged body, then the tiled
-// one), each pair with one signature.  rung is the body's launch shape: the
-// staged bodies' cap on samples a block, the tiled bodies' column tile; off
-// its ladder the launch is refused (no clamp).  Each returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for parameters outside the body's range; a refused
-// launch never runs, so the caller must check it.
+// one).  The staged entries take rung, their cap on samples a block: off
+// its ladder the launch is refused (no clamp).  The tiled entries take a
+// device scratch buffer of the bytes their *_tiled_scratch(B, P) gives
+// (none, a null pointer, when that is 0).  Each returns cudaGetLastError()
+// after its launches (0 on success), or cudaErrorInvalidValue for
+// parameters outside the body's range; a refused launch never runs, so the
+// caller must check it.
 //
 // x, y: float32 (B, P); mask: bool (B, P); knn: float32 (B, P, kb); cnt:
 // int32 (B, P).  joint selects the mode.  Staged: P <= 1024, 1 <= kb <= 16.
@@ -913,19 +1104,24 @@ extern "C" int knn_smallest_launch(const float* x, const float* y,
                      static_cast<cudaStream_t>(stream));
 }
 
+// The tiled knn_smallest's scratch: the orders of samples longer than 256
+// columns, 40 bytes a column of a slice (tiled::kScratchCap).
+extern "C" long long knn_smallest_tiled_scratch(int B, int P) {
+  if (B <= 0 || P <= orders::kWarpP) return 0;
+  return tiled::slice_scratch(B, P);
+}
+
 // Tiled: any P, 1 <= kb <= 128.
 extern "C" int knn_smallest_tiled_launch(const float* x, const float* y,
                                          const unsigned char* mask, int B,
                                          int P, int kb, int joint, float* knn,
-                                         int* cnt, int rung, void* stream) {
+                                         int* cnt, void* scratch,
+                                         void* stream) {
   if (B <= 0 || P <= 0) return 0;
-  if (kb < 1 || !on_ladder(rung, tiled::kColRungs))
+  if (kb < 1 || kb > tiled::kMaxKb)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return joint ? tiled::dispatch_width<true>(x, y, mask, B, P, kb, knn, cnt,
-                                             rung, s)
-               : tiled::dispatch_width<false>(x, y, mask, B, P, kb, knn, cnt,
-                                              rung, s);
+  return tiled::knn(x, y, mask, B, P, kb, joint, knn, cnt, scratch,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // x: float32 (B, P), or null when all is 0 (never read then); y, r:
@@ -943,14 +1139,21 @@ extern "C" int ball_counts_launch(const float* x, const float* y,
              : staged::ball<false>(x, y, mask, r, B, P, counts, rung, s);
 }
 
+// The tiled ball_counts' scratch: the orders of every sample, as for
+// knn_smallest.
+extern "C" long long ball_counts_tiled_scratch(int B, int P) {
+  if (B <= 0 || P <= 0) return 0;
+  return tiled::slice_scratch(B, P);
+}
+
 // Tiled: any P.
 extern "C" int ball_counts_tiled_launch(const float* x, const float* y,
                                         const unsigned char* mask,
                                         const float* r, int B, int P, int all,
-                                        int* counts, int rung, void* stream) {
+                                        int* counts, void* scratch,
+                                        void* stream) {
   if (B <= 0 || P <= 0) return 0;
-  if (!on_ladder(rung, tiled::kColRungs))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return tiled::ball(x, y, mask, r, B, P, all, counts, rung,
-                     static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return all ? tiled::ball<true>(x, y, mask, r, B, P, counts, scratch, s)
+             : tiled::ball<false>(x, y, mask, r, B, P, counts, scratch, s);
 }

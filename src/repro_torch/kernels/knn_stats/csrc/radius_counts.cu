@@ -151,13 +151,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "sorted_orders.cuh"
 
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
+namespace {
 
 // ---------------------------------------------------------------------------
 // The staged body
@@ -201,14 +197,10 @@ __host__ __device__ inline Layout layout(int P, int NP) {
   return L;
 }
 
-// A float's order as an unsigned key: -0 folded onto +0, every NaN the
-// largest key (and never equal to a number's).
-__device__ __forceinline__ uint32_t code_key(float v) {
-  if (v != v) return 0xFFFFFFFFu;
-  if (v == 0.f) return 0x80000000u;
-  const uint32_t u = __float_as_uint(v);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
+// code_key, insert and warp_sort are the sorted route's (sorted_orders.cuh).
+using orders::code_key;
+using orders::insert;
+using orders::warp_sort;
 
 // [lo, hi): the run of sorted position s, from the run-start bitmap over
 // the n sorted columns (position 0 always starts a run).
@@ -223,15 +215,6 @@ __device__ __forceinline__ void run_bounds(const uint32_t* flags, int s, int n,
   const int words = (n + 31) >> 5;
   while (m == 0 && ++e < words) m = flags[e];
   hi = m ? e * 32 + __ffs(m) - 1 : n;
-}
-
-// Sorted insertion of d into b[0..W): the W smallest values seen so far.
-// Branch-free; fminf/fmaxf drop a NaN d, which leaves b as it was.
-template <int W>
-__device__ __forceinline__ void insert(float (&b)[W], float d) {
-#pragma unroll
-  for (int s = W - 1; s > 0; --s) b[s] = fmaxf(b[s - 1], fminf(b[s], d));
-  b[0] = fminf(b[0], d);
 }
 
 // b[t] for a run-time t < W, as a chain of selp: opaque to the compiler,
@@ -255,40 +238,6 @@ __device__ __forceinline__ void count_lt(float& acc, float d, float r) {
   asm("{\n\t.reg .pred p;\n\tsetp.lt.f32 p, %1, %2;\n\t"
       "@p add.f32 %0, %0, 0f3F800000;\n\t}"
       : "+f"(acc) : "f"(d), "f"(r));
-}
-
-// One warp sorts N = 32 * E distinct 64-bit keys held in registers (lane l
-// holds elements l * E .. l * E + E - 1): a bitonic network whose strides
-// below E exchange registers and whose strides from E up exchange lanes.
-template <int E>
-__device__ __forceinline__ void warp_sort(uint64_t (&v)[E], int lane) {
-  for (int size = 2; size <= 32 * E; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride >= E) {
-        const int lj = stride / E;
-        const bool lower = (lane & lj) == 0;
-#pragma unroll
-        for (int i = 0; i < E; ++i) {
-          const uint64_t o = __shfl_xor_sync(0xFFFFFFFFu, v[i], lj);
-          const bool up = ((lane * E + i) & size) == 0;
-          v[i] = ((lower == up) == (o < v[i])) ? o : v[i];
-        }
-      } else {
-#pragma unroll
-        for (int sj = 1; sj < E; sj <<= 1) {
-          if (sj != stride) continue;
-#pragma unroll
-          for (int i = 0; i < E; ++i) {
-            if (i & sj) continue;
-            const uint64_t a = v[i], c = v[i | sj];
-            const bool swap = (a > c) == (((lane * E + i) & size) == 0);
-            v[i] = swap ? c : a;
-            v[i | sj] = swap ? a : c;
-          }
-        }
-      }
-    }
-  }
 }
 
 // The (code key, column) words of the n staged columns, sorted, into key.
@@ -665,215 +614,47 @@ int dispatch(int need, const float* x, const float* y,
 // ---------------------------------------------------------------------------
 namespace tiled {
 
-constexpr int kChunk = 1024;   // columns a block sorts (kernel.py: TILED_CHUNK)
-constexpr int kPlaceThreads = 256;
+using orders::kChunk;
+using orders::kWarpE;
+using orders::kWarpP;
+using orders::Scratch;
+
 constexpr int kRowThreads = 64;     // a row block's threads, at least
 constexpr int kRowMaxThreads = 256;  // and at most (a 64-lane buffer needs
                                      // more than 64 registers a thread)
-constexpr int kSMs = 132;           // an H100's SMs: B = 1 spreads over them
 constexpr size_t kStageBytes = 200 << 10;  // a staged sample's orders, at most
-constexpr uint32_t kDone = 0xFFFFFFFFu;  // an exhausted stream's head
 
 // ---- One row's statistics from its sample's two sorted orders ----------
 
-// The first position in [lo, hi) of a sorted order where !(v_i - v_j > t)
-// (LE) or !(v_i - v_j >= t) (LT), v the x (Y = false) or y (Y = true) of
-// an entry.  Along ascending values fl(v_i - v_j) does not increase, and a
-// NaN v_j (sorted last) meets both predicates, so each is monotone.
-template <bool Y, bool LE>
-__device__ __forceinline__ int first(const float2* s, int lo, int hi,
-                                     float vi, float t) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const float2 e = s[mid];
-    const float f = vi - (Y ? e.y : e.x);
-    if (LE ? !(f > t) : !(f >= t)) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
-// Joint selection along the x band (the staged body's sweep 1, W >= k
-// lanes): outward from the row's x position s while |dx| < b[W-1];
-// exact because |dx| does not decrease along either side and the joint
-// distance is at least |dx|.  Up to 8 lanes the candidates enter one at
-// a time (staged::insert, which drops a NaN); wider buffers take them in
-// batches of G (W / 2, at most 32) from each side in turn: a batch (a
-// NaN distance made +inf, which is never selected either) is sorted by a
-// register network and merged into b, the W smallest of the two being
-// min(b[W-G+u], c[G-1-u]) beside b's first W - G, a bitonic sequence put
-// in order by log2(W) compare-exchange stages.  A batch may reach past
-// the band; candidates beyond it leave the W smallest as they are.
-__device__ __forceinline__ void order2(float& a, float& b) {
-  const float lo = fminf(a, b);
-  b = fmaxf(a, b);
-  a = lo;
-}
-
-template <int G>
-__device__ __forceinline__ void sort_regs(float (&v)[G]) {
-#pragma unroll
-  for (int size = 2; size <= G; size <<= 1) {
-#pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        const int j = i ^ stride;
-        if (j > i) {
-          if ((i & size) == 0) order2(v[i], v[j]); else order2(v[j], v[i]);
-        }
-      }
-    }
-  }
-}
-
-template <int W, int G>
-__device__ __forceinline__ void merge_batch(float (&b)[W], float (&c)[G]) {
-  sort_regs<G>(c);
-#pragma unroll
-  for (int u = 0; u < G; ++u) b[W - G + u] = fminf(b[W - G + u], c[G - 1 - u]);
-#pragma unroll
-  for (int stride = W >> 1; stride > 0; stride >>= 1) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-      const int j = i ^ stride;
-      if (j > i) order2(b[i], b[j]);
-    }
-  }
-}
-
-template <int W>
+// Joint selection along the x band with W >= k lanes (orders::band_walk):
+// the (t + 1)-th smallest joint distance.
+template <int W, bool RUNS>
 __device__ __forceinline__ float band_radius(const float2* X, int nnx, int s,
                                              float xi, float yi, int t) {
   float b[W];
-#pragma unroll
-  for (int u = 0; u < W; ++u) b[u] = INFINITY;
-  if constexpr (W <= 8) {
-    for (int j = s + 1; j < nnx; ++j) {
-      const float2 e = X[j];
-      const float dx = fabsf(xi - e.x);
-      if (!(dx < b[W - 1])) break;
-      staged::insert<W>(b, max_nan(dx, fabsf(yi - e.y)));
-    }
-    for (int j = s - 1; j >= 0; --j) {
-      const float2 e = X[j];
-      const float dx = fabsf(xi - e.x);
-      if (!(dx < b[W - 1])) break;
-      staged::insert<W>(b, max_nan(dx, fabsf(yi - e.y)));
-    }
-  } else {
-    constexpr int G = W < 64 ? W / 2 : 32;
-    int jr = s + 1, jl = s - 1;
-    bool right = jr < nnx, left = jl >= 0;
-    while (right || left) {
-#pragma unroll
-      for (int side = 0; side < 2; ++side) {
-        const int j0 = side ? jl : jr, step = side ? -1 : 1;
-        bool& live = side ? left : right;
-        if (live && !(fabsf(xi - X[j0].x) < b[W - 1])) live = false;
-        if (!live) continue;
-        float c[G];
-#pragma unroll
-        for (int u = 0; u < G; ++u) {
-          const int j = j0 + step * u;
-          float d = INFINITY;
-          if (side ? j >= 0 : j < nnx) {
-            const float2 e = X[j];
-            d = max_nan(fabsf(xi - e.x), fabsf(yi - e.y));
-            d = d == d ? d : INFINITY;
-          }
-          c[u] = d;
-        }
-        merge_batch<W, G>(b, c);
-        if (side) {
-          jl -= G;
-          left = jl >= 0;
-        } else {
-          jr += G;
-          right = jr < nnx;
-        }
-      }
-    }
-  }
+  orders::band_walk<W, RUNS>(X, nnx, s, xi, yi, b);
   return staged::lane_of<W>(b, t);
 }
 
-// The head of an x stream (X) or a y stream at entry e: the event's value
-// (|dx| for an x stream, |dy| for a y stream) shifted up one bit, and the
-// low bit set where the entry's joint distance is that value.
-template <bool X>
-__device__ __forceinline__ uint32_t head(float2 e, float xi, float yi) {
-  const float ax = fabsf(xi - e.x), ay = fabsf(yi - e.y);
-  const bool done = X ? ay <= ax : ax < ay;
-  return (__float_as_uint(X ? ax : ay) << 1) | (done ? 1u : 0u);
-}
-
-// Joint selection for any t, with no buffer: four streams walk outward
-// from the row, left and right along the x order (values |dx|, up to the
-// NaN x's) and along the y order (|dy|, up to the NaN y's); each step
-// takes the stream whose next value is least.  An entry meets its two
-// values in increasing order and completes at the larger, max(|dx|,
-// |dy|): in the x stream when |dy| <= |dx|, else in the y stream.  So
-// completions come in increasing joint distance, and the (t + 1)-th is
-// the radius (+inf if the streams run out first); an entry with a NaN
-// distance never completes.
+// Joint selection for any t, with no buffer (orders::event_walk): the
+// (t + 1)-th completion is the radius, +inf if the streams run out first.
 __device__ __forceinline__ float event_radius(const float2* X, const float2* Yo,
                                               int nnx, int nny, int s, int q,
                                               float xi, float yi, int t) {
-  int p0 = s - 1, p1 = s + 1, p2 = q - 1, p3 = q + 1;
-  uint32_t h0 = p0 >= 0 ? head<true>(X[p0], xi, yi) : kDone;
-  uint32_t h1 = p1 < nnx ? head<true>(X[p1], xi, yi) : kDone;
-  uint32_t h2 = p2 >= 0 ? head<false>(Yo[p2], xi, yi) : kDone;
-  uint32_t h3 = p3 < nny ? head<false>(Yo[p3], xi, yi) : kDone;
-  int got = 0;
-  for (;;) {
-    const uint32_t m = min(min(h0, h1), min(h2, h3));
-    if (m == kDone) return INFINITY;
-    if ((m & 1u) && ++got > t) return __uint_as_float(m >> 1);
-    // Advance the first stream at m, without a divergent branch.
-    const int id = h0 == m ? 0 : h1 == m ? 1 : h2 == m ? 2 : 3;
-    const bool right = id & 1;
-    int p = id == 0 ? p0 : id == 1 ? p1 : id == 2 ? p2 : p3;
-    p += right ? 1 : -1;
-    const bool in = right ? p < (id < 2 ? nnx : nny) : p >= 0;
-    const float2 e = (id < 2 ? X : Yo)[in ? p : 0];
-    const uint32_t h = !in ? kDone : id < 2 ? head<true>(e, xi, yi)
-                                            : head<false>(e, xi, yi);
-    p0 = id == 0 ? p : p0;
-    p1 = id == 1 ? p : p1;
-    p2 = id == 2 ? p : p2;
-    p3 = id == 3 ? p : p3;
-    h0 = id == 0 ? h : h0;
-    h1 = id == 1 ? h : h1;
-    h2 = id == 2 ? h : h2;
-    h3 = id == 3 ? h : h3;
-  }
+  float r = INFINITY;
+  orders::event_walk(X, Yo, nnx, nny, s, q, xi, yi, t + 1,
+                     [&](int g, float d) { if (g == t) r = d; });
+  return r;
 }
 
-// |dy| as a key, a NaN one (a NaN y, sorted last in its run) exhausted.
-__device__ __forceinline__ uint32_t dy_key(float yi, float yj) {
-  const float d = fabsf(yi - yj);
-  return d == d ? __float_as_uint(d) : kDone;
-}
-
-// Class selection for any t: the t-th smallest |dy| over the row's run
-// [lo, hi) of equal codes but its own position s, the run sorted by y,
-// so two streams outward from s, |dy| not decreasing along either.
+// Class selection for any t (orders::class_walk): the t-th smallest |dy|
+// over the row's run [lo, hi) but its own position s.
 __device__ __forceinline__ float class_radius(const float2* X, int lo, int hi,
                                               int s, float yi, int t) {
-  int p0 = s - 1, p1 = s + 1;
-  uint32_t h0 = p0 >= lo ? dy_key(yi, X[p0].y) : kDone;
-  uint32_t h1 = p1 < hi ? dy_key(yi, X[p1].y) : kDone;
-  for (int got = 0;; ++got) {
-    const uint32_t m = min(h0, h1);
-    if (m == kDone) return INFINITY;
-    if (got == t) return __uint_as_float(m);
-    const bool left = h0 == m;
-    const int p = left ? --p0 : ++p1;
-    const bool in = left ? p >= lo : p < hi;
-    const uint32_t h = in ? dy_key(yi, X[p].y) : kDone;
-    h0 = left ? h : h0;
-    h1 = left ? h1 : h;
-  }
+  float r = INFINITY;
+  orders::class_walk(X, lo, hi, s, yi, t + 1,
+                     [&](int g, float d) { if (g == t) r = d; });
+  return r;
 }
 
 // One row's outputs: the radius, cnt, and x_lt, y_lt, x_eq, y_eq, j_eq.
@@ -899,77 +680,35 @@ struct Out {
 // The valid row at x position s and y position q of a sample whose x
 // order X holds nnx entries with a number for x, and whose y order Yo
 // nny with a number for y (NaN last in each).  W: the joint band
-// buffer's lanes, 0 for the buffer-free event walk.
-template <int W, bool JOINT, bool ALL>
+// buffer's lanes, 0 for the buffer-free event walk.  RUNS: the band walk
+// leaves a spent x-tie run (orders::band_walk; the row kernel's, whose
+// long samples have long runs).
+template <int W, bool JOINT, bool ALL, bool RUNS>
 __device__ __forceinline__ Stats row(const float2* X, const float2* Yo, int nnx,
                                      int nny, int s, int q, int k, int kb,
                                      int kk) {
   const float2 me = X[s];
   const float xi = me.x, yi = me.y;
   const bool fx = fabsf(xi) < INFINITY, fy = fabsf(yi) < INFINITY;
-  float r = INFINITY;  // also every non-finite row's: all its d are inf or NaN
-  int cnt = 0, x_lt = 0, y_lt = 0, x_eq = 0, y_eq = 0, j_eq = 0;
+  Stats v;  // r = +inf: also every non-finite row's, all its d inf or NaN
   if (JOINT) {
     if (fx && fy) {
-      if constexpr (W > 0) r = band_radius<W>(X, nnx, s, xi, yi, k - 1);
-      else r = event_radius(X, Yo, nnx, nny, s, q, xi, yi, k - 1);
+      if constexpr (W > 0) v.r = band_radius<W, RUNS>(X, nnx, s, xi, yi, k - 1);
+      else v.r = event_radius(X, Yo, nnx, nny, s, q, xi, yi, k - 1);
     }
   } else if (xi == xi) {
-    // The run of the row's code: x ascends through it, -0 == +0.
-    int lo = 0, hi = s;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (X[mid].x < xi) lo = mid + 1; else hi = mid;
-    }
-    const int run = lo;
-    lo = s + 1;
-    hi = nnx;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (X[mid].x <= xi) lo = mid + 1; else hi = mid;
-    }
-    cnt = lo - run - 1;
-    const int t = max(min(min(kk, cnt) - 1, kb - 1), 0);
-    if (fy) r = class_radius(X, run, lo, s, yi, t);
+    int run, end;
+    orders::class_run(X, nnx, s, xi, run, end);
+    v.cnt = end - run - 1;
+    const int t = max(min(min(kk, v.cnt) - 1, kb - 1), 0);
+    if (fy) v.r = class_radius(X, run, end, s, yi, t);
   }
-  // The counts: ranges of the sorted orders, the self pair taken out.
-  if (fy) {
-    y_lt = max(first<true, true>(Yo, 0, nny, yi, -r)
-               - first<true, false>(Yo, 0, nny, yi, r), 0)
-           - (0.f < r ? 1 : 0);
-    if (ALL) {
-      y_eq = first<true, false>(Yo, 0, nny, yi, 0.f)
-             - first<true, true>(Yo, 0, nny, yi, 0.f) - 1;
-    }
-  }
-  if (ALL && fx) {
-    const int a0 = first<false, true>(X, 0, nnx, xi, 0.f);
-    const int b0 = first<false, false>(X, 0, nnx, xi, 0.f);
-    x_lt = max(first<false, true>(X, 0, nnx, xi, -r)
-               - first<false, false>(X, 0, nnx, xi, r), 0)
-           - (0.f < r ? 1 : 0);
-    x_eq = b0 - a0 - 1;
-    // The x ties are one value, sorted by y within it.
-    if (fy) {
-      j_eq = first<true, false>(X, a0, b0, yi, 0.f)
-             - first<true, true>(X, a0, b0, yi, 0.f) - 1;
-    }
-  }
-  Stats v;
-  v.r = r;
-  v.cnt = cnt;
-  v.c[0] = x_lt;
-  v.c[1] = y_lt;
-  v.c[2] = x_eq;
-  v.c[3] = ALL ? y_eq : 0;
-  v.c[4] = j_eq;
+  orders::count_ranges<ALL>(X, Yo, nnx, nny, xi, yi, v.r, v.c);
   return v;
 }
 
 // ---- P <= kWarpP: one warp a sample, the sorts in registers ------------
 
-constexpr int kWarpP = 256;       // the warp kernel's samples, at most
-constexpr int kWarpE = kWarpP / 32;  // sort keys a lane holds
 constexpr int kWarpSamples = 4;   // samples (warps) a block
 
 // One sample's shared memory in the warp kernel (7.5 KB): the staged
@@ -993,11 +732,9 @@ struct WarpSample {
   uint16_t pos_y[kWarpP];  // a column's y position
 };
 
-// The sample's valid columns sorted by (code_key(y), column), then by
-// (code_key(x), y position), each by staged::warp_sort over 256 register
-// keys (padding ~0 sorts last); then its rows in x order, lane l taking
-// x positions l, l + 32, ..., so that a warp's rows are neighbours in x;
-// their outputs leave through shared memory, coalesced.
+// The sample's two orders (orders::warp_orders); then its rows in x order,
+// lane l taking x positions l, l + 32, ..., so that a warp's rows are
+// neighbours in x; their outputs leave through shared memory, coalesced.
 template <int W, bool JOINT, bool ALL>
 __global__ void __launch_bounds__(32 * kWarpSamples)
 radius_counts_warp(const float* __restrict__ x, const float* __restrict__ y,
@@ -1010,58 +747,13 @@ radius_counts_warp(const float* __restrict__ x, const float* __restrict__ y,
   WarpSample& S = reinterpret_cast<WarpSample*>(smem)[warp];
   const size_t row0 = static_cast<size_t>(b) * P;
 
-  uint64_t key[kWarpE];
-  int n = 0, nan_x = 0, nan_y = 0;
-#pragma unroll
-  for (int i = 0; i < kWarpE; ++i) {
-    const int e = lane * kWarpE + i;
-    bool valid = false;
-    float xv = 0.f, yv = 0.f;
-    if (e < P) {
-      xv = x[row0 + e];
-      yv = y[row0 + e];
-      valid = mask[row0 + e] != 0;
-      S.in.v[e] = make_float2(xv, yv);
-    }
-    key[i] = valid ? (static_cast<uint64_t>(staged::code_key(yv)) << 32) | e
-                   : ~0ull;
-    n += __popc(__ballot_sync(0xFFFFFFFFu, valid));
-    nan_x += __popc(__ballot_sync(0xFFFFFFFFu, valid && xv != xv));
-    nan_y += __popc(__ballot_sync(0xFFFFFFFFu, valid && yv != yv));
-  }
-  __syncwarp();
-  staged::warp_sort<kWarpE>(key, lane);
-#pragma unroll
-  for (int i = 0; i < kWarpE; ++i) {
-    const int q = lane * kWarpE + i;
-    if (q < n) {
-      const int e = static_cast<int>(static_cast<uint32_t>(key[i]));
-      S.yo[q] = S.in.v[e];
-      S.in.ycol[q] = static_cast<uint16_t>(e);
-      S.pos_y[e] = static_cast<uint16_t>(q);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < kWarpE; ++i) {
-    const int q = lane * kWarpE + i;
-    key[i] = q < n ? (static_cast<uint64_t>(staged::code_key(S.yo[q].x)) << 32) | q
-                   : ~0ull;
-  }
-  staged::warp_sort<kWarpE>(key, lane);
-#pragma unroll
-  for (int i = 0; i < kWarpE; ++i) {
-    const int s = lane * kWarpE + i;
-    if (s < n) {
-      const int q = static_cast<int>(static_cast<uint32_t>(key[i]));
-      S.xo[s] = S.yo[q];
-      S.xcol[s] = S.in.ycol[q];
-    }
-  }
-  __syncwarp();
+  int nan_x, nan_y;
+  const int n = orders::warp_orders<true, true>(
+      x, y, mask, row0, P, lane,
+      {S.xo, S.yo, S.in.v, S.in.ycol, S.xcol, S.pos_y}, nan_x, nan_y);
   for (int s = lane; s < n; s += 32) {
     const int e = S.xcol[s];
-    const Stats v = row<W, JOINT, ALL>(S.xo, S.yo, n - nan_x, n - nan_y, s,
+    const Stats v = row<W, JOINT, ALL, false>(S.xo, S.yo, n - nan_x, n - nan_y, s,
                                        S.pos_y[e], k, kb, kk);
     S.out.r[e] = v.r;
     S.out.c[0][e] = static_cast<uint8_t>(v.cnt);
@@ -1082,196 +774,8 @@ radius_counts_warp(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-// ---- P > kWarpP: the sort in chunks, merged, then the rows -------------
-
-// Scratch, carved by the wrapper's one allocation (radius_counts_tiled_scratch
-// gives its size): per sample both sorted orders as (x, y), each column's
-// position in them, per chunk (valid, NaN x, NaN y) counts, and the
-// chunks' sorted (key, column) pairs.
-struct Scratch {
-  float2* xo;      // (B, P): valid columns by (x, y, column)
-  float2* yo;      // (B, P): valid columns by (y, column)
-  int* pos_x;      // (B, P): a column's position in xo
-  int* pos_y;      // (B, P): its position in yo
-  int* stats;      // (B, chunks, 3)
-  uint64_t* key;   // (2, B, P): chunk keys (x order, y order)
-  uint32_t* col;   // (2, B, P): their columns
-  int* at;         // (2, B, P): their places in the sample's orders
-};
-
-inline size_t align256(size_t v) { return (v + 255) & ~static_cast<size_t>(255); }
-
-__host__ __device__ inline int chunks_of(int P) { return (P + kChunk - 1) / kChunk; }
-
-// The scratch's layout from base (nullptr: only its size); P > kWarpP.
-inline size_t carve(unsigned char* base, int B, int P, Scratch* s) {
-  const size_t bp = static_cast<size_t>(B) * static_cast<size_t>(P);
-  size_t o = 0;
-  auto take = [&](size_t bytes) {
-    unsigned char* p = base ? base + o : nullptr;
-    o = align256(o + bytes);
-    return p;
-  };
-  Scratch t;
-  t.xo = reinterpret_cast<float2*>(take(8 * bp));
-  t.yo = reinterpret_cast<float2*>(take(8 * bp));
-  t.pos_x = reinterpret_cast<int*>(take(4 * bp));
-  t.pos_y = reinterpret_cast<int*>(take(4 * bp));
-  t.stats = reinterpret_cast<int*>(take(12 * static_cast<size_t>(B) * chunks_of(P)));
-  t.key = reinterpret_cast<uint64_t*>(take(16 * bp));
-  t.col = reinterpret_cast<uint32_t*>(take(8 * bp));
-  t.at = reinterpret_cast<int*>(take(8 * bp));
-  if (s) *s = t;
-  return o;
-}
-
-// (key, column) pairs in lexicographic order; padding is (~0, ~0).
-__device__ __forceinline__ bool pair_less(uint64_t ka, uint32_t ca,
-                                          uint64_t kb, uint32_t cb) {
-  return ka < kb || (ka == kb && ca < cb);
-}
-
-__device__ __forceinline__ void exchange(uint64_t* k, uint32_t* c, int a,
-                                         int d, bool up) {
-  const uint64_t ka = k[a], kd = k[d];
-  const uint32_t ca = c[a], cd = c[d];
-  if (pair_less(kd, cd, ka, ca) == up) {  // a above d while ascending
-    k[a] = kd;
-    k[d] = ka;
-    c[a] = cd;
-    c[d] = ca;
-  }
-}
-
-// Launch 1: one block a (sample, chunk of kChunk columns) sorts the
-// chunk's valid columns twice in shared memory, as (key, column) pairs:
-// by (code_key(x), code_key(y)) and by code_key(y), the column breaking
-// ties, so the merged orders are the ones the warp kernel builds.
-__global__ void __launch_bounds__(kChunk / 2)
-radius_counts_sort(const float* __restrict__ x, const float* __restrict__ y,
-                   const unsigned char* __restrict__ mask, int B, int P,
-                   Scratch S) {
-  constexpr int N = kChunk;
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* kx = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* ky = kx + N;
-  uint32_t* cx = reinterpret_cast<uint32_t*>(ky + N);
-  uint32_t* cy = cx + N;
-  const int nc = chunks_of(P);
-  const int b = blockIdx.x / nc, c = blockIdx.x % nc;
-  const int c0 = c * N, len = min(N, P - c0);
-  const size_t row0 = static_cast<size_t>(b) * P;
-
-  int nv = 0, nan_x = 0, nan_y = 0;
-  for (int e = threadIdx.x; e < N; e += blockDim.x) {
-    const uint32_t j = static_cast<uint32_t>(c0 + e);
-    bool valid = false;
-    float xv = 0.f, yv = 0.f;
-    if (e < len) {
-      xv = x[row0 + j];
-      yv = y[row0 + j];
-      valid = mask[row0 + j] != 0;
-    }
-    const uint64_t hx = staged::code_key(xv), hy = staged::code_key(yv);
-    kx[e] = valid ? (hx << 32) | hy : ~0ull;
-    ky[e] = valid ? (hy << 32) | j : ~0ull;
-    cx[e] = cy[e] = valid ? j : ~0u;
-    nv += __syncthreads_count(valid);
-    nan_x += __syncthreads_count(valid && xv != xv);
-    nan_y += __syncthreads_count(valid && yv != yv);
-  }
-  for (int size = 2; size <= N; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride >= 32) __syncthreads(); else __syncwarp();
-      const int t = threadIdx.x;
-      const int a = 2 * t - (t & (stride - 1));
-      const bool up = (a & size) == 0;
-      exchange(kx, cx, a, a + stride, up);
-      exchange(ky, cy, a, a + stride, up);
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int* st = S.stats + 3 * (static_cast<size_t>(b) * nc + c);
-    st[0] = nv;
-    st[1] = nan_x;
-    st[2] = nan_y;
-  }
-  const size_t bp = static_cast<size_t>(B) * P;
-  for (int e = threadIdx.x; e < nv; e += blockDim.x) {
-    const size_t o = row0 + c0 + e;
-    S.key[o] = kx[e];
-    S.col[o] = cx[e];
-    S.key[bp + o] = ky[e];
-    S.col[bp + o] = cy[e];
-    S.at[o] = e;  // its place in the chunk; launch 2 adds the rest
-    S.at[bp + o] = e;
-  }
-}
-
-// Launch 2: an entry's place in its sample's order is its place in its
-// chunk plus, in every other chunk, the number of entries below it.  One
-// block a (sample, chunk c, chunk d != c) holds chunk d's sorted pairs in
-// shared memory and adds to each of chunk c's entries the count below it
-// in d (a binary search); the pairs are distinct, so the places are a
-// permutation, and integer adds in any order give the same places.
-__global__ void __launch_bounds__(kPlaceThreads)
-radius_counts_rank(int B, int P, Scratch S) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t (*sk)[kChunk] = reinterpret_cast<uint64_t (*)[kChunk]>(smem);
-  uint32_t (*sc)[kChunk] = reinterpret_cast<uint32_t (*)[kChunk]>(sk + 2);
-  const int nc = chunks_of(P);
-  const int b = blockIdx.x / (nc * nc), c = blockIdx.x / nc % nc, d = blockIdx.x % nc;
-  const int* st = S.stats + 3 * static_cast<size_t>(b) * nc;
-  const int nv_c = st[3 * c], nv_d = st[3 * d];
-  if (c == d || nv_c == 0 || nv_d == 0) return;
-  const size_t row0 = static_cast<size_t>(b) * P;
-  const size_t bp = static_cast<size_t>(B) * P;
-  for (int e = threadIdx.x; e < nv_d; e += blockDim.x) {
-#pragma unroll
-    for (int o = 0; o < 2; ++o) {
-      const size_t g = o * bp + row0 + static_cast<size_t>(d) * kChunk + e;
-      sk[o][e] = S.key[g];
-      sc[o][e] = S.col[g];
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nv_c; e += blockDim.x) {
-#pragma unroll
-    for (int o = 0; o < 2; ++o) {
-      const size_t g = o * bp + row0 + static_cast<size_t>(c) * kChunk + e;
-      const uint64_t k = S.key[g];
-      const uint32_t j = S.col[g];
-      int lo = 0, hi = nv_d;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (pair_less(sk[o][mid], sc[o][mid], k, j)) lo = mid + 1; else hi = mid;
-      }
-      if (lo) atomicAdd(S.at + g, lo);
-    }
-  }
-}
-
-// Launch 3: each entry to its place: the orders' (x, y) and each
-// column's positions.
-__global__ void __launch_bounds__(kPlaceThreads)
-radius_counts_place(const float* __restrict__ x, const float* __restrict__ y,
-                    int B, int P, Scratch S) {
-  const int per = (P + kPlaceThreads - 1) / kPlaceThreads;
-  const int b = blockIdx.x / per;
-  const int g = (blockIdx.x % per) * kPlaceThreads + threadIdx.x;
-  if (g >= P) return;
-  const int nc = chunks_of(P);
-  if (g % kChunk >= S.stats[3 * (static_cast<size_t>(b) * nc + g / kChunk)]) return;
-  const size_t row0 = static_cast<size_t>(b) * P;
-  const size_t bp = static_cast<size_t>(B) * P;
-  const uint32_t jx = S.col[row0 + g], jy = S.col[bp + row0 + g];
-  const int ax = S.at[row0 + g], ay = S.at[bp + row0 + g];
-  S.xo[row0 + ax] = make_float2(x[row0 + jx], y[row0 + jx]);
-  S.pos_x[row0 + jx] = ax;
-  S.yo[row0 + ay] = make_float2(x[row0 + jy], y[row0 + jy]);
-  S.pos_y[row0 + jy] = ay;
-}
+// ---- P > kWarpP: the orders in scratch (orders::launch_orders), then the
+// rows ---------------------------------------------------------------------
 
 // Launch 4: one thread a column.  With stage set the block first copies
 // its sample's two orders into shared memory (16 P bytes); otherwise
@@ -1285,45 +789,19 @@ radius_counts_rows(const unsigned char* __restrict__ mask, int P, int k,
   const int b = blockIdx.x / per;
   const int j = (blockIdx.x % per) * blockDim.x + threadIdx.x;
   const size_t row0 = static_cast<size_t>(b) * P, o = row0 + j;
-  const int nc = chunks_of(P);
-  const int* st = S.stats + 3 * static_cast<size_t>(b) * nc;
-  int n = 0, nan_x = 0, nan_y = 0;
-  for (int c = 0; c < nc; ++c) {
-    n += st[3 * c];
-    nan_x += st[3 * c + 1];
-    nan_y += st[3 * c + 2];
-  }
+  int n, nan_x, nan_y;
+  orders::sample_stats(S, b, P, n, nan_x, nan_y);
   const float2* X = S.xo + row0;
   const float2* Yo = S.yo + row0;
   if (stage) {
     float2* sx = reinterpret_cast<float2*>(smem);
     float2* sy = sx + P;
-    constexpr int kU = 8;  // loads in flight a thread
-    for (int e0 = threadIdx.x; e0 < n; e0 += kU * blockDim.x) {
-      float2 a[kU], c[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int e = e0 + u * blockDim.x;
-        if (e < n) {
-          a[u] = X[e];
-          c[u] = Yo[e];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        const int e = e0 + u * blockDim.x;
-        if (e < n) {
-          sx[e] = a[u];
-          sy[e] = c[u];
-        }
-      }
-    }
-    __syncthreads();
+    orders::stage_orders(X, Yo, n, sx, sy);
     X = sx;
     Yo = sy;
   }
   if (j >= P) return;
-  out.put(o, mask[o] ? row<W, JOINT, ALL>(X, Yo, n - nan_x, n - nan_y,
+  out.put(o, mask[o] ? row<W, JOINT, ALL, true>(X, Yo, n - nan_x, n - nan_y,
                                           S.pos_x[o], S.pos_y[o], k, kb, kk)
                      : Stats());
 }
@@ -1340,23 +818,8 @@ int launch(const float* x, const float* y, const unsigned char* mask, int B,
     return static_cast<int>(cudaGetLastError());
   }
   Scratch S;
-  carve(static_cast<unsigned char*>(scratch), B, P, &S);
-  const unsigned nc = static_cast<unsigned>(chunks_of(P));
-  radius_counts_sort<<<static_cast<unsigned>(B) * nc, kChunk / 2, 24 * kChunk,
-                       stream>>>(
-      x, y, mask, B, P, S);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  if (nc > 1) {
-    radius_counts_rank<<<static_cast<unsigned>(B) * nc * nc, kPlaceThreads,
-                         24 * kChunk, stream>>>(B, P, S);
-    err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-  }
-  const unsigned place = (P + kPlaceThreads - 1) / kPlaceThreads;
-  radius_counts_place<<<static_cast<unsigned>(B) * place, kPlaceThreads, 0,
-                        stream>>>(x, y, B, P, S);
-  err = static_cast<int>(cudaGetLastError());
+  orders::carve(static_cast<unsigned char*>(scratch), B, P, &S);
+  int err = orders::launch_orders<true, true>(x, y, mask, B, P, S, stream);
   if (err) return err;
   // In joint mode a sample that fits a block's shared memory is staged
   // there (the band walks dwell on it); the rows are then spread so that
@@ -1374,10 +837,7 @@ int launch(const float* x, const float* y, const unsigned char* mask, int B,
       if (err) return err;
       opted = true;
     }
-    const long long want = (static_cast<long long>(B) * P + kSMs - 1) / kSMs;
-    threads = static_cast<int>(min(static_cast<long long>(kRowMaxThreads),
-                                   max(static_cast<long long>(kRowThreads),
-                                       (want + 31) / 32 * 32)));
+    threads = orders::spread_threads(B, P, kRowThreads, kRowMaxThreads);
   }
   const unsigned rows = (P + threads - 1) / threads;
   radius_counts_rows<W, JOINT, ALL>
@@ -1455,8 +915,8 @@ extern "C" int radius_counts_launch(const float* x, const float* y,
 }
 
 extern "C" long long radius_counts_tiled_scratch(int B, int P) {
-  if (B <= 0 || P <= tiled::kWarpP) return 0;
-  return static_cast<long long>(tiled::carve(nullptr, B, P, nullptr));
+  if (B <= 0 || P <= orders::kWarpP) return 0;
+  return static_cast<long long>(orders::carve(nullptr, B, P, nullptr));
 }
 
 extern "C" int radius_counts_tiled_launch(const float* x, const float* y,

@@ -14,18 +14,19 @@ range).  Both are bit-equal to ``ref.radius_counts``.
 :func:`knn_smallest` and :func:`ball_counts` are sent the same way
 (:func:`takes_staged_two_op`): to a staged body (one warp a sample,
 sorted by value, selection and counts along the sorted orders) or to a
-tiled body (one row a thread over column tiles), each bit-equal to its
+tiled body (the tiled ``radius_counts`` body's sorted orders,
+``csrc/sorted_orders.cuh``, then one thread a row: selection along the
+orders, every count a binary-searched range), each bit-equal to its
 ``ref`` function.
 
-Each body but the tiled ``radius_counts`` launches at one rung of its
-launch-shape ladder (the staged bodies' cap on samples a block,
-``STAGED_WARPS``; the tiled two-op bodies' column tile,
-``TWO_OP_TILED_COLS``).  Every rung leaves every output bit as the
-default rung (the body's constant before it was tuned) leaves it.  A
-body's ``rung=None`` asks :mod:`repro_torch.kernels.autotune` (key: the
-body's name, the card, the P bucket); with ``REPRO_AUTOTUNE`` unset and
-no cache file that is the default.  A value off the ladder raises.  The
-tiled ``radius_counts`` body has no ladder.
+Each staged body launches at one rung of its launch-shape ladder (its
+cap on samples a block, ``STAGED_WARPS``).  Every rung leaves every
+output bit as the default rung (the body's constant before it was tuned)
+leaves it.  A body's ``rung=None`` asks
+:mod:`repro_torch.kernels.autotune` (key: the body's name, the card, the
+P bucket); with ``REPRO_AUTOTUNE`` unset and no cache file that is the
+default.  A value off the ladder raises.  The tiled bodies have no
+ladder.
 
 Each source is built at first use by :mod:`repro_torch.kernels._build`
 (``nvcc`` for ``sm_90a`` into ``build/kernels/``, loaded with ``ctypes``).
@@ -45,9 +46,9 @@ import torch
 from repro_torch.kernels import autotune
 from repro_torch.kernels._build import BuiltLibrary, build, find_nvcc
 
-__all__ = ["SOURCE", "STAGED_MAX_P", "STAGED_MAX_W",
+__all__ = ["SORTED_ORDERS", "SOURCE", "STAGED_MAX_P", "STAGED_MAX_W",
            "STAGED_WARPS", "TILED_CHUNK", "TUNED", "TWO_OP_SOURCE",
-           "TWO_OP_STAGED_MAX_KB", "TWO_OP_STAGED_MAX_P", "TWO_OP_TILED_COLS", "BuiltLibrary",
+           "TWO_OP_STAGED_MAX_KB", "TWO_OP_STAGED_MAX_P", "BuiltLibrary",
            "ball_counts", "ball_counts_staged", "ball_counts_tiled",
            "find_nvcc", "knn_smallest", "knn_smallest_staged",
            "knn_smallest_tiled", "load_library", "load_two_op_library",
@@ -56,13 +57,15 @@ __all__ = ["SOURCE", "STAGED_MAX_P", "STAGED_MAX_W",
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "radius_counts.cu"
 TWO_OP_SOURCE = Path(__file__).resolve().parent / "csrc" / "knn_two_op.cu"
+# The sorted route both tiled bodies include.
+SORTED_ORDERS = Path(__file__).resolve().parent / "csrc" / "sorted_orders.cuh"
 
 # The staged body's range (radius_counts.cu, staged::kMaxP / kMaxW): the
 # whole sample in one warp's shared memory, and a register buffer of at
 # most 16 lanes.
 STAGED_MAX_P = 1024
 STAGED_MAX_W = 16
-# The tiled body's sort chunk (radius_counts.cu, tiled::kChunk): a
+# The tiled bodies' sort chunk (sorted_orders.cuh, orders::kChunk): a
 # sample of up to 256 columns is sorted by one warp in registers, a
 # longer one in chunks of this many columns, sorted in shared memory and
 # merged by rank in device scratch.
@@ -72,27 +75,18 @@ TILED_CHUNK = 1024
 TWO_OP_STAGED_MAX_P = 1024
 TWO_OP_STAGED_MAX_KB = 16
 
-# Launch-shape ladders (the C entries refuse any other value).  Staged
-# bodies: samples (warps) a block at most, as many as fit 48 KB below it
-# (radius_counts.cu and knn_two_op.cu, staged::kWarpRungs); one warp a
-# sample, so no rung changes an output bit.  Tiled two-op bodies: columns
-# staged in shared memory a step (knn_two_op.cu, tiled::kColRungs); every
-# row visits the columns in the same order at every rung.
+# Launch-shape ladders (the C entries refuse any other value): samples
+# (warps) a block at most, as many as fit 48 KB below it (radius_counts.cu
+# and knn_two_op.cu, staged::kWarpRungs); one warp a sample, so no rung
+# changes an output bit.
 STAGED_WARPS = (1, 2, 4, 8)
-TWO_OP_TILED_COLS = (1024, 2048, 4096)
 # Each tuned body's autotuner key name -> (ladder, default rung).
 TUNED = {"radius_counts_staged": (STAGED_WARPS, 8),
-         "knn_two_op_staged": (STAGED_WARPS, 8),
-         "knn_two_op_tiled": (TWO_OP_TILED_COLS, 2048)}
+         "knn_two_op_staged": (STAGED_WARPS, 8)}
 # The entries each key's measure times, and the key of each entry.
 _ENTRIES = {"radius_counts_staged": ("radius_counts_launch",),
-            "knn_two_op_staged": ("knn_smallest_launch", "ball_counts_launch"),
-            "knn_two_op_tiled": ("knn_smallest_tiled_launch",
-                                 "ball_counts_tiled_launch")}
+            "knn_two_op_staged": ("knn_smallest_launch", "ball_counts_launch")}
 _KEY = {e: name for name, entries in _ENTRIES.items() for e in entries}
-# The most (sample, row, column) triples a tiled body's sweep visits: as
-# many as the discovery path's B = 65536 samples at P = 256 hold.
-_TILED_PAIRS = 1 << 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,16 +114,21 @@ def load_two_op_library() -> BuiltLibrary:
     """Build (once per source version) and load the two-op library (both
     bodies' entries of each op)."""
     built = build(TWO_OP_SOURCE)
-    for name in ("knn_smallest_launch", "knn_smallest_tiled_launch"):
-        fn = getattr(built.lib, name)
+    # Before the stream, a staged entry takes its cap on samples a block,
+    # a tiled entry its scratch buffer.
+    for op, extra in (("", ctypes.c_int), ("_tiled", ctypes.c_void_p)):
+        fn = getattr(built.lib, f"knn_smallest{op}_launch")
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_void_p] * 2 + [extra, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for name in ("ball_counts_launch", "ball_counts_tiled_launch"):
-        fn = getattr(built.lib, name)
+        fn = getattr(built.lib, f"ball_counts{op}_launch")
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_void_p, extra, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for op in ("knn_smallest", "ball_counts"):
+        fn = getattr(built.lib, f"{op}_tiled_scratch")
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_longlong
     return built
 
 
@@ -139,19 +138,27 @@ def _check_batch(name: str, x, y, mask, *extra) -> tuple[int, int]:
     Parameter ranges are ``ops``'s to check."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got {x.device}")
-    floats = (x, y) + extra
-    if x.dim() != 2 or any(t.shape != x.shape for t in floats + (mask,)):
-        raise ValueError(
-            f"x, y, mask must share one (B, P) shape: "
-            f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(mask.shape)}"
-        )
-    if any(t.dtype != torch.float32 for t in floats) or mask.dtype != torch.bool:
+    # Plain loops: a call at B = 1 pays for every host step.
+    tensors = (x, y, *extra, mask)
+    shape, device = x.shape, x.device
+    for t in tensors:
+        if len(shape) != 2 or t.shape != shape:
+            raise ValueError(
+                f"x, y, mask must share one (B, P) shape: "
+                f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(mask.shape)}"
+            )
+    for t in tensors[:-1]:
+        if t.dtype != torch.float32:
+            raise TypeError("x, y must be float32 and mask bool")
+    if mask.dtype != torch.bool:
         raise TypeError("x, y must be float32 and mask bool")
-    if not all(t.is_contiguous() for t in floats + (mask,)):
-        raise ValueError("x, y, mask must be contiguous")
-    if any(t.device != x.device for t in floats + (mask,)):
-        raise ValueError("x, y, mask must lie on one device")
-    B, P = x.shape
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("x, y, mask must be contiguous")
+    for t in tensors:
+        if t.device != device:
+            raise ValueError("x, y, mask must lie on one device")
+    B, P = shape
     if B * P >= 2**31:
         raise ValueError(f"B*P={B * P} exceeds the kernel's int32 range")
     return B, P
@@ -190,17 +197,14 @@ def _measure(name: str, B: int, P: int, k: int, kb: int, device,
              bucket: int, default: int):
     """The autotuner's measure factory for the tuned body ``name``: the
     body at the calling launch's B, P (as the caller padded it; the
-    bucket is only the cache key), k and kb (a tiled body, whose work is
-    B * P^2 pairs, at most ``_TILED_PAIRS`` pairs: B cut to fit), timed
-    over the launches the discovery path makes on it: for radius_counts
-    the three KSG modes of a warm ``query_many`` (MixedKSG's joint/all
-    on continuous data; DC-KSG's class/y on a continuous and on a
-    discrete target), for the two-op bodies both ``knn_smallest`` modes
-    and both ``ball_counts`` sets (kb 3, the discovery path's, when a
-    ``ball_counts`` launch resolves the key).  None of these launches is
-    counted by the wrappers."""
-    if name.endswith("_tiled"):
-        B = min(B, max(1, _TILED_PAIRS // (P * P)))
+    bucket is only the cache key), k and kb, timed over the launches the
+    discovery path makes on it: for radius_counts the three KSG modes of
+    a warm ``query_many`` (MixedKSG's joint/all on continuous data;
+    DC-KSG's class/y on a continuous and on a discrete target), for the
+    two-op bodies both ``knn_smallest`` modes and both ``ball_counts``
+    sets (kb 3, the discovery path's, when a ``ball_counts`` launch
+    resolves the key).  None of these launches is counted by the
+    wrappers."""
     t = _tune_samples(B, P, device)
     x, y, yd, codes, m, r = (t[n] for n in ("x", "y", "yd", "codes", "mask",
                                             "r"))
@@ -263,15 +267,28 @@ def radius_counts(
     return out
 
 
+def _on(device):
+    """The device context a launch needs: none when ``device`` is the
+    current one (a call at B = 1 pays for every host step)."""
+    return (contextlib.nullcontext() if device.index == torch.cuda.current_device()
+            else torch.cuda.device(device))
+
+
+def _scratch(nbytes: int, device):
+    """A tiled body's device scratch (the chunks' sorted pairs and the
+    sorted orders): a buffer and its pointer, or neither."""
+    if not nbytes:
+        return None, None
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return scratch, scratch.data_ptr()
+
+
 def _launch_rc(entry: str, x, y, mask, k, kb, kk, mode, which, rung=None):
     B, P = _check_batch("radius_counts", x, y, mask)
     built = load_library()
     if entry == "radius_counts_tiled_launch":
-        # The chunks' sorted pairs and the sorted orders (P > 256).
-        nbytes = built.lib.radius_counts_tiled_scratch(B, P)
-        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-                   if nbytes else None)
-        extra = scratch.data_ptr() if nbytes else None
+        scratch, extra = _scratch(built.lib.radius_counts_tiled_scratch(B, P),
+                                  x.device)
     else:
         extra = _rung(entry, rung, B, P, x.device, k, kb)
     # r, cnt and the 5 count planes are views of one allocation, so that a
@@ -281,9 +298,7 @@ def _launch_rc(entry: str, x, y, mask, k, kb, kk, mode, which, rung=None):
     r = out[:4 * n].view(torch.float32).view(B, P)
     cnt = out[4 * n:8 * n].view(torch.int32).view(B, P)
     counts = out[8 * n:].view(torch.int32).view(5, B, P)
-    on = (contextlib.nullcontext() if x.device.index == torch.cuda.current_device()
-          else torch.cuda.device(x.device))
-    with on:
+    with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(built.lib, entry)(
             x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, P, int(k),
@@ -351,17 +366,31 @@ def knn_smallest(
     return out
 
 
+def _two_op_extra(entry: str, rung, B: int, P: int, device, kb: int):
+    """What a two-op entry takes before the stream: a tiled entry its
+    scratch (the buffer is returned beside it, to outlive the launch), a
+    staged one its rung."""
+    if entry.endswith("_tiled_launch"):
+        size = getattr(load_two_op_library().lib,
+                       entry.replace("_launch", "_scratch"))
+        return _scratch(size(B, P), device)
+    return None, _rung(entry, rung, B, P, device, kb, kb)
+
+
 def _launch_knn(entry: str, x, y, mask, kb, mode, rung=None):
     B, P = _check_batch("knn_smallest", x, y, mask)
-    rung = _rung(entry, rung, B, P, x.device, kb, kb)
+    scratch, extra = _two_op_extra(entry, rung, B, P, x.device, kb)
     built = load_two_op_library()
-    knn = torch.empty((B, P, kb), dtype=torch.float32, device=x.device)
-    cnt = torch.empty((B, P), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
+    # knn and cnt are views of one allocation (one allocator call at B = 1).
+    n = B * P
+    out = torch.empty(4 * n * (kb + 1), dtype=torch.uint8, device=x.device)
+    knn = out[:4 * n * kb].view(torch.float32).view(B, P, kb)
+    cnt = out[4 * n * kb:].view(torch.int32).view(B, P)
+    with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(built.lib, entry)(
             x.data_ptr(), y.data_ptr(), mask.data_ptr(), B, P, int(kb),
-            int(mode == "joint"), knn.data_ptr(), cnt.data_ptr(), rung,
+            int(mode == "joint"), knn.data_ptr(), cnt.data_ptr(), extra,
             stream,
         )
     _raise_on(entry, err)
@@ -380,13 +409,15 @@ def knn_smallest_staged(x, y, mask, *, kb, mode, rung=None):
     return out
 
 
-def knn_smallest_tiled(x, y, mask, *, kb, mode, rung=None):
+def knn_smallest_tiled(x, y, mask, *, kb, mode):
     """The tiled body (``knn_smallest_tiled_launch``): the contract of
-    :func:`knn_smallest` for any P and kb up to ``K_MAX``.  ``rung``: the
-    column tile, one of ``TWO_OP_TILED_COLS`` (None: the autotuner's).
-    ``knn_smallest_tiled.launches`` counts its launches."""
+    :func:`knn_smallest` for any P and kb up to ``K_MAX``.  One call makes
+    one CUDA launch up to P = 256, and two to four beyond for each slice
+    of the batch (the sorted orders through device scratch, then the rows;
+    40 bytes a column, the batch sliced so that the scratch stays within
+    1 GiB); ``knn_smallest_tiled.launches`` counts the call once."""
     out, launched = _launch_knn("knn_smallest_tiled_launch", x, y, mask, kb,
-                                mode, rung)
+                                mode)
     knn_smallest_tiled.launches += launched
     return out
 
@@ -418,15 +449,15 @@ def ball_counts(
 
 def _launch_bc(entry: str, x, y, mask, r, which, rung=None):
     B, P = _check_batch("ball_counts", x, y, mask, r)
-    rung = _rung(entry, rung, B, P, x.device, 3, 3)
+    scratch, extra = _two_op_extra(entry, rung, B, P, x.device, 3)
     built = load_two_op_library()
     counts = torch.empty((5, B, P), dtype=torch.int32, device=x.device)
     every = which == "all"
-    with torch.cuda.device(x.device):
+    with _on(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(built.lib, entry)(
             x.data_ptr() if every else None, y.data_ptr(), mask.data_ptr(),
-            r.data_ptr(), B, P, int(every), counts.data_ptr(), rung, stream,
+            r.data_ptr(), B, P, int(every), counts.data_ptr(), extra, stream,
         )
     _raise_on(entry, err)
     return counts, int(B * P > 0)
@@ -444,13 +475,14 @@ def ball_counts_staged(x, y, mask, r, *, which, rung=None):
     return out
 
 
-def ball_counts_tiled(x, y, mask, r, *, which, rung=None):
+def ball_counts_tiled(x, y, mask, r, *, which):
     """The tiled body (``ball_counts_tiled_launch``): the contract of
-    :func:`ball_counts` for any P.  ``rung``: the column tile, one of
-    ``TWO_OP_TILED_COLS`` (None: the autotuner's).
-    ``ball_counts_tiled.launches`` counts its launches."""
+    :func:`ball_counts` for any P.  One call makes two CUDA launches up
+    to P = 1024, and four beyond, for each slice of the batch, through
+    scratch as :func:`knn_smallest_tiled`'s;
+    ``ball_counts_tiled.launches`` counts the call once."""
     out, launched = _launch_bc("ball_counts_tiled_launch", x, y, mask, r,
-                               which, rung)
+                               which)
     ball_counts_tiled.launches += launched
     return out
 

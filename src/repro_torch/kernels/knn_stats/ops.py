@@ -133,7 +133,10 @@ def knn_smallest(
     class codes).  ``k_max`` widens the buffer beyond ``k`` (capped at
     :data:`K_MAX`).  Returns (knn float32 ``(..., P, max(k, k_max))``,
     ascending with +inf padding; cnt int32 ``(..., P)``, the valid
-    same-class neighbours j != i, zeros in joint mode).
+    same-class neighbours j != i, zeros in joint mode).  On the card,
+    samples of more than 256 columns that take the tiled body (P > 1024,
+    or a buffer wider than 16) also take 40 bytes of device scratch a
+    column while the call runs, at most 1 GiB (or one sample's).
     """
     _check_mode(mode)
     kb = _buffer_width(k, k_max)
@@ -153,7 +156,9 @@ def ball_counts(
     """Ball / tie counts per row at a per-row radius ``r`` (the batch
     shape): strict ``< r_i`` in both marginals and the exact ties, over
     valid j != i.  ``which="y"`` computes only ``y_lt`` (the rest are
-    zeros) and never reads x."""
+    zeros) and never reads x.  On the card, samples of more than 1024
+    columns (the tiled body) also take 40 bytes of device scratch a column
+    while the call runs, at most 1 GiB (or one sample's)."""
     _check_mode(which=which)
     xf, yf, m, shape = _flat(x, y, mask)
     rf = r.to(torch.float32).reshape(xf.shape).contiguous()

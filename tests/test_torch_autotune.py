@@ -37,6 +37,7 @@ import torch
 
 from repro.kernels import autotune as ref_tune
 from repro_torch.kernels import autotune
+from repro_torch.kernels._build import local_includes
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.knn_stats import kernel as knn_kernel
@@ -50,7 +51,7 @@ ROOT = Path(__file__).resolve().parents[1]
 CARD = "NVIDIA H100 80GB HBM3"
 # Every key name the port resolves, one per tuned body.
 PORT_KERNELS = ("radius_counts_staged", "knn_two_op_staged",
-                "knn_two_op_tiled", "pairwise_cheb")
+                "pairwise_cheb")
 # The reference's key names (knn_stats/ops.py, pairwise_cheb/ops.py,
 # flash_attention/ops.py).
 REF_KERNELS = ("knn_stats_pallas", "knn_stats_scan", "pairwise_cheb",
@@ -145,10 +146,10 @@ class TestModes:
 
     def test_ties_break_toward_the_smaller_rung(self, monkeypatch):
         monkeypatch.setenv("REPRO_AUTOTUNE", "on")
-        got = autotune.resolve("knn_two_op_tiled", shape=2048, default=2048,
-                               backend=CARD, candidates=(1024, 2048, 4096),
-                               measure=fake({1024: 1.0, 2048: 1.0, 4096: 1.0}))
-        assert got == 1024
+        got = autotune.resolve("knn_two_op_staged", shape=1024, default=8,
+                               backend=CARD, candidates=(1, 2, 4, 8),
+                               measure=fake({1: 1.0, 2: 1.0, 4: 1.0, 8: 1.0}))
+        assert got == 1
 
     def test_failing_rungs_are_skipped_and_all_failing_raises(self,
                                                               monkeypatch):
@@ -188,15 +189,15 @@ class TestCacheTolerance:
     def test_off_ladder_entry_warns_and_gives_the_default(self, cache):
         cache.write_text(json.dumps({"version": 1, "entries": {
             f"pairwise_cheb|{CARD}|float32|256": {"block": 7},
-            f"knn_two_op_tiled|{CARD}|float32|2048": {"block": "2048"}}}))
+            f"knn_two_op_staged|{CARD}|float32|1024": {"block": "8"}}}))
         with pytest.warns(UserWarning, match="invalid block"):
             assert autotune.resolve("pairwise_cheb", shape=256, default=8,
                                     backend=CARD,
                                     candidates=pc_kernel.ROW_STEPS) == 8
         with pytest.warns(UserWarning, match="invalid block"):
-            assert autotune.resolve("knn_two_op_tiled", shape=2048,
-                                    default=2048, backend=CARD,
-                                    candidates=(1024, 2048, 4096)) == 2048
+            assert autotune.resolve("knn_two_op_staged", shape=1024,
+                                    default=8, backend=CARD,
+                                    candidates=(1, 2, 4, 8)) == 8
 
 
 class TestBuckets:
@@ -212,8 +213,8 @@ class TestParity:
 
     CASES = [("radius_counts_staged", 256, 8, (1, 2, 4, 8),
               {1: 3.0, 2: 1.0, 4: 0.5, 8: 2.0}),
-             ("knn_two_op_tiled", 1500, 2048, (1024, 2048, 4096),
-              {1024: 2.0, 2048: 2.0, 4096: 1.0}),
+             ("knn_two_op_staged", 1000, 8, (1, 2, 4, 8),
+              {1: 2.0, 2: 2.0, 4: 2.0, 8: 1.0}),
              ("pairwise_cheb", 2079, 8, (4, 8, 16, 32),
               {4: 1.0, 8: 1.0, 16: 1.0, 32: 1.0})]
 
@@ -232,7 +233,7 @@ class TestParity:
 
     def test_same_winners_and_entries(self, monkeypatch, tmp_path):
         files = self._sweep_both(monkeypatch, tmp_path)
-        assert files["port_winners"] == files["ref_winners"] == [4, 4096, 4]
+        assert files["port_winners"] == files["ref_winners"] == [4, 8, 4]
         assert json.loads(files["port"].read_text()) \
             == json.loads(files["ref"].read_text())
         assert files["port"].read_text() == files["ref"].read_text()
@@ -383,10 +384,11 @@ class TestPortRules:
         assert len(made) == 1
 
     @pytest.mark.parametrize("body", ["radius_counts_staged",
-                                      "knn_two_op_tiled", "pairwise_cheb"])
+                                      "knn_two_op_staged", "pairwise_cheb"])
     def test_a_measure_factory_times_the_calls_own_P(self, body, monkeypatch):
         """At P = 1280 (bucket 2048) the sweep's launches are at P = 1280:
-        the bucket is only the cache key."""
+        the bucket is only the cache key (the factory never checks P
+        against the body's range; its launches are stubbed here)."""
         seen = []
         monkeypatch.setattr(autotune, "time_launch",
                             lambda run, launches=1: (run(), 0.0)[1])
@@ -410,6 +412,10 @@ class TestPortRules:
     @pytest.mark.parametrize("body, source, constant", [
         (knn_kernel.radius_counts_tiled, "knn_stats/csrc/radius_counts.cu",
          r"constexpr int kChunk = 1024;"),
+        (knn_kernel.knn_smallest_tiled, "knn_stats/csrc/knn_two_op.cu",
+         r"constexpr int kChunk = 1024;"),
+        (knn_kernel.ball_counts_tiled, "knn_stats/csrc/knn_two_op.cu",
+         r"constexpr int kChunk = 1024;"),
         (fa_kernel.flash_attention_simt_regtile,
          "flash_attention/csrc/flash_attention.cu",
          r"constexpr int kRows = 128;"),
@@ -421,9 +427,10 @@ class TestPortRules:
     def test_untuned_bodies_take_no_rung(self, body, source, constant):
         """The bodies left at their constants (no rung of another launch
         shape was faster on the card) take no ``rung`` and keep the
-        constant in their source."""
+        constant in their source (with the local headers it includes)."""
         assert "rung" not in inspect.signature(body).parameters
-        text = (ROOT / "src" / "repro_torch" / "kernels" / source).read_text()
+        text = "".join(p.read_text() for p in local_includes(
+            ROOT / "src" / "repro_torch" / "kernels" / source))
         if constant is not None:
             assert re.search(constant, text), constant
 
@@ -441,12 +448,11 @@ class TestPortRules:
         rc, two = "knn_stats/csrc/radius_counts.cu", "knn_stats/csrc/knn_two_op.cu"
         assert rungs(rc, "kWarpRungs") == rungs(two, "kWarpRungs") \
             == knn_kernel.STAGED_WARPS
-        assert rungs(two, "kColRungs") == knn_kernel.TWO_OP_TILED_COLS
+        assert "kColRungs" not in (csrc / two).read_text()
         assert rungs("pairwise_cheb/csrc/pairwise_cheb.cu", "kRowSteps") \
             == pc_kernel.ROW_STEPS
         assert {k: v[1] for k, v in knn_kernel.TUNED.items()} == {
-            "radius_counts_staged": 8, "knn_two_op_staged": 8,
-            "knn_two_op_tiled": 2048}
+            "radius_counts_staged": 8, "knn_two_op_staged": 8}
         assert pc_kernel.ROW_STEP_DEFAULT == 8
 
 
@@ -480,10 +486,6 @@ def test_every_rung_is_bit_equal_on_the_card(cuda_device):
             *knn_kernel.knn_smallest_staged(x, y, m, kb=3, mode="joint",
                                             rung=g),
             knn_kernel.ball_counts_staged(x, y, m, r, which="all", rung=g)),
-        "knn_two_op_tiled": lambda g: (
-            *knn_kernel.knn_smallest_tiled(codes, y, m, kb=5, mode="class",
-                                           rung=g),
-            knn_kernel.ball_counts_tiled(x, y, m, r, which="y", rung=g)),
     }
     for name, run in cases.items():
         ladder, default = knn_kernel.TUNED[name]

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from repro.kernels.knn_stats import ops as j_ops
 from repro_torch.kernels.knn_stats import kernel, ref
 from repro_torch.kernels.knn_stats import ops as t_ops
+from test_torch_knn_stats import _batch_samples
 
 B = 4  # samples per case, batched on the port's side
 USE_KERNEL = pytest.mark.parametrize("use_kernel", [False, True],
@@ -282,7 +283,9 @@ def cuda_device():
 
 # The card-side cases: KNN_CASES plus the edges of the staged bodies'
 # range (P = 1024, kb = 16) and past them (P = 1025, kb = 17 and 128), so
-# that each body of each op is reached.
+# that each body of each op is reached; and the tiled body's walks (kb =
+# 64 with the band buffer, 65 with the four-stream walk) past one sort
+# chunk.
 CUDA_KNN_CASES = KNN_CASES + [
     (1024, "joint", 16, None),
     (1024, "class", 3, 16),
@@ -290,6 +293,9 @@ CUDA_KNN_CASES = KNN_CASES + [
     (1025, "class", 3, None),
     (256, "joint", 17, None),
     (256, "class", 3, j_ops.K_MAX),
+    (2048, "joint", 64, None),
+    (2048, "joint", 65, None),
+    (2048, "class", 3, 65),
 ]
 
 
@@ -325,7 +331,7 @@ def test_cuda_knn_smallest_matches_plain(cuda_device, P, mode, k, k_max):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [300, 1024, 1025])
+@pytest.mark.parametrize("P", [300, 1024, 1025, 2048])
 @pytest.mark.parametrize("which", ["all", "y"])
 @pytest.mark.parametrize("kind", ["random", "zero", "inf", "distance"])
 def test_cuda_ball_counts_match_plain(cuda_device, kind, which, P):
@@ -345,6 +351,95 @@ def test_cuda_ball_counts_match_plain(cuda_device, kind, which, P):
     if not staged:
         with pytest.raises(RuntimeError, match="launch failed"):
             st(*T, which=which)
+
+
+# The tiled bodies' card cases (``_batch_samples``: ties, -0.0 beside
+# +0.0, ragged masks; from B = 3 on an all-invalid sample and one with
+# fewer valid columns than kb; NaN and +-inf x or y with finite=False):
+# long samples at B = 1 and 64 (P = 40,000 at B = 64 once: its plain
+# version takes ~30 GB a sample), every width of the tiled route at
+# P = 256 (B = 4096, one warp a sample) and at P = 2048 (past one chunk).
+TILED_KNN_CASES = [
+    (B, P, mode, 3, finite)
+    for P in (2048, 10000, 40000)
+    for B in (1, 64)
+    for mode in ("joint", "class")
+    for finite in (True, False)
+    if P < 40000 or B == 1 or (mode, finite) == ("joint", False)
+] + [
+    (B, P, mode, kb, finite)
+    for B, P in ((4096, 256), (64, 2048))
+    for kb in (17, 32, 64, 65, 128)
+    for mode in ("joint", "class")
+    for finite in (True, False)
+]
+TILED_BALL_CASES = [
+    (B, P, which, kind, finite)
+    for B, P, kinds in ((4096, 256, ("random", "zero", "inf", "nan", "distance")),
+                        (1, 2048, ("random", "zero", "inf", "nan", "distance")),
+                        (64, 2048, ("random", "zero", "inf", "nan", "distance")),
+                        (1, 10000, ("random", "distance")),
+                        (64, 10000, ("random", "distance")),
+                        (1, 40000, ("random", "distance")))
+    for which in ("all", "y")
+    for kind in kinds
+    for finite in (True, False)
+]
+
+
+def _device_radii(kind, T, rng):
+    """r on the card, as ``_radii`` (and NaN); the distance from the plain
+    version on the card."""
+    x, y, mask = T
+    if kind == "distance":
+        return ref.knn_smallest(x, y, mask, kb=2, mode="joint")[0][..., 1].contiguous()
+    fill = {"zero": 0.0, "inf": float("inf"), "nan": float("nan")}
+    if kind in fill:
+        return torch.full_like(x, fill[kind])
+    return torch.from_numpy(
+        rng.uniform(0, 2, size=tuple(x.shape)).astype(np.float32)).to(x.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,P,mode,kb,finite", TILED_KNN_CASES)
+def test_cuda_tiled_knn_smallest_matches_plain(cuda_device, B, P, mode, kb,
+                                               finite):
+    """On the card: the body the rule names (one count a call) and the
+    tiled body, each bit-equal to the plain version."""
+    x, y, mask = _batch_samples(B, P, mode, kb, seed=B + P + kb, finite=finite)
+    T = [torch.from_numpy(a).to(cuda_device) for a in (x, y, mask)]
+    want = ref.knn_smallest(*T, kb=kb, mode=mode)
+    wrapper, st, ti = _bodies("knn_smallest")
+    body = st if kernel.takes_staged_two_op(P, kb) else ti
+    before = (wrapper.launches, body.launches)
+    got = wrapper(*T, kb=kb, mode=mode)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, body.launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(ti(*T, kb=kb, mode=mode), want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,P,which,kind,finite", TILED_BALL_CASES)
+def test_cuda_tiled_ball_counts_match_plain(cuda_device, B, P, which, kind,
+                                            finite):
+    """On the card: the body the rule names and the tiled body (which ==
+    y through the launch that is given no x), each bit-equal to the plain
+    version at the radius ``kind``."""
+    x, y, mask = _batch_samples(B, P, "joint", 3, seed=B * 7 + P, finite=finite)
+    T = [torch.from_numpy(a).to(cuda_device) for a in (x, y, mask)]
+    r = _device_radii(kind, T, np.random.default_rng(P))
+    want = ref.ball_counts(*T, r, which=which)
+    wrapper, st, ti = _bodies("ball_counts")
+    body = st if kernel.takes_staged_two_op(P) else ti
+    before = (wrapper.launches, body.launches)
+    got = wrapper(*T, r, which=which)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, body.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+    assert torch.equal(ti(*T, r, which=which), want)
 
 
 @pytest.mark.cuda

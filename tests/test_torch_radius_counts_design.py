@@ -23,20 +23,20 @@ bit-equal to ``ref.radius_counts`` and to the JAX package's
 card (``test_torch_knn_stats.py``, ``chip_smoke.py``).
 """
 
-import bisect
-
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from _torch_sorted_route import (F32, INF, TILED_CHUNK, WARP_P, _band_width,
+                                 _band_radius, _bitonic_clean, _class_radius,
+                                 _class_runs, _code_key, _event_radius,
+                                 _insert, _row_counts, _sample_orders,
+                                 _sort_network, _tiled_orders)
 from repro.kernels.knn_stats import ops as j_ops
 from repro_torch.kernels.knn_stats import kernel, ref
 from test_torch_knn_stats import CASES, _edge_samples, _samples
-
-F32 = np.float32
-INF = F32(np.inf)
 
 
 def _width(need: int) -> int:
@@ -46,22 +46,6 @@ def _width(need: int) -> int:
         if need <= w:
             return w
     return need
-
-
-def _code_key(v: np.ndarray) -> np.ndarray:
-    """The kernel's ``code_key``: a float32's order as uint32, -0.0 folded
-    onto +0.0, every NaN 0xFFFFFFFF."""
-    v = np.where(v == 0, F32(0), v).astype(F32)
-    u = v.view(np.uint32)
-    key = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
-    return np.where(np.isnan(v), np.uint32(0xFFFFFFFF), key)
-
-
-def _insert(b: np.ndarray, d) -> None:
-    """b[s] = max(b[s-1], min(b[s], d)), s = W-1..1; b[0] = min(b[0], d)
-    (fmin/fmax drop a NaN operand, as fminf/fmaxf do)."""
-    b[1:] = np.fmax(b[:-1], np.fmin(b[1:], d))
-    b[0] = np.fmin(b[0], d)
 
 
 def _max_nan(a, b):
@@ -302,285 +286,42 @@ def test_every_case_has_a_body():
 #   sorts last and meets both predicates), j_eq within the x-tie range,
 #   which is sorted by y.
 #
-# ``_tiled_emulate`` repeats that route in numpy float32, vectorised over
-# a sample's rows, and is held bit-equal to ``ref.radius_counts`` and to
-# the JAX package's ``knn_radius_counts``.
-
-TILED_CHUNK = kernel.TILED_CHUNK
-WARP_P = 256  # radius_counts.cu, tiled::kWarpP: one warp a sample up to here
-DONE = np.uint64(0xFFFFFFFF)
-
-
-def _pair_order(key, cols):
-    """``cols`` sorted by (key, column) pairs."""
-    return cols[np.lexsort((cols, key[cols]))]
-
-
-def _tiled_orders(x, y, m):
-    """The x and y orders of one sample (arrays of columns)."""
-    P = len(x)
-    cols = np.flatnonzero(m)
-    hx = _code_key(x).astype(np.uint64)
-    hy = _code_key(y).astype(np.uint64)
-    if P <= WARP_P:
-        yo = _pair_order(hy, cols)
-        ypos = np.arange(len(yo))
-        xo = yo[np.lexsort((ypos, hx[yo]))]  # by (code_key(x), y position)
-        return xo, yo
-    kxy = (hx << np.uint64(32)) | hy
-    orders = []
-    for key in (kxy, hy):
-        pairs = [[(int(key[j]), int(j)) for j in _pair_order(
-                     key, cols[(cols >= c0) & (cols < c0 + TILED_CHUNK)])]
-                 for c0 in range(0, P, TILED_CHUNK)]
-        out = np.empty(len(cols), np.int64)
-        for c, chunk in enumerate(pairs):
-            for p, pair in enumerate(chunk):
-                out[p + sum(bisect.bisect_left(other, pair)
-                            for d, other in enumerate(pairs) if d != c)] = pair[1]
-        orders.append(out)
-    return orders[0], orders[1]
-
-
-def _search(arr, lo, hi, vi, t, le):
-    """Per row, the first position in [lo, hi) of ``arr`` where
-    !(vi - arr > t) (le) or !(vi - arr >= t): a binary search."""
-    lo, hi = lo.copy(), hi.copy()
-    while np.any(lo < hi):
-        go = lo < hi
-        mid = (lo + hi) // 2
-        f = vi - arr[np.minimum(mid, len(arr) - 1)]
-        pred = ~(f > t) if le else ~(f >= t)
-        hi = np.where(go & pred, mid, hi)
-        lo = np.where(go & ~pred, mid + 1, lo)
-    return lo
-
-
-def _bitonic_clean(b):
-    """Sorts each row of a bitonic (R, W) array ascending, stage by stage."""
-    W = b.shape[1]
-    stride = W // 2
-    while stride:
-        for i in range(W):
-            j = i ^ stride
-            if j > i:
-                lo, hi = np.fmin(b[:, i], b[:, j]), np.fmax(b[:, i], b[:, j])
-                b[:, i], b[:, j] = lo, hi
-        stride //= 2
-
-
-def _sort_network(c):
-    """Sorts each row of (R, G) ascending by the kernel's bitonic network."""
-    G = c.shape[1]
-    size = 2
-    while size <= G:
-        stride = size // 2
-        while stride:
-            for i in range(G):
-                j = i ^ stride
-                if j > i:
-                    a, d = (i, j) if (i & size) == 0 else (j, i)
-                    lo, hi = np.fmin(c[:, a], c[:, d]), np.fmax(c[:, a], c[:, d])
-                    c[:, a], c[:, d] = lo, hi
-            stride //= 2
-        size *= 2
-
-
-def _band_radius(xs, ys, nnx, s, xi, yi, t, W):
-    """Joint selection along the x band with a W-lane buffer."""
-    R = len(s)
-    b = np.full((R, W), INF, F32)
-    n = len(xs)
-    if W <= 8:
-        for step_dir in (1, -1):
-            j = s + step_dir
-            live = (j >= 0) & (j < nnx)
-            while np.any(live):
-                e = np.clip(j, 0, n - 1)
-                dx = np.abs(xi - xs[e])
-                live &= dx < b[:, -1]
-                d = np.maximum(dx, np.abs(yi - ys[e]))
-                nb = b.copy()
-                _insert(nb.T, d)  # the network, one candidate a row
-                b = np.where(live[:, None], nb, b)
-                j = j + step_dir
-                live &= (j >= 0) & (j < nnx)
-        return b[np.arange(R), t]
-    G = min(W // 2, 32)
-    jr, jl = s + 1, s - 1
-    right, left = jr < nnx, jl >= 0
-    while np.any(right | left):
-        for side in (0, 1):
-            j0 = jl if side else jr
-            live = left if side else right
-            e0 = np.clip(j0, 0, n - 1)
-            live = live & (np.abs(xi - xs[e0]) < b[:, -1])
-            c = np.full((R, G), INF, F32)
-            for u in range(G):
-                j = j0 - u if side else j0 + u
-                inside = (j >= 0) if side else (j < nnx)
-                e = np.clip(j, 0, n - 1)
-                d = np.maximum(np.abs(xi - xs[e]), np.abs(yi - ys[e]))
-                c[:, u] = np.where(inside & ~np.isnan(d), d, INF)
-            _sort_network(c)
-            nb = b.copy()
-            nb[:, W - G:] = np.fmin(nb[:, W - G:], c[:, ::-1])
-            _bitonic_clean(nb)
-            b = np.where(live[:, None], nb, b)
-            if side:
-                jl = np.where(live, jl - G, jl)
-                left = live & (jl >= 0)
-            else:
-                jr = np.where(live, jr + G, jr)
-                right = live & (jr < nnx)
-    return b[np.arange(R), t]
-
-
-def _heads(xo_, yo_, p, xi, yi, x_stream, inside):
-    """Stream heads: (value bits << 1 | completes), DONE past the end."""
-    e = np.clip(p, 0, len(xo_) - 1)
-    ax = np.abs(xi - xo_[e]).astype(F32)
-    ay = np.abs(yi - yo_[e]).astype(F32)
-    if x_stream:
-        v, done = ax, ay <= ax
-    else:
-        v, done = ay, ax < ay
-    key = (v.view(np.uint32).astype(np.uint64) << np.uint64(1)) | done.astype(np.uint64)
-    return np.where(inside, key, DONE)
-
-
-def _event_radius(X, Y, nnx, nny, s, q, xi, yi, t):
-    """Joint selection for any t: the four-stream walk."""
-    R = len(s)
-    p = [s - 1, s + 1, q - 1, q + 1]
-    lim = [None, nnx, None, nny]
-    arr = [X, X, Y, Y]
-    h = [_heads(arr[i][:, 0], arr[i][:, 1], p[i], xi, yi, i < 2,
-                (p[i] >= 0) if i % 2 == 0 else (p[i] < lim[i])) for i in range(4)]
-    got = np.zeros(R, np.int64)
-    r = np.full(R, INF, F32)
-    busy = np.ones(R, bool)
-    while np.any(busy):
-        m = np.minimum(np.minimum(h[0], h[1]), np.minimum(h[2], h[3]))
-        busy &= m != DONE
-        got = got + (busy & ((m & np.uint64(1)) == 1))
-        hit = busy & (got > t)
-        r = np.where(hit, (m >> np.uint64(1)).astype(np.uint32).view(F32), r)
-        busy &= ~hit
-        idx = np.where(h[0] == m, 0, np.where(h[1] == m, 1, np.where(h[2] == m, 2, 3)))
-        for i in range(4):
-            move = busy & (idx == i)
-            np_ = p[i] + (1 if i % 2 else -1)
-            inside = (np_ >= 0) if i % 2 == 0 else (np_ < lim[i])
-            nh = _heads(arr[i][:, 0], arr[i][:, 1], np_, xi, yi, i < 2, inside)
-            p[i] = np.where(move, np_, p[i])
-            h[i] = np.where(move, nh, h[i])
-    return r
-
-
-def _class_radius(ys, lo, hi, s, yi, t):
-    """Class selection: the run, sorted by y, merged outward for t + 1."""
-    def key(p, inside):
-        d = np.abs(yi - ys[np.clip(p, 0, len(ys) - 1)]).astype(F32)
-        ok = inside & ~np.isnan(d)
-        return np.where(ok, d.view(np.uint32).astype(np.uint64), DONE)
-
-    p0, p1 = s - 1, s + 1
-    h0, h1 = key(p0, p0 >= lo), key(p1, p1 < hi)
-    r = np.full(len(s), INF, F32)
-    busy = np.ones(len(s), bool)
-    got = 0
-    while np.any(busy):
-        m = np.minimum(h0, h1)
-        busy &= m != DONE
-        hit = busy & (got == t)
-        r = np.where(hit, m.astype(np.uint32).view(F32), r)
-        busy &= ~hit
-        left = h0 == m
-        p0 = np.where(busy & left, p0 - 1, p0)
-        p1 = np.where(busy & ~left, p1 + 1, p1)
-        h0 = np.where(busy & left, key(p0, p0 >= lo), h0)
-        h1 = np.where(busy & ~left, key(p1, p1 < hi), h1)
-        got += 1
-    return r
-
+# ``_torch_sorted_route`` holds the route's steps (``csrc/sorted_orders.cuh``,
+# shared with the two-op tiled bodies); ``_tiled_emulate`` repeats it in
+# numpy float32, vectorised over a sample's rows, and is held bit-equal to
+# ``ref.radius_counts`` and to the JAX package's ``knn_radius_counts``.
 
 def _tiled_sample(x, y, m, *, k, kb, kk, mode, which):
     P = len(x)
     r_out = np.full(P, INF, F32)
     cnt_out = np.zeros(P, np.int32)
     counts = np.zeros((5, P), np.int32)
-    xo, yo = _tiled_orders(x, y, m)
-    n = len(xo)
-    if n == 0:
+    X, Y, nnx, nny, rows, s, q = _sample_orders(x, y, m)
+    if len(rows) == 0:
         return r_out, cnt_out, counts
-    X = np.stack([x[xo], y[xo]], 1)
-    Y = np.stack([x[yo], y[yo]], 1)
-    nnx, nny = int((~np.isnan(X[:, 0])).sum()), int((~np.isnan(Y[:, 1])).sum())
-    pos_x = np.empty(P, np.int64)
-    pos_x[xo] = np.arange(n)
-    pos_y = np.empty(P, np.int64)
-    pos_y[yo] = np.arange(n)
-    rows = np.flatnonzero(m)
-    s, q = pos_x[rows], pos_y[rows]
     xi, yi = X[s, 0], X[s, 1]
     fx, fy = np.abs(xi) < INF, np.abs(yi) < INF
     R = len(rows)
     r = np.full(R, INF, F32)
     cnt = np.zeros(R, np.int64)
-    zero = np.zeros(R, np.int64)
     if mode == "joint":
-        W = next((w for w in (4, 8, 16, 32, 64) if k <= w), 0)
+        W = _band_width(k)
         ok = fx & fy
         if ok.any():
             t = np.full(int(ok.sum()), k - 1)
             args = (nnx, s[ok], xi[ok], yi[ok], t)
-            r[ok] = (_band_radius(X[:, 0], X[:, 1], *args, W) if W else
+            r[ok] = (_band_radius(X[:, 0], X[:, 1], *args, W, P > WARP_P) if W else
                      _event_radius(X, Y, nnx, nny, s[ok], q[ok], xi[ok], yi[ok], t))
     else:
-        ok = ~np.isnan(xi)
-        run = _run_bound(X[:, 0], zero, s, xi, strict=True)
-        end = _run_bound(X[:, 0], s + 1, np.full(R, nnx), xi, strict=False)
-        cnt = np.where(ok, end - run - 1, 0)
+        run, end, cnt = _class_runs(X, nnx, s, xi)
         t = np.clip(np.minimum(kk, cnt) - 1, 0, kb - 1)
-        sel = ok & fy
+        sel = ~np.isnan(xi) & fy
         if sel.any():
             r[sel] = _class_radius(X[:, 1], run[sel], end[sel], s[sel], yi[sel], t[sel])
-    y_lt = np.where(fy, np.maximum(_search(Y[:, 1], zero, np.full(R, nny), yi, -r, True)
-                                   - _search(Y[:, 1], zero, np.full(R, nny), yi, r, False), 0)
-                    - (F32(0) < r), 0)
-    out = [zero, y_lt, zero, zero, zero]
-    if which == "all":
-        ny = np.full(R, nny)
-        out[3] = np.where(fy, _search(Y[:, 1], zero, ny, yi, F32(0), False)
-                          - _search(Y[:, 1], zero, ny, yi, F32(0), True) - 1, 0)
-        nx = np.full(R, nnx)
-        a0 = _search(X[:, 0], zero, nx, xi, F32(0), True)
-        b0 = _search(X[:, 0], zero, nx, xi, F32(0), False)
-        out[0] = np.where(fx, np.maximum(_search(X[:, 0], zero, nx, xi, -r, True)
-                                         - _search(X[:, 0], zero, nx, xi, r, False), 0)
-                          - (F32(0) < r), 0)
-        out[2] = np.where(fx, b0 - a0 - 1, 0)
-        out[4] = np.where(fx & fy, _search(X[:, 1], a0, b0, yi, F32(0), False)
-                          - _search(X[:, 1], a0, b0, yi, F32(0), True) - 1, 0)
     r_out[rows] = r
     cnt_out[rows] = cnt
-    counts[:, rows] = np.stack(out)
+    counts[:, rows] = _row_counts(X, Y, nnx, nny, xi, yi, r, which)
     return r_out, cnt_out, counts
-
-
-def _run_bound(xs, lo, hi, xi, strict):
-    """The class run's ends: the first position in [lo, hi) where
-    !(xs < xi) (strict) or !(xs <= xi), as the kernel's two loops."""
-    lo, hi = lo.copy(), hi.copy()
-    while np.any(lo < hi):
-        go = lo < hi
-        mid = (lo + hi) // 2
-        v = xs[np.minimum(mid, len(xs) - 1)]
-        move = (v < xi) if strict else (v <= xi)
-        lo = np.where(go & move, mid + 1, lo)
-        hi = np.where(go & ~move, mid, hi)
-    return lo
 
 
 def _tiled_emulate(x, y, mask, **kw):

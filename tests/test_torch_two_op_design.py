@@ -21,9 +21,18 @@
 
 ``_emulate_knn`` and ``_emulate_ball`` repeat those routes step by step in
 numpy float32 and are held bit-equal to ``ref`` and to the JAX package's
-``knn_smallest`` / ``ball_counts``.  The kernels themselves are held
-against ``ref`` on the card (``test_torch_knn_two_op.py``,
-``chip_smoke.py``).
+``knn_smallest`` / ``ball_counts``.
+
+The tiled bodies (P > 1024, or kb > 16 for ``knn_smallest``) read both
+ops off the tiled ``radius_counts`` body's sorted orders
+(``csrc/sorted_orders.cuh``, emulated in ``_torch_sorted_route``): the
+band walk with a W-lane buffer (kb <= 64) or the four-stream walk (kb >
+64) in joint mode, kb steps of the class merge in class mode, every
+count a binary-searched range at the caller's radius.
+``_tiled_emulate_knn`` and ``_tiled_emulate_ball`` repeat them and are
+held bit-equal to ``ref`` and to JAX the same way.  The kernels
+themselves are held against ``ref`` on the card
+(``test_torch_knn_two_op.py``, ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -32,7 +41,11 @@ import torch
 
 import jax.numpy as jnp
 
+from _torch_sorted_route import (TILED_CHUNK, WARP_P, _band_walk, _band_width,
+                                 _chunk_sort, _class_runs, _class_walk,
+                                 _event_walk, _row_counts, _sample_orders)
 from repro.kernels.knn_stats import ops as j_ops
+from repro_torch.kernels._build import build_tag, local_includes
 from repro_torch.kernels.knn_stats import kernel, ref
 
 F32 = np.float32
@@ -521,3 +534,281 @@ def test_two_op_body_rule(P, kb, staged):
     assert kernel.takes_staged_two_op(P) is (P <= 1024)  # ball_counts
     assert kernel.TWO_OP_STAGED_MAX_P == 1024
     assert kernel.TWO_OP_STAGED_MAX_KB == 16
+
+
+# ---------------------------------------------------------------------------
+# The tiled bodies (P > 1024, or kb > 16 for knn_smallest)
+# ---------------------------------------------------------------------------
+
+def _tiled_knn_sample(x, y, m, kb, mode):
+    P = x.size
+    knn = np.full((P, kb), INF, F32)
+    cnt = np.zeros(P, np.int32)
+    W = _band_width(kb) if mode == "joint" else 0
+    # The joint band walk's warp kernel sorts by (code_key(x), column) alone.
+    X, Y, nnx, nny, rows, s, q = _sample_orders(x, y, m, by_column=P <= WARP_P and W)
+    if rows.size == 0:
+        return knn, cnt
+    xi, yi = X[s, 0], X[s, 1]
+    fy = np.abs(yi) < INF
+    out = np.full((rows.size, kb), INF, F32)
+    c = np.zeros(rows.size, np.int64)
+    if mode == "joint":
+        ok = (np.abs(xi) < INF) & fy  # a non-finite row selects +inf only
+        if ok.any() and W:
+            out[ok] = _band_walk(X[:, 0], X[:, 1], nnx, s[ok], xi[ok], yi[ok],
+                                 W, runs=P > WARP_P)[:, :kb]
+        elif ok.any():
+            out[ok] = _event_walk(X, Y, nnx, nny, s[ok], q[ok], xi[ok], yi[ok], kb)
+    else:
+        run, end, c = _class_runs(X, nnx, s, xi)
+        sel = ~np.isnan(xi) & fy
+        if sel.any():
+            out[sel] = _class_walk(X[:, 1], run[sel], end[sel], s[sel], yi[sel], kb)
+    knn[rows] = out
+    cnt[rows] = c
+    return knn, cnt
+
+
+def _tiled_ball_sample(x, y, m, r, which):
+    """The y variant builds the y order only and never reads x (zeros
+    here, so that nothing can depend on it).  The orders come from the
+    sort launches at every P (one chunk up to TILED_CHUNK columns)."""
+    counts = np.zeros((5, y.size), np.int32)
+    if which == "y":
+        x = np.zeros_like(y)
+    X, Y, nnx, nny, rows, _, _ = _sample_orders(x, y, m, chunks=True)
+    if rows.size:
+        counts[:, rows] = _row_counts(X, Y, nnx, nny, x[rows], y[rows], r[rows],
+                                      which)
+    return counts
+
+
+def _tiled_emulate_knn(x, y, mask, kb, mode):
+    with np.errstate(invalid="ignore"):
+        parts = [_tiled_knn_sample(x[b], y[b], mask[b], kb, mode)
+                 for b in range(len(x))]
+    return np.stack([p[0] for p in parts]), np.stack([p[1] for p in parts])
+
+
+def _tiled_emulate_ball(x, y, mask, r, which):
+    with np.errstate(invalid="ignore"):
+        return np.stack([_tiled_ball_sample(x[b], y[b], mask[b], r[b], which)
+                         for b in range(len(x))], axis=1)
+
+
+TILED_P = (257, 1025, 2048)
+TILED_KB = (17, 32, 64, 65, 128)
+# One JAX compile per (P, kb, mode) costs ~0.5-2 s: JAX holds P = 1025
+# (past one sort chunk) at a band buffer of 32 lanes and at K_MAX (the
+# walk; the edge rows add kb = 65); ref holds every case.
+JAX_KNN = {(1025, 17), (1025, 128)}
+
+
+@pytest.mark.parametrize("mode", ["joint", "class"])
+@pytest.mark.parametrize("kb", TILED_KB)
+@pytest.mark.parametrize("P", TILED_P)
+def test_tiled_knn_design_matches_ref_and_jax(P, kb, mode):
+    """The tiled route, emulated: the band buffer (kb <= 64, batches of
+    W / 2) or the four-stream walk (kb > 64), the class merge for any kb,
+    on tie-heavy ragged samples, one with fewer valid columns than kb and
+    an all-invalid one."""
+    x, y, mask = _samples(P, mode, seed=P * 10 + kb)
+    got = _tiled_emulate_knn(x, y, mask, kb, mode)
+    _same(got, _ref_knn(x, y, mask, kb, mode))
+    if (P, kb) in JAX_KNN:
+        _same(got, _jax_knn(x, y, mask, kb, mode))
+    assert np.isinf(got[0][2]).all() and not got[1][2].any()
+
+
+@pytest.mark.parametrize("P,kb,mode", [(256, 17, "joint"), (256, 128, "class"),
+                                       (1025, 3, "joint"), (2048, 8, "class"),
+                                       (1280, 3, "joint"), (2048, 1, "joint")])
+def test_tiled_knn_design_outside_the_rule(P, kb, mode):
+    """The tiled body takes every shape through its entry: one warp a
+    sample at P = 256 (the x order keyed by the y position), and the
+    narrow buffers past P = 1024 (phase 12 (b)'s padded samples)."""
+    x, y, mask = _samples(P, mode, seed=P + kb)
+    _same(_tiled_emulate_knn(x, y, mask, kb, mode), _ref_knn(x, y, mask, kb, mode))
+
+
+@pytest.mark.parametrize("kind", RADII)
+@pytest.mark.parametrize("which", ["all", "y"])
+@pytest.mark.parametrize("P", TILED_P + (256,))
+def test_tiled_ball_design_matches_ref_and_jax(P, which, kind):
+    """Every count a binary-searched range at the caller's radius (zero,
+    +inf, NaN, an existing distance); JAX at P = 1025, a distance and all
+    five counts."""
+    x, y, mask = _samples(P, "joint", seed=P + 11)
+    r = _radius(kind, x, y, mask)
+    got = _tiled_emulate_ball(x, y, mask, r, which)
+    _same([got], [_ref_ball(x, y, mask, r, which)])
+    if (P, which, kind) == (1025, "all", "distance"):
+        _same([got], [_jax_ball(x, y, mask, r, which)])
+
+
+@pytest.mark.parametrize("finite", [True, False], ids=["finite", "nonfinite"])
+@pytest.mark.parametrize("P,mode,kb", [(257, "joint", 17), (1025, "joint", 65),
+                                       (1025, "class", 32), (257, "class", 128),
+                                       (2048, "joint", 32), (256, "joint", 65)])
+def test_tiled_knn_design_edge_rows(P, mode, kb, finite):
+    """``_edge_samples``' rows (-0.0 beside +0.0, duplicated points, a
+    class with fewer than kb members; with ``finite=False`` +-inf y tie
+    clusters, non-finite x and NaN codes) through the emulated tiled
+    route: against ref, and the finite P = 1025 walk against JAX."""
+    x, y, mask = _edge_samples(P, mode, kb, seed=11 * P + kb, finite=finite)
+    got = _tiled_emulate_knn(x, y, mask, kb, mode)
+    _same(got, _ref_knn(x, y, mask, kb, mode))
+    if finite and (P, mode) == (1025, "joint"):
+        _same(got, _jax_knn(x, y, mask, kb, mode))
+
+
+@pytest.mark.parametrize("finite", [True, False], ids=["finite", "nonfinite"])
+@pytest.mark.parametrize("kind", RADII)
+@pytest.mark.parametrize("which", ["all", "y"])
+@pytest.mark.parametrize("P", [40, 1025])
+def test_tiled_ball_design_edge_rows(P, which, kind, finite):
+    """The edge rows (-0.0 beside +0.0, duplicates, +-inf and NaN) through
+    the chunked orders: one chunk at P = 40, two merged by rank at 1025."""
+    x, y, mask = _edge_samples(P, "joint", 3, seed=17 + P, finite=finite)
+    r = _radius(kind, x, y, mask)
+    got = _tiled_emulate_ball(x, y, mask, r, which)
+    _same([got], [_ref_ball(x, y, mask, r, which)])
+
+
+def test_tiled_event_walk_completes_in_order():
+    """The four-stream walk's completions are each row's joint distances
+    (NaN ones never), ascending: on a sample with ties, +-inf and NaN
+    coordinates, its first 40 lanes are the 40 smallest, +inf beyond."""
+    rng = np.random.default_rng(8)
+    P = 300
+    x = np.round(rng.normal(size=P), 1).astype(F32)
+    y = np.round(rng.normal(size=P), 1).astype(F32)
+    x[:5], y[5:10] = np.inf, -np.inf
+    x[10:13], y[13:16] = np.nan, np.nan
+    X, Y, nnx, nny, rows, s, q = _sample_orders(x, y, np.ones(P, bool))
+    ok = np.isfinite(X[s, 0]) & np.isfinite(X[s, 1])
+    with np.errstate(invalid="ignore"):
+        got = _event_walk(X, Y, nnx, nny, s[ok], q[ok], X[s[ok], 0],
+                          X[s[ok], 1], 40)
+        d = np.maximum(np.abs(x[rows[ok], None] - x[None, :]),
+                       np.abs(y[rows[ok], None] - y[None, :]))
+    d[np.arange(ok.sum()), rows[ok]] = np.nan  # not the row itself
+    want = np.sort(np.where(np.isnan(d), INF, d), axis=1)[:, :40]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kb", [1, 3, 17, 32, 33, 65, 128])
+@pytest.mark.parametrize("rows", [1, 17, 32])
+def test_tiled_output_run_leaves_in_order(kb, rows):
+    """``knn_smallest_rows``' copy of a warp's tile (32 rows of kb lanes
+    at stride kb | 1) to its contiguous run of the output: element e =
+    lane + 32 i is lane u of row r, stepped by (32 // kb, 32 % kb)
+    without a division, every element written once."""
+    stride = kb | 1
+    tile = np.arange(32 * stride, dtype=np.int64)
+    out = np.full(rows * kb, -1, np.int64)
+    dr, du = 32 // kb, 32 - (32 // kb) * kb
+    for lane in range(32):
+        r, u = lane // kb, lane - (lane // kb) * kb
+        for e in range(lane, rows * kb, 32):
+            assert out[e] == -1
+            out[e] = tile[r * stride + u]
+            r, u = r + dr, u + du
+            if u >= kb:
+                u, r = u - kb, r + 1
+    want = np.concatenate([tile[i * stride:i * stride + kb] for i in range(rows)])
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("W", [4, 8, 16, 32, 64])
+def test_tiled_band_walk_takes_any_order_of_x_ties(W):
+    """The band walk over the x order by (code_key(x), column), as the
+    warp kernel sorts it for the joint walk alone, leaves every row the
+    same buffer as over the order by (code_key(x), code_key(y), column):
+    on x values with many ties and y in every order among them."""
+    rng = np.random.default_rng(W)
+    P = 256
+    x = rng.integers(-4, 5, P).astype(F32)
+    y = np.round(rng.normal(size=P), 1).astype(F32)
+    m = rng.uniform(size=P) > 0.1
+    bufs = []
+    for by_column in (False, True):
+        X, _, nnx, _, rows, s, _ = _sample_orders(x, y, m, by_column)
+        got = _band_walk(X[:, 0], X[:, 1], nnx, s, X[s, 0], X[s, 1], W,
+                         runs=not by_column)
+        bufs.append(got[np.argsort(rows)])
+    assert not np.array_equal(*(_sample_orders(x, y, m, b)[0] for b in (False, True)))
+    np.testing.assert_array_equal(*bufs)
+
+
+@pytest.mark.parametrize("W", [4, 8, 16, 32, 64])
+def test_tiled_band_walk_leaves_a_spent_tie_run(W):
+    """Leaving the row's own x-tie run once its |dy| reaches b[W-1] (the
+    ties sorted by y) gives every row the buffer of the walk that visits
+    the whole run: x with long tie runs, y with ties, +-inf and NaN."""
+    rng = np.random.default_rng(10 + W)
+    P = 1500
+    x = rng.integers(-3, 4, P).astype(F32)
+    x[: P // 3] = rng.normal(size=P // 3).astype(F32)
+    y = np.round(rng.normal(size=P), 1).astype(F32)
+    y[rng.uniform(size=P) < 0.02] = np.inf
+    y[rng.uniform(size=P) < 0.02] = -np.inf
+    y[rng.uniform(size=P) < 0.02] = np.nan
+    m = rng.uniform(size=P) > 0.1
+    X, _, nnx, _, rows, s, _ = _sample_orders(x, y, m)
+    ok = np.isfinite(X[s, 0]) & np.isfinite(X[s, 1])
+    with np.errstate(invalid="ignore"):
+        args = (X[:, 0], X[:, 1], nnx, s[ok], X[s[ok], 0], X[s[ok], 1], W)
+        np.testing.assert_array_equal(_band_walk(*args, runs=True),
+                                      _band_walk(*args, runs=False))
+    # and the runs are long enough to be left
+    assert np.bincount((x[m] + 3).clip(0).astype(np.int64)).max() > 100
+
+
+def test_tiled_chunk_sort_over_the_valid_span():
+    """A chunk's bitonic network over the least power of two of slots
+    that holds its last valid column sorts its valid (key, column) pairs
+    (the slots past the span hold padding only); a chunk with no valid
+    column sorts nothing."""
+    rng = np.random.default_rng(3)
+    for last in (0, 1, 31, 255, 256, 700, 1023):
+        key = rng.integers(0, 5, TILED_CHUNK).astype(np.uint64)
+        m = np.zeros(TILED_CHUNK, bool)
+        m[:last + 1] = rng.uniform(size=last + 1) > 0.3
+        m[last] = True
+        want = sorted((int(key[j]), int(j)) for j in np.flatnonzero(m))
+        assert _chunk_sort(key, m, 0) == want
+    assert _chunk_sort(key, np.zeros(TILED_CHUNK, bool), 0) == []
+
+
+def test_tiled_orders_take_the_chunked_route():
+    """The shapes above reach both order routes (one warp a sample up to
+    256 columns, chunks merged by rank beyond one chunk)."""
+    assert WARP_P < 257 <= TILED_CHUNK < 1025 < 2048
+    assert all(not kernel.takes_staged_two_op(P, kb)
+               for P in TILED_P for kb in TILED_KB)
+    assert not kernel.takes_staged_two_op(1025)  # ball_counts
+
+
+def test_an_edit_to_the_shared_header_rebuilds_both_libraries(tmp_path):
+    """Both sources include ``sorted_orders.cuh``, and a build's tag
+    covers the source and every local header it includes (recursively),
+    so an edit to the header alone gives both libraries a new tag."""
+    for src in (kernel.SOURCE, kernel.TWO_OP_SOURCE):
+        assert kernel.SORTED_ORDERS in local_includes(src)
+    (tmp_path / "inner.cuh").write_text("// inner\n")
+    (tmp_path / "orders.cuh").write_text('#include "inner.cuh"\n')
+    a, b = tmp_path / "a.cu", tmp_path / "b.cu"
+    a.write_text('#include <math.h>\n#include "orders.cuh"\nint a;\n')
+    b.write_text('  #  include "orders.cuh"\nint b;\n')
+    before = build_tag(a), build_tag(b)
+    assert [p.name for p in local_includes(a)] == ["a.cu", "orders.cuh",
+                                                   "inner.cuh"]
+    (tmp_path / "inner.cuh").write_text("// edited\n")
+    after = build_tag(a), build_tag(b)
+    assert before[0] != after[0] and before[1] != after[1]
+    plain = tmp_path / "plain.cu"
+    plain.write_text("int c;\n")
+    import hashlib
+    assert build_tag(plain) == hashlib.sha1(b"int c;\n").hexdigest()[:12]
