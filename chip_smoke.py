@@ -52,7 +52,8 @@ it fails:
      spacings), each case also required to reach the body
      ``kernel.takes_regtile`` names (float32 at Dk, Dv <= 128 the
      register-tiled body, held within atol 2e-5 of the basic body on the
-     same inputs too; the rest the basic body), both bodies reached; then
+     same inputs too; the rest the basic body: float32 above 128,
+     16-bit at other head dims), both bodies reached; then
      the Hopper kernel at the MoE serving path's operand layouts (GQA
      group 8: Hq 32 / Hkv 4 at head dim 128; MLA's (192, 128) with k the
      expanded rope concatenation and v a strided slice of the ``kv_up``
@@ -172,7 +173,10 @@ it fails:
      2's Hopper tolerance of both plain versions and timed beside its
      plain version, the CUDA-core kernel, its bound and
      ``scaled_dot_product_attention`` (the yardstick the port never
-     calls); then phase 16 (d) below; (b) that request's served logits (its prefill and its 31
+     calls; every flash time, SDPA's too, is a CUDA graph of the
+     launches timed by events, ``graph_ms_per_call``, the profiler's
+     device time with its kernel records and the events around eager
+     launches beside it); then phase 16 (d) below; (b) that request's served logits (its prefill and its 31
      decode steps) against the port's float32 ``forward`` with the plain
      attention, over the prompt and the generated tokens, within
      ``SERVED_RTOL``; a forward whose attention drops the causal mask
@@ -184,7 +188,13 @@ it fails:
      same tolerance); then each of the 24 launches held within atol 2e-5
      of both plain versions and of the basic body on the same inputs and
      timed as in (a), the basic body timed beside it, with the
-     register-tiled body's ptxas registers, spills and shared memory.
+     register-tiled body's ptxas registers, spills and shared memory;
+     last, one bfloat16 launch at Gemma 2 9B's attention shape
+     (``GEMMA_ATTN``: q (1, 16, 2048, 256), GQA 16 / 8) through the
+     dispatch to the basic body, held against both plain versions within
+     one spacing + 2e-5 and timed beside SDPA and its bound at the
+     tensor cores' bf16 rate (the float32 CUDA-core rate's figure beside
+     it), with the basic body's ptxas report.
 
  16. compiled programs against ``compile.eager()``, on the phase-3 index
      and the phase-11 model: (a) warm ``query_many`` per target dtype,
@@ -263,7 +273,13 @@ it fails:
      served logits against the float32 ``forward`` with the plain
      attention and the plain grouped SwiGLU (the loop over experts)
      within its tolerance (``MOE_SERVE``), a forward without the causal mask outside
-     it; (b) the first MoE layer of that model on bfloat16 inputs at 2048
+     it; for deepseek (MLA) the float32 forward also through the kernels
+     (``mla_f32_forward``): 3 launches of the CUDA-core flash kernel's
+     basic body at q (1, 16, 2079, 192), v (1, 16, 2079, 128) and nothing
+     else, logits within ``F32_FWD_RTOL`` of the plain float32 forward,
+     each launch held within atol 2e-5 of both plain versions and timed
+     beside its plain version, SDPA and its bound (the basic body's
+     kernels-line times); (b) the first MoE layer of that model on bfloat16 inputs at 2048
      and 4 tokens: the route equal to the plain router (float64 on the
      host) wherever the k-th / (k+1)-th probability gap exceeds
      ``ROUTE_GAP_TOL``, the grouped GEMM within ``GROUPED_RTOL`` of the
@@ -432,8 +448,17 @@ Each of phases 3, 7-9 and 11-24 sets every kernel's launch count to 0
 just before it drives its path and reads the counts just after.
 
 Near the end it prints the run's full record as one JSON line
-(``{"record": ...}``), then the kernels' JSON line, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+(``{"record": ...}``; ``flash_basic`` holds the basic flash body's three
+shapes: the float32 forward's, the MLA prefill's and Gemma's), then the
+kernels' JSON line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --time-flash-basic [SOURCE ...]
+
+holds and times only the basic flash body of this checkout's
+``flash_attention.cu`` and of each further source given (an earlier
+tree's, unpacked beside it) at those three shapes, in turns on one card
+(``time_flash_basic_sources``, through ``hold_flash_launches``).
 """
 
 from __future__ import annotations
@@ -623,6 +648,7 @@ FA_HKV = 2
 FA_TIME_REPS = 50  # launches per CUDA-event timing of a captured flash launch
 FA_PROFILE_LAUNCHES = 24  # least launches a profiled window of them holds
 PROFILE_TRIES = 5  # profiler windows device_ms_per_call tries
+PROFILE_WINDOWS: list = []  # device_ms_per_call's windows: records, calls, ms
 # Kernel families a profiled pass's device time is summed by (a kernel
 # name containing one of the words; radius_counts first, so that its
 # rows never count as a sort).
@@ -654,6 +680,11 @@ SERVED_RTOL = 0.10
 # summation order only (within FA_F32_ATOL), which 24 layers carry into
 # the logits at a relative RMS far below this.
 F32_FWD_RTOL = 1e-3
+# Phase 11 (c): the basic flash body alone at Gemma 2 9B's attention shape
+# (hf:google/gemma-2-9b: 16 query heads, 8 KV heads, head dim 256), bf16,
+# causal: (B, Hq, Hkv, S, head dim).  No path of the port serves it; it
+# times the 16-bit route off the Hopper kernel's head dims beside SDPA.
+GEMMA_ATTN = (1, 16, 8, 2048, 256)
 
 
 # Phase 18: the MoE and MLA serving path.  Each configuration, its tag,
@@ -2859,9 +2890,13 @@ def run_hash_lake(rows: list, card: str, dev) -> dict:
 def fa_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool) -> dict:
     """Least time for one launch: its multiply-adds (QK^T and PV over the
-    live (row, key) pairs, 2 FLOP each) at the tensor-core rate of the
-    operand type, or its bytes (q, k, v read once, o written once) over
-    the HBM rate."""
+    live (row, key) pairs, 2 FLOP each) at the card's peak rate for the
+    operand type (PEAK_FLOP_S: the tensor cores' for 16-bit inputs), or its
+    bytes (q, k, v read once, o written once) over the HBM rate.
+    ``cuda_cores_ms`` is the larger of the bytes' time and the same FLOPs
+    at the float32 CUDA-core rate, the most a kernel that multiplies in
+    float32 on the CUDA cores (the CUDA-core kernel converts 16-bit inputs)
+    could reach: a figure beside the bound, never the bound."""
     B, Hq, S, Dk = q.shape
     Dv = v.shape[-1]
     pairs = S * (S + 1) / 2 if causal else S * S
@@ -2871,7 +2906,8 @@ def fa_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flop": flop, "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes}
+            "flop": flop, "bytes": nbytes, "ops_ms": t_ops, "bytes_ms": t_bytes,
+            "cuda_cores_ms": max(1e3 * flop / PEAK_FLOP_S[torch.float32], t_bytes)}
 
 
 def rel_rms(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -2910,7 +2946,10 @@ def device_ms_per_call(calls: list, reps: int = 5) -> float:
     """Device time of the kernels the calls launch, per call: each call
     run ``reps`` times in one ``torch.profiler`` window.  A window that
     recorded no device time (the profiler now and then drops a short
-    window's kernels) is profiled again, up to ``PROFILE_TRIES`` times."""
+    window's kernels) is profiled again, up to ``PROFILE_TRIES`` times.
+    Each window's kernel records and calls made go to PROFILE_WINDOWS[-1]:
+    a call that launches one kernel should leave one record, and a window
+    with fewer records than calls lost some and reads low."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2923,40 +2962,85 @@ def device_ms_per_call(calls: list, reps: int = 5) -> float:
                 for fn in calls:
                     fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in kernels)
         if total_us > 0:
-            return total_us / 1e3 / (reps * len(calls))
+            PROFILE_WINDOWS.append({"calls": reps * len(calls),
+                                    "records": sum(e.count for e in kernels),
+                                    "ms": total_us / 1e3 / (reps * len(calls))})
+            return PROFILE_WINDOWS[-1]["ms"]
     raise AssertionError(f"the profiler recorded no device time in "
                          f"{PROFILE_TRIES} windows")
 
 
-def regtile_build_report() -> list[str]:
+def graph_ms_per_call(calls: list, reps: int) -> float:
+    """Device time per call with no host time in it: the calls, ``reps``
+    times over, captured into one CUDA graph, and a replay of it (after a
+    first one) timed by CUDA events.  Events around eager launches read
+    the host instead once its time per call exceeds the kernel's (the
+    Hopper flash kernel's does), and a profiler window on the card can
+    lose kernel records (up to 4 of 5 seen), which reads its time per call
+    low by the lost share."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for fn in calls:
+                fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * len(calls))
+
+
+def flash_build_report(body: str) -> list[str]:
     """ptxas's registers, spills and stack for each instantiation of the
-    register-tiled body (from this run's build), one line each."""
+    CUDA-core flash kernel's register-tiled body (``body`` "regtile") or
+    basic body ("basic"), from this run's build, one line each."""
+    import re
+
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
+    types = {"f": "float32", "6__half": "float16", "13__nv_bfloat16": "bfloat16"}
     lines = fa_kernel.load_library().ptxas.splitlines()
     out = []
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and "flash_regtile_kernel" in line:
+        if "Compiling entry" not in line or f"flash_{body}_kernel" not in line:
+            continue
+        tail = " ".join(x.strip().replace("ptxas info    : ", "")
+                        for x in lines[i + 1:i + 4]
+                        if "Compiling" not in x and "properties" not in x)
+        if body == "regtile":
             args = line.split("flash_regtile_kernelILi")[1].split("EEEv")[0]
             dk, nch = args.split("ELi")
-            tail = " ".join(x.strip().replace("ptxas info    : ", "")
-                            for x in lines[i + 1:i + 4]
-                            if "Compiling" not in x and "properties" not in x)
             out.append(f"Dk={'runtime' if dk == '0' else dk}, {nch} output "
                        f"chunks a lane: {tail}")
+        else:
+            t, rows, nch, dk = re.search(
+                r"flash_basic_kernelI(f|6__half|13__nv_bfloat16)Li(\d+)ELi(\d+)"
+                r"ELi(\d+)E", line).groups()
+            out.append(f"{types[t]}, {rows} rows a block, {nch} output chunks "
+                       f"a lane, Dk={'runtime' if dk == '0' else dk}: {tail}")
     return out
 
 
-def hold_flash_launches(seen: list, card: str, name: str) -> dict:
+def hold_flash_launches(seen: list, card: str, name: str, launch=None) -> dict:
     """Each captured launch of kernel ``name`` held against both plain
     versions on its own inputs (the kernel's tolerance), then timed there
     beside its plain version, its bound, ``scaled_dot_product_attention``
     and the kernel or body it replaced on the same inputs: for the Hopper
     kernel the CUDA-core kernel, for the register-tiled body the basic body
-    (held within FA_F32_ATOL of it too, and timed as the body is)."""
+    (held within FA_F32_ATOL of it too, and timed as the body is).
+    ``launch``, where given, is held and timed in place of the wrapper
+    ``name`` (another build of its body, whose outputs ``seen`` holds), and
+    the build's report is left out."""
     from functools import partial
 
     import torch.nn.functional as F
@@ -2966,7 +3050,8 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
 
     hopper = name == "flash_attention_wgmma"
     regtile = name == "flash_attention_simt_regtile"
-    launch = wrappers()[name]
+    basic_body = name == "flash_attention_simt_basic" and launch is None
+    launch = launch or wrappers()[name]
     basic = fa_kernel.flash_attention_simt_basic
     rows = []
     for layer, (q, k, v, scale, causal, got) in enumerate(seen):
@@ -3025,34 +3110,38 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
             if not fa_within(got, got_basic)[0]:
                 raise AssertionError(f"{name} launch of layer {layer} differs "
                                      f"from the basic body: {row['basic_gap']}")
-            row["basic_event_ms"] = time_cuda(lambda: basic(
-                q, k, v, scale=scale, causal=causal), 5)
         rows.append(row)
-    keys = (("event_ms", "plain_ms", "library_event_ms", "bound_ms")
-            + (("simt_ms",) if hopper else ())
-            + (("basic_event_ms",) if regtile else ()))
+    keys = (("event_ms", "plain_ms", "library_event_ms", "bound_ms",
+             "cuda_cores_ms") + (("simt_ms",) if hopper else ()))
     fa = {k: float(np.mean([r[k] for r in rows])) for k in keys}
-    # CUDA events around back-to-back launches measure the host instead
-    # once its time per call exceeds the kernel's (the Hopper kernel's
-    # does), so the kernel's and SDPA's times ("ms", "library_ms") are the
-    # same launches' device time under the profiler; the event times stay
-    # in the record, beside the host's own time per call (the wrapper's
-    # checks, tensor maps and ctypes call, clocked without a synchronize).
+    # The kernel's and SDPA's times ("ms", "library_ms") are a CUDA graph
+    # of the launches timed by events (graph_ms_per_call): no host in them.
+    # The profiler's device time, with the kernel records its window held
+    # against the launches made (one kernel a launch), the events around
+    # eager launches and the host's own time per call (the wrapper's
+    # checks, tensor maps and ctypes call, clocked without a synchronize)
+    # stay beside them.
     calls = [lambda q=q, k=k, v=v, sc=sc, c=c: launch(q, k, v, scale=sc, causal=c)
              for q, k, v, sc, c, _ in seen]
     lib_calls = [lambda q=q, k=k, v=v, sc=sc, c=c: F.scaled_dot_product_attention(
                      q, k, v, is_causal=c, enable_gqa=True, scale=sc)
                  for q, k, v, sc, c, _ in seen]
-    # At least FA_PROFILE_LAUNCHES launches a profiled window: a window of
-    # one or two launches has read SDPA below its own bound.
-    reps = max(5, -(-FA_PROFILE_LAUNCHES // len(calls)))
-    fa["ms"] = device_ms_per_call(calls, reps)
-    fa["library_ms"] = device_ms_per_call(lib_calls, reps)
+    # At least FA_PROFILE_LAUNCHES launches a graph or a profiled window:
+    # a window of one or two launches has read SDPA below its own bound.
+    greps = -(-FA_PROFILE_LAUNCHES // len(calls))
+    reps = max(5, greps)
+    fa["ms"] = graph_ms_per_call(calls, greps)
+    fa["library_ms"] = graph_ms_per_call(lib_calls, greps)
+    for key, fns in (("profiler", calls), ("library_profiler", lib_calls)):
+        fa[f"{key}_ms"] = device_ms_per_call(fns, reps)
+        fa[f"{key}_records"] = [PROFILE_WINDOWS[-1]["records"],
+                                PROFILE_WINDOWS[-1]["calls"]]
     if regtile:
-        fa["basic_ms"] = device_ms_per_call(
-            [lambda q=q, k=k, v=v, sc=sc, c=c: basic(q, k, v, scale=sc, causal=c)
-             for q, k, v, sc, c, _ in seen])
-        fa["ms_again"] = device_ms_per_call(calls)
+        basic_calls = [lambda q=q, k=k, v=v, sc=sc, c=c: basic(
+                           q, k, v, scale=sc, causal=c)
+                       for q, k, v, sc, c, _ in seen]
+        fa["basic_ms"] = graph_ms_per_call(basic_calls, greps)
+        fa["basic_profiler_ms"] = device_ms_per_call(basic_calls)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for fn in calls:
@@ -3062,38 +3151,63 @@ def hold_flash_launches(seen: list, card: str, name: str) -> dict:
     fa["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     fa["units"] = max(r["units"] for r in rows)
     fa["bound_by"] = rows[0]["bound_by"]
+    fa["bound_share"] = fa["bound_ms"] / fa["ms"]
+    fa["cuda_cores_share"] = fa["cuda_cores_ms"] / fa["ms"]
     fa["rows"] = rows
     unit = ("units of 1 spacing + 2^-8 max|v| + 2e-5" if hopper else
             ("bfloat16 spacings" if rows[0]["dtype"] != "torch.float32"
              else f"(float32, atol {FA_F32_ATOL})"))
     beside = ""
     if hopper:
-        beside = f", the CUDA-core kernel {fa['simt_ms']:.4f} ms"
+        beside = f", the CUDA-core kernel {fa['simt_ms']:.4f} ms (eager events)"
+    Dk, Dv = seen[0][0].shape[-1], seen[0][2].shape[-1]
     if regtile:
         fa["basic_max_abs_err"] = max(r["basic_max_abs_err"] for r in rows)
         fa["basic_gap"] = max(r["basic_gap"] for r in rows)
-        fa["bound_share"] = fa["bound_ms"] / fa["ms"]
-        Dk, Dv = seen[0][0].shape[-1], seen[0][2].shape[-1]
+        fa["basic_share"] = fa["bound_ms"] / fa["basic_ms"]
         fa["smem_bytes"] = int(fa_kernel.load_library().lib
                                .flash_attention_regtile_smem(Dk, Dv))
-        fa["ptxas"] = regtile_build_report()
+        fa["ptxas"] = flash_build_report("regtile")
         beside = (f", the basic body on the same inputs {fa['basic_ms']:.4f} "
-                  f"ms device time (events {fa['basic_event_ms']:.4f} ms; within "
-                  f"{fa['basic_gap']} of the register-tiled body)")
+                  f"ms ({100 * fa['basic_share']:.1f}% of the bound; profiler "
+                  f"{fa['basic_profiler_ms']:.4f} ms; within {fa['basic_gap']} "
+                  f"of the register-tiled body)")
         for line in fa["ptxas"]:
             log(f"[build] flash_attention_simt_regtile {line}")
         log(f"[build] flash_attention_simt_regtile shared memory at (Dk, Dv) = "
             f"({Dk}, {Dv}): {fa['smem_bytes']} bytes a block")
+    if basic_body:
+        f32 = seen[0][0].dtype == torch.float32
+        packed = int(fa_kernel.load_library().lib.flash_attention_basic_smem(
+            Dk, Dv, int(f32)))
+        fa["rows_a_block"], fa["smem_bytes"] = packed >> 32, packed & 0xFFFFFFFF
+        fa["ptxas"] = flash_build_report("basic")
+        for line in fa["ptxas"]:
+            log(f"[build] flash_attention_simt_basic {line}")
+        log(f"[build] flash_attention_simt_basic at (Dk, Dv) = ({Dk}, {Dv}), "
+            f"{rows[0]['dtype']}: {fa['rows_a_block']} packed rows and "
+            f"{fa['smem_bytes']} bytes of shared memory a block")
+    cores = ""
+    if not hopper and rows[0]["dtype"] != "torch.float32":
+        cores = (f", {100 * fa['cuda_cores_share']:.1f}% of "
+                 f"{fa['cuda_cores_ms']:.4f} ms at the float32 CUDA-core rate")
+    timing = (f"{fa['ms']:.4f} ms (a CUDA graph of the launches timed by "
+              f"events; {100 * fa['bound_share']:.1f}% of the bound{cores}; "
+              f"profiler device time {fa['profiler_ms']:.4f} ms from "
+              f"{fa['profiler_records'][0]} kernel records of "
+              f"{fa['profiler_records'][1]} launches; CUDA events around "
+              f"{FA_TIME_REPS} eager launches {fa['event_ms']:.4f} ms; host "
+              f"time per call {fa['host_ms']:.4f} ms), plain "
+              f"{fa['plain_ms']:.4f} ms, scaled_dot_product_attention "
+              f"{fa['library_ms']:.4f} ms (graph; profiler "
+              f"{fa['library_profiler_ms']:.4f} from "
+              f"{fa['library_profiler_records'][0]} kernel records of "
+              f"{fa['library_profiler_records'][1]} calls; eager events "
+              f"{fa['library_event_ms']:.4f})")
     log(f"[time] {name} at q {rows[0]['shape_q']}, k {rows[0]['shape_k']}, "
         f"{rows[0]['dtype']}, causal={seen[0][4]}, mean over the {len(rows)} "
-        f"launches: {fa['ms']:.4f} ms device time under the profiler"
-        + (f" ({fa['ms_again']:.4f} ms in a second window; "
-           f"{100 * fa['bound_share']:.1f}% of the bound)" if regtile else "")
-        + f" (CUDA events around {FA_TIME_REPS} launches {fa['event_ms']:.4f} ms; host "
-        f"time per call {fa['host_ms']:.4f} ms), plain {fa['plain_ms']:.4f} ms, "
-        f"scaled_dot_product_attention {fa['library_ms']:.4f} ms (events "
-        f"{fa['library_event_ms']:.4f})"
-        f"{beside}, bound {fa['bound_ms']:.4f} ms ({fa['bound_by']}); all within "
+        f"launches: " + timing
+        + f"{beside}, bound {fa['bound_ms']:.4f} ms ({fa['bound_by']}); all within "
         f"tolerance of both plain versions (worst {fa['units']} {unit}, "
         f"max_abs_err {fa['max_abs_err']}); card {card}")
     return fa
@@ -3332,11 +3446,110 @@ def run_serving(card: str, dev: torch.device) -> dict:
     fa32 = hold_flash_launches(seen, card, "flash_attention_simt_regtile")
     del seen, params, batcher
     torch.cuda.empty_cache()
+    gemma = flash_basic_gemma(card, dev)
     return {**rec, "flash": fa, "flash_f32": fa32,
             "flash_f32_launches": launches_f32, "f32_forward_rel_rms": f32_err,
             "flash_f32_basic_launches": launches_basic,
             "f32_basic_forward_rel_rms": basic_err,
+            "flash_basic_gemma": gemma,
             "served_logits": rec_b, "profile": prof, "programs": decode16}
+
+
+# The basic body's three shapes (PERF.md section 6), (name, dtype, B, Hq,
+# Hkv, S, Dk, Dv), causal: the float32 forward's (phase 11 (c)), the float32
+# MLA prefill's (phase 18 (a), v contiguous here) and Gemma 2 9B's.
+FLASH_BASIC_SHAPES = (
+    ("f32_forward", torch.float32, 1, 16, 8, 2079, 128, 128),
+    ("mla", torch.float32, 1, 16, 16, 2079, 192, 128),
+    ("gemma", torch.bfloat16, *GEMMA_ATTN, GEMMA_ATTN[-1]),
+)
+
+
+def time_flash_basic_sources(sources: list, card: str, dev) -> list[dict]:
+    """``python3 chip_smoke.py --time-flash-basic [SOURCE ...]``: the basic
+    body (``flash_attention_basic_launch``) of this checkout's
+    ``flash_attention.cu`` and of each further source given (another
+    tree's, unpacked beside this one), built here, at FLASH_BASIC_SHAPES
+    on seeded inputs, each held and timed by ``hold_flash_launches`` in
+    turns (this one, the others, the others, this one)."""
+    import ctypes
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    libs = {}
+    for src in [fa_kernel.SOURCE, *sources]:
+        built = _build.build(Path(src))
+        fn = built.lib.flash_attention_basic_launch
+        fn.argtypes, fn.restype = fa_kernel._ARGTYPES, ctypes.c_int
+        libs[str(src)] = built
+        log(f"[ab] built {src} in {built.seconds:.2f} s")
+    names = list(libs)
+    rows = []
+    for shape, dtype, B, Hq, Hkv, S, Dk, Dv in FLASH_BASIC_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+
+        def rand(h, d):
+            return torch.randn(B, h, S, d, generator=gen, device=dev).to(dtype)
+
+        q, k, v = rand(Hq, Dk), rand(Hkv, Dk), rand(Hkv, Dv)
+        row = {"shape": shape, "shape_q": list(q.shape), "shape_v": list(v.shape),
+               "dtype": str(dtype), **fa_bound(q, k, v, True),
+               "ms": {n: [] for n in names}, "max_abs_err": {}}
+        for n in names + names[::-1]:
+            def launch(q, k, v, *, scale, causal, built=libs[n]):
+                return fa_kernel._launch(built, "flash_attention_basic_launch",
+                                         q, k, v, scale, causal)
+
+            log(f"[ab] {n} at {shape}:")
+            out = launch(q, k, v, scale=Dk ** -0.5, causal=True)
+            fa = hold_flash_launches([(q, k, v, Dk ** -0.5, True, out)], card,
+                                     "flash_attention_simt_basic", launch)
+            row["ms"][n].append(fa["ms"])
+            row["max_abs_err"][n] = fa["max_abs_err"]
+            row["library_ms"] = fa["library_ms"]
+        rows.append(row)
+    return rows
+
+
+def flash_basic_gemma(card: str, dev) -> dict:
+    """Phase 11 (c), last: one bfloat16 launch at Gemma 2 9B's attention
+    shape (``GEMMA_ATTN``, causal, seeded inputs) through the dispatching
+    ``kernel.flash_attention``, which must reach the basic body (head dim
+    256 is not the Hopper kernel's); held against both plain versions and
+    timed beside SDPA, its bound at the tensor cores' bf16 rate, and the
+    float32 CUDA-core rate's figure beside it."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    B, Hq, Hkv, S, D = GEMMA_ATTN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+
+    def rand(h):
+        return torch.randn(B, h, S, D, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = rand(Hq), rand(Hkv), rand(Hkv)
+    scale = D ** -0.5
+    reset_launches()
+    out = fa_kernel.flash_attention(q, k, v, scale=scale, causal=True)
+    launches = read_launches()
+    if launches != {**{k_: 0 for k_ in launches}, "flash_attention": 1,
+                    "flash_attention_simt_basic": 1}:
+        raise AssertionError(f"the Gemma-shape launch made launches "
+                             f"{ {k_: n for k_, n in launches.items() if n} }; "
+                             "expected one of the basic body")
+    fa = hold_flash_launches([(q, k, v, scale, True, out)], card,
+                             "flash_attention_simt_basic")
+    fa["library_factor"] = fa["ms"] / fa["library_ms"]
+    log(f"[time] flash_attention_simt_basic at Gemma 2 9B's attention shape "
+        f"(bf16, GQA 16 / 8, head dim 256, S {S}): {fa['ms']:.4f} ms, "
+        f"{100 * fa['bound_share']:.1f}% of its {fa['bound_ms']:.4f} ms bound "
+        f"(bf16 operands at the tensor cores' rate; "
+        f"{100 * fa['cuda_cores_share']:.1f}% of {fa['cuda_cores_ms']:.4f} ms "
+        f"at the float32 CUDA-core rate the kernel multiplies at); "
+        f"scaled_dot_product_attention {fa['library_ms']:.4f} ms, "
+        f"{fa['library_factor']:.1f}x faster; card {card}")
+    return fa
 
 
 def whole(t) -> torch.Tensor:
@@ -3531,7 +3744,10 @@ def moe_check_model(arch: str, tag: str, layers: int, tol: float, card: str,
     the Hopper flash kernel, the grouped GEMM), its served logits held
     against the float32 ``forward`` with the plain attention and the
     plain grouped SwiGLU (the loop) within ``tol``; a forward without the
-    causal mask must fall outside it.  Returns (record, cfg, params)."""
+    causal mask must fall outside it.  With MLA layers the float32 forward
+    also runs through the kernels (``mla_f32_forward``).  Returns (record,
+    cfg, params)."""
+    from repro_torch.configs.base import layer_layout
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.models import ffn
@@ -3584,7 +3800,49 @@ def moe_check_model(arch: str, tag: str, layers: int, tol: float, card: str,
     if not rec["unmasked_rel_rms_max"] > tol:
         raise AssertionError(f"{tag} a forward without the causal mask stays "
                              f"within the tolerance: the check cannot see it")
+    if any(s.mixer == "mla" for s in layer_layout(cfg)):
+        rec["mla_f32"] = mla_f32_forward(cfg32, params, toks, want, tag, card)
     return rec, cfg, params
+
+
+def mla_f32_forward(cfg32, params, toks, want, tag: str, card: str) -> dict:
+    """Phase 18 (a)'s float32 MLA prefill through the kernels: the check
+    model's float32 ``forward`` with ``kernel.flash_attention`` (the plain
+    grouped SwiGLU: the grouped GEMM takes no float32), one launch a layer,
+    all of the basic body (float32 at (Dk, Dv) = (192, 128)), its logits
+    within F32_FWD_RTOL of the plain float32 forward ``want``; each launch
+    captured and held against both plain versions and timed as phase 11
+    (c)'s are (``hold_flash_launches``)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import ffn
+
+    seen = []
+
+    def spy(q, k, v, *, scale, causal):
+        out = fa_kernel.flash_attention(q, k, v, scale=scale, causal=causal)
+        seen.append((q.clone(), k.clone(), v.clone(), scale, causal, out.clone()))
+        return out
+
+    reset_launches()
+    got = forward_logits(cfg32, params, toks, spy, ffn.grouped_swiglu_loop)
+    launches = read_launches()
+    layers = attention_layers(cfg32)
+    if launches != {**{k: 0 for k in launches}, "flash_attention": layers,
+                    "flash_attention_simt_basic": layers}:
+        raise AssertionError(f"{tag} (a) the float32 forward made launches "
+                             f"{ {k: v for k, v in launches.items() if v} }; "
+                             f"expected {layers} of the basic body and nothing "
+                             "else")
+    err = float(rel_rms(got, want).max())
+    log(f"{tag} (a) float32 MLA forward through the CUDA-core flash kernel "
+        f"({layers} launches of the basic body at q {list(seen[0][0].shape)}, "
+        f"v {list(seen[0][2].shape)}): logits within relative RMS {err:.3e} of "
+        f"the plain float32 forward (tolerance {F32_FWD_RTOL}); card {card}")
+    if not err <= F32_FWD_RTOL:
+        raise AssertionError(f"{tag} float32 forward through the basic body "
+                             f"differs: relative RMS {err} > {F32_FWD_RTOL}")
+    fa = hold_flash_launches(seen, card, "flash_attention_simt_basic")
+    return {"launches": launches, "rel_rms": err, "flash": fa}
 
 
 def moe_layer_check(cfg, params, tag: str, card: str, dev) -> dict:
@@ -7069,6 +7327,11 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[-1]
     log(f"[env] card: {card}")
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc}")
+    if sys.argv[1:2] == ["--time-flash-basic"]:
+        print(json.dumps({"flash_basic_ab": time_flash_basic_sources(
+            sys.argv[2:], card, dev)}))
+        print(card)
+        return 0
     log(f"[env] torch._grouped_mm (the MoE layers' grouped GEMM): "
         f"{'present' if hasattr(torch, '_grouped_mm') else 'missing'}")
     # One nvcc per source, started together.
@@ -7357,10 +7620,45 @@ def main() -> int:
     ssm_full = [ssm_serving[arch]["serve"] for arch, *_ in SSM_SERVE]
     hybrid_flash = [r["flash"] for r in ssm_full if r["flash"]]
     fa32 = serving["flash_f32"]
+    # Phase 18 (a)'s float32 MLA forwards (deepseek's) through the basic
+    # body, and phase 11 (c)'s Gemma-shape launch.
+    mla_checks = [moe[arch]["check"]["mla_f32"] for arch, *_ in MOE_SERVE
+                  if "mla_f32" in moe[arch]["check"]]
+    mla32 = mla_checks[0]["flash"]
+    gemma = serving["flash_basic_gemma"]
+    flash_basic = {
+        "f32_forward": {"ms": fa32["basic_ms"], "bound_ms": fa32["bound_ms"],
+                        "share": fa32["basic_share"],
+                        "library_ms": fa32["library_ms"],
+                        "plain_ms": fa32["plain_ms"],
+                        "shape_q": fa32["rows"][0]["shape_q"]},
+        **{name: {"ms": f["ms"], "bound_ms": f["bound_ms"],
+                  "share": f["bound_share"],
+                  "cuda_cores_ms": f["cuda_cores_ms"],
+                  "cuda_cores_share": f["cuda_cores_share"],
+                  "library_ms": f["library_ms"], "plain_ms": f["plain_ms"],
+                  "profiler_ms": f["profiler_ms"],
+                  "profiler_records": f["profiler_records"],
+                  "shape_q": f["rows"][0]["shape_q"],
+                  "dtype": f["rows"][0]["dtype"]}
+           for name, f in (("mla", mla32), ("gemma", gemma))}}
+    log("[time] flash_attention_simt_basic, ms / bound ms (share) / "
+        "scaled_dot_product_attention ms (CUDA graphs timed by events): "
+        + "; ".join(f"{name} q {r['shape_q']}: {r['ms']:.4f} / {r['bound_ms']:.4f} "
+                    f"({100 * r['share']:.1f}%) / {r['library_ms']:.4f}"
+                    for name, r in flash_basic.items())
+        + f" (Gemma at the float32 CUDA-core rate: "
+        f"{flash_basic['gemma']['cuda_cores_ms']:.4f} ms, "
+        f"{100 * flash_basic['gemma']['cuda_cores_share']:.1f}%); card {card}")
+    short = [w for w in PROFILE_WINDOWS if w["records"] < w["calls"]]
+    log(f"[time] profiler windows: {len(PROFILE_WINDOWS)}, {len(short)} of them "
+        f"with fewer kernel records than calls made: " + "; ".join(
+            f"{w['records']}/{w['calls']}" for w in short))
     fa_err = {"flash_attention_simt_regtile": max(
                   fa_err["flash_attention_simt_regtile"], fa32["max_abs_err"]),
               "flash_attention_simt_basic": max(
-                  fa_err["flash_attention_simt_basic"], fa32["basic_max_abs_err"]),
+                  fa_err["flash_attention_simt_basic"], fa32["basic_max_abs_err"],
+                  mla32["max_abs_err"], gemma["max_abs_err"]),
               "flash_attention_wgmma": max(
                   [fa_err["flash_attention_wgmma"], serving["flash"]["max_abs_err"]]
                   + [r["flash"]["max_abs_err"] for r in moe_full]
@@ -7383,6 +7681,7 @@ def main() -> int:
         "scheduler": sched, "materialized": mat, "two_op": two_op,
         "lake_hash": lake_hash, "serving": serving, "moe_serving": moe,
         "ssm_serving": ssm_serving, "training": training,
+        "flash_basic": flash_basic, "profile_windows": PROFILE_WINDOWS,
         "application": app, "mesh": mesh, "model_mesh": model_mesh,
         "train_mesh": train_mesh, "autotune": tune,
         "compile_end": programs.compile_stats(),
@@ -7433,39 +7732,42 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     }, *[{
-        # flash_attention: the CUDA-core entry (flash_attention_simt), whose
-        # launches on the main path all reach the register-tiled body; the
-        # basic body's launches are its own forward's in phase 11 (c), and
-        # its times are on the same 24 inputs.
+        # flash_attention: the CUDA-core entry (flash_attention_simt); its
+        # register-tiled body's times are phase 11 (c)'s 24 launches, the
+        # basic body's phase 18 (a)'s float32 MLA prefill (3 launches).
         "name": name,
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
         "launches": launches,
         "max_abs_err": err,
-        "ms": fa32[ms],
-        "plain_ms": fa32["plain_ms"],
-        "bound_ms": fa32["bound_ms"],
-        "bound_by": fa32["bound_by"],
-        "library_ms": fa32["library_ms"],
-    } for name, launches, err, ms in (
-        # Phase 11 (c)'s float32 forward, phase 20 (a)'s float32 train
-        # steps (forward and remat) on the card and phase 23 (c)'s float32
-        # smoke-size mesh steps.
+        "ms": times["ms"],
+        "plain_ms": times["plain_ms"],
+        "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"],
+        "library_ms": times["library_ms"],
+    } for name, launches, err, times in (
+        # Phase 11 (c)'s float32 forward, phase 18 (a)'s float32 MLA
+        # forward, phase 20 (a)'s float32 train steps (forward and remat)
+        # on the card and phase 23 (c)'s float32 smoke-size mesh steps.
         ("flash_attention", serving["flash_f32_launches"]["flash_attention"]
+         + sum(c["launches"]["flash_attention"] for c in mla_checks)
          + sum(r["launches"]["flash_attention"] for r in train_checks)
          + more("flash_attention"),
          max(fa_err["flash_attention_simt_regtile"],
-             fa_err["flash_attention_simt_basic"]), "ms"),
+             fa_err["flash_attention_simt_basic"]), fa32),
         ("flash_attention_simt_regtile",
          serving["flash_f32_launches"]["flash_attention_simt_regtile"]
          + sum(r["launches"]["flash_attention_simt_regtile"]
                for r in train_checks) + more("flash_attention_simt_regtile"),
-         fa_err["flash_attention_simt_regtile"], "ms"),
+         fa_err["flash_attention_simt_regtile"], fa32),
+        # Phase 18 (a)'s float32 MLA forward and phase 11 (c)'s forward
+        # forced through the basic body.
         ("flash_attention_simt_basic",
          serving["flash_f32_basic_launches"]["flash_attention_simt_basic"]
+         + sum(c["launches"]["flash_attention_simt_basic"] for c in mla_checks)
          + more("flash_attention_simt_basic"),
-         fa_err["flash_attention_simt_basic"], "basic_ms"))],
+         fa_err["flash_attention_simt_basic"], mla32))],
     {
         "name": "flash_attention_wgmma",
         "route": "cuda",

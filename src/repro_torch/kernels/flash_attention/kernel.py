@@ -12,8 +12,16 @@
   Dk, Dv <= ``REGTILE_MAX_D``, 16-byte aligned rows: ``REGTILE_ROWS``
   packed query rows of all the KV head's query heads a block, K/V tiles of
   ``REGTILE_KEYS`` keys copied asynchronously, 16-byte operand reads) and
-  the basic body (:func:`flash_attention_simt_basic`; the rest, among them
-  16-bit inputs and head dims above 128).
+  the basic body (:func:`flash_attention_simt_basic`; the rest: float32
+  above head dim 128, 16-bit inputs off the Hopper kernel's head dims,
+  unaligned rows, more than ``REGTILE_ROWS`` query heads a KV head).  The
+  basic body is the register-tiled design widened: 128 packed rows a
+  block, or 64 at wider heads (the rule is ``rows_for`` in the source, and
+  the C entry ``flash_attention_basic_smem`` reports it), a KV head's
+  group split over blocks where it has more heads than a block has rows,
+  staging chosen per tensor by its alignment (``cp.async`` for float32,
+  16-byte loads into registers a tile ahead for 16-bit, an element at a
+  time for unaligned rows).
 
 :func:`flash_attention` sends each call to one of them by a fixed rule on
 its inputs (see there).  Each source is built at first use by
@@ -75,7 +83,9 @@ def load_library() -> BuiltLibrary:
     built = _load(SOURCE, "flash_attention_regtile_launch",
                   "flash_attention_basic_launch")
     built.lib.flash_attention_regtile_smem.argtypes = [ctypes.c_int] * 2
-    built.lib.flash_attention_regtile_smem.restype = ctypes.c_longlong
+    built.lib.flash_attention_basic_smem.argtypes = [ctypes.c_int] * 3
+    for entry in ("flash_attention_regtile_smem", "flash_attention_basic_smem"):
+        getattr(built.lib, entry).restype = ctypes.c_longlong
     return built
 
 
@@ -110,7 +120,8 @@ def takes_regtile(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     body for float32 q, k, v with Dk and Dv up to ``REGTILE_MAX_D``, at most
     ``REGTILE_ROWS`` query heads a KV head, and 16-byte aligned rows (base
     and every stride of more than one element a multiple of 4 elements);
-    the basic body for the rest (16-bit inputs, Dk or Dv above 128)."""
+    the basic body for the rest (16-bit inputs, Dk or Dv above 128,
+    unaligned rows, larger groups)."""
     return (q.dtype == k.dtype == v.dtype == torch.float32
             and q.dim() == k.dim() == v.dim() == 4
             and q.shape[-1] <= REGTILE_MAX_D and v.shape[-1] <= REGTILE_MAX_D
@@ -240,9 +251,11 @@ def flash_attention_simt_regtile(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_simt_basic(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, scale: float,
                                causal: bool = True) -> torch.Tensor:
-    """The basic body (``flash_attention_basic_launch``, the first design):
-    the whole contract of :func:`flash_attention_simt`.
-    ``flash_attention_simt_basic.launches`` counts its launches."""
+    """The basic body (``flash_attention_basic_launch``): the whole
+    contract of :func:`flash_attention_simt`, on 128 or 64 packed query
+    rows a block by the head dims and dtype (``flash_attention_basic_smem``
+    reports the rows and shared memory at a shape).  ``flash_attention_simt_basic.launches`` counts its
+    launches."""
     _check_simt(q, k, v)
     out = _launch(load_library(), "flash_attention_basic_launch", q, k, v,
                   scale, causal)

@@ -7,13 +7,16 @@ tensor takes ``ref.chunked_attention`` (under autograd too), and so does
 a ``meta`` tensor (the dry run: shapes only, no kernel); a CUDA tensor
 launches a hand-written kernel (``kernel.flash_attention``: the Hopper
 kernel for bfloat16/float16 at its head dims, which rounds P to that
-dtype before P·V, the CUDA-core kernel otherwise) or raises, and never
-takes the plain path in the forward.  The op has no tuning knob, and
-the autotuner (``repro_torch.kernels.autotune``) does not reach it: its
-bodies launch at fixed shapes (128 packed query rows a block, a K/V ring
-of 3 stages up to Dk = 128), since no other row count or ring depth
-timed on the card was faster.  There is no host-side padding of S or
-D: the kernel masks its own ragged edge.
+dtype before P·V; the CUDA-core kernel otherwise, its register-tiled
+body for float32 up to head dim 128 and its basic body for the rest,
+such as MLA's float32 prefill at (192, 128) or 16-bit inputs at head dim
+256) or raises, and never takes the plain path in the forward.  The op
+has no tuning knob, and the autotuner (``repro_torch.kernels.autotune``)
+does not reach it: its bodies launch at fixed shapes (128 packed query
+rows a block, 64 for the basic body's widest heads; a K/V ring of 3
+stages up to Dk = 128), since no other row count or ring depth timed on
+the card was faster.  There is no host-side padding of S or D: the
+kernel masks its own ragged edge.
 Unlike the reference, a non-causal call at an S that is not a block
 multiple is exact (the reference lets its padded keys into the softmax).
 

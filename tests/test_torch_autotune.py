@@ -44,6 +44,7 @@ from repro_torch.kernels.knn_stats import kernel as knn_kernel
 from repro_torch.kernels.knn_stats import ops as knn_ops
 from repro_torch.kernels.pairwise_cheb import kernel as pc_kernel
 from repro_torch.kernels.pairwise_cheb import ops as pc_ops
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 # What torch.cuda.get_device_name gives on the card the port runs on: a

@@ -36,6 +36,7 @@ from repro_torch.train.fault_tolerance import (PREEMPTED_EXIT_CODE,
                                                PreemptionGuard,
                                                StragglerMonitor,
                                                plan_batch_for_mesh)
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # One intra-op thread count for every launcher run, so that CPU runs in

@@ -55,6 +55,7 @@ from repro_torch.launch import serve
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.models.common import cast, cast_params
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 ATOL = 1e-4  # the JAX decode_step bound of tests/test_torch_models.py

@@ -47,6 +47,7 @@ from repro_torch.models.ffn import moe_ffn
 from repro_torch.parallel.decode_attention import decode_attention
 from repro_torch.parallel.sharding import (apply_named_sharding,
                                            collective_census, mesh_context)
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = M.list_archs()

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from repro.core import estimators as je
 from repro_torch.core import estimators as te
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 RTOL = ATOL = 1e-5
 B, P = 4, 256

@@ -13,11 +13,15 @@ both sides accumulate in float32 and round once at the end, so an output
 may differ by one bfloat16 ulp (a relative spacing of at most 2^-7).
 
 The ``cuda``-marked tests hold the CUDA-core kernel against the plain
-versions on the card (the same tolerances) and skip without one: both of
-its bodies, the register-tiled one also against the basic one on the same
-inputs (atol 2e-5), and the rule ``kernel.takes_regtile`` that picks
-between them; the CPU replay of the register-tiled route is
-``tests/test_torch_flash_f32_design.py``.  The Hopper kernel and the
+versions on the card (the same tolerances; 16-bit outputs of the basic
+body also within one spacing + 2e-5) and skip without one: both of its
+bodies, the register-tiled one also against the basic one on the same
+inputs (atol 2e-5), the basic body on every input the register-tiled one
+refuses (head dims above 128, 16-bit at other head dims, S = 1 and under
+one key tile, unaligned views, a group of 256 heads, MLA's operands), and
+the rule ``kernel.takes_regtile`` that picks between them; the CPU
+replays of the two routes are ``tests/test_torch_flash_f32_design.py``
+and ``tests/test_torch_flash_basic_design.py``.  The Hopper kernel and the
 p_dtype plain version are held in ``tests/test_torch_flash_wgmma.py``.
 """
 
@@ -31,6 +35,7 @@ from repro.kernels.flash_attention.ops import attention as j_attention
 from repro.kernels.flash_attention.ref import chunked_attention as j_chunked
 from repro.kernels.flash_attention.ref import mha_reference as j_mha
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32_ATOL = 2e-5
 BF16_RTOL = 2.0 ** -7
@@ -307,34 +312,131 @@ def test_cuda_regtile_strided_views(cuda_device):
         np.testing.assert_allclose(_np(got), _np(basic), atol=F32_ATOL)
 
 
+def assert_spacing_close(got, want):
+    """16-bit: within one spacing of ``want``'s dtype at ``want`` + 2e-5
+    (each side rounds its float32 result once)."""
+    w = want.float()
+    bits = 11 if want.dtype == torch.float16 else 8
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - bits)
+    diff = (got.float() - w).abs()
+    assert bool((diff <= ulp + F32_ATOL).all()), float((diff - ulp).max())
+
+
+def _rest_holds(got, q, k, v, scale, causal):
+    """The basic body's output against both plain versions: float32 within
+    F32_ATOL, 16-bit within one spacing + 2e-5 (and the bf16 rule)."""
+    for plain in (ref.chunked_attention, ref.mha_reference):
+        want = plain(q, k, v, scale=scale, causal=causal)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if got.dtype == torch.float32:
+            np.testing.assert_allclose(_np(got), _np(want), atol=F32_ATOL)
+        else:
+            assert_spacing_close(got, want)
+            np.testing.assert_allclose(_np(got), _np(want), rtol=BF16_RTOL,
+                                       atol=1e-6)
+
+
+def _through_the_basic_body(q, k, v, scale, causal):
+    """One ``kernel.flash_attention`` call that must reach the basic body
+    (and neither the register-tiled body nor the Hopper kernel)."""
+    wrappers = (kernel.flash_attention_simt, kernel.flash_attention_simt_regtile,
+                kernel.flash_attention_simt_basic, kernel.flash_attention_wgmma)
+    before = {f: f.launches for f in wrappers}
+    got = kernel.flash_attention(q, k, v, scale=scale, causal=causal)
+    after = {f: f.launches - n for f, n in before.items()}
+    assert after == {kernel.flash_attention_simt: 1,
+                     kernel.flash_attention_simt_regtile: 0,
+                     kernel.flash_attention_simt_basic: 1,
+                     kernel.flash_attention_wgmma: 0}
+    return got
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,causal", [(70, True), (130, False), (1, True),
+                                      (37, True), (37, False)])
 @pytest.mark.parametrize("dtype,dk,dv", [
     (torch.float32, 256, 256),
     (torch.float32, 192, 128),
     (torch.bfloat16, 16, 16),
+    (torch.float16, 16, 16),
+    (torch.bfloat16, 96, 96),
+    (torch.float16, 96, 96),
+    (torch.bfloat16, 256, 256),
+    (torch.float16, 256, 256),
+    (torch.float32, 136, 72),
 ])
-def test_cuda_rest_reaches_the_basic_body(cuda_device, dtype, dk, dv):
-    """Dk or Dv above 128 and 16-bit inputs take the basic body, through
-    the dispatch, and the register-tiled wrapper refuses them."""
-    q, k, v = _torch(_inputs(1, 4, 2, 70, dk, dv, seed=17), dtype=dtype,
+def test_cuda_rest_reaches_the_basic_body(cuda_device, dtype, dk, dv, s,
+                                          causal):
+    """Dk or Dv above 128 and 16-bit inputs off the Hopper kernel's head
+    dims take the basic body, through the dispatch (S = 1, S under one key
+    tile, a ragged S without the causal mask), and the register-tiled
+    wrapper refuses them."""
+    q, k, v = _torch(_inputs(2, 4, 2, s, dk, dv, seed=17 + s), dtype=dtype,
                      device=cuda_device)
-    assert not kernel.takes_regtile(q, k, v)
-    before = {f: f.launches for f in (kernel.flash_attention_simt,
-                                      kernel.flash_attention_simt_regtile,
-                                      kernel.flash_attention_simt_basic)}
-    got = kernel.flash_attention(q, k, v, scale=0.1, causal=True)
-    after = {f: f.launches - n for f, n in before.items()}
-    assert after == {kernel.flash_attention_simt: 1,
-                     kernel.flash_attention_simt_regtile: 0,
-                     kernel.flash_attention_simt_basic: 1}
-    want = ref.chunked_attention(q, k, v, scale=0.1, causal=True)
-    torch.cuda.synchronize()
-    if dtype == torch.float32:
-        np.testing.assert_allclose(_np(got), _np(want), atol=F32_ATOL)
-    else:
-        np.testing.assert_allclose(_np(got), _np(want), rtol=BF16_RTOL, atol=1e-6)
+    assert not kernel.takes_regtile(q, k, v) and not kernel.takes_wgmma(q, k, v)
+    got = _through_the_basic_body(q, k, v, 0.1, causal)
+    _rest_holds(got, q, k, v, 0.1, causal)
     with pytest.raises(ValueError, match="register-tiled"):
         kernel.flash_attention_simt_regtile(q, k, v, scale=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_basic_body_unaligned_views(cuda_device, dtype, causal):
+    """Rows that 16-byte copies cannot address (a base one element off, a
+    row stride of Dk + 1 elements): the element-wise staging."""
+    rng = np.random.default_rng(19)
+    dk = 24
+
+    def view(h, d):
+        flat = torch.from_numpy(rng.normal(size=(1 + 2 * h * 70 * (d + 1),))
+                                .astype(np.float32)).to(cuda_device, dtype)
+        return flat[1:].view(2, h, 70, d + 1)[..., :d]
+
+    q, k, v = view(4, dk), view(2, dk), view(2, 16)
+    assert q.data_ptr() % 16 and q.stride(2) == dk + 1
+    got = _through_the_basic_body(q, k, v, 0.2, causal)
+    _rest_holds(got, q, k, v, 0.2, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dk,dv", [
+    (torch.float32, 16, 16),
+    (torch.float32, 192, 128),
+    (torch.bfloat16, 256, 256),
+])
+def test_cuda_basic_body_group_over_a_block(cuda_device, dtype, dk, dv):
+    """G = 256 query heads over one KV head: more than a block's packed
+    rows, so the group is split over blocks."""
+    q, k, v = _torch(_inputs(1, 256, 1, 75, dk, dv, seed=20), dtype=dtype,
+                     device=cuda_device)
+    for causal in (True, False):
+        got = _through_the_basic_body(q, k, v, 1.0 / dk ** 0.5, causal)
+        _rest_holds(got, q, k, v, 1.0 / dk ** 0.5, causal)
+
+
+@pytest.mark.cuda
+def test_cuda_basic_body_mla_layout(cuda_device):
+    """MLA's prefill operands (models/attention.py): k the concatenation of
+    the nope part and the rope part expanded over heads, v a strided slice
+    of the kv_up output, (B, S, H, D) viewed as (B, H, S, D), float32 at
+    (192, 128)."""
+    rng = np.random.default_rng(21)
+    B, S, H, dn, dr, dv = 1, 200, 4, 128, 64, 128
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda_device)
+
+    kv = t(B, S, H, dn + dv)
+    k = torch.cat([kv[..., :dn], t(B, S, 1, dr).expand(B, S, H, dr)], dim=-1)
+    q, v = t(B, S, H, dn + dr), kv[..., dn:]
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    assert not v.is_contiguous()
+    got = _through_the_basic_body(q, k, v, 1.0 / (dn + dr) ** 0.5, True)
+    _rest_holds(got, q, k, v, 1.0 / (dn + dr) ** 0.5, True)
 
 
 @pytest.mark.cuda

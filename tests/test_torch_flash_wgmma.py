@@ -28,6 +28,7 @@ import jax.numpy as jnp
 from repro.kernels.flash_attention.ops import attention as j_attention
 from repro.kernels.flash_attention.ref import mha_reference as j_mha
 from repro_torch.kernels.flash_attention import kernel, ops, ref
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32_ATOL = 2e-5
 P_VREL = 2.0 ** -8

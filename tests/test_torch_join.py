@@ -13,6 +13,7 @@ from repro.core import join as j_join
 from repro.core.sketch import build_sketch as j_build
 from repro_torch.core import join as t_join
 from repro_torch.core.sketch import build_sketch as t_build
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(202)
 FENCE = np.uint32(0xFFFFFFFF)

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from repro.kernels.knn_stats import ops as j_ops
 from repro_torch.kernels.knn_stats import kernel, ref
 from repro_torch.kernels.knn_stats import ops as t_ops
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 B = 3  # samples per case, batched on the port's side
 

@@ -21,6 +21,7 @@ from repro.kernels.knn_stats import ops as j_ops
 from repro_torch.kernels.knn_stats import kernel, ref
 from repro_torch.kernels.knn_stats import ops as t_ops
 from test_torch_knn_stats import _batch_samples
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 B = 4  # samples per case, batched on the port's side
 USE_KERNEL = pytest.mark.parametrize("use_kernel", [False, True],

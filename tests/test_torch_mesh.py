@@ -1,5 +1,13 @@
 """The port's discovery mesh against its batched path and the JAX package.
 
+This file holds the mesh, the planner's rounding, ``execute`` and the
+shard top-k; ``test_torch_mesh_routes.py`` and
+``test_torch_mesh_programs.py`` every ``query_many`` route (the first by
+1 and 3 shards, the second by 4, with the programs' bounds and the
+four-shard gate), ``test_torch_mesh_service.py`` the service's
+distributed rung; their corpus and fixtures are
+``_torch_mesh_common.py``'s (split for ``--dist loadfile``).
+
 A mesh here is ``make_host_mesh(devices=["cpu"] * n)`` for n = 1, 3 and
 4: the CPU counterpart of the reference tests' forced host devices (and
 of four shards on one card).  Three shards do not divide the pow-2 group
@@ -31,22 +39,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import hashing
 from repro.core.discovery import PartitionedLocalExecutor as JPartitioned
-from repro.core.discovery import SketchIndex as JIndex
 from repro.core.discovery import stack_trains as j_stack
 from repro.core.sketch import build_sketch as j_build
 from repro_torch import compile as programs
 from repro_torch.core.discovery import (
     BatchedExecutor,
-    DiscoveryService,
     GroupMajorDistributedExecutor,
     PartitionedLocalExecutor,
     SketchIndex,
     _shard_topk_plan,
     distributed_topk,
     get_executor,
-    inject_faults,
     make_plan,
     score_batch,
     stack_trains_host,
@@ -54,7 +58,6 @@ from repro_torch.core.discovery import (
 from repro_torch.core.discovery import executors as t_ex
 from repro_torch.core.discovery import planner as t_planner
 from repro_torch.core.discovery.planner import (
-    build_shortlists,
     bucket_rows,
     bucket_shortlist,
     bucket_survivors,
@@ -62,82 +65,25 @@ from repro_torch.core.discovery.planner import (
     tier_spec,
 )
 from repro_torch.core.sketch import build_sketch as t_build
-from repro_torch.launch.mesh import Mesh, make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 
-TOL = 1e-5
-N, ROWS, C = 64, 120, 48
-MIN_JOIN = 8
-SHARDS = [1, 3, 4]
-PATHS = {
-    "dense": dict(prefilter=False),
-    "staged": dict(fused=False),
-    "fused": dict(),
-    "gated": dict(min_containment=0.1),
-}
-
-
-def _corpus():
-    """48 candidates over a 120-row key universe: a third share all the
-    train keys, a third part of them (join sizes around ``MIN_JOIN``),
-    a third none; a quarter discrete."""
-    rng = np.random.default_rng(404)
-    keys = hashing.murmur3_32_np(np.arange(ROWS, dtype=np.uint32),
-                                 seed=np.uint32(7))
-    y = rng.normal(size=ROWS).astype(np.float32)
-    rows = []
-    for c in range(C):
-        kk = hashing.murmur3_32_np(
-            np.arange((c + 1) * 1000, (c + 1) * 1000 + ROWS, dtype=np.uint32),
-            seed=np.uint32(7))
-        if c % 3 == 0:
-            kk = keys
-        elif c % 3 == 1:
-            kk = np.concatenate([keys[:14 + c], kk[14 + c:]])
-        a = (c % 7) / 7
-        v = (a * y + (1 - a) * rng.normal(size=ROWS)).astype(np.float32)
-        disc = c % 4 == 0
-        if disc:
-            v = np.digitize(v, [-1.0, -0.3, 0.3, 1.0]).astype(np.int64)
-        rows.append((f"t{c:02d}", "k", "v", kk, v, disc))
-    qs = {False: [], True: []}
-    for q in range(3):
-        yq = (y + 0.2 * q * rng.normal(size=ROWS)).astype(np.float32)
-        qs[False].append(yq)
-        qs[True].append(np.digitize(yq, [-0.5, 0.0, 0.5]).astype(np.int64))
-    return rows, keys, qs
-
-
-ROWS_, KEYS, QUERIES = _corpus()
-
-
-def _sketches(build, y_disc):
-    return [build(KEYS, v, n=N, side="train", value_is_discrete=y_disc)
-            for v in QUERIES[y_disc]]
-
-
-def _flat(results):
-    return [[(m.table, float(mi), int(js)) for m, mi, js in r]
-            for r in results]
-
-
-def _mesh(n: int) -> Mesh:
-    return make_host_mesh(devices=["cpu"] * n)
-
-
-@pytest.fixture(scope="module")
-def index():
-    ix = SketchIndex(n=N, device="cpu")
-    for r in ROWS_:
-        ix.add(*r)
-    return ix
-
-
-@pytest.fixture(scope="module")
-def j_index():
-    ix = JIndex(n=N)
-    for r in ROWS_:
-        ix.add(*r)
-    return ix
+from _torch_mesh_common import (  # noqa: F401 (fixtures)
+    TOL,
+    N,
+    C,
+    MIN_JOIN,
+    SHARDS,
+    PATHS,
+    ROWS_,
+    KEYS,
+    QUERIES,
+    _sketches,
+    _flat,
+    _mesh,
+    index,
+    j_index,
+)
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 # ---------------------------------------------------------------------------
@@ -363,240 +309,12 @@ def test_query_returns_all_valid_when_topk_exceeds_corpus():
     assert _flat([got]) == _flat([want]) and len(got) == 8
 
 
-def test_topk_ladder_bounds_programs_and_keeps_results(index):
-    """Mirrors the reference's ladder tests: ``top_k`` 1-10 on the dense
-    mesh path returns exactly the dense local ranking, and builds one
-    shard program per (group, k bucket) — buckets {4, 8, 16, 32, 64} of
-    the oversampled counts."""
-    mesh = _mesh(4)
-    sk = _sketches(t_build, False)[0]
-    c0 = programs.compile_count()
-    for t in range(1, 11):
-        got = index.query(sk, top_k=t, mesh=mesh, min_join=4, prefilter=False)
-        assert len(got) == t
-        assert _flat([got]) == _flat(
-            [index.query(sk, top_k=t, min_join=4, prefilter=False)])
-    assert programs.compile_count() - c0 <= 5 * len(index.plan(False).groups)
-
-
-class TestFourShardGate:
-    """The reference's ``TestFourShardParity`` on a 4-shard CPU mesh:
-    5 joinable and 5 disjoint candidates; gated on the mesh == ungated on
-    the mesh == gated locally, cold and warm; the service's gated
-    windows deliver once warm and equal the ungated submit."""
-
-    @pytest.fixture(scope="class")
-    def small(self):
-        rng = np.random.default_rng(14)
-        ix = SketchIndex(n=N, device="cpu", sig_width=16)
-        y = rng.normal(size=ROWS).astype(np.float32)
-        for i in range(5):
-            ix.add(f"cont{i}", "k", "v", KEYS,
-                   (y + (0.2 + i) * rng.normal(size=ROWS)).astype(np.float32),
-                   False)
-        for i in range(5):
-            far = hashing.murmur3_32_np(
-                np.arange((i + 1) * ROWS, (i + 2) * ROWS, dtype=np.uint32),
-                seed=np.uint32(9))
-            ix.add(f"far{i}", "k", "v", far,
-                   rng.normal(size=ROWS).astype(np.float32), False)
-        sks = [t_build(KEYS, (y + 0.2 * q * rng.normal(size=ROWS))
-                       .astype(np.float32), n=N, side="train",
-                       value_is_discrete=False) for q in range(3)]
-        return ix, sks
-
-    def test_gated_equals_ungated_cold_and_warm(self, small):
-        ix, sks = small
-        mesh = _mesh(4)
-        for _ in range(2):
-            g_mesh = ix.query(sks[0], top_k=5, min_join=4, mesh=mesh,
-                              min_containment=0.05)
-            p_mesh = ix.query(sks[0], top_k=5, min_join=4, mesh=mesh)
-            g_loc = ix.query(sks[0], top_k=5, min_join=4,
-                             min_containment=0.05)
-            assert g_mesh and _flat([g_mesh]) == _flat([p_mesh]) == \
-                _flat([g_loc])
-
-    def test_service_gated_windows(self, small):
-        ix, sks = small
-        svc = DiscoveryService(index=ix, mesh=_mesh(4), max_q_bucket=2)
-        svc.submit(sks, top_k=5, min_join=4, min_containment=0.05)
-        before = svc.stats()["admission"]["gated_windows"]
-        got = svc.submit(sks, top_k=5, min_join=4, min_containment=0.05)
-        assert svc.stats()["admission"]["gated_windows"] - before == 2
-        assert _flat(got) == _flat(svc.submit(sks, top_k=5, min_join=4))
-
-
-# ---------------------------------------------------------------------------
-# query / query_many on every route
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("path", sorted(PATHS))
-@pytest.mark.parametrize("shards", SHARDS)
-def test_query_many_equals_batched(index, shards, path):
-    mesh = _mesh(shards)
-    for y_disc in (False, True):
-        sks = _sketches(t_build, y_disc)
-        for top_k, min_join in ((5, MIN_JOIN), (12, 30)):
-            kw = dict(top_k=top_k, min_join=min_join, **PATHS[path])
-            got = index.query_many(sks, mesh=mesh, **kw)
-            assert any(got)
-            assert _flat(got) == _flat(index.query_many(sks, **kw))
-            one = index.query(sks[1], mesh=mesh, **kw)
-            assert _flat([one]) == _flat(got[1:2])
-
-
-def test_query_many_executor_with_mesh(index):
-    sks = _sketches(t_build, False)
-    mesh = _mesh(3)
-    kw = dict(top_k=6, min_join=MIN_JOIN, prefilter=False)
-    got = index.query_many(sks, mesh=mesh, executor="distributed", **kw)
-    assert _flat(got) == _flat(index.query_many(sks, **kw))
-    with pytest.raises(ValueError, match="distributed executor's top-k"):
-        index.query_many(sks, mesh=mesh, executor="batched", **kw)
-
-
-def test_mesh_overflow_falls_back_to_host_shortlists(index):
-    """A fused mesh window whose per-shard width is too small overflows
-    its fence and is served through the host boundary on the mesh; the
-    sharded rung grows and the next window stays fused."""
-    ix = SketchIndex(n=N, device="cpu")
-    for r in ROWS_:
-        ix.add(*r)
-    sks = _sketches(t_build, False)
-    mesh = _mesh(4)
-    want = _flat(index.query_many(sks, top_k=8, min_join=4))
-    assert _flat(ix.query_many(sks, top_k=8, min_join=4, mesh=mesh)) == want
-    assert ix.shortlist_hints.overflows >= 1
-    keys = [key for key in ix.shortlist_hints._rungs if key[-1]]
-    assert keys and all(key[-1] is True for key in keys)
-    n = ix.shortlist_hints.overflows
-    assert _flat(ix.query_many(sks, top_k=8, min_join=4, mesh=mesh)) == want
-    assert ix.shortlist_hints.overflows == n
-
-
-def test_fused_mesh_window_moves_one_transfer(index, monkeypatch):
-    """The counterpart of the reference's transfer guard on the mesh: a
-    warm fused dispatch builds no host shortlist and its collect moves
-    the fence and the merged winners in one device-to-host transfer."""
-    mesh = _mesh(4)
-    sks = _sketches(t_build, False)
-    for _ in range(2):
-        index.query_many(sks, top_k=5, min_join=4, mesh=mesh)
-
-    def boom(*a, **k):
-        raise AssertionError("host shortlist build on the fused path")
-
-    monkeypatch.setattr(t_planner, "build_shortlists", boom)
-    calls = []
-    real_host = t_ex._host
-    monkeypatch.setattr(t_ex, "_host",
-                        lambda t: calls.append(t.shape) or real_host(t))
-    plan = index.plan(False)
-    ex = index._distributed_executor(mesh)
-    spec = fused_shortlist_spec(plan, index.shortlist_hints, 4, multiple=4,
-                                sharded=True)
-    handle = ex.fused_topk_dispatch(plan, stack_trains_host(sks, "cpu"), spec,
-                                    4, 5)
-    assert calls == []
-    triples = handle.collect()
-    assert len(calls) == 1
-    assert len(triples) == 3 and all(len(t[0]) for t in triples)
-
-
-def test_mesh_programs_are_bounded(index):
-    """Mesh traffic through the service pads Q up the pow-2 ladder, so
-    queues of 1-4 queries per target dtype build at most one fused shard
-    program per (dtype, Q bucket, group, width) on the one device, and
-    repeating the traffic builds none."""
-    svc = DiscoveryService(index=index, mesh=_mesh(4), max_q_bucket=4)
-    queues = [[sk for pair in zip(_sketches(t_build, False)[:q],
-                                  _sketches(t_build, True)[:q]) for sk in pair]
-              for q in (1, 2, 3)]
-    built = programs.compile_count()
-    for queue in queues * 2:
-        svc.submit(queue, top_k=5, min_join=MIN_JOIN)
-    first = programs.compile_count() - built
-    groups = len(index.plan(False).groups) + len(index.plan(True).groups)
-    # Q buckets {1, 2, 4}; a rung may grow once while it settles (the
-    # first window overflows its initial rung and is served by the host
-    # boundary, which runs eager).
-    assert 0 < first <= 3 * groups * 2
-    built = programs.compile_count()
-    for queue in queues * 2:
-        svc.submit(queue, top_k=5, min_join=MIN_JOIN)
-    assert programs.compile_count() == built
-
-
 def test_get_executor_distributed():
     mesh = _mesh(2)
     for spec in ("distributed", None):
         ex = get_executor(spec, mesh=mesh, k=5)
         assert type(ex) is GroupMajorDistributedExecutor
         assert ex.k == 5 and ex.n_shards == 2
-
-
-# ---------------------------------------------------------------------------
-# The service's distributed rung
-# ---------------------------------------------------------------------------
-
-
-class TestServiceOnMesh:
-    @pytest.mark.parametrize("path", ["fused", "dense", "gated"])
-    def test_submit_equals_looped_mesh_query(self, index, path):
-        mesh = _mesh(4)
-        svc = DiscoveryService(index=index, mesh=mesh, max_q_bucket=2)
-        assert svc._dist is index._distributed_executor(mesh, svc.k)
-        queue = [sk for pair in zip(_sketches(t_build, False),
-                                    _sketches(t_build, True)) for sk in pair]
-        kw = dict(top_k=6, min_join=MIN_JOIN, **PATHS[path])
-        got, outcomes = svc.submit_safe(queue, **kw)
-        want = [index.query(sk, mesh=mesh, **kw) for sk in queue]
-        assert _flat(got) == _flat(want)
-        assert _flat(got) == _flat([index.query(sk, **kw) for sk in queue])
-        assert {o.rung for o in outcomes} == {"distributed"}
-        assert svc.stats()["admission"]["q_buckets"] == [1, 2]
-
-    @pytest.mark.parametrize("path", sorted(PATHS))
-    @pytest.mark.parametrize("shards", SHARDS)
-    def test_hybrid_submit_equals_batched_service(self, index, shards, path):
-        """``rank="hybrid"`` weights each score by join size / train size
-        on the device before the shard top-k and the merge, so the mesh
-        ranks every candidate the batched service ranks (query 0 keeps
-        t33 and t39, which rank lower by MI alone), bit for bit."""
-        queue = [sk for pair in zip(_sketches(t_build, False),
-                                    _sketches(t_build, True)) for sk in pair]
-        kw = dict(top_k=6, min_join=MIN_JOIN, rank="hybrid", **PATHS[path])
-        want = DiscoveryService(index=index).submit(queue, **kw)
-        got = DiscoveryService(index=index, mesh=_mesh(shards)).submit(
-            queue, **kw)
-        assert _flat(got) == _flat(want)
-        tables = {m.table for m, _, _ in want[0]}
-        assert {"t33", "t39"} <= tables
-        assert _flat(want) != _flat(DiscoveryService(index=index).submit(
-            queue, **{**kw, "rank": "mi"}))
-
-    @pytest.mark.parametrize("sites, path", [
-        (("dispatch",), "dense"),
-        (("fused_dispatch", "prefilter_dispatch"), "fused"),
-        (("tiered_dispatch", "prefilter_dispatch"), "gated")])
-    def test_fault_descends_to_batched(self, index, sites, path):
-        """Every dispatch of the distributed rung failing (the recovery
-        re-runs a two-phase bucket through its prefilter): the bucket
-        descends to the batched rung with the same results."""
-        mesh = _mesh(3)
-        svc = DiscoveryService(index=index, mesh=mesh)
-        queue = _sketches(t_build, False)
-        kw = dict(top_k=6, min_join=MIN_JOIN, **PATHS[path])
-        clean = svc.submit(queue, **kw)
-        with inject_faults({f"{site}@distributed": "all" for site in sites}):
-            got, outcomes = svc.submit_safe(queue, **kw)
-        assert _flat(got) == _flat(clean)
-        assert {o.rung for o in outcomes} == {"batched"}
-        assert all(o.fallbacks == 1 and o.status == "ok" for o in outcomes)
-        st = svc.stats()["admission"]
-        assert st["failed_buckets"] == 1 and st["fallbacks"] == 1
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.serve import ContinuousBatcher
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 STUBS = ["internvl2-26b", "musicgen-large"]
 ATOL = 1e-4

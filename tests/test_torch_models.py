@@ -42,6 +42,7 @@ from repro_torch.configs.base import layer_layout, scan_grouping
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 DENSE_ARCHS = ["internlm2-1.8b", "olmo-1b", "mistral-nemo-12b", "qwen1.5-110b"]
 MOE_ARCHS = ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"]

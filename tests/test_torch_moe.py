@@ -36,6 +36,7 @@ from repro_torch.models import ffn
 from repro_torch.models import model as M
 from repro_torch.models.common import dtype_of
 from repro_torch.models.ffn import dense_ffn, moe_ffn
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 CFG_KW = dict(name="moe-test", family="moe", num_layers=2, d_model=32,
               vocab_size=64, num_experts=8, top_k=2, moe_d_ff=16,

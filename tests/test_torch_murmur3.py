@@ -23,6 +23,7 @@ from repro_torch.core import hashing as t_hash
 from repro_torch.core.sketch import build_sketch
 from repro_torch.kernels.murmur3 import kernel, ref
 from repro_torch.kernels.murmur3.ops import hash_keys
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 EDGE = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0xFFFFFF7F,
                  0xFFFFFF80, 0xFFFFFFC0, 0x00FFFFFF, 0x01000001], np.uint32)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from repro.kernels.pairwise_cheb.ops import pairwise_cheb as j_pairwise_cheb
 from repro.kernels.pairwise_cheb.ref import pairwise_cheb_ref
 from repro_torch.kernels.pairwise_cheb import kernel, ops, ref
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 B = 3
 SHAPES = [(64, 64), (256, 128), (300, 128), (1024, 256)]

@@ -29,6 +29,7 @@ from repro.data.pipeline import AugmentedTabularPipeline as JPipe
 from repro_torch.core.discovery import SketchIndex as TIndex
 from repro_torch.core.sketch import build_sketch as t_build
 from repro_torch.data.pipeline import AugmentedTabularPipeline as TPipe
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -37,6 +37,7 @@ from _torch_sorted_route import (F32, INF, TILED_CHUNK, WARP_P, _band_width,
 from repro.kernels.knn_stats import ops as j_ops
 from repro_torch.kernels.knn_stats import kernel, ref
 from test_torch_knn_stats import CASES, _edge_samples, _samples
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _width(need: int) -> int:

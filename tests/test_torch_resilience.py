@@ -50,6 +50,7 @@ from repro_torch.core.discovery import resilience
 from repro_torch.core.discovery.planner import PlanCache
 from repro_torch.core.discovery.resilience import FaultPlan
 from repro_torch.core.sketch import build_sketch as t_build
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 N_ROWS = 800

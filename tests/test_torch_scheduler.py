@@ -33,6 +33,7 @@ from repro_torch.core.discovery import (
 )
 from repro_torch.core.discovery.scheduler import SchedulerStats, _LatencyWindow
 from repro_torch.core.sketch import build_sketch as t_build
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 N_ROWS = 400

@@ -32,6 +32,7 @@ from repro_torch.configs.base import scan_grouping
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models import model as M
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE_ARCHS = ["internlm2-1.8b", "olmo-1b", "mistral-nemo-12b", "qwen1.5-110b"]

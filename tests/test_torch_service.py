@@ -37,6 +37,7 @@ from repro_torch.core.discovery import (
 )
 from repro_torch.core.sketch import build_sketch as t_build
 from repro_torch.launch.mesh import make_host_mesh
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 N, ROWS, C = 64, 120, 48

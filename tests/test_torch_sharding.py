@@ -54,6 +54,7 @@ from repro_torch.parallel.decode_attention import (_local_decode, cache_spec,
 from repro_torch.parallel.sharding import (NamedSharding, P, ShardedTensor,
                                            manual_axes, manual_axes_scope,
                                            mesh_context, shard_tensor, unshard)
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = M.list_archs()

@@ -13,6 +13,7 @@ from repro_torch.core import aggregate as t_aggregate
 from repro_torch.core import hashing as t_hashing
 from repro_torch.core import sketch as t_sketch
 from repro_torch.data import tables as t_tables
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 RNG = np.random.default_rng(101)
 

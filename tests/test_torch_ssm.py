@@ -31,6 +31,7 @@ from repro_torch.models import model as M
 from repro_torch.models import ssm
 from repro_torch.models.common import cast_params
 from test_ssm import _naive_ssd
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 ARCHS = ["mamba2-370m", "jamba-1.5-large-398b"]
 ATOL = 1e-5

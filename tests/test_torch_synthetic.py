@@ -19,6 +19,7 @@ from repro.core import estimators as j_est
 from repro.core import synthetic as j_syn
 from repro_torch.core import estimators as t_est
 from repro_torch.core import synthetic as t_syn
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

@@ -62,6 +62,7 @@ from repro_torch.core.discovery import planner as t_planner
 from repro_torch.core.discovery.index import _signature_block
 from repro_torch.core.sketch import build_sketch as t_build
 from repro_torch.launch.mesh import make_host_mesh
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 N_ROWS = 1200

@@ -65,6 +65,8 @@ from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as O
 from repro_torch.train import train_step as TS
+from _torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 def _tiny_params(seed):
     rng = np.random.default_rng(seed)

@@ -59,6 +59,7 @@ from repro_torch.parallel.sharding import mesh_context
 from repro_torch.train import checkpoint as C
 from repro_torch.train import optimizer as O
 from repro_torch.train import train_step as TS
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 SHAPES = [(2, 2), (1, 4)]
 SCHED = O.warmup_cosine(1e-2, 0, 10)

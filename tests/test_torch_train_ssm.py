@@ -9,6 +9,7 @@ import pytest
 
 from _torch_train_steps import (check_remat_equals_no_remat, check_train_step,
                                 SSM_ARCHS)
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("grad_accum", [1, 2])

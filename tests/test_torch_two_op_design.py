@@ -47,6 +47,7 @@ from _torch_sorted_route import (TILED_CHUNK, WARP_P, _band_walk, _band_width,
 from repro.kernels.knn_stats import ops as j_ops
 from repro_torch.kernels._build import build_tag, local_includes
 from repro_torch.kernels.knn_stats import kernel, ref
+from _torch_threads import one_thread  # noqa: F401 (autouse)
 
 F32 = np.float32
 INF = F32(np.inf)
