@@ -65,6 +65,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.compile import program
 from repro_torch.core import estimators
 from repro_torch.core.discovery.planner import (
@@ -326,7 +327,10 @@ _tiered_score_group = program(_tiered_score_group_impl,
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+    """A device result on the host: the host waits here for the device
+    (an ``executors.fetch`` span)."""
+    with telemetry.span("executors.fetch", bytes=t.nbytes):
+        return t.cpu().numpy()
 
 
 def _host_many(tensors: list) -> list:
@@ -540,12 +544,13 @@ def stage_trains_host(sketches: list, device) -> dict:
     a card, so that :func:`upload_trains` can copy them asynchronously
     (the scheduler stages window N+1 while window N scores)."""
     maybe_fault("staging")
-    host = _stack_host(sketches)
-    pin = torch.device(device).type == "cuda"
-    out = {}
-    for f in _TRAIN_FIELDS:
-        t = torch.from_numpy(host[f])
-        out[f] = t.pin_memory() if pin else t
+    with telemetry.span("executors.stage", queries=len(sketches)):
+        host = _stack_host(sketches)
+        pin = torch.device(device).type == "cuda"
+        out = {}
+        for f in _TRAIN_FIELDS:
+            t = torch.from_numpy(host[f])
+            out[f] = t.pin_memory() if pin else t
     out["y_discrete"] = host["y_discrete"]
     return out
 

@@ -48,6 +48,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.discovery import executors as _ex
 from repro_torch.core.discovery.planner import (
     EST_MLE,
@@ -310,9 +311,10 @@ class SketchIndex:
     def add(self, table: str, key_column: str, value_column: str,
             key_hashes: np.ndarray, values: np.ndarray,
             value_is_discrete: bool | None = None, agg: str | None = None) -> None:
-        sk = self._build_validated(
-            key_hashes, values, value_is_discrete, agg, self._cap_cols
-        )
+        with telemetry.timed("index.sketch_s"):
+            sk = self._build_validated(
+                key_hashes, values, value_is_discrete, agg, self._cap_cols
+            )
         self._commit(table, key_column, value_column, sk)
 
     def add_table(self, table, key_column: str) -> None:
@@ -321,14 +323,15 @@ class SketchIndex:
         key_codes = table[key_column].key_codes()
         staged: list[tuple[str, Sketch]] = []
         cap = self._cap_cols
-        for _, val_col in table.pairs(key_column):
-            col = table[val_col]
-            sk = self._build_validated(
-                key_codes, col.value_array(), col.is_discrete, None, cap
-            )
-            if cap is None:
-                cap = sk.capacity
-            staged.append((val_col, sk))
+        with telemetry.timed("index.sketch_s"):
+            for _, val_col in table.pairs(key_column):
+                col = table[val_col]
+                sk = self._build_validated(
+                    key_codes, col.value_array(), col.is_discrete, None, cap
+                )
+                if cap is None:
+                    cap = sk.capacity
+                staged.append((val_col, sk))
         if len(self.meta) + len(staged) > _MAX_ROWS_I32:
             raise OverflowError(
                 f"index is full: table {table.name!r} would pass the int32 "
@@ -652,9 +655,9 @@ class SketchIndex:
             else:
                 triples = ex.shortlist_dispatch(plan, trains,
                                                 shortlists).collect()
-        return [
-            self._rank(v, gi, js, top_k, min_join) for v, gi, js in triples
-        ]
+        with telemetry.span("discovery.rank", queries=len(triples)):
+            return [self._rank(v, gi, js, top_k, min_join)
+                    for v, gi, js in triples]
 
     def _check_options(self, min_containment, prefilter, min_join) -> None:
         if float(min_containment) > 0.0 and not self._use_prefilter(
@@ -706,52 +709,54 @@ class SketchIndex:
         ``min_containment > 0`` it raises, since the two-phase path picks
         its own backend.  With ``mesh`` the dense path runs the
         distributed executor's top-k (an ``executor=`` must then be the
-        distributed one)."""
-        if executor is not None and prefilter:
-            raise ValueError(
-                "prefilter=True is incompatible with executor=: the "
-                "two-phase path picks its own backend (drop executor=, "
-                "or pass prefilter=False/None for dense scoring)"
-            )
-        if float(min_containment) > 0.0 and (
-            executor is not None
-            or not self._use_prefilter(prefilter, min_join)
-        ):
-            raise ValueError(
-                "min_containment > 0 requires the two-phase path "
-                "(incompatible with executor= and with prefilter=False)"
-            )
-        if not train_sketches:
-            return []
-        y_disc = {bool(sk.value_is_discrete) for sk in train_sketches}
-        if len(y_disc) != 1:
-            raise ValueError(
-                "query_many requires one target dtype per batch; split "
-                "discrete and continuous targets"
-            )
-        trains = _ex.stack_trains_host(train_sketches, self.device)
-        plan = self.plan(y_disc.pop())
-        C = len(self.meta)
-        if self._use_prefilter(prefilter, min_join) and executor is None:
-            return self._two_phase(plan, trains, top_k, min_join, mesh, k,
-                                   fused, min_containment)
-        if executor is None:
-            ex = (self._distributed_executor(mesh, k) if mesh is not None
-                  else _ex.BatchedExecutor(k=k))
-        else:
-            ex = _ex.get_executor(executor, mesh=mesh, k=k)
-        if mesh is not None:
-            if not isinstance(ex, _ex.GroupMajorDistributedExecutor):
+        distributed one).  Runs as one ``index.query_many`` span."""
+        with telemetry.span("index.query_many",
+                            queries=len(train_sketches)):
+            if executor is not None and prefilter:
                 raise ValueError(
-                    f"mesh= runs the distributed executor's top-k; "
-                    f"executor={executor!r} has none (drop executor= or "
-                    f"pass executor='distributed')"
+                    "prefilter=True is incompatible with executor=: the "
+                    "two-phase path picks its own backend (drop executor=, "
+                    "or pass prefilter=False/None for dense scoring)"
                 )
-            triples = ex.topk(plan, trains, topk_oversample(top_k, C))
-        else:
-            mi, js = ex.execute(plan, trains)
-            triples = [(mi[q], np.arange(C), js[q])
-                       for q in range(mi.shape[0])]
-        return [
-            self._rank(v, gi, js, top_k, min_join) for v, gi, js in triples
-        ]
+            if float(min_containment) > 0.0 and (
+                executor is not None
+                or not self._use_prefilter(prefilter, min_join)
+            ):
+                raise ValueError(
+                    "min_containment > 0 requires the two-phase path "
+                    "(incompatible with executor= and with prefilter=False)"
+                )
+            if not train_sketches:
+                return []
+            y_disc = {bool(sk.value_is_discrete) for sk in train_sketches}
+            if len(y_disc) != 1:
+                raise ValueError(
+                    "query_many requires one target dtype per batch; split "
+                    "discrete and continuous targets"
+                )
+            trains = _ex.stack_trains_host(train_sketches, self.device)
+            plan = self.plan(y_disc.pop())
+            C = len(self.meta)
+            if self._use_prefilter(prefilter, min_join) and executor is None:
+                return self._two_phase(plan, trains, top_k, min_join, mesh, k,
+                                       fused, min_containment)
+            if executor is None:
+                ex = (self._distributed_executor(mesh, k) if mesh is not None
+                      else _ex.BatchedExecutor(k=k))
+            else:
+                ex = _ex.get_executor(executor, mesh=mesh, k=k)
+            if mesh is not None:
+                if not isinstance(ex, _ex.GroupMajorDistributedExecutor):
+                    raise ValueError(
+                        f"mesh= runs the distributed executor's top-k; "
+                        f"executor={executor!r} has none (drop executor= or "
+                        f"pass executor='distributed')"
+                    )
+                triples = ex.topk(plan, trains, topk_oversample(top_k, C))
+            else:
+                mi, js = ex.execute(plan, trains)
+                triples = [(mi[q], np.arange(C), js[q])
+                           for q in range(mi.shape[0])]
+            with telemetry.span("discovery.rank", queries=len(triples)):
+                return [self._rank(v, gi, js, top_k, min_join)
+                        for v, gi, js in triples]

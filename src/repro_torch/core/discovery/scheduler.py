@@ -52,6 +52,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.discovery.resilience import (
     InjectedFault,
     QueryOutcome,
@@ -176,9 +177,11 @@ class SchedulerStats:
     of queue-wait (enqueue -> dispatch) and end-to-end (enqueue ->
     resolve) latency, as p50/p95/p99 ms.  Across classes: ``windows``,
     ``dispatched_buckets`` / ``coalesced_queries`` (their ratio is the
-    coalesce ratio), ``overlapped_windows`` (dispatches made while a
-    previous window was still in flight), ``timer_stalls``,
-    ``failed_windows`` and loop ``occupancy``.
+    coalesce ratio), ``queue_wait_s`` (the dispatched queries' summed
+    queue wait: over ``coalesced_queries``, the mean),
+    ``overlapped_windows`` (dispatches made while a previous window was
+    still in flight), ``timer_stalls``, ``failed_windows`` and loop
+    ``occupancy``.
     """
 
     def __init__(self, cap: int = 4096):
@@ -189,6 +192,7 @@ class SchedulerStats:
         self.windows = 0
         self.dispatched_buckets = 0
         self.coalesced_queries = 0
+        self.queue_wait_s = 0.0
         self.overlapped_windows = 0
         self.timer_stalls = 0
         self.failed_windows = 0
@@ -222,6 +226,7 @@ class SchedulerStats:
             "dispatched_buckets": self.dispatched_buckets,
             "coalesced_queries": self.coalesced_queries,
             "coalesce_ratio": self.coalesce_ratio,
+            "queue_wait_s": self.queue_wait_s,
             "overlapped_windows": self.overlapped_windows,
             "timer_stalls": self.timer_stalls,
             "failed_windows": self.failed_windows,
@@ -428,7 +433,8 @@ class MicroBatchScheduler:
                 if has_traffic and not self._closed:
                     # The coalescing window: let concurrent callers land
                     # in this drain instead of the next one.
-                    time.sleep(self.window_ms / 1e3)
+                    with telemetry.span("sched.sleep"):
+                        time.sleep(self.window_ms / 1e3)
                 self.run_pending()
 
     def run_pending(self, collect: bool = True) -> int:
@@ -452,21 +458,25 @@ class MicroBatchScheduler:
                     q = self._queues[p]
                     while q:
                         entries.append(q.popleft())
-            if entries:
-                flight = self._dispatch(entries)
-                if flight is not None:
-                    if self._inflight:
-                        self.stats_.overlapped_windows += 1
-                    self._inflight.append(flight)
-            if collect:
-                # Double buffer: keep pipeline_depth-1 windows scoring
-                # while traffic keeps arriving; drain fully once the
-                # queues go quiet.
-                while len(self._inflight) >= self.pipeline_depth:
-                    self._collect_flight(self._inflight.popleft())
-                if not self._queued_count():
-                    while self._inflight:
+            # One span a window: its dispatch, and the collects of the
+            # earlier windows it makes (each under its own window's group).
+            with telemetry.span("sched.window", queries=len(entries)) \
+                    if entries else contextlib.nullcontext():
+                if entries:
+                    flight = self._dispatch(entries)
+                    if flight is not None:
+                        if self._inflight:
+                            self.stats_.overlapped_windows += 1
+                        self._inflight.append(flight)
+                if collect:
+                    # Double buffer: keep pipeline_depth-1 windows scoring
+                    # while traffic keeps arriving; drain fully once the
+                    # queues go quiet.
+                    while len(self._inflight) >= self.pipeline_depth:
                         self._collect_flight(self._inflight.popleft())
+                    if not self._queued_count():
+                        while self._inflight:
+                            self._collect_flight(self._inflight.popleft())
             self.stats_.busy_s += time.perf_counter() - t0
             return len(entries)
 
@@ -509,9 +519,9 @@ class MicroBatchScheduler:
                 continue
             for e in group:
                 e.handle.dispatched_at = now
-                st.queue_wait[e.handle.priority].record(
-                    now - e.handle.enqueued_at
-                )
+                wait = now - e.handle.enqueued_at
+                st.queue_wait[e.handle.priority].record(wait)
+                st.queue_wait_s += wait
             st.coalesced_queries += len(group)
             st.dispatched_buckets += len(win.jobs) if win else 0
             parts.append((win, group))

@@ -55,6 +55,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch import telemetry
 from repro_torch.compile import compile_count
 from repro_torch.core.discovery import executors as _ex
 from repro_torch.core.discovery import resilience
@@ -196,7 +197,7 @@ class _Window:
     __slots__ = (
         "queries", "jobs", "results", "outcomes", "C", "version",
         "top_k", "min_join", "min_containment", "rank", "isolate",
-        "use_pref", "n_shards",
+        "use_pref", "n_shards", "group",
     )
 
     def __init__(self, queries: list, isolate: bool):
@@ -213,6 +214,9 @@ class _Window:
         self.isolate = isolate
         self.use_pref = False
         self.n_shards = 1
+        # The telemetry group of the dispatch that makes the window (None
+        # while telemetry is off), which the window's collect joins.
+        self.group = telemetry.current_group()
 
 
 def _check_options(rank: str) -> None:
@@ -428,197 +432,204 @@ class DiscoveryService:
         """Admission + dispatch half of a submit: validate, split by
         signature, chunk, and enqueue every bucket's device work (the
         host-boundary two-phase path also syncs phase 1 here).  Returns
-        an in-flight :class:`_Window` (None for an empty queue).
+        an in-flight :class:`_Window` (None for an empty queue).  Runs as
+        one ``service.dispatch`` span, whose group the window keeps.
 
         ``priorities`` (one rank per query, lower = sooner) orders the
         scheduler's coalesced buckets; ``coalesced`` marks plan-cache
         traffic as cross-caller; ``copy_stream`` is the scheduler's side
         CUDA stream for the train uploads.
         """
-        _check_options(rank)
-        if not queries:
-            return None
-        st = self.admission
-        st.submits += 1
-        win = _Window(list(queries), isolate)
-        outcomes = win.outcomes
+        with telemetry.span("service.dispatch", queries=len(queries)):
+            _check_options(rank)
+            if not queries:
+                return None
+            st = self.admission
+            st.submits += 1
+            win = _Window(list(queries), isolate)
+            outcomes = win.outcomes
 
-        # 0. admission validation (isolate mode only: the legacy surface
-        # keeps its raise-from-the-depths behaviour for invalid inputs).
-        admitted: list[int] = []
-        for qi, sk in enumerate(queries):
-            if isolate:
-                bad = resilience.validate_query(sk, self.index)
-                if bad is not None:
-                    code, detail = bad
-                    outcomes[qi] = QueryOutcome(
-                        qi, "quarantined", error=code, detail=detail
-                    )
-                    st.quarantined += 1
-                    continue
-            admitted.append(qi)
-        st.submitted += len(admitted)
-        if not admitted:
-            return win
+            # 0. admission validation (isolate mode only: the legacy surface
+            # keeps its raise-from-the-depths behaviour for invalid inputs).
+            admitted: list[int] = []
+            for qi, sk in enumerate(queries):
+                if isolate:
+                    bad = resilience.validate_query(sk, self.index)
+                    if bad is not None:
+                        code, detail = bad
+                        outcomes[qi] = QueryOutcome(
+                            qi, "quarantined", error=code, detail=detail
+                        )
+                        st.quarantined += 1
+                        continue
+                admitted.append(qi)
+            st.submitted += len(admitted)
+            if not admitted:
+                return win
 
-        C = win.C = len(self.index)
-        version = win.version = self.index._version
-        use_pref = self.index._use_prefilter(prefilter, min_join)
-        use_fused = use_pref and (True if fused is None else bool(fused))
-        use_gate = use_fused and float(min_containment) > 0.0
-        if float(min_containment) > 0.0 and not use_fused:
-            raise ValueError(
-                "min_containment > 0 requires the fused two-phase "
-                "pipeline (prefilter off or fused=False disables the "
-                "path the phase-0 gate fronts)"
-            )
-        n_shards = self.mesh.shape["data"] if self.mesh is not None else 1
-        primary_rung = "distributed" if self._dist is not None else "batched"
-        win.top_k, win.min_join, win.rank = top_k, min_join, rank
-        win.min_containment = min_containment
-        win.use_pref, win.n_shards = use_pref, n_shards
-
-        # 1. split the queue by target dtype -> estimator signature and
-        # chunk it (nothing flushes mid-dispatch, so one plan per dtype).
-        entries: list[tuple] = []
-        try:
-            sigs: dict[bool, tuple] = {}
-            for qi in admitted:
-                y_disc = bool(queries[qi].value_is_discrete)
-                if y_disc not in sigs:
-                    sigs[y_disc] = plan_signature(self.index.plan(y_disc))
-                entries.append((
-                    qi, sigs[y_disc],
-                    0 if priorities is None else int(priorities[qi]),
-                ))
-        except Exception as e:  # noqa: BLE001 — isolate into outcomes
-            if not isolate:
-                raise
-            # Planning failed for the whole queue (e.g. empty index):
-            # there is no per-bucket ladder to descend yet.
-            for qi in admitted:
-                outcomes[qi] = QueryOutcome(
-                    qi, "failed", error="plan_failed", detail=repr(e)
+            C = win.C = len(self.index)
+            version = win.version = self.index._version
+            use_pref = self.index._use_prefilter(prefilter, min_join)
+            use_fused = use_pref and (True if fused is None else bool(fused))
+            use_gate = use_fused and float(min_containment) > 0.0
+            if float(min_containment) > 0.0 and not use_fused:
+                raise ValueError(
+                    "min_containment > 0 requires the fused two-phase "
+                    "pipeline (prefilter off or fused=False disables the "
+                    "path the phase-0 gate fronts)"
                 )
-            st.lost_queries += len(admitted)
-            return win
+            n_shards = self.mesh.shape["data"] if self.mesh is not None else 1
+            primary_rung = ("distributed" if self._dist is not None
+                            else "batched")
+            win.top_k, win.min_join, win.rank = top_k, min_join, rank
+            win.min_containment = min_containment
+            win.use_pref, win.n_shards = use_pref, n_shards
 
-        buckets = coalesce_queries(entries, self.max_q_bucket)
-        per_sig: dict[tuple, int] = {}
-        for b in buckets:
-            per_sig[b.signature] = per_sig.get(b.signature, 0) + 1
-        for sig, n_chunks in per_sig.items():
-            st.signatures.add(sig)
-            st.split_batches += n_chunks - 1
-        jobs = win.jobs = [
-            _BucketJob(list(b.chunk), b.signature[0],
-                       [queries[i] for i in b.chunk], b.q_bucket)
-            for b in buckets
-        ]
-        if rank == "hybrid":
-            for job in jobs:
-                job.tsize = np.array([max(int(sk.size), 1)
-                                      for sk in job.sketches], np.float32)
-
-        # 2. dispatch every bucket before any collect.  With the
-        # prefilter on and fused off, "dispatch" is phase 1 only.
-        for job in jobs:
-            job.rung = primary_rung
+            # 1. split the queue by target dtype -> estimator signature and
+            # chunk it (nothing flushes mid-dispatch, so one plan per dtype).
+            entries: list[tuple] = []
             try:
-                job.sp = self.plan_cache.lookup(
-                    version, job.y_disc, job.q_bucket,
-                    lambda y=job.y_disc: self.index.plan(y),
-                    coalesced=coalesced,
-                )
-                job.staged = {
-                    "batches": 1,
-                    "padded_lanes": job.q_bucket - len(job.chunk),
-                    "q_buckets": {job.q_bucket},
-                    "host_syncs": 1,
-                }
-                job.trains = self._upload(job.sketches, copy_stream)
-                if use_gate:
-                    job.handle = self._tiered_dispatch(
-                        job, min_join, min_containment, top_k, n_shards, C,
-                        version,
-                    )
-                elif use_fused:
-                    job.handle = self._fused_dispatch(
-                        job, min_join, top_k, n_shards, C, version)
-                elif use_pref:
-                    ex = self._dist if self._dist is not None \
-                        else self._batched
-                    job.pend1 = ex.prefilter_dispatch(
-                        job.sp.plan, job.trains, q_bucket=job.q_bucket
-                    )
-                elif self._dist is not None:
-                    job.handle = self._dist.topk_dispatch(
-                        job.sp.plan, job.trains, topk_oversample(top_k, C),
-                        q_bucket=job.q_bucket, tsize=job.tsize,
-                    )
-                else:
-                    job.handle = self._batched.dispatch(
-                        job.sp.plan, job.trains, q_bucket=job.q_bucket
-                    )
-            except Exception as e:  # noqa: BLE001 — bucket-isolated
-                job.error = e
+                sigs: dict[bool, tuple] = {}
+                for qi in admitted:
+                    y_disc = bool(queries[qi].value_is_discrete)
+                    if y_disc not in sigs:
+                        sigs[y_disc] = plan_signature(self.index.plan(y_disc))
+                    entries.append((
+                        qi, sigs[y_disc],
+                        0 if priorities is None else int(priorities[qi]),
+                    ))
+            except Exception as e:  # noqa: BLE001 — isolate into outcomes
                 if not isolate:
-                    st.failed_buckets += 1
                     raise
+                # Planning failed for the whole queue (e.g. empty index):
+                # there is no per-bucket ladder to descend yet.
+                for qi in admitted:
+                    outcomes[qi] = QueryOutcome(
+                        qi, "failed", error="plan_failed", detail=repr(e)
+                    )
+                st.lost_queries += len(admitted)
+                return win
 
-        # 2b. host-boundary two-phase buckets only: collect join sizes,
-        # build shortlists and dispatch phase 2 for every bucket before
-        # any phase-2 collect.
-        if use_pref and not use_fused:
+            buckets = coalesce_queries(entries, self.max_q_bucket)
+            per_sig: dict[tuple, int] = {}
+            for b in buckets:
+                per_sig[b.signature] = per_sig.get(b.signature, 0) + 1
+            for sig, n_chunks in per_sig.items():
+                st.signatures.add(sig)
+                st.split_batches += n_chunks - 1
+            jobs = win.jobs = [
+                _BucketJob(list(b.chunk), b.signature[0],
+                           [queries[i] for i in b.chunk], b.q_bucket)
+                for b in buckets
+            ]
+            if rank == "hybrid":
+                for job in jobs:
+                    job.tsize = np.array([max(int(sk.size), 1)
+                                          for sk in job.sketches], np.float32)
+
+            # 2. dispatch every bucket before any collect.  With the
+            # prefilter on and fused off, "dispatch" is phase 1 only.
             for job in jobs:
-                if job.error is not None:
-                    continue
+                job.rung = primary_rung
                 try:
-                    job.handle = self._shortlist_phase(
-                        job, min_join, top_k, n_shards, C, version)
-                except Exception as e:  # noqa: BLE001
+                    job.sp = self.plan_cache.lookup(
+                        version, job.y_disc, job.q_bucket,
+                        lambda y=job.y_disc: self.index.plan(y),
+                        coalesced=coalesced,
+                    )
+                    job.staged = {
+                        "batches": 1,
+                        "padded_lanes": job.q_bucket - len(job.chunk),
+                        "q_buckets": {job.q_bucket},
+                        "host_syncs": 1,
+                    }
+                    job.trains = self._upload(job.sketches, copy_stream)
+                    if use_gate:
+                        job.handle = self._tiered_dispatch(
+                            job, min_join, min_containment, top_k, n_shards, C,
+                            version,
+                        )
+                    elif use_fused:
+                        job.handle = self._fused_dispatch(
+                            job, min_join, top_k, n_shards, C, version)
+                    elif use_pref:
+                        ex = self._dist if self._dist is not None \
+                            else self._batched
+                        job.pend1 = ex.prefilter_dispatch(
+                            job.sp.plan, job.trains, q_bucket=job.q_bucket
+                        )
+                    elif self._dist is not None:
+                        job.handle = self._dist.topk_dispatch(
+                            job.sp.plan, job.trains, topk_oversample(top_k, C),
+                            q_bucket=job.q_bucket, tsize=job.tsize,
+                        )
+                    else:
+                        job.handle = self._batched.dispatch(
+                            job.sp.plan, job.trains, q_bucket=job.q_bucket
+                        )
+                except Exception as e:  # noqa: BLE001 — bucket-isolated
                     job.error = e
                     if not isolate:
                         st.failed_buckets += 1
                         raise
-        return win
+
+            # 2b. host-boundary two-phase buckets only: collect join sizes,
+            # build shortlists and dispatch phase 2 for every bucket before
+            # any phase-2 collect.
+            if use_pref and not use_fused:
+                for job in jobs:
+                    if job.error is not None:
+                        continue
+                    try:
+                        job.handle = self._shortlist_phase(
+                            job, min_join, top_k, n_shards, C, version)
+                    except Exception as e:  # noqa: BLE001
+                        job.error = e
+                        if not isolate:
+                            st.failed_buckets += 1
+                            raise
+            return win
 
     def _window_collect(self, win: "_Window") -> tuple[list, list]:
         """Collect half of a submit: sync each bucket's results, fence,
         rank against the corpus size the window dispatched with, scatter
         to arrival order, and run the recovery ladder for failed
-        buckets."""
-        st = self.admission
-        queries, results, outcomes = win.queries, win.results, win.outcomes
-        C, version = win.C, win.version
-        top_k, min_join, rank, isolate = (win.top_k, win.min_join, win.rank,
-                                          win.isolate)
-        n_shards = win.n_shards
-        for job in win.jobs:
-            if job.error is not None:
-                continue
-            try:
-                triples = self._collect_triples(
-                    job, C, min_join, top_k, n_shards, version,
-                    min_containment=win.min_containment,
-                )
-            except Exception as e:  # noqa: BLE001
-                job.error = e
-                if not isolate:
+        buckets.  Runs as one ``service.collect`` span in the group of
+        the window's dispatch."""
+        with telemetry.span("service.collect", group=win.group,
+                            queries=len(win.queries)):
+            st = self.admission
+            queries, results, outcomes = (win.queries, win.results,
+                                          win.outcomes)
+            C, version = win.C, win.version
+            top_k, min_join, rank, isolate = (win.top_k, win.min_join,
+                                              win.rank, win.isolate)
+            n_shards = win.n_shards
+            for job in win.jobs:
+                if job.error is not None:
+                    continue
+                try:
+                    triples = self._collect_triples(
+                        job, C, min_join, top_k, n_shards, version,
+                        min_containment=win.min_containment,
+                    )
+                except Exception as e:  # noqa: BLE001
+                    job.error = e
+                    if not isolate:
+                        st.failed_buckets += 1
+                        raise
+                    continue
+                self._finish(job, triples, queries, results, outcomes,
+                             top_k, min_join, isolate, rank=rank, C=C)
+            # Recovery is ungated: a rung that rescues a failing bucket adds
+            # no approximate filter on top.
+            for job in win.jobs:
+                if job.error is not None:
                     st.failed_buckets += 1
-                    raise
-                continue
-            self._finish(job, triples, queries, results, outcomes,
-                         top_k, min_join, isolate, rank=rank, C=C)
-        # Recovery is ungated: a rung that rescues a failing bucket adds
-        # no approximate filter on top.
-        for job in win.jobs:
-            if job.error is not None:
-                st.failed_buckets += 1
-                self._recover(job, queries, results, outcomes, top_k,
-                              min_join, win.use_pref, n_shards, C, version,
-                              rank=rank)
-        return results, outcomes
+                    self._recover(job, queries, results, outcomes, top_k,
+                                  min_join, win.use_pref, n_shards, C, version,
+                                  rank=rank)
+            return results, outcomes
 
     def _shortlist_phase(self, job: _BucketJob, min_join: int, top_k: int,
                          n_shards: int, C: int, version: int,
@@ -813,33 +824,34 @@ class DiscoveryService:
         st = self.admission
         C = len(self.index) if C is None else int(C)
         weighted = job.tsize is not None and job.rung == "distributed"
-        for row, qi in enumerate(job.chunk):
-            v, gi, js = triples[row]
-            nf = 0
-            fenced = None
-            if isolate:
-                v, gi, js = np.asarray(v), np.asarray(gi), np.asarray(js)
-                eligible = (gi < C) & (js >= min_join)
-                v = resilience.corrupt_scores(v, eligible)
-                fenced = (~np.isfinite(np.asarray(v, np.float32))
-                          & (gi < len(self.index)) & (js >= min_join))
-                v, nf = resilience.fence_nonfinite(
-                    v, gi, js, self.index, queries[qi], min_join, self.k
-                )
-                st.nonfinite_lanes += nf
-            if rank == "hybrid" and not (weighted and nf == 0):
-                tsize = max(int(queries[qi].size), 1)
-                w = np.asarray(js, np.float32) / np.float32(tsize)
-                v = np.asarray(v, np.float32)
-                # Weighted on the device already: only the lanes the
-                # fence recomputed.
-                v = np.where(fenced, v * w, v) if weighted else v * w
-            results[qi] = self.index._rank(v, gi, js, top_k, min_join, C=C)
-            if isolate:
-                outcomes[qi] = QueryOutcome(
-                    qi, "ok", rung=job.rung, retries=job.retries,
-                    fallbacks=job.fallbacks, nonfinite_lanes=nf,
-                )
+        with telemetry.span("discovery.rank", queries=len(job.chunk)):
+            for row, qi in enumerate(job.chunk):
+                v, gi, js = triples[row]
+                nf = 0
+                fenced = None
+                if isolate:
+                    v, gi, js = np.asarray(v), np.asarray(gi), np.asarray(js)
+                    eligible = (gi < C) & (js >= min_join)
+                    v = resilience.corrupt_scores(v, eligible)
+                    fenced = (~np.isfinite(np.asarray(v, np.float32))
+                              & (gi < len(self.index)) & (js >= min_join))
+                    v, nf = resilience.fence_nonfinite(
+                        v, gi, js, self.index, queries[qi], min_join, self.k
+                    )
+                    st.nonfinite_lanes += nf
+                if rank == "hybrid" and not (weighted and nf == 0):
+                    tsize = max(int(queries[qi].size), 1)
+                    w = np.asarray(js, np.float32) / np.float32(tsize)
+                    v = np.asarray(v, np.float32)
+                    # Weighted on the device already: only the lanes the
+                    # fence recomputed.
+                    v = np.where(fenced, v * w, v) if weighted else v * w
+                results[qi] = self.index._rank(v, gi, js, top_k, min_join, C=C)
+                if isolate:
+                    outcomes[qi] = QueryOutcome(
+                        qi, "ok", rung=job.rung, retries=job.retries,
+                        fallbacks=job.fallbacks, nonfinite_lanes=nf,
+                    )
         staged = job.staged
         st.batches += staged.get("batches", 0)
         st.padded_lanes += staged.get("padded_lanes", 0)
